@@ -22,6 +22,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "error.cuh"
+
 namespace dse {
 
 constexpr int kThreads = 256;
@@ -159,7 +161,3 @@ inline cudaError_t allow_smem(Kernel kernel, size_t bytes, size_t* configured) {
 }
 
 }  // namespace dse
-
-extern "C" const char* dse_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
-}

@@ -1,11 +1,13 @@
-"""AudioDec symmetric generator, without-PQC (the course's denoiser).
+"""AudioDec symmetric generator: the symAD codec (PQC) and the denoiser.
 
 Counterpart of dl_speech_enhancement_tpu/models/autoencoder.py as
-``nn.Module``s. ``AudioDecGenerator(use_pqc=False)`` is the proposed
-denoiser: causal conv encoder, then the decoder consumes the 512-channel
-encoder features directly (reference autoencoder_without_PQC/AudioDec.py:
-95-100). The PQC codec (projector, residual VQ, decoder input conv) is a later
-slice of the port (ROADMAP.md, "PQC codec").
+``nn.Module``s. ``AudioDecGenerator(use_pqc=True)`` is the symAD codec:
+causal conv encoder, projector (k=3, 512 -> code_dim), residual VQ (int32 wire
+codes), codebook lookup, decoder input conv (k=7, code_dim -> 512), decoder.
+``use_pqc=False`` is the proposed denoiser: the decoder consumes the
+512-channel encoder features directly (reference autoencoder_without_PQC/
+AudioDec.py:95-100). The VQ state is functional (nn/vq.py): a ``VQState`` of
+tensors passed to the methods that quantize, as in the JAX package.
 
 Streaming: every sub-layer exposes ``init_cache``/``step``; the generator
 aggregates them into one nested cache of the same structure as the JAX
@@ -26,10 +28,8 @@ from dl_speech_enhancement_tpu_torch.nn.conv import (
     Conv1d1x1,
     ConvTranspose1d,
 )
+from dl_speech_enhancement_tpu_torch.nn.vq import Quantizer, VQState
 from dl_speech_enhancement_tpu_torch.utils.device import resolve_device
-
-PQC_NOT_PORTED = ("the PQC codec (projector, residual VQ, decoder input conv) is "
-                  "not ported yet: see ROADMAP.md, 'PQC codec'")
 
 
 class ResidualUnit(nn.Module):
@@ -168,21 +168,23 @@ class DecoderBlock(nn.Module):
 
 
 class Decoder(nn.Module):
-    """Upsampling blocks + output conv, without the input conv.
+    """Input conv + upsampling blocks + output conv.
 
-    Only ``use_input_conv=False`` (the without-PQC decoder, reference
-    autoencoder_without_PQC/modules/decoder.py:117-119) is ported."""
+    ``use_input_conv=False`` is the without-PQC decoder, which consumes the
+    encoder features directly (reference autoencoder_without_PQC/modules/
+    decoder.py:117-119)."""
 
     def __init__(self, code_dim=64, output_channels=1, decode_channels=32,
                  channel_ratios=(16, 8, 4, 2), strides=(5, 5, 4, 3), kernel_size=7,
-                 bias=True, mode="causal", use_input_conv=False, **kw):
+                 bias=True, mode="causal", use_input_conv=True, **kw):
         super().__init__()
-        if use_input_conv:
-            raise NotImplementedError(PQC_NOT_PORTED)
         if len(channel_ratios) != len(strides):
             raise ValueError("channel_ratios and strides differ in length")
         conv_cls = CausalConv1d if mode == "causal" else Conv1d
-        self.use_input_conv = False
+        self.use_input_conv = use_input_conv
+        if use_input_conv:
+            self.conv1 = conv_cls(code_dim, decode_channels * channel_ratios[0],
+                                  kernel_size, bias=False, **kw)
         blocks = []
         for i, stride in enumerate(strides):
             in_ch = decode_channels * channel_ratios[i]
@@ -193,34 +195,63 @@ class Decoder(nn.Module):
         self.conv2 = conv_cls(out_ch, output_channels, kernel_size, bias=False, **kw)
 
     def forward(self, z):
-        x = z
+        x = self.conv1(z) if self.use_input_conv else z
         for b in self.blocks:
             x = b(x)
         return self.conv2(x)
 
     def init_cache(self, batch):
-        return {"blocks": [b.init_cache(batch) for b in self.blocks],
-                "conv2": self.conv2.init_cache(batch)}
+        cache = {"blocks": [b.init_cache(batch) for b in self.blocks],
+                 "conv2": self.conv2.init_cache(batch)}
+        if self.use_input_conv:
+            cache["conv1"] = self.conv1.init_cache(batch)
+        return cache
 
     def step(self, cache, z):
-        x = z
+        new = {}
+        if self.use_input_conv:
+            x, new["conv1"] = self.conv1.step(cache["conv1"], z)
+        else:
+            x = z
         new_blocks = []
         for b, bc in zip(self.blocks, cache["blocks"]):
             x, c = b.step(bc, x)
             new_blocks.append(c)
-        x, c2 = self.conv2.step(cache["conv2"], x)
-        return x, {"blocks": new_blocks, "conv2": c2}
+        new["blocks"] = new_blocks
+        x, new["conv2"] = self.conv2.step(cache["conv2"], x)
+        return x, new
+
+
+class Projector(nn.Module):
+    """Causal conv (k=3) 512 -> code_dim. Reference modules/projector.py:20-54."""
+
+    def __init__(self, input_channels, code_dim, kernel_size=3, stride=1, bias=False,
+                 mode="causal", **kw):
+        super().__init__()
+        conv_cls = CausalConv1d if mode == "causal" else Conv1d
+        self.conv = conv_cls(input_channels, code_dim, kernel_size, stride=stride,
+                             bias=bias, **kw)
+
+    def forward(self, x):
+        return self.conv(x)
+
+    def init_cache(self, batch):
+        return {"conv": self.conv.init_cache(batch)}
+
+    def step(self, cache, x):
+        y, c = self.conv.step(cache["conv"], x)
+        return y, {"conv": c}
 
 
 class AudioDecGenerator(nn.Module):
-    """The symmetric AudioDec generator; only the plain denoiser
-    (``use_pqc=False``) is ported.
+    """The symmetric AudioDec generator, PQC (codec) or plain (denoiser).
 
-    ``forward`` returns ``(y, zq, z, vqloss, perplexity, vq_state)``, the
-    reference tuple, with zero VQ loss and perplexity and the VQ state passed
-    through, as the JAX package does for ``use_pqc=False``. Weights are drawn
-    from ``generator`` (a fresh one seeded with ``seed`` if not given) on the
-    CPU and moved to ``device``."""
+    ``forward`` returns ``(y, zq, z, vqloss, perplexity, new_vq_state)``, the
+    reference tuple plus the functional VQ state; for ``use_pqc=False`` the VQ
+    loss and perplexity are zeros and the state is passed through, as in the
+    JAX package. Weights are drawn from ``generator`` (a fresh one seeded with
+    ``seed`` if not given) on the CPU and moved to ``device``. The codebooks
+    are not weights: ``gen.quantizer.init(...)`` draws a ``VQState``."""
 
     def __init__(self, input_channels=1, output_channels=1, encode_channels=32,
                  decode_channels=32, code_dim=64, codebook_num=8, codebook_size=1024,
@@ -236,20 +267,22 @@ class AudioDecGenerator(nn.Module):
             raise NotImplementedError(f"Projector ({projector}) is not supported!")
         if quantier != "residual_vq":
             raise NotImplementedError(f"Quantizer ({quantier}) is not supported!")
-        if use_pqc:
-            raise NotImplementedError(PQC_NOT_PORTED)
         device = resolve_device(device)
         if generator is None:
             generator = torch.Generator().manual_seed(seed)
         kw = {"generator": generator, "device": "cpu"}
         self.mode = mode
-        self.use_pqc = False
+        self.use_pqc = use_pqc
         self.input_channels = input_channels
         self.codebook_num = codebook_num
         self.encoder = Encoder(input_channels, encode_channels, enc_ratios, enc_strides,
                                7, bias, mode, **kw)
         self.decoder = Decoder(code_dim, output_channels, decode_channels, dec_ratios,
-                               dec_strides, 7, bias, mode, use_input_conv=False, **kw)
+                               dec_strides, 7, bias, mode, use_input_conv=use_pqc, **kw)
+        if use_pqc:
+            self.projector = Projector(self.encoder.out_channels, code_dim, 3, 1, False,
+                                       mode, **kw)
+            self.quantizer = Quantizer(code_dim, codebook_num, codebook_size)
         self.hop = self.encoder.hop
         self.receptive_length = self._derive_receptive_length()
         self.to(device)
@@ -259,10 +292,14 @@ class AudioDecGenerator(nn.Module):
         return self.encoder.conv.weight.device
 
     def _derive_receptive_length(self) -> int:
-        """Exact receptive field in input samples for ONE code frame, walked
-        backwards through the encoder with ``R_in = (R_out - 1) * stride +
-        (kernel - 1) * dilation + 1``: 6609 for the without-PQC denoiser."""
+        """Exact tx receptive field in input samples for ONE code frame,
+        walked backwards through the projector and the encoder with ``R_in =
+        (R_out - 1) * stride + (kernel - 1) * dilation + 1``: 7209 for
+        symAD_vctk_48000_hop300, 6609 for the without-PQC denoiser."""
         r = 1
+        if self.use_pqc:
+            c = self.projector.conv
+            r = (r - 1) * c.stride + (c.kernel_size - 1) * c.dilation + 1
         for blk in reversed(self.encoder.blocks):
             c = blk.conv
             r = (r - 1) * c.stride + (c.kernel_size - 1) * c.dilation + 1
@@ -274,43 +311,83 @@ class AudioDecGenerator(nn.Module):
 
     # ---------------- parallel (offline) path ----------------
 
+    def check_vq_state(self, vq_state) -> None:
+        if self.use_pqc and vq_state is None:
+            raise ValueError("the PQC generator quantizes with a VQState; got none")
+        if not self.use_pqc and vq_state is not None:
+            raise ValueError("a VQState was given to a without-PQC generator")
+
     def forward(self, x, vq_state=None, train: bool = True):
-        """x: (B, T, C_in). Returns (y, zq, z, vqloss, ppl, vq_state)."""
+        """x: (B, T, C_in). Returns (y, zq, z, vqloss, ppl, new_vq_state)."""
         if x.shape[-1] != self.input_channels:
             x = x.reshape(x.shape[0], -1, self.input_channels)
-        z = self.encoder(x)
-        zeros = torch.zeros((self.codebook_num,), dtype=x.dtype, device=x.device)
-        y = self.decoder(z)
-        return y, z, z, zeros, zeros.clone(), vq_state
+        e = self.encoder(x)
+        if self.use_pqc:
+            self.check_vq_state(vq_state)
+            z = self.projector(e)
+            zq, new_state, vqloss, ppl = self.quantizer(vq_state, z, train=train)
+        else:
+            z = zq = e
+            new_state = vq_state
+            vqloss = torch.zeros((self.codebook_num,), dtype=x.dtype, device=x.device)
+            ppl = vqloss.clone()
+        y = self.decoder(zq)
+        return y, zq, z, vqloss, ppl, new_state
 
     # ---------------- streaming path ----------------
 
     def init_cache(self, batch: int):
-        return {"encoder": self.encoder.init_cache(batch),
-                "decoder": self.decoder.init_cache(batch)}
+        cache = {"encoder": self.encoder.init_cache(batch),
+                 "decoder": self.decoder.init_cache(batch)}
+        if self.use_pqc:
+            cache["projector"] = self.projector.init_cache(batch)
+        return cache
 
     def encode_step(self, cache, x):
-        """Streaming encode of one chunk -> (z, {"encoder": new cache})."""
+        """Streaming encode of one chunk -> (z, new cache parts): the encoder
+        and, with PQC, the projector."""
         if x.shape[-1] != self.input_channels:
             x = x.reshape(x.shape[0], -1, self.input_channels)
         e, enc_c = self.encoder.step(cache["encoder"], x)
+        if self.use_pqc:
+            z, proj_c = self.projector.step(cache["projector"], e)
+            return z, {"encoder": enc_c, "projector": proj_c}
         return e, {"encoder": enc_c}
+
+    def quantize(self, vq_state: VQState, z):
+        """z (B, T, D) -> flattened tx indices (L, B, T) int32
+        (AudioDec.py:172-174)."""
+        _, idx = self.quantizer.encode(vq_state, z)
+        return idx
+
+    def flat_codebook(self, vq_state: VQState):
+        self.check_vq_state(vq_state)
+        return self.quantizer.rvq.flat_codebook(vq_state)
+
+    def lookup(self, flat_codebook, idx):
+        """Flattened indices (L, B, T) -> summed codewords (B, T, D)."""
+        return self.quantizer.decode(flat_codebook, idx)
 
     def decode_step(self, cache, zq):
         y, dec_c = self.decoder.step(cache["decoder"], zq)
         return y, {"decoder": dec_c}
 
-    def prime(self, vq_state=None, batch: int = 1, receptive_length=None):
+    def prime(self, vq_state: VQState | None = None, batch: int = 1,
+              receptive_length=None):
         """Prime all caches with zeros (reference initial_encoder /
-        initial_decoder); the length is rounded up to whole code frames."""
-        if vq_state is not None:
-            raise NotImplementedError(PQC_NOT_PORTED)
+        initial_decoder, AudioDec.py:151-160); the length is rounded up to
+        whole code frames (7209 -> 7500 for the codec)."""
+        self.check_vq_state(vq_state)
         rl = receptive_length or self.receptive_length
         rl = -(-rl // self.hop) * self.hop
         cache = self.init_cache(batch)
         zeros = torch.zeros((batch, rl, self.input_channels), device=self.device)
         z, enc_cache = self.encode_step(cache, zeros)
         cache.update(enc_cache)
-        _, dec_cache = self.decode_step(cache, z)
+        if self.use_pqc:
+            zq = self.lookup(self.flat_codebook(vq_state), self.quantize(vq_state, z))
+        else:
+            zq = z
+        _, dec_cache = self.decode_step(cache, zq)
         cache.update(dec_cache)
         return cache

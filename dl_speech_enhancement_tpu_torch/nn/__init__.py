@@ -5,6 +5,13 @@ from dl_speech_enhancement_tpu_torch.nn.conv import (
     Conv1d1x1,
     ConvTranspose1d,
 )
+from dl_speech_enhancement_tpu_torch.nn.vq import (
+    Quantizer,
+    ResidualVQ,
+    VectorQuantizeEMA,
+    VQState,
+)
 
 __all__ = ["Conv1d", "Conv1d1x1", "CausalConv1d", "ConvTranspose1d",
-           "CausalConvTranspose1d"]
+           "CausalConvTranspose1d", "VQState", "VectorQuantizeEMA", "ResidualVQ",
+           "Quantizer"]

@@ -24,7 +24,8 @@ import time
 PACKAGE = pathlib.Path(__file__).resolve().parent.parent
 CSRC = PACKAGE / "csrc"
 BUILD_DIR = PACKAGE / "_build"
-SOURCES = ("residual_chain", "causal_conv", "causal_conv_transpose")
+SOURCES = ("residual_chain", "causal_conv", "causal_conv_transpose", "rvq_assign",
+           "codebook_lookup")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -42,7 +43,14 @@ _ENTRIES = {
     "causal_conv_transpose": {
         "dse_causal_conv_transpose": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
     },
+    "rvq_assign": {
+        "dse_rvq_assign": ([_P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
+    },
+    "codebook_lookup": {
+        "dse_codebook_lookup": ([_P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
+    },
 }
+BAD_CODE = -1  # codebook_lookup's return for a code outside its layer's range
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 

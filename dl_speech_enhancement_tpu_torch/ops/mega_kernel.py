@@ -1,4 +1,4 @@
-"""Whole-model streaming for the without-PQC denoiser on hand-written kernels.
+"""Whole-model streaming of the AudioDec generator on hand-written kernels.
 
 Counterpart of dl_speech_enhancement_tpu/ops/mega_kernel.py::make_mega_stream.
 On the TPU that function compiles the whole encoder and the whole decoder
@@ -19,10 +19,19 @@ blocks in no order, so that design does not carry over. Instead:
   (ops/stream_kernel.py, csrc/residual_chain.cu), :func:`causal_conv`
   (csrc/causal_conv.cu) and :func:`causal_conv_transpose`
   (csrc/causal_conv_transpose.cu).
+- With PQC (the symAD codec) four launches join them, 22 per dispatch: the
+  projector (causal_conv, k=3, 512 -> code_dim) and :func:`rvq_assign`
+  (csrc/rvq_assign.cu, the residual-VQ search emitting the int32 wire codes)
+  end the encoder; :func:`codebook_lookup` (csrc/codebook_lookup.cu) and the
+  decoder input conv (causal_conv, k=7, code_dim -> 512) start the decoder.
+  The codes are returned beside the audio, as the TPU kernels hand them from
+  ``enc_kernel`` to ``dec_kernel``. The lookup reads back its bad-code flag,
+  so the host waits there for the encoder before it enqueues the decoder.
 - Weights are assembled once, at build time, into the kernels' (tap, in,
   out) layout and ``weight_dtype`` (bf16 by default, as in the JAX package;
-  activations and sums stay f32). That is the counterpart of the TPU's
-  one-time VMEM load.
+  activations and sums stay f32). Codebooks, their squared norms and the
+  distances stay f32 whatever ``weight_dtype`` is. That is the counterpart
+  of the TPU's one-time VMEM load.
 - The TPU's time folding and 0/1 selection / replication matmuls work around
   TPU lanes and Mosaic; the CUDA kernels index strided rows and transposed
   phases directly.
@@ -40,7 +49,6 @@ from __future__ import annotations
 
 import torch
 
-from dl_speech_enhancement_tpu_torch.models.autoencoder import PQC_NOT_PORTED
 from dl_speech_enhancement_tpu_torch.ops import _cuda
 from dl_speech_enhancement_tpu_torch.ops.stream_kernel import (
     _check_operands,
@@ -149,6 +157,108 @@ def causal_conv_transpose(cache: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
 
 causal_conv_transpose.launches = 0
 
+
+RVQ_MAX_DIM = 1024  # csrc/rvq_assign.cu kMaxDim
+
+
+def rvq_assign_plain(z, books, sqnorm):
+    """Plain PyTorch version of :func:`rvq_assign`: the JAX package's
+    ``(|r|^2 - 2 r.E) + |E|^2`` in f32, ``argmin`` at the lowest index."""
+    n_books, _, book_k = books.shape
+    r, codes = z, []
+    for l in range(n_books):
+        dist = (r * r).sum(1, keepdim=True) - 2.0 * (r @ books[l]) + sqnorm[l]
+        ind = torch.argmin(dist, dim=1)
+        r = r - books[l].t()[ind]
+        codes.append(ind + l * book_k)
+    return torch.stack(codes, 1).to(torch.int32)
+
+
+def rvq_assign(z: torch.Tensor, books: torch.Tensor, sqnorm: torch.Tensor) -> torch.Tensor:
+    """Residual-VQ nearest-codeword search: z (R, D) f32, books (L, D, K) f32,
+    sqnorm (L, K) f32 (``(books ** 2).sum(1)``). Returns the flattened wire
+    codes (R, L) int32, ``ind + l * K``."""
+    if z.device.type == "cpu":
+        return rvq_assign_plain(z, books, sqnorm)
+    if z.device.type != "cuda":
+        raise ValueError(f"rvq_assign: unsupported device {z.device}")
+    R, D = z.shape
+    L, _, K = books.shape
+    if books.shape[1] != D or sqnorm.shape != (L, K):
+        raise ValueError(f"rvq_assign: books {tuple(books.shape)} / sqnorm "
+                         f"{tuple(sqnorm.shape)} do not fit z {tuple(z.shape)}")
+    if D > RVQ_MAX_DIM:
+        raise ValueError(f"rvq_assign: code dim {D} above {RVQ_MAX_DIM} (the residuals "
+                         "live in shared memory)")
+    _check_operands("rvq_assign", z.device, {"z": z, "books": books, "sqnorm": sqnorm},
+                    (books,))
+    codes = torch.empty((R, L), dtype=torch.int32, device=z.device)
+    if R == 0:
+        return codes
+    lib = _cuda.load("rvq_assign")
+    err = lib.dse_rvq_assign(z.data_ptr(), books.data_ptr(), sqnorm.data_ptr(),
+                             codes.data_ptr(), R, D, K, L, _cuda.stream_handle(z))
+    _cuda.check(lib, err, "rvq_assign")
+    rvq_assign.launches += 1
+    return codes
+
+
+rvq_assign.launches = 0
+
+
+def _bad_codes(what):
+    return ValueError(f"{what}: a code lies outside its book's range [l*K, (l+1)*K)")
+
+
+def codebook_lookup_plain(codes, books_t):
+    """Plain PyTorch version of :func:`codebook_lookup`, summing over the
+    books in ascending order."""
+    n_books, book_k, _ = books_t.shape
+    ind = codes.long() - torch.arange(n_books, device=codes.device) * book_k
+    if bool(((ind < 0) | (ind >= book_k)).any()):
+        raise _bad_codes("codebook_lookup")
+    zq = books_t[0][ind[:, 0]]
+    for l in range(1, n_books):
+        zq = zq + books_t[l][ind[:, l]]
+    return zq
+
+
+def codebook_lookup(codes: torch.Tensor, books_t: torch.Tensor) -> torch.Tensor:
+    """Codebook lookup of flattened wire codes: codes (R, L) int32, books_t
+    (L, K, D) f32. Returns zq (R, D) f32, ``sum_l books_t[l, codes[:, l] -
+    l * K]``. Raises ValueError for a code outside its book's range; on CUDA
+    the kernel reads no such code and flags it, and the call waits for the
+    launch to finish to read the flag."""
+    if codes.device.type == "cpu":
+        return codebook_lookup_plain(codes, books_t)
+    if codes.device.type != "cuda":
+        raise ValueError(f"codebook_lookup: unsupported device {codes.device}")
+    R, L = codes.shape
+    _, K, D = books_t.shape
+    if books_t.shape[0] != L:
+        raise ValueError(f"codebook_lookup: books {tuple(books_t.shape)} do not fit codes "
+                         f"{tuple(codes.shape)}")
+    if (codes.dtype != torch.int32 or not codes.is_contiguous()
+            or codes.device != books_t.device):
+        raise ValueError(f"codebook_lookup: codes must be a contiguous int32 tensor on "
+                         f"{books_t.device}")
+    _check_operands("codebook_lookup", codes.device, {"books_t": books_t}, (books_t,))
+    out = torch.empty((R, D), device=codes.device)
+    if R == 0:
+        return out
+    bad = torch.empty((1,), dtype=torch.int32, device=codes.device)
+    lib = _cuda.load("codebook_lookup")
+    err = lib.dse_codebook_lookup(codes.data_ptr(), books_t.data_ptr(), out.data_ptr(),
+                                  bad.data_ptr(), R, L, K, D, _cuda.stream_handle(codes))
+    if err == _cuda.BAD_CODE:
+        raise _bad_codes("codebook_lookup")
+    _cuda.check(lib, err, "codebook_lookup")
+    codebook_lookup.launches += 1
+    return out
+
+
+codebook_lookup.launches = 0
+
 # ---------------------------------------------------------------- weights
 
 
@@ -167,6 +277,14 @@ def _bias(layer):
     return None if layer.bias is None else layer.bias.detach().float().contiguous()
 
 
+def vq_tables(vq_state, device):
+    """The kernels' f32 codebook tables from a ``VQState``: books (L, D, K)
+    for :func:`rvq_assign`, their squared norms (L, K), and books_t (L, K, D)
+    for :func:`codebook_lookup`."""
+    books = vq_state.embed.detach().to(device, torch.float32).contiguous()
+    return books, (books * books).sum(1).contiguous(), books.transpose(1, 2).contiguous()
+
+
 # ---------------------------------------------------------------- stream
 
 
@@ -178,6 +296,11 @@ def mega_topology_error(gen, chunk: int) -> str | None:
     reason = chain_topology_error(gen)
     if reason:
         return reason
+    if gen.use_pqc:
+        for name, layer in (("projector", gen.projector.conv),
+                            ("decoder input conv", gen.decoder.conv1)):
+            if layer.stride != 1 or layer.dilation != 1:
+                return f"mega stream needs an unstrided, undilated {name}"
     if gen.input_channels != 1:
         return f"mega stream takes mono input, got {gen.input_channels} channels"
     if chunk <= 0 or chunk % gen.hop:
@@ -192,17 +315,25 @@ def mega_topology_error(gen, chunk: int) -> str | None:
 
 
 def make_mega_stream(gen, chunk: int, weight_dtype=torch.bfloat16, vq_state=None):
-    """Whole-model streaming for the without-PQC ``AudioDecGenerator``.
+    """Whole-model streaming for the ``AudioDecGenerator`` family.
 
     Returns ``(init_cache, run)`` with ``init_cache() -> cache dict`` and
-    ``run(cache, frames (N, chunk)) -> (out (N, chunk), new_cache)``; per frame
-    it matches ``gen.encode_step`` + ``gen.decode_step`` from zero caches, and
-    the returned cache continues the stream in the next dispatch. The weights
+
+    - without PQC: ``run(cache, frames (N, chunk)) -> (out (N, chunk),
+      new_cache)``; per frame it matches ``gen.encode_step`` +
+      ``gen.decode_step`` from zero caches;
+    - with PQC (pass ``vq_state``): ``run(cache, frames) -> (out, new_cache,
+      codes (N, chunk / hop, L) int32)``, the flattened wire codes computed in
+      the same dispatch; per frame it matches ``encode_step -> quantize ->
+      lookup -> decode_step``. The codes equal the eager route's at
+      ``weight_dtype=float32``; at bf16 the encoder and projector weights
+      perturb ``z`` and a near-tie codeword can resolve differently.
+
+    The returned cache continues the stream in the next dispatch. The weights
     are the generator's own, copied once now in ``weight_dtype`` (float32 or
-    bfloat16). Runs on the generator's device: kernels on CUDA, their plain
-    versions on the CPU. The PQC arm (``vq_state``) is not ported yet."""
-    if vq_state is not None or gen.use_pqc:
-        raise NotImplementedError(PQC_NOT_PORTED)
+    bfloat16); the codebooks are copied in f32. Runs on the generator's
+    device: kernels on CUDA, their plain versions on the CPU."""
+    gen.check_vq_state(vq_state)
     if weight_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"weight_dtype must be float32 or bfloat16, got {weight_dtype}")
     reason = mega_topology_error(gen, chunk)
@@ -219,6 +350,11 @@ def make_mega_stream(gen, chunk: int, weight_dtype=torch.bfloat16, vq_state=None
     dec_levels = [(conv_transpose_weight(blk.conv, wd), _bias(blk.conv), blk.conv.stride,
                    chain_weights(blk.res_units, wd)) for blk in dec.blocks]
     w_out = conv_weight(dec.conv2, wd)
+    if gen.use_pqc:
+        w_pr, w_dc1 = conv_weight(gen.projector.conv, wd), conv_weight(dec.conv1, wd)
+        books, sqnorm, books_t = vq_tables(vq_state, device)
+        n_books = books.shape[0]
+        z_rows = chunk // gen.hop
 
     shapes = {"enc_in": (enc.conv.pad_length, 1)}
     for bi, blk in enumerate(enc.blocks):
@@ -228,6 +364,9 @@ def make_mega_stream(gen, chunk: int, weight_dtype=torch.bfloat16, vq_state=None
         shapes[f"d{bi}u"] = (1, blk.conv.in_channels)
         shapes[f"d{bi}ch"] = (halo, blk.conv.out_channels)
     shapes["dec_out"] = (dec.conv2.pad_length, dec.conv2.in_channels)
+    if gen.use_pqc:
+        shapes["prj"] = (gen.projector.conv.pad_length, gen.projector.conv.in_channels)
+        shapes["dc1"] = (dec.conv1.pad_length, dec.conv1.in_channels)
 
     def init_cache():
         return {name: torch.zeros(shape, device=device) for name, shape in shapes.items()}
@@ -245,6 +384,14 @@ def make_mega_stream(gen, chunk: int, weight_dtype=torch.bfloat16, vq_state=None
             h = residual_chain(cache[f"e{bi}ch"], h, w1, w2)
             new[f"e{bi}d"] = tail(cache[f"e{bi}d"], h, 2 * s - 1)
             h = causal_conv(cache[f"e{bi}d"], h, w_dn, b_dn, stride=s)
+        codes = None
+        if gen.use_pqc:
+            new["prj"] = tail(cache["prj"], h, shapes["prj"][0])
+            z = causal_conv(cache["prj"], h, w_pr)
+            codes = rvq_assign(z, books, sqnorm)
+            zq = codebook_lookup(codes, books_t)
+            new["dc1"] = tail(cache["dc1"], zq, shapes["dc1"][0])
+            h = causal_conv(cache["dc1"], zq, w_dc1)
         for bi, (w_up, b_up, s, (w1, w2)) in enumerate(dec_levels):
             new[f"d{bi}u"] = h[h.shape[0] - 1:]
             h = causal_conv_transpose(cache[f"d{bi}u"], h, w_up, b_up, stride=s)
@@ -252,6 +399,8 @@ def make_mega_stream(gen, chunk: int, weight_dtype=torch.bfloat16, vq_state=None
             h = residual_chain(cache[f"d{bi}ch"], h, w1, w2)
         new["dec_out"] = tail(cache["dec_out"], h, shapes["dec_out"][0])
         y = causal_conv(cache["dec_out"], h, w_out)
-        return y.reshape(n, t), new
+        if codes is None:
+            return y.reshape(n, t), new
+        return y.reshape(n, t), new, codes.reshape(n, z_rows, n_books)
 
     return init_cache, run

@@ -1,33 +1,41 @@
-"""Single-stream streaming denoise: the port's main entry point.
+"""Single-stream streaming: the port's main entry point, and the codec's
+transmitter and receiver.
 
 Counterpart of dl_speech_enhancement_tpu/stream/runtime.py::
-resolve_scan_backend and ::make_scan_stream for ``batch == 1``.
-``make_scan_stream`` returns ``run(cache, frames (N, B, F, C)) -> (audio
-(N, B, F', C), cache)`` with ``run.init_cache()``, the same frames layout and
-per-frame semantics as the JAX package: each frame runs ``encode_step`` then
-``decode_step`` with the caches carried across frames and dispatches.
+resolve_scan_backend, ::make_scan_stream for ``batch == 1``, and
+::StreamingTransmitter / ::StreamingReceiver. ``make_scan_stream`` returns
+``run(cache, frames (N, B, F, C)) -> (audio (N, B, F', C), cache)`` with
+``run.init_cache()``, the same frames layout and per-frame semantics as the
+JAX package: each frame runs ``encode_step`` (with PQC then ``quantize`` and
+``lookup``) then ``decode_step``, with the caches carried across frames and
+dispatches. With PQC, ``run.run_with_codes(cache, frames) -> (audio, cache,
+codes (N, F / hop, L) int32)`` also returns the wire codes of the same
+dispatch.
 
 Backends:
 
 - ``'cuda'``: the whole-model kernel route (ops/mega_kernel.py, 18 launches
-  per dispatch); needs ``frame_size``. Where its topology check fails (or no
-  ``frame_size`` is given) it takes the ``'cuda_chain'`` route, as the JAX
-  package falls back from its mega kernel.
+  per dispatch, 22 with PQC); needs ``frame_size``. Where its topology check
+  fails (or no ``frame_size`` is given) the denoiser takes the
+  ``'cuda_chain'`` route, as the JAX package falls back from its mega kernel
+  to the fused chunk step. The codec has no such route (nor has the JAX
+  package a fused-chain route for PQC), and it does not give way to the
+  plain modules on the card: ``make_scan_stream`` raises, naming the reason.
 - ``'cuda_chain'``: per-frame steps with every residual chain on the
   residual_chain kernel and the boundary convs on the plain modules
-  (ops/stream_kernel.py::make_fused_chunk_step).
-- ``'eager'``: per-frame ``encode_step``/``decode_step`` of the plain modules.
+  (ops/stream_kernel.py::make_fused_chunk_step); without PQC only.
+- ``'eager'``: per-frame steps of the plain modules.
 - ``'auto'``: see :func:`resolve_scan_backend`.
 
-Multi-stream batching (``batch > 1``) and the PQC codec are later slices
-(ROADMAP.md).
+Multi-stream batching (``batch > 1`` in ``make_scan_stream``), ``AudioCodec``,
+``AudioCodecStreamer`` and the CLI are later slices (ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import torch
 
-from dl_speech_enhancement_tpu_torch.models.autoencoder import PQC_NOT_PORTED
+from dl_speech_enhancement_tpu_torch.nn.vq import VQState
 from dl_speech_enhancement_tpu_torch.ops.mega_kernel import (
     make_mega_stream,
     mega_topology_error,
@@ -41,9 +49,9 @@ BACKENDS = ("auto", "cuda", "cuda_chain", "eager")
 def resolve_scan_backend(backend: str, *, on_cuda: bool, batch: int,
                          use_pqc: bool) -> str:
     """Resolve ``make_scan_stream``'s ``backend='auto'`` to a concrete route:
-    ``'cuda'`` for one stream on a CUDA device, ``'eager'`` otherwise (on the
-    CPU, and for ``batch > 1`` until the multi-stream slice is ported).
-    ``use_pqc`` stays a parameter, as in the JAX router, for the PQC slice.
+    ``'cuda'`` for one stream on a CUDA device, for both codecs; ``'eager'``
+    otherwise (on the CPU, and for ``batch > 1`` until the multi-stream slice
+    is ported). ``use_pqc`` stays a parameter, as in the JAX router.
     Explicit routes are returned unchanged."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; expected one of {BACKENDS}")
@@ -60,18 +68,25 @@ def _check_frames(frames, device):
                          f"{tuple(frames.shape)} on {frames.device}")
 
 
+def _vq_on(vq_state, device) -> VQState:
+    return VQState(*(t.to(device) for t in vq_state))
+
+
 def make_scan_stream(gen, vq_state=None, batch: int = 1, backend: str = "auto",
                      frame_size: int | None = None, weight_dtype=None, device="cuda"):
-    """Streaming denoise of one stream: ``run(cache, frames (N, 1, F, C)) ->
-    (audio (N, 1, F', C), cache)``, ``run.init_cache() -> cache``.
+    """Streaming of one stream: ``run(cache, frames (N, 1, F, C)) -> (audio
+    (N, 1, F', C), cache)``, ``run.init_cache() -> cache``; with PQC also
+    ``run.run_with_codes``.
 
-    ``gen`` is the port's without-PQC ``AudioDecGenerator``, already on
-    ``device``. ``weight_dtype`` goes to the whole-model kernel route (default
-    bf16 there; activations and sums stay f32). ``run.backend`` names the
-    route taken."""
+    ``gen`` is the port's ``AudioDecGenerator``, already on ``device``;
+    ``vq_state`` its ``VQState`` when ``gen.use_pqc``. ``weight_dtype`` goes
+    to the whole-model kernel route (default bf16 there; activations, sums
+    and codebooks stay f32; pass float32 where the wire codes must equal an
+    f32 peer's). ``run.backend`` names the route taken. With PQC, the
+    ``'cuda'`` route (``'auto'`` on the card) raises ValueError unless
+    ``frame_size`` is one the kernel route takes."""
     device = resolve_device(device)
-    if gen.use_pqc or vq_state is not None:
-        raise NotImplementedError(PQC_NOT_PORTED)
+    gen.check_vq_state(vq_state)
     if batch != 1:
         raise NotImplementedError(
             "batch > 1 (multi-stream batching) is not ported yet: see ROADMAP.md, "
@@ -80,20 +95,35 @@ def make_scan_stream(gen, vq_state=None, batch: int = 1, backend: str = "auto",
         raise ValueError(f"generator is on {gen.device}, stream asked for {device}")
     backend = resolve_scan_backend(backend, on_cuda=device.type == "cuda", batch=batch,
                                    use_pqc=gen.use_pqc)
+    if backend == "cuda_chain" and gen.use_pqc:
+        raise ValueError("the 'cuda_chain' route covers the without-PQC denoiser")
+    if backend == "cuda" and gen.use_pqc:
+        reason = ("no frame_size given" if frame_size is None
+                  else mega_topology_error(gen, frame_size))
+        if reason:
+            raise ValueError(f"the codec's 'cuda' route cannot run: {reason}; pass a "
+                             "frame_size it takes, or backend='eager' for the plain modules")
     if backend in ("cuda", "cuda_chain") and device.type != "cuda":
         raise ValueError(f"backend {backend!r} runs CUDA kernels; device is {device}")
+    if gen.use_pqc:
+        vq_state = _vq_on(vq_state, device)
     if (backend == "cuda" and frame_size is not None
             and mega_topology_error(gen, frame_size) is None):
         init_mega, mega_run = make_mega_stream(
-            gen, frame_size,
+            gen, frame_size, vq_state=vq_state,
             **({} if weight_dtype is None else {"weight_dtype": weight_dtype}))
 
         @torch.no_grad()
-        def run(cache, frames):
+        def run_with_codes(cache, frames):
             _check_frames(frames, device)
-            out, new_cache = mega_run(cache, frames[:, 0, :, 0])
-            return out[:, None, :, None], new_cache
+            out, new_cache, *codes = mega_run(cache, frames[:, 0, :, 0])
+            return (out[:, None, :, None], new_cache, *codes)
 
+        def run(cache, frames):
+            return run_with_codes(cache, frames)[:2]
+
+        if gen.use_pqc:
+            run.run_with_codes = run_with_codes
         run.init_cache = init_mega
         run.backend = "cuda"
         return run
@@ -112,21 +142,114 @@ def make_scan_stream(gen, vq_state=None, batch: int = 1, backend: str = "auto",
         run.backend = "cuda_chain"
         return run
 
+    flat_cb = gen.flat_codebook(vq_state) if gen.use_pqc else None
+
     @torch.no_grad()
-    def run(cache, frames):
+    def run_with_codes(cache, frames):
         _check_frames(frames, device)
-        ys = []
+        ys, codes = [], []
         for frame in frames:
             z, enc_cache = gen.encode_step(cache, frame)
             cache = {**cache, **enc_cache}
+            if gen.use_pqc:
+                idx = gen.quantize(vq_state, z)  # (L, 1, T_code)
+                codes.append(idx[:, 0].t())
+                z = gen.lookup(flat_cb, idx)
             y, dec_cache = gen.decode_step(cache, z)
             cache = {**cache, **dec_cache}
             ys.append(y)
-        return torch.stack(ys), cache
+        if not gen.use_pqc:
+            return torch.stack(ys), cache
+        return torch.stack(ys), cache, torch.stack(codes)
+
+    def run(cache, frames):
+        return run_with_codes(cache, frames)[:2]
 
     def init_cache():
         return gen.init_cache(batch)
 
+    if gen.use_pqc:
+        run.run_with_codes = run_with_codes
     run.init_cache = init_cache
     run.backend = "eager"
     return run
+
+
+def _check_endpoint(gen, device):
+    device = resolve_device(device)
+    if gen.device != device:
+        raise ValueError(f"generator is on {gen.device}, endpoint asked for {device}")
+    return device
+
+
+class StreamingTransmitter:
+    """Tx side of the codec: audio chunk (B, T, C) -> flattened wire codes
+    (L, B, T / hop) int32 (with PQC) or encoder features (without), through
+    the plain modules on ``device``, as the JAX transmitter runs an XLA step.
+    Caches carry across ``encode`` calls."""
+
+    def __init__(self, gen, vq_state: VQState | None, batch: int = 1, device="cuda"):
+        self.gen = gen
+        self.device = _check_endpoint(gen, device)
+        self.use_pqc = gen.use_pqc
+        gen.check_vq_state(vq_state)
+        self.vq_state = _vq_on(vq_state, self.device) if self.use_pqc else None
+        self.batch = batch
+        self.reset_buffer()
+
+    def reset_buffer(self):
+        self.cache = {k: v for k, v in self.gen.init_cache(self.batch).items()
+                      if k in ("encoder", "projector")}
+
+    def initial_encoder(self, receptive_length: int):
+        """Prime the caches with a zero receptive field (rounded up to whole
+        code frames); returns the priming output, as the reference does."""
+        rl = -(-receptive_length // self.gen.hop) * self.gen.hop
+        return self.encode(torch.zeros((self.batch, rl, self.gen.input_channels),
+                                       device=self.device))
+
+    @torch.no_grad()
+    def encode(self, chunk: torch.Tensor) -> torch.Tensor:
+        z, new_cache = self.gen.encode_step(self.cache, chunk.to(self.device))
+        self.cache.update(new_cache)
+        return self.gen.quantize(self.vq_state, z) if self.use_pqc else z
+
+
+class StreamingReceiver:
+    """Rx side of the codec: wire codes (L, B, T_code) int32 (or encoder
+    features without PQC) -> audio (B, T, C), through the plain modules on
+    ``device``. Codes from a transmitter on another device are moved here
+    first; a code outside its book's range raises ValueError. Caches carry
+    across ``decode`` calls."""
+
+    def __init__(self, gen, vq_state: VQState | None, batch: int = 1, device="cuda"):
+        self.gen = gen
+        self.device = _check_endpoint(gen, device)
+        self.use_pqc = gen.use_pqc
+        gen.check_vq_state(vq_state)
+        self.flat_cb = (gen.flat_codebook(_vq_on(vq_state, self.device))
+                        if self.use_pqc else None)
+        self.batch = batch
+        self.reset_buffer()
+
+    def reset_buffer(self):
+        self.cache = {"decoder": self.gen.init_cache(self.batch)["decoder"]}
+
+    def initial_decoder(self, idx):
+        return self.decode(idx)
+
+    @torch.no_grad()
+    def decode(self, idx: torch.Tensor) -> torch.Tensor:
+        idx = idx.to(self.device)
+        if self.use_pqc:
+            q = self.gen.quantizer
+            base = (torch.arange(q.codebook_num, device=self.device) * q.codebook_size).reshape(
+                -1, *[1] * (idx.dim() - 1))
+            if idx.shape[0] != q.codebook_num or bool(
+                    ((idx < base) | (idx >= base + q.codebook_size)).any()):
+                raise ValueError(f"wire codes {tuple(idx.shape)} hold a code outside its "
+                                 f"book's range [l*K, (l+1)*K), K={q.codebook_size}")
+        zq = self.gen.lookup(self.flat_cb, idx) if self.use_pqc else idx
+        y, new_cache = self.gen.decode_step(self.cache, zq)
+        self.cache.update(new_cache)
+        return y

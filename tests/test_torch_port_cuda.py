@@ -6,7 +6,10 @@ CPU test runs) and run on a machine with an H100:
     python -m pytest tests/test_torch_port_cuda.py -q
 
 Tolerance: atol 1e-4, the same products summed in another order in f32.
-chip_smoke.py makes the same checks at the flagship's shapes.
+The residual-VQ search is held to its plain version's codes up to near ties
+(``utils/checks.py::rvq_near_ties``: distances within 1e-5 of the
+smallest); the codebook lookup sums the same codewords in the same order,
+atol 1e-6. chip_smoke.py makes the same checks at the flagship's shapes.
 """
 
 import numpy as np
@@ -19,12 +22,17 @@ from dl_speech_enhancement_tpu_torch.ops.mega_kernel import (
     causal_conv_plain,
     causal_conv_transpose,
     causal_conv_transpose_plain,
+    codebook_lookup,
+    codebook_lookup_plain,
+    rvq_assign,
+    rvq_assign_plain,
 )
 from dl_speech_enhancement_tpu_torch.ops.stream_kernel import (
     residual_chain,
     residual_chain_plain,
 )
 from dl_speech_enhancement_tpu_torch.stream.runtime import make_scan_stream
+from dl_speech_enhancement_tpu_torch.utils.checks import rvq_near_ties
 
 pytestmark = pytest.mark.cuda
 ATOL = 1e-4
@@ -96,3 +104,54 @@ def test_cuda_route_matches_eager_on_the_card(card):
         got = torch.cat([first, second])
         assert float((got - ref).abs().max()) <= 2e-5, backend
     assert np.isfinite(ref.cpu().numpy()).all()
+
+
+@pytest.mark.parametrize("rows,dim,book_k,n_books", [
+    (1, 64, 1024, 8), (4, 64, 1024, 8), (400, 64, 1024, 8), (1601, 64, 1024, 8),
+    (37, 16, 32, 3), (9, 20, 1000, 2),
+])
+def test_rvq_assign_kernel(card, rows, dim, book_k, n_books):
+    books = torch.randn(n_books, dim, book_k, generator=card, device="cuda")
+    sqnorm = (books * books).sum(1)
+    z = _randn(card, rows, dim) * 4
+    before = rvq_assign.launches
+    got = rvq_assign(z, books, sqnorm)
+    assert rvq_assign.launches == before + 1
+    ref = rvq_assign_plain(z, books, sqnorm)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int32 and got.shape == ref.shape
+    assert rvq_near_ties(z, books, sqnorm, got, ref)["mismatches"] == 0
+
+
+def test_codebook_lookup_kernel(card):
+    n_books, book_k, dim = 8, 1024, 64
+    books_t = torch.randn(n_books, book_k, dim, generator=card, device="cuda")
+    codes = (torch.randint(0, book_k, (400, n_books), generator=card, device="cuda")
+             + torch.arange(n_books, device="cuda") * book_k).to(torch.int32)
+    got = codebook_lookup(codes, books_t)
+    ref = codebook_lookup_plain(codes, books_t)
+    assert float((got - ref).abs().max()) <= 1e-6
+    codes[3, 2] = 1  # book 2's range starts at 2048
+    with pytest.raises(ValueError, match="outside its book"):
+        codebook_lookup(codes, books_t)
+
+
+def test_pqc_cuda_route_matches_eager_on_the_card(card):
+    gen = AudioDecGenerator(encode_channels=8, decode_channels=8, code_dim=16,
+                            codebook_num=3, codebook_size=32, enc_ratios=(2, 4),
+                            dec_ratios=(4, 2), enc_strides=(3, 4), dec_strides=(4, 3),
+                            device="cuda")
+    vq = gen.quantizer.init(seed=0, device="cuda")
+    frames = _randn(card, 6, 1, 120, 1)
+    eager = make_scan_stream(gen, vq, backend="eager")
+    ref, _, ref_codes = eager.run_with_codes(eager.init_cache(), frames)
+    run = make_scan_stream(gen, vq, frame_size=120, weight_dtype=torch.float32)
+    assert run.backend == "cuda"
+    first, cache, c1 = run.run_with_codes(run.init_cache(), frames[:2])
+    second, _, c2 = run.run_with_codes(cache, frames[2:])
+    torch.cuda.synchronize()
+    assert torch.equal(torch.cat([c1, c2]), ref_codes)
+    assert float((torch.cat([first, second]) - ref).abs().max()) <= 2e-5
+    # no frame_size: 'auto' takes the kernel route on the card, which raises
+    with pytest.raises(ValueError, match="no frame_size given"):
+        make_scan_stream(gen, vq)

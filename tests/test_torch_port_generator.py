@@ -133,13 +133,17 @@ def test_prime_matches_jax(rng):
 
 
 def test_pqc_is_a_later_slice():
-    with pytest.raises(NotImplementedError, match="PQC.*ROADMAP"):
-        AudioDecGenerator(use_pqc=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="PQC"):
-        AudioDecGenerator(device="cpu")
+    """The PQC codec is served now (tests/test_torch_port_pqc.py holds it to
+    the JAX package): the default generator is the codec, with a projector
+    and a quantizer, and the denoiser refuses a VQ state."""
+    codec = AudioDecGenerator(device="cpu", **SMALL_TOPOLOGY)
+    assert codec.use_pqc and codec.decoder.use_input_conv
+    assert codec.projector.conv.out_channels == SMALL_TOPOLOGY["code_dim"]
+    assert codec.quantizer.codebook_num == SMALL_TOPOLOGY["codebook_num"]
     gen = AudioDecGenerator(use_pqc=False, device="cpu", **SMALL_TOPOLOGY)
-    with pytest.raises(NotImplementedError, match="PQC"):
-        gen.prime(vq_state=object())
+    assert not hasattr(gen, "projector") and not gen.decoder.use_input_conv
+    with pytest.raises(ValueError, match="without-PQC"):
+        gen.prime(vq_state=codec.quantizer.init(seed=0, device="cpu"))
 
 
 def test_flagship_from_config_matches_jax_layout():

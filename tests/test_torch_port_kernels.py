@@ -215,7 +215,7 @@ def test_mega_stream_bf16_weights_close_to_f32(rng):
 
 def test_mega_stream_refuses_what_it_does_not_cover():
     _, _, tgen = _small_pair(0)
-    with pytest.raises(NotImplementedError, match="PQC"):
+    with pytest.raises(ValueError, match="without-PQC"):
         make_mega_stream(tgen, tgen.hop, vq_state=object())
     with pytest.raises(ValueError, match="multiple of the hop"):
         make_mega_stream(tgen, tgen.hop + 1)

@@ -109,7 +109,9 @@ def test_later_slices_raise_not_implemented(pair):
     _, _, tgen = pair
     with pytest.raises(NotImplementedError, match="multi-stream"):
         make_scan_stream(tgen, batch=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="PQC"):
+    # the PQC codec is served (tests/test_torch_port_pqc.py); the denoiser
+    # refuses a VQ state
+    with pytest.raises(ValueError, match="VQState"):
         make_scan_stream(tgen, vq_state=object(), device="cpu")
 
 
