@@ -4,42 +4,64 @@ Run from the repository root on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py
 
-Two main paths run, each at the full width of its model with seeded random
-weights (no trained checkpoint is in the repository): the denoiser (the
-without-PQC generator of configs/denoise/symAD_vctk_48000_hop300.yaml) and
-the symAD codec (the PQC generator of configs/autoencoder/
+Two models run, each at the full width of its configuration with seeded
+random weights (no trained checkpoint is in the repository): the denoiser
+(the without-PQC generator of configs/denoise/symAD_vctk_48000_hop300.yaml)
+and the symAD codec (the PQC generator of configs/autoencoder/
 symAD_vctk_48000_hop300.yaml, whose codebooks are drawn as a k-means init
-draws them, from the residuals of a seeded warm-up stream). Phases (any
-failure exits non-zero before the result line):
+draws them, from the residuals of a seeded warm-up stream). Each runs as one
+stream and as 16 streams per dispatch. Phases (any failure exits non-zero
+before the result line):
 
 1. build the five CUDA kernels from ``dl_speech_enhancement_tpu_torch/csrc``
    (one ``nvcc`` each, all at once) and both generators on the card;
 2. hold every kernel against its plain PyTorch version at every site of both
-   main paths, at 1, 100 (the main paths' dispatch) and 400 frames per
-   dispatch, with f32 and bf16 weights; the residual-VQ search up to near
-   ties (``utils/checks.py::rvq_near_ties``);
-3. drive each main path, ``make_scan_stream(batch=1, frame_size=1200)`` with
-   ``backend='auto'`` (which must resolve to the ``'cuda'`` kernel route),
-   over 200 frames in two dispatches, with every launch counter set to 0
-   just before and read just after. The denoiser is held against the
-   ``'eager'`` route on the same card and weights and its first frames
-   against the CPU, and its ``'cuda_chain'`` route against ``'eager'``. The
-   codec runs through ``run_with_codes`` with f32 weights: its wire codes
-   and audio are held against the ``'eager'`` route, the first frames
-   against the CPU, and ``StreamingTransmitter``/``StreamingReceiver``
-   against the route; every book must use at least 32 codes; the bf16
-   route's agreement with it is printed;
+   models, for one stream at 1, 100 (the single-stream paths' dispatch) and
+   400 frames per dispatch with f32 and bf16 weights, and with f32 weights
+   at every (streams, frames per dispatch) a multi-stream path below
+   dispatches (``BATCH_CHECKS``: 16 streams at 1, 8 and 16 frames; 1, 4 and
+   64 streams at 1 and 16), where perturbing stream 0 of a layer kernel must
+   leave every other stream bit for bit as it was; the residual-VQ search up
+   to near ties (``utils/checks.py::rvq_near_ties``);
+3. drive the main paths, each with every launch counter set to 0 just before
+   and read just after:
+   - one stream, ``make_scan_stream(batch=1, frame_size=1200)`` with
+     ``backend='auto'`` (which must resolve to the ``'cuda'`` kernel route),
+     200 frames in two dispatches. The denoiser is held against the
+     ``'eager'`` route on the same card and weights and its first frames
+     against the CPU, and its ``'cuda_chain'`` route against ``'eager'``.
+     The codec runs through ``run_with_codes`` with f32 weights: its wire
+     codes and audio are held against the ``'eager'`` route, the first
+     frames against the CPU, and ``StreamingTransmitter``/
+     ``StreamingReceiver`` against the route; every book must use at least
+     32 codes; the bf16 route's agreement with it is printed;
+   - 16 streams, ``make_scan_stream(batch=16, frame_size=1200)`` and the
+     single-card ``make_sharded_stream``, f32 weights, 16 frames in two
+     dispatches: each stream is held against its own single-stream
+     ``'cuda'`` run and against the batched ``'eager'`` route (codes up to
+     near ties, audio where the codes agree), the fleet against the scan
+     stream bit for bit, and the codec's asymmetric receiver (a second
+     codec's decoder and books) against its eager composition;
+   - at every B and N that phase 4 times, one f32-weight dispatch of
+     ``make_scan_stream(batch=B)`` held per stream against the batched
+     ``'eager'`` route on the frames phase 4 times;
 4. time per-frame latency at 1 frame per dispatch, the device's busy share
    of it (``torch.profiler``), throughput at 400, and every kernel site at 1,
    100 and 400 frames against its plain version, its bound and its one-call
    PyTorch equivalent (``F.conv1d`` / ``F.conv_transpose1d`` /
-   ``F.embedding_bag``, yardsticks the port never calls), with CUDA events.
+   ``F.embedding_bag``, yardsticks the port never calls), with CUDA events;
+   then the same sites at 16 streams of 1 and 16 frames, and per-stream-frame
+   time and busy share of B = 1, 4, 16 and 64 streams at 1 and 16 frames
+   per dispatch, through the kernel route, the batched eager route and B
+   single-stream kernel dispatches, with the launches of one dispatch
+   counted at every B and the card memory the returned cache keeps.
 
 Prints the per-kernel JSON line (times summed over the kernel's sites in one
-100-frame dispatch of the main path that first runs it, the codec's causal
-conv sites beside them; launches summed over both paths), the card's name
-and power limit, and last ``{"ok": true, "device": {...}}``. The full report
-goes to ``chiprun_out/chip_smoke.json``.
+100-frame dispatch of the single-stream path that first runs it, the codec's
+causal conv sites beside them, and at 16 streams of 1 and 16 frames;
+launches summed over every main path), the card's name and power limit, and
+last ``{"ok": true, "device": {...}}``. The full report goes to
+``chiprun_out/chip_smoke.json``.
 """
 
 from __future__ import annotations
@@ -51,6 +73,7 @@ import statistics
 import subprocess
 import sys
 import time
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -75,11 +98,13 @@ from dl_speech_enhancement_tpu_torch.ops.mega_kernel import (
 from dl_speech_enhancement_tpu_torch.ops.stream_kernel import (
     DILATIONS,
     KERNEL_SIZE,
+    _chain_plan,
     chain_halo,
     chain_weights,
     residual_chain,
     residual_chain_plain,
 )
+from dl_speech_enhancement_tpu_torch.parallel import make_sharded_stream
 from dl_speech_enhancement_tpu_torch.stream.runtime import (
     StreamingReceiver,
     StreamingTransmitter,
@@ -123,6 +148,18 @@ MIN_DISTINCT_CODES = 32
 WARMUP_FRAMES = 2400  # 9600 code rows: 8 books of 1024 codewords drawn from distinct rows
 DENOISER_KERNELS = ("residual_chain", "causal_conv", "causal_conv_transpose")
 LAUNCHES_PER_DISPATCH = {"denoiser": 18, "codec": 22}
+BATCH = 16  # streams of the multi-stream main paths and kernel checks
+MULTI_FRAMES = (8, 8)  # the multi-stream main paths: 16 frames in two dispatches
+BATCH_SIZES = (1, 16)  # frames per dispatch of the multi-stream times
+TIME_BATCHES = (1, 4, 16, 64)  # streams per dispatch of the multi-stream times
+# (streams, frames per dispatch) of the batch-axis kernel checks: every shape
+# a multi-stream path of this script dispatches (one stream at one frame is
+# among the single-stream checks)
+BATCH_CHECKS = tuple(sorted({(BATCH, n) for n in MULTI_FRAMES}
+                            | {(b, n) for b in TIME_BATCHES for n in BATCH_SIZES}
+                            - {(1, 1)}))
+# projector rows drawn for the search's checks: enough for the largest shape
+Z_FRAMES = max(THROUGHPUT_FRAMES, *(b * n for b, n in BATCH_CHECKS))
 
 KERNELS = {
     "residual_chain": {
@@ -213,99 +250,137 @@ def nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
 
-def conv_site(name, layer, rows, stride, bias, wd, rand):
-    """One causal_conv launch as a site tuple (see :func:`sites`)."""
+class Site(NamedTuple):
+    """One kernel launch of a main-path dispatch: the kernel call, its plain
+    version and its one-call PyTorch yardstick (or None) on the same
+    inputs, the operations and bytes its bound counts, and the (cache, x)
+    inputs of a layer kernel (None for the codec's search and lookup)."""
+
+    kernel: str
+    site: str
+    run: Callable
+    plain: Callable
+    lib: Callable | None
+    flops: float
+    bytes: float
+    inputs: tuple | None
+
+
+def make_rand(rng, batch):
+    """``rand(*shape, cache=False)``: N(0, 0.3^2) activations of one stream,
+    or of ``batch`` streams, where a cache is a strided view whose streams
+    lie 5 rows further apart than its own rows."""
+
+    def rand(*shape, cache=False):
+        if batch is None:
+            return torch.randn(*shape, generator=rng, device=DEVICE) * 0.3
+        pad = 5 if cache else 0
+        t = torch.randn(batch, shape[0] + pad, *shape[1:], generator=rng, device=DEVICE)
+        return (t * 0.3)[:, pad:]
+
+    return rand
+
+
+def lib_input(cache, x):
+    """``[cache; x]`` as F.conv1d takes it, (B, C, time)."""
+    h = torch.cat([cache, x], dim=-2)
+    return (h if h.dim() == 3 else h[None]).transpose(1, 2).contiguous()
+
+
+def conv_site(name, layer, rows, stride, bias, wd, rand, batch):
+    """One causal_conv launch as a Site."""
     cin, cout, k = layer.in_channels, layer.out_channels, layer.kernel_size
-    cache, x = rand(layer.pad_length, cin), rand(rows, cin)
+    cache, x = rand(layer.pad_length, cin, cache=True), rand(rows, cin)
     w = conv_weight(layer, wd)
     b = None if not bias else layer.bias.detach().float().contiguous()
-    x_lib = torch.cat([cache, x]).t().contiguous()[None]
-    w_lib = layer.weight.detach().float()
+    x_lib, w_lib = lib_input(cache, x), layer.weight.detach().float()
     t_out = rows // stride
-    return ("causal_conv", name,
-            lambda: causal_conv(cache, x, w, b, stride),
-            lambda: causal_conv_plain(cache, x, w, b, stride),
-            lambda: F.conv1d(x_lib, w_lib, b, stride),
-            2.0 * t_out * k * cin * cout,
-            nbytes(cache, x, w, b) + 4 * t_out * cout)
+    return Site("causal_conv", name,
+                lambda: causal_conv(cache, x, w, b, stride),
+                lambda: causal_conv_plain(cache, x, w, b, stride),
+                lambda: F.conv1d(x_lib, w_lib, b, stride),
+                2.0 * batch * t_out * k * cin * cout,
+                nbytes(cache, x, w, b) + 4 * batch * t_out * cout, (cache, x))
 
 
-def sites(gen, n_frames: int, wd, rng: torch.Generator):
-    """Every kernel launch of one main-path dispatch of ``n_frames`` frames:
-    (kernel, site, kernel call, plain call, library call or None, flops,
-    bytes), on random activations of the site's shape and the generator's
-    own weights in ``wd``."""
+def sites(gen, n_frames: int, wd, rng: torch.Generator, batch: int | None = None):
+    """Every kernel launch of one main-path dispatch of ``n_frames`` frames,
+    as Sites, on random activations of the site's shape and the generator's
+    own weights in ``wd``. One stream in the 2-D layout, or ``batch``
+    streams in the (B, time, C) layout with each cache a strided view (the
+    tail of a longer activation, as on the main path)."""
 
-    def rand(*shape):
-        return torch.randn(*shape, generator=rng, device=DEVICE) * 0.3
-
+    rand = make_rand(rng, batch)
+    nb = 1 if batch is None else batch
     out = []
     t = n_frames * FRAME
-    out.append(conv_site("enc_in", gen.encoder.conv, t, 1, False, wd, rand))
+    out.append(conv_site("enc_in", gen.encoder.conv, t, 1, False, wd, rand, nb))
     for bi, blk in enumerate(gen.encoder.blocks):
-        c = blk.conv.in_channels
-        cache, x = rand(chain_halo(), c), rand(t, c)
-        w1, w2 = chain_weights(blk.res_units, wd)
-        out.append(("residual_chain", f"e{bi}ch",
-                    lambda cache=cache, x=x, w1=w1, w2=w2: residual_chain(cache, x, w1, w2),
-                    lambda cache=cache, x=x, w1=w1, w2=w2: residual_chain_plain(cache, x, w1, w2),
-                    None, chain_flops(c, t), nbytes(cache, x, w1, w2) + 4 * t * c))
-        out.append(conv_site(f"e{bi}d", blk.conv, t, blk.conv.stride, True, wd, rand))
+        out.append(chain_site(f"e{bi}ch", blk, blk.conv.in_channels, t, wd, rand, nb))
+        out.append(conv_site(f"e{bi}d", blk.conv, t, blk.conv.stride, True, wd, rand, nb))
         t //= blk.conv.stride
     for bi, blk in enumerate(gen.decoder.blocks):
         layer, s = blk.conv, blk.conv.stride
         cin, cout = layer.in_channels, layer.out_channels
-        cache, x = rand(1, cin), rand(t, cin)
+        cache, x = rand(1, cin, cache=True), rand(t, cin)
         w, b = conv_transpose_weight(layer, wd), layer.bias.detach().float().contiguous()
-        x_lib = torch.cat([cache, x]).t().contiguous()[None]
-        w_lib = layer.weight.detach().float()
-        out.append(("causal_conv_transpose", f"d{bi}u",
-                    lambda cache=cache, x=x, w=w, b=b, s=s: causal_conv_transpose(
-                        cache, x, w, b, s),
-                    lambda cache=cache, x=x, w=w, b=b, s=s: causal_conv_transpose_plain(
-                        cache, x, w, b, s),
-                    lambda x_lib=x_lib, w_lib=w_lib, b=b, s=s: F.conv_transpose1d(
-                        x_lib, w_lib, b, s, s),
-                    2.0 * t * s * 2 * cin * cout, nbytes(cache, x, w, b) + 4 * t * s * cout))
+        x_lib, w_lib = lib_input(cache, x), layer.weight.detach().float()
+        out.append(Site("causal_conv_transpose", f"d{bi}u",
+                        lambda cache=cache, x=x, w=w, b=b, s=s: causal_conv_transpose(
+                            cache, x, w, b, s),
+                        lambda cache=cache, x=x, w=w, b=b, s=s: causal_conv_transpose_plain(
+                            cache, x, w, b, s),
+                        lambda x_lib=x_lib, w_lib=w_lib, b=b, s=s: F.conv_transpose1d(
+                            x_lib, w_lib, b, s, s),
+                        2.0 * nb * t * s * 2 * cin * cout,
+                        nbytes(cache, x, w, b) + 4 * nb * t * s * cout, (cache, x)))
         t *= s
-        c = cout
-        cache, x = rand(chain_halo(), c), rand(t, c)
-        w1, w2 = chain_weights(blk.res_units, wd)
-        out.append(("residual_chain", f"d{bi}ch",
-                    lambda cache=cache, x=x, w1=w1, w2=w2: residual_chain(cache, x, w1, w2),
-                    lambda cache=cache, x=x, w1=w1, w2=w2: residual_chain_plain(cache, x, w1, w2),
-                    None, chain_flops(c, t), nbytes(cache, x, w1, w2) + 4 * t * c))
-    out.append(conv_site("dec_out", gen.decoder.conv2, t, 1, False, wd, rand))
+        out.append(chain_site(f"d{bi}ch", blk, cout, t, wd, rand, nb))
+    out.append(conv_site("dec_out", gen.decoder.conv2, t, 1, False, wd, rand, nb))
     return out
 
 
-def codec_sites(gen, tables, z_real, n_frames: int, wd, rng: torch.Generator):
+def chain_site(name, blk, c, t, wd, rand, batch):
+    """One residual_chain launch as a Site (no one-call yardstick exists)."""
+    cache, x = rand(chain_halo(), c, cache=True), rand(t, c)
+    w1, w2 = chain_weights(blk.res_units, wd)
+    return Site("residual_chain", name,
+                lambda: residual_chain(cache, x, w1, w2),
+                lambda: residual_chain_plain(cache, x, w1, w2),
+                None, batch * chain_flops(c, t), nbytes(cache, x, w1, w2) + 4 * batch * t * c,
+                (cache, x))
+
+
+def codec_sites(gen, tables, z_real, n_frames: int, wd, rng: torch.Generator,
+                batch: int | None = None):
     """The four launches the codec adds to a dispatch of ``n_frames`` frames
-    (projector, rvq_assign, codebook_lookup, decoder input conv), as site
-    tuples (see :func:`sites`). The search runs on real projector outputs
-    ``z_real`` of the codec and the lookup on their codes."""
+    of one stream, or of ``batch`` streams (projector, rvq_assign,
+    codebook_lookup, decoder input conv), as Sites. The search runs on real
+    projector outputs ``z_real`` of the codec and the lookup on their
+    codes."""
     books, sqnorm, books_t = tables
     n_books, dim, book_k = books.shape
+    nb = 1 if batch is None else batch
     rows = n_frames * FRAME // gen.hop
-    z = z_real[:rows].contiguous()
+    require(z_real.shape[0] >= nb * rows, f"{z_real.shape[0]} projector rows for {nb * rows}")
+    z = z_real[:nb * rows].contiguous()
     codes = rvq_assign_plain(z, books, sqnorm)
     codes_lib, flat_cb = codes.long(), books_t.reshape(n_books * book_k, dim)
     used = int(torch.unique(codes).numel())  # codewords this lookup reads
 
-    def rand(*shape):
-        return torch.randn(*shape, generator=rng, device=DEVICE) * 0.3
-
+    rand = make_rand(rng, batch)
     return [
-        conv_site("prj", gen.projector.conv, rows, 1, False, wd, rand),
-        ("rvq_assign", "rvq", lambda: rvq_assign(z, books, sqnorm),
-         lambda: rvq_assign_plain(z, books, sqnorm), None,
-         rows * n_books * (2.0 * dim * book_k + 3.0 * book_k),
-         nbytes(z, books, sqnorm, codes)),
-        ("codebook_lookup", "lookup", lambda: codebook_lookup(codes, books_t),
-         lambda: codebook_lookup_plain(codes, books_t),
-         lambda: F.embedding_bag(codes_lib, flat_cb, mode="sum"),
-         float(rows * n_books * dim), nbytes(codes) + used * dim * 4 + rows * dim * 4),
-        conv_site("dec_in", gen.decoder.conv1, rows, 1, False, wd, rand),
+        conv_site("prj", gen.projector.conv, rows, 1, False, wd, rand, nb),
+        Site("rvq_assign", "rvq", lambda: rvq_assign(z, books, sqnorm),
+             lambda: rvq_assign_plain(z, books, sqnorm), None,
+             nb * rows * n_books * (2.0 * dim * book_k + 3.0 * book_k),
+             nbytes(z, books, sqnorm, codes), None),
+        Site("codebook_lookup", "lookup", lambda: codebook_lookup(codes, books_t),
+             lambda: codebook_lookup_plain(codes, books_t),
+             lambda: F.embedding_bag(codes_lib, flat_cb, mode="sum"),
+             float(nb * rows * n_books * dim),
+             nbytes(codes) + used * dim * 4 + nb * rows * dim * 4, None),
+        conv_site("dec_in", gen.decoder.conv1, rows, 1, False, wd, rand, nb),
     ]
 
 
@@ -329,10 +404,37 @@ def check_kernels(gen, rng):
     worst = {name: 0.0 for name in DENOISER_KERNELS}
     for n_frames in SIZES:
         for wd in (torch.float32, torch.bfloat16):
-            for kernel, site, run_kernel, run_plain, _, _, _ in sites(gen, n_frames, wd, rng):
-                err = check_site(kernel, site, run_kernel, run_plain, n_frames, wd)
-                worst[kernel] = max(worst[kernel], err)
+            for st in sites(gen, n_frames, wd, rng):
+                err = check_site(st.kernel, st.site, st.run, st.plain, n_frames, wd)
+                worst[st.kernel] = max(worst[st.kernel], err)
     return worst
+
+
+def check_search(what, z, tables, n_frames):
+    """rvq_assign on ``z`` up to near ties and codebook_lookup on the plain
+    codes, against their plain versions; a bad code must raise. Returns
+    (near-tie rows, largest distance excess, lookup max |err|)."""
+    books, sqnorm, books_t = tables
+    got, ref = rvq_assign(z, books, sqnorm), rvq_assign_plain(z, books, sqnorm)
+    torch.cuda.synchronize()
+    require(got.shape == ref.shape and got.dtype == torch.int32,
+            f"rvq_assign: codes {tuple(got.shape)} {got.dtype} vs plain {tuple(ref.shape)}")
+    held = rvq_near_ties(z, books, sqnorm, got, ref, CODE_RTOL)
+    require(held["mismatches"] == 0, f"rvq_assign {what}: {held}")
+    zq, zq_ref = codebook_lookup(ref, books_t), codebook_lookup_plain(ref, books_t)
+    torch.cuda.synchronize()
+    err = float((zq - zq_ref).abs().max())
+    require(err <= LOOKUP_ATOL, f"codebook_lookup {what}: max|err| {err}")
+    bad = ref.clone()
+    bad[-1, -1] = 0  # the last book's range starts at (L-1)*K
+    try:
+        codebook_lookup(bad, books_t)
+        raise Failure("codebook_lookup took a code outside its book")
+    except ValueError:
+        pass
+    log(f"check rvq_assign / codebook_lookup {what} frames={n_frames:<4d} rows={z.shape[0]}: "
+        f"near-tie rows {held['ties']}, mismatches 0; lookup max|err|={err:.3e}")
+    return held["ties"], held["max_excess"], err
 
 
 def check_codec_kernels(gen, tables, z_real, rng):
@@ -340,40 +442,65 @@ def check_codec_kernels(gen, tables, z_real, rng):
     LOOKUP_ATOL, the projector and input conv as the other convs. Returns
     the worst error per kernel (for the search: the largest distance excess
     of a near-tie pick) and the near-tie rows."""
-    books, sqnorm, books_t = tables
     worst = {"causal_conv": 0.0, "rvq_assign": 0.0, "codebook_lookup": 0.0}
     ties = 0
     for n_frames in SIZES:
         rows = n_frames * FRAME // gen.hop
-        z = z_real[:rows].contiguous()
-        got, ref = rvq_assign(z, books, sqnorm), rvq_assign_plain(z, books, sqnorm)
-        torch.cuda.synchronize()
-        require(got.shape == ref.shape and got.dtype == torch.int32,
-                f"rvq_assign: codes {tuple(got.shape)} {got.dtype} vs plain {tuple(ref.shape)}")
-        held = rvq_near_ties(z, books, sqnorm, got, ref, CODE_RTOL)
-        require(held["mismatches"] == 0, f"rvq_assign n={n_frames}: {held}")
-        ties += held["ties"]
-        worst["rvq_assign"] = max(worst["rvq_assign"], held["max_excess"])
-        zq, zq_ref = codebook_lookup(ref, books_t), codebook_lookup_plain(ref, books_t)
-        torch.cuda.synchronize()
-        err = float((zq - zq_ref).abs().max())
-        require(err <= LOOKUP_ATOL, f"codebook_lookup n={n_frames}: max|err| {err}")
-        bad = ref.clone()
-        bad[-1, -1] = 0  # the last book's range starts at (L-1)*K
-        try:
-            codebook_lookup(bad, books_t)
-            raise Failure("codebook_lookup took a code outside its book")
-        except ValueError:
-            pass
+        n_ties, excess, err = check_search("one stream", z_real[:rows].contiguous(), tables,
+                                           n_frames)
+        ties += n_ties
+        worst["rvq_assign"] = max(worst["rvq_assign"], excess)
         worst["codebook_lookup"] = max(worst["codebook_lookup"], err)
-        log(f"check rvq_assign / codebook_lookup frames={n_frames:<4d} rows={rows}: "
-            f"near-tie rows {held['ties']}, mismatches 0; lookup max|err|={err:.3e}")
         for wd in (torch.float32, torch.bfloat16):
-            for kernel, site, run_kernel, run_plain, *_ in codec_sites(
-                    gen, tables, z_real, n_frames, wd, rng):
-                if kernel == "causal_conv":
-                    err = check_site(kernel, site, run_kernel, run_plain, n_frames, wd)
-                    worst[kernel] = max(worst[kernel], err)
+            for st in codec_sites(gen, tables, z_real, n_frames, wd, rng):
+                if st.kernel == "causal_conv":
+                    err = check_site(st.kernel, st.site, st.run, st.plain, n_frames, wd)
+                    worst[st.kernel] = max(worst[st.kernel], err)
+    return worst, ties
+
+
+def check_no_leak(st) -> None:
+    """Perturb stream 0 of a layer site's cache and input: its output must
+    change and every other stream's must stay bit for bit as it was."""
+    cache, x = st.inputs
+    before = st.run()
+    cache[0] += 1.0
+    x[0] -= 1.0
+    after = st.run()
+    torch.cuda.synchronize()
+    require(not torch.equal(after[0], before[0]), f"{st.kernel} {st.site}: stream 0 "
+            "did not change")
+    require(torch.equal(after[1:], before[1:]), f"{st.kernel} {st.site}: stream 0 "
+            "leaked into the others")
+
+
+def check_batched_kernels(gen, codec, tables, z_real, rng):
+    """Phase 2, batch axis: every site of both models at each (streams,
+    frames) of BATCH_CHECKS with f32 weights against its plain version, and
+    no layer kernel lets one stream reach another. Returns the worst error
+    per kernel and the search's near-tie rows."""
+    worst = {name: 0.0 for name in KERNELS}
+    ties = 0
+    for batch, n_frames in BATCH_CHECKS:
+        rows = batch * n_frames * FRAME // codec.hop
+        n_ties, excess, err = check_search(f"{batch} streams", z_real[:rows].contiguous(),
+                                           tables, n_frames)
+        ties += n_ties
+        worst["rvq_assign"] = max(worst["rvq_assign"], excess)
+        worst["codebook_lookup"] = max(worst["codebook_lookup"], err)
+        layer_sites = (sites(gen, n_frames, torch.float32, rng, batch)
+                       + [st for st in codec_sites(codec, tables, z_real, n_frames,
+                                                   torch.float32, rng, batch)
+                          if st.inputs is not None])
+        for st in layer_sites:
+            err = check_site(st.kernel, f"{st.site}x{batch}", st.run, st.plain, n_frames,
+                             torch.float32)
+            worst[st.kernel] = max(worst[st.kernel], err)
+            check_no_leak(st)
+        log(f"check batch axis streams={batch} frames={n_frames}: {len(layer_sites)} layer "
+            f"sites hold their plain versions; no stream leaks; chain (tile, cluster) "
+            f"{chain_plans(gen, batch, n_frames)}")
+        del layer_sites
     return worst, ties
 
 
@@ -382,10 +509,18 @@ def check_codec_kernels(gen, tables, z_real, rng):
 
 def frames_for(n: int, seed: int) -> torch.Tensor:
     """Noisy harmonic test audio, (n, 1, FRAME, 1) on the card."""
+    return frames_for_streams(n, 1, seed)
+
+
+def frames_for_streams(n: int, batch: int, seed: int) -> torch.Tensor:
+    """Noisy harmonic test audio of ``batch`` streams, each at its own
+    pitch: (n, batch, FRAME, 1) on the card."""
     rng = np.random.default_rng(seed)
     t = np.arange(n * FRAME) / SAMPLE_RATE
-    audio = 0.3 * np.sin(2 * np.pi * 220.0 * t) + 0.1 * rng.standard_normal(t.shape)
-    return torch.from_numpy(audio.astype(np.float32)).reshape(n, 1, FRAME, 1).to(DEVICE)
+    pitch = 220.0 * (1.0 + 0.05 * np.arange(batch))[:, None]
+    audio = 0.3 * np.sin(2 * np.pi * pitch * t) + 0.1 * rng.standard_normal((batch, t.size))
+    audio = torch.from_numpy(audio.astype(np.float32)).reshape(batch, n, FRAME, 1)
+    return audio.transpose(0, 1).contiguous().to(DEVICE)
 
 
 def stream(run, frames, split):
@@ -399,7 +534,7 @@ def stream(run, frames, split):
 
 def stream_codes(run, frames, split):
     """As :func:`stream` through ``run.run_with_codes``: (audio, codes (N,
-    T_code, L))."""
+    T_code, L), or (N, B, T_code, L) for B > 1 streams)."""
     cache, outs, codes, i = run.init_cache(), [], [], 0
     for n in split:
         y, cache, c = run.run_with_codes(cache, frames[i:i + n])
@@ -409,10 +544,11 @@ def stream_codes(run, frames, split):
     return torch.cat(outs), torch.cat(codes)
 
 
-def counted(path: str, kernels, drive):
+def counted(path: str, per_dispatch: int, dispatches: int, kernels, drive):
     """Run ``drive()`` with every launch counter set to 0 just before and
-    read just after; require each of ``kernels`` launched and the path's
-    launches per dispatch. Returns (drive's result, counts)."""
+    read just after; require each of ``kernels`` launched and
+    ``per_dispatch`` launches in each of ``dispatches`` dispatches. Returns
+    (drive's result, counts)."""
     for spec in KERNELS.values():
         spec["fn"].launches = 0
     result = drive()
@@ -421,7 +557,7 @@ def counted(path: str, kernels, drive):
     log(f"{path} path launches", json.dumps(launches))
     for name in kernels:
         require(launches[name] > 0, f"the {path} path never launched {name}")
-    want = LAUNCHES_PER_DISPATCH[path] * len(MAIN_FRAMES)
+    want = per_dispatch * dispatches
     require(sum(launches.values()) == want,
             f"the {path} path made {sum(launches.values())} launches, not {want}")
     return result, launches
@@ -432,8 +568,8 @@ def main_path(gen):
     frames = frames_for(sum(MAIN_FRAMES), SEED)
     run = make_scan_stream(gen, frame_size=FRAME)
     require(run.backend == "cuda", f"'auto' resolved to {run.backend!r}, not 'cuda'")
-    out, launches = counted("denoiser", DENOISER_KERNELS,
-                            lambda: stream(run, frames, MAIN_FRAMES))
+    out, launches = counted("denoiser", LAUNCHES_PER_DISPATCH["denoiser"], len(MAIN_FRAMES),
+                            DENOISER_KERNELS, lambda: stream(run, frames, MAIN_FRAMES))
 
     eager = make_scan_stream(gen, frame_size=FRAME, backend="eager")
     ref = stream(eager, frames, MAIN_FRAMES)
@@ -474,15 +610,16 @@ def main_path(gen):
 
 
 def streamed_z(gen, frames):
-    """The projector output of each frame as the eager route computes it
-    (per-frame ``encode_step`` with carried caches): (N * T_code, D)."""
-    cache, zs = gen.init_cache(1), []
+    """The projector output of each frame of frames (N, B, F, 1) as the
+    eager route computes it (per-frame ``encode_step`` with carried caches):
+    (N, B, T_code, D)."""
+    cache, zs = gen.init_cache(frames.shape[1]), []
     with torch.no_grad():
         for frame in frames:
             z, enc_cache = gen.encode_step(cache, frame)
             cache.update(enc_cache)
-            zs.append(z[0])
-    return torch.cat(zs)
+            zs.append(z)
+    return torch.stack(zs)
 
 
 def codec_vq_state(gen) -> VQState:
@@ -518,8 +655,8 @@ def held_codes(what, z, tables, codes, ref):
     frames before the first differing one (the audio is compared there)."""
     n_frames, z_rows, n_books = ref.shape
     books, sqnorm, _ = tables
-    held = rvq_near_ties(z, books, sqnorm, codes.reshape(-1, n_books),
-                         ref.reshape(-1, n_books), CODE_RTOL)
+    held = rvq_near_ties(z.reshape(-1, z.shape[-1]), books, sqnorm,
+                         codes.reshape(-1, n_books), ref.reshape(-1, n_books), CODE_RTOL)
     require(held["mismatches"] == 0, f"{what}: codes disagree beyond near ties: {held}")
     differ = (codes != ref).reshape(n_frames, -1).any(1).nonzero()
     agree = int(differ[0, 0]) if differ.numel() else n_frames
@@ -541,7 +678,8 @@ def codec_path(gen, vq, tables):
         pass  # it does not give way to the plain modules on the card
     run = make_scan_stream(gen, vq, frame_size=FRAME, weight_dtype=torch.float32)
     require(run.backend == "cuda", f"'auto' resolved to {run.backend!r}, not 'cuda'")
-    (out, codes), launches = counted("codec", KERNELS,
+    (out, codes), launches = counted("codec", LAUNCHES_PER_DISPATCH["codec"],
+                                     len(MAIN_FRAMES), KERNELS,
                                      lambda: stream_codes(run, frames, MAIN_FRAMES))
     require(out.shape == frames.shape and bool(torch.isfinite(out).all()),
             f"codec output {tuple(out.shape)} not finite or not the frames' shape")
@@ -602,6 +740,155 @@ def codec_path(gen, vq, tables):
                       "eager_max_abs": float(ref.abs().max())}
 
 
+# ---------------------------------------------------------------- many streams
+
+
+def eager_asymmetric(tx, vq, rx, rx_vq, frames):
+    """The asymmetric codec receiver composed of plain modules, frame by
+    frame on B streams: ``tx`` encodes and quantizes with ``vq``, ``rx``
+    looks the codes up in ``rx_vq`` and decodes. (audio, codes (N, B,
+    T_code, L))."""
+    batch = frames.shape[1]
+    tx_cache, rx_cache = tx.init_cache(batch), rx.init_cache(batch)
+    flat_cb, outs, codes = rx.flat_codebook(rx_vq), [], []
+    with torch.no_grad():
+        for frame in frames:
+            z, enc_cache = tx.encode_step(tx_cache, frame)
+            tx_cache.update(enc_cache)
+            idx = tx.quantize(vq, z)
+            codes.append(idx.permute(1, 2, 0))
+            y, dec_cache = rx.decode_step(rx_cache, rx.lookup(flat_cb, idx))
+            rx_cache.update(dec_cache)
+            outs.append(y)
+    return torch.stack(outs), torch.stack(codes)
+
+
+def per_stream(what, z, tables, out, codes, ref, ref_codes):
+    """Hold each stream of ``out`` (N, B, F, 1) against ``ref``: with PQC
+    the codes (N, B, T_code, L) up to near ties along the reference's ``z``,
+    and the audio at MAIN_ATOL_F32 over the frames before a stream's first
+    differing code (a near tie changes the audio after it). At least half
+    of all stream-frames must be compared."""
+    n, batch = out.shape[:2]
+    err, ties, compared = 0.0, 0, 0
+    for b in range(batch):
+        agree = n
+        if codes is not None:
+            books, sqnorm, _ = tables
+            held = rvq_near_ties(z[:, b].reshape(-1, z.shape[-1]), books, sqnorm,
+                                 codes[:, b].reshape(-1, codes.shape[-1]),
+                                 ref_codes[:, b].reshape(-1, codes.shape[-1]), CODE_RTOL)
+            require(held["mismatches"] == 0, f"{what} stream {b}: codes disagree beyond "
+                    f"near ties: {held}")
+            ties += held["ties"]
+            differ = (codes[:, b] != ref_codes[:, b]).reshape(n, -1).any(1).nonzero()
+            agree = int(differ[0, 0]) if differ.numel() else n
+        if agree:
+            err = max(err, float((out[:agree, b] - ref[:agree, b]).abs().max()))
+        compared += agree
+    log(f"{what}: {batch} streams, max|err|={err:.3e} over {compared} of {n * batch} "
+        f"stream-frames" + (f", {ties} near-tie code rows" if codes is not None else ""))
+    require(err <= MAIN_ATOL_F32, f"{what}: max|err| {err} > {MAIN_ATOL_F32}")
+    require(2 * compared >= n * batch, f"{what}: near ties left {compared} stream-frames")
+    return {"max_abs_err": err, "near_tie_rows": ties, "stream_frames_compared": compared}
+
+
+def multi_stream_path(path, gen, vq, tables, rx=None):
+    """Phase 3, BATCH streams of ``path`` ('denoiser' or 'codec') with f32
+    weights through ``make_scan_stream(batch=BATCH)`` and the one-card
+    ``make_sharded_stream``, each run with the launch counts set to 0
+    before and read after. ``rx`` is the asymmetric receiver's (codec,
+    books). Returns the launch counts of both runs and the checks."""
+    use_pqc = vq is not None
+    kernels = KERNELS if use_pqc else DENOISER_KERNELS
+    per_dispatch = LAUNCHES_PER_DISPATCH[path]
+    frames = frames_for_streams(sum(MULTI_FRAMES), BATCH, SEED + 20)
+    n = frames.shape[0]
+    run = make_scan_stream(gen, vq, batch=BATCH, frame_size=FRAME,
+                           weight_dtype=torch.float32)
+    require(run.backend == "cuda", f"'auto' resolved to {run.backend!r} for {BATCH} "
+            "streams, not 'cuda'")
+
+    def drive(r, x):
+        return stream_codes(r, x, MULTI_FRAMES) if use_pqc else (
+            stream(r, x, MULTI_FRAMES), None)
+
+    (out, codes), launches = counted(f"{path} x{BATCH}", per_dispatch, len(MULTI_FRAMES),
+                                     kernels, lambda: drive(run, frames))
+    require(out.shape == frames.shape and bool(torch.isfinite(out).all()),
+            f"{path} x{BATCH}: output {tuple(out.shape)} not finite or not the frames' shape")
+    if use_pqc:
+        require(codes.dtype == torch.int32 and tuple(codes.shape) == (
+            n, BATCH, FRAME // gen.hop, vq.embed.shape[0]), f"codes {tuple(codes.shape)}")
+    z = streamed_z(gen, frames) if use_pqc else None
+    checks = {}
+
+    single = make_scan_stream(gen, vq, frame_size=FRAME, weight_dtype=torch.float32)
+    singles = [drive(single, frames[:, b:b + 1]) for b in range(BATCH)]
+    ref = torch.cat([o for o, _ in singles], 1)
+    ref_codes = torch.stack([c for _, c in singles], 1) if use_pqc else None
+    checks["vs_single_stream_cuda"] = per_stream(
+        f"{path} x{BATCH} vs {BATCH} single-stream 'cuda' runs", z, tables, out, codes,
+        ref, ref_codes)
+
+    eager = make_scan_stream(gen, vq, batch=BATCH, backend="eager")
+    require(eager.backend == "eager", "eager route not taken")
+    ref, ref_codes = drive(eager, frames)
+    checks["vs_batched_eager"] = per_stream(
+        f"{path} x{BATCH} vs the batched eager route", z, tables, out, codes, ref, ref_codes)
+
+    fleet = make_sharded_stream(gen, vq, batch=BATCH)
+    out_fleet, fleet_launches = counted(f"{path} fleet x{BATCH}", per_dispatch,
+                                        len(MULTI_FRAMES), kernels,
+                                        lambda: stream(fleet, frames, MULTI_FRAMES))
+    require(torch.equal(out_fleet, out), f"{path}: make_sharded_stream differs from "
+            f"make_scan_stream(batch={BATCH})")
+    log(f"{path} make_sharded_stream x{BATCH} equals make_scan_stream(batch={BATCH}) "
+        "bit for bit")
+
+    if rx is not None:
+        rx_gen, rx_vq = rx
+        asym = make_sharded_stream(gen, vq, batch=BATCH, rx_gen=rx_gen, rx_vq_state=rx_vq)
+        out_asym = stream(asym, frames, MULTI_FRAMES)
+        ref, ref_codes = eager_asymmetric(gen, vq, rx_gen, rx_vq, frames)
+        # the fleet's encoder half is the scan stream's: its codes are `codes`
+        checks["asymmetric_rx_vs_eager"] = per_stream(
+            f"{path} asymmetric receiver x{BATCH} vs its eager composition", z, tables,
+            out_asym, codes, ref, ref_codes)
+    return {"scan": launches, "fleet": fleet_launches}, checks
+
+
+def timed_shapes_held(path, gen, vq, tables):
+    """Phase 3, every (B, N) that phase 4c times: one dispatch of B streams
+    of N frames from zero caches through ``make_scan_stream(batch=B)`` with
+    f32 weights, held per stream against the batched eager route on the same
+    frames (the frames phase 4c times)."""
+    use_pqc = vq is not None
+    checks = {}
+    for batch in TIME_BATCHES:
+        run = make_scan_stream(gen, vq, batch=batch, frame_size=FRAME,
+                               weight_dtype=torch.float32)
+        require(run.backend == "cuda", f"{path} x{batch}: 'auto' took {run.backend!r}")
+        eager = make_scan_stream(gen, vq, batch=batch, backend="eager")
+        for n in BATCH_SIZES:
+            frames = frames_for_streams(n, batch, SEED + 30)
+            if use_pqc:
+                (out, codes), (ref, ref_codes) = (stream_codes(r, frames, (n,))
+                                                  for r in (run, eager))
+                if batch == 1:  # one stream's codes come as (N, T_code, L)
+                    codes, ref_codes = codes[:, None], ref_codes[:, None]
+            else:
+                out, ref = (stream(r, frames, (n,)) for r in (run, eager))
+                codes = ref_codes = None
+            require(out.shape == frames.shape and bool(torch.isfinite(out).all()),
+                    f"{path} x{batch} N={n}: output {tuple(out.shape)}")
+            z = streamed_z(gen, frames) if use_pqc else None
+            checks[f"B{batch}_N{n}"] = per_stream(
+                f"{path} x{batch} N={n} vs the batched eager route", z, tables, out, codes,
+                ref, ref_codes)
+    return checks
+
+
 # ---------------------------------------------------------------- times
 
 
@@ -630,18 +917,18 @@ def throughput(run, n_frames: int, reps: int):
             "rtf": ms / 1e3 / audio_s}
 
 
-def device_profile(run, latency_ms: float, n_reps: int = 50):
-    """Device time of one 1-frame dispatch, from a ``torch.profiler`` trace
-    of ``n_reps`` dispatches: in all, per port kernel and in other device
-    work (cache tails, copies), and its share of the unprofiled median
-    latency. None where the trace shows no device time."""
-    frames = frames_for(n_reps + 1, SEED + 3)
-    _, cache = run(run.init_cache(), frames[:1])
+def device_profile(run, frames, wall_ms: float, n_reps: int = 50):
+    """Device time of one dispatch of ``frames``, from a ``torch.profiler``
+    trace of ``n_reps`` dispatches with the cache carried: in all, per port
+    kernel and in other device work (cache tails, layout copies), and its
+    share of the unprofiled wall time ``wall_ms`` of a dispatch. None where
+    the trace shows no device time."""
+    _, cache = run(run.init_cache(), frames)
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
-        for i in range(1, n_reps + 1):
-            _, cache = run(cache, frames[i:i + 1])
+        for _ in range(n_reps):
+            _, cache = run(cache, frames)
         torch.cuda.synchronize()
     device = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -651,41 +938,142 @@ def device_profile(run, latency_ms: float, n_reps: int = 50):
     kernels_ms = {name: sum(e.self_device_time_total for e in device
                             if f"{name}_kernel" in e.key) / 1e3 / n_reps
                   for name in KERNELS}
-    return {"device_ms_per_dispatch": device_ms, "busy_share": device_ms / latency_ms,
+    return {"device_ms_per_dispatch": device_ms, "busy_share": device_ms / wall_ms,
             "kernels_ms_per_dispatch": kernels_ms,
             "other_ms_per_dispatch": device_ms - sum(kernels_ms.values())}
 
 
-def time_kernels(site_fn, names):
-    """Phase 4b: each of ``names`` summed over its sites of one dispatch;
-    ``site_fn(n_frames, weight_dtype)`` gives the sites."""
+def time_kernels(site_fn, names, sizes=None):
+    """Phase 4b: each of ``names`` summed over its sites of one dispatch, at
+    each (frames per dispatch, repetitions) of ``sizes`` (by default 1, 100
+    and 400 frames); ``site_fn(n_frames, weight_dtype)`` gives the sites."""
     report = {}
-    for n_frames, reps in ((1, 50), (DISPATCH, 20), (THROUGHPUT_FRAMES, 10)):
+    for n_frames, reps in sizes or ((1, 50), (DISPATCH, 20), (THROUGHPUT_FRAMES, 10)):
         per_kernel = {name: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
                              "library_ms": None, "ops": 0.0, "bytes": 0.0, "sites": {}}
                       for name in names}
-        for kernel, site, run_kernel, run_plain, run_lib, flops, nb in site_fn(
-                n_frames, torch.bfloat16):
-            k_ms, p_ms = gpu_ms(run_kernel, reps), gpu_ms(run_plain, reps)
-            l_ms = None if run_lib is None else gpu_ms(run_lib, reps)
-            b_ms, b_by = bound_ms(flops, nb)
-            agg = per_kernel[kernel]
+        for st in site_fn(n_frames, torch.bfloat16):
+            k_ms, p_ms = gpu_ms(st.run, reps), gpu_ms(st.plain, reps)
+            l_ms = None if st.lib is None else gpu_ms(st.lib, reps)
+            b_ms, b_by = bound_ms(st.flops, st.bytes)
+            agg = per_kernel[st.kernel]
             agg["ms"] += k_ms
             agg["plain_ms"] += p_ms
             agg["bound_ms"] += b_ms
-            agg["ops"] += flops
-            agg["bytes"] += nb
+            agg["ops"] += st.flops
+            agg["bytes"] += st.bytes
             if l_ms is not None:
                 agg["library_ms"] = (agg["library_ms"] or 0.0) + l_ms
-            agg["sites"][site] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
-                                  "bound_ms": b_ms, "bound_by": b_by}
-            log(f"time {kernel:22s} {site:7s} frames={n_frames:<4d} kernel={k_ms:.4f} ms "
+            agg["sites"][st.site] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
+                                     "bound_ms": b_ms, "bound_by": b_by}
+            log(f"time {st.kernel:22s} {st.site:7s} frames={n_frames:<4d} kernel={k_ms:.4f} ms "
                 f"plain={p_ms:.4f} ms library={l_ms if l_ms is None else round(l_ms, 4)} "
                 f"bound={b_ms:.4f} ms ({b_by})")
         for agg in per_kernel.values():
             t_ops, t_bytes = agg["ops"] / F32_FLOPS, agg["bytes"] / HBM_BYTES_PER_S
             agg["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
         report[n_frames] = per_kernel
+    return report
+
+
+def dispatch_ms(run, frames, reps: int) -> float:
+    """Median wall ms of ``run(cache, frames)`` with the cache carried (host
+    clock around the call and a synchronize), after two warm-up calls."""
+    cache, walls = run.init_cache(), []
+    for i in range(reps + 2):
+        t0 = time.perf_counter()
+        _, cache = run(cache, frames)
+        torch.cuda.synchronize()
+        if i >= 2:
+            walls.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(walls)
+
+
+def cache_memory(run, frames) -> dict:
+    """Card memory of one dispatch from zero caches: the bytes its returned
+    cache keeps allocated (the storages its entries are views of, which
+    stay alive until the next dispatch), the bytes of the entries
+    themselves, and the dispatch's peak allocation above what was allocated
+    before it."""
+    cache = run.init_cache()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _, cache = run(cache, frames)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before
+    held = {t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()
+            for t in cache.values()}
+    return {"cache_held_bytes": sum(held.values()),
+            "cache_own_bytes": sum(t.numel() * t.element_size() for t in cache.values()),
+            "dispatch_peak_bytes": peak}
+
+
+def single_streams(single, batch: int):
+    """B streams served as B single-stream dispatches of ``single``, each
+    with its own cache, behind the batched route's ``run(cache, frames)``."""
+
+    def run(caches, frames):
+        outs, new = [], []
+        for b, cache in enumerate(caches):
+            y, cache = single(cache, frames[:, b:b + 1])
+            outs.append(y)
+            new.append(cache)
+        return outs, new
+
+    run.init_cache = lambda: [single.init_cache() for _ in range(batch)]
+    return run
+
+
+def chain_plans(gen, batch: int, n_frames: int) -> dict:
+    """The residual chain's (tile, cluster) at each encoder level for
+    ``batch`` streams of ``n_frames`` frames (the decoder's mirror them)."""
+    plans, t = {}, n_frames * FRAME
+    for bi, blk in enumerate(gen.encoder.blocks):
+        plans[f"e{bi}ch"] = _chain_plan(batch, t, blk.conv.in_channels, DILATIONS)
+        t //= blk.conv.stride
+    return plans
+
+
+def multi_stream_times(path, gen, vq):
+    """Phase 4c: per-stream-frame time (median wall time of a dispatch over
+    B * N) of B streams at N frames per dispatch, for B in TIME_BATCHES and N
+    in BATCH_SIZES, through the kernel route (bf16 weights), the batched
+    eager route and B single-stream kernel dispatches; the kernel route's
+    busy share (torch.profiler) and the launches of one of its dispatches,
+    which must be the path's 18 or 22 at every B."""
+    kernels = KERNELS if vq is not None else DENOISER_KERNELS
+    single = make_scan_stream(gen, vq, frame_size=FRAME)
+    report = {}
+    for batch in TIME_BATCHES:
+        run = make_scan_stream(gen, vq, batch=batch, frame_size=FRAME)
+        require(run.backend == "cuda", f"{path} x{batch}: 'auto' took {run.backend!r}")
+        eager = make_scan_stream(gen, vq, batch=batch, backend="eager")
+        for n in BATCH_SIZES:
+            frames = frames_for_streams(n, batch, SEED + 30)
+            counted(f"{path} x{batch} N={n} (one timing dispatch)",
+                    LAUNCHES_PER_DISPATCH[path], 1, kernels,
+                    lambda: run(run.init_cache(), frames))
+            k_ms = dispatch_ms(run, frames, 30 if n == 1 else 10)
+            e_ms = dispatch_ms(eager, frames, 10 if n == 1 else 3)
+            s_ms = dispatch_ms(single_streams(single, batch), frames, 10 if n == 1 else 3)
+            prof = device_profile(run, frames, k_ms, 20 if n == 1 else 5)
+            mem = cache_memory(run, frames)
+            per = 1e3 / (batch * n)
+            entry = {"streams": batch, "frames": n, "kernel_ms": k_ms, "eager_ms": e_ms,
+                     "single_streams_ms": s_ms,
+                     "us_per_stream_frame": {"kernel": k_ms * per, "eager": e_ms * per,
+                                             "single_streams": s_ms * per},
+                     "busy_share": prof["busy_share"] if prof else None, "device": prof,
+                     "memory": mem, "chain_plans": chain_plans(gen, batch, n)}
+            log(f"{path} B={batch:<3d} N={n:<3d} us per stream-frame: kernel "
+                f"{k_ms * per:.2f}, eager {e_ms * per:.2f}, {batch} single-stream "
+                f"dispatches {s_ms * per:.2f}; kernel route busy share "
+                + (f"{prof['busy_share']:.3f}" if prof else "not measured")
+                + f"; chain (tile, cluster) {entry['chain_plans']}; cache holds "
+                f"{mem['cache_held_bytes']} B for its own {mem['cache_own_bytes']} B, "
+                f"dispatch peak {mem['dispatch_peak_bytes']} B")
+            report[f"B{batch}_N{n}"] = entry
     return report
 
 
@@ -725,15 +1113,33 @@ def main() -> int:
         f"{codec.receptive_length}")
     rng = torch.Generator(device=DEVICE).manual_seed(SEED)
     # real projector outputs of the codec for the search's checks and times
-    z_real = streamed_z(codec, frames_for(THROUGHPUT_FRAMES, SEED + 4).reshape(1, 1, -1, 1))
+    z_real = streamed_z(codec, frames_for(Z_FRAMES, SEED + 4).reshape(1, 1, -1, 1))
+    z_real = z_real.reshape(-1, z_real.shape[-1])
+
+    rx_codec = AudioDecGenerator(**codec_gp, use_pqc=True, seed=SEED + 1, device=DEVICE)
+    rx_vq = codec_vq_state(rx_codec)
 
     log("phase 2: kernels vs plain versions")
     worst = check_kernels(gen, rng)
     codec_worst, codec_ties = check_codec_kernels(codec, tables, z_real, rng)
+    batched_worst, batched_ties = check_batched_kernels(gen, codec, tables, z_real, rng)
 
     log("phase 3: main paths")
     launches, main_errs = main_path(gen)
     codec_launches, codec_errs = codec_path(codec, vq, tables)
+    multi_launches, multi_checks = {}, {}
+    multi_launches["denoiser"], multi_checks["denoiser"] = multi_stream_path(
+        "denoiser", gen, None, None)
+    multi_launches["codec"], multi_checks["codec"] = multi_stream_path(
+        "codec", codec, vq, tables, rx=(rx_codec, rx_vq))
+    multi_checks["denoiser"]["timed_shapes_vs_batched_eager"] = timed_shapes_held(
+        "denoiser", gen, None, None)
+    multi_checks["codec"]["timed_shapes_vs_batched_eager"] = timed_shapes_held(
+        "codec", codec, vq, tables)
+    by_path = {"denoiser": launches, "codec": codec_launches}
+    for path, runs in multi_launches.items():
+        for kind, counts in runs.items():
+            by_path[f"{path} {kind} x{BATCH}"] = counts
 
     log("phase 4: times")
     cuda_run = make_scan_stream(gen, frame_size=FRAME)
@@ -746,7 +1152,8 @@ def main() -> int:
     }
     for key, val in times.items():
         log(key, json.dumps(val))
-    profile = device_profile(cuda_run, times["latency_n1_cuda"]["median_ms"])
+    profile = device_profile(cuda_run, frames_for(1, SEED + 3),
+                             times["latency_n1_cuda"]["median_ms"])
     times["device_n1_cuda"] = profile
     log("device_n1_cuda", json.dumps(profile) if profile
         else "not measured (the profiler trace shows no device time)")
@@ -761,7 +1168,8 @@ def main() -> int:
     }
     for key, val in codec_times.items():
         log(key, json.dumps(val))
-    codec_profile = device_profile(codec_run, codec_times["latency_n1_codec"]["median_ms"])
+    codec_profile = device_profile(codec_run, frames_for(1, SEED + 3),
+                                   codec_times["latency_n1_codec"]["median_ms"])
     codec_times["device_n1_codec"] = codec_profile
     log("device_n1_codec", json.dumps(codec_profile) if codec_profile
         else "not measured (the profiler trace shows no device time)")
@@ -769,6 +1177,14 @@ def main() -> int:
     codec_ktimes = time_kernels(
         lambda n, wd: codec_sites(codec, tables, z_real, n, wd, rng),
         ("causal_conv", "rvq_assign", "codebook_lookup"))
+    batch_sizes = ((1, 20), (BATCH_SIZES[1], 10))
+    ktimes_b = time_kernels(lambda n, wd: sites(gen, n, wd, rng, BATCH), DENOISER_KERNELS,
+                            batch_sizes)
+    codec_ktimes_b = time_kernels(
+        lambda n, wd: codec_sites(codec, tables, z_real, n, wd, rng, BATCH),
+        ("causal_conv", "rvq_assign", "codebook_lookup"), batch_sizes)
+    multi_times = {"denoiser": multi_stream_times("denoiser", gen, None),
+                   "codec": multi_stream_times("codec", codec, vq)}
 
     name_power = card()
     entries = []
@@ -776,13 +1192,15 @@ def main() -> int:
         first_path = "denoiser" if name in DENOISER_KERNELS else "codec"
         kt = ktimes if name in DENOISER_KERNELS else codec_ktimes
         prof = profile if name in DENOISER_KERNELS else codec_profile
+        kt_b = ktimes_b if name in DENOISER_KERNELS else codec_ktimes_b
         agg1, agg, agg400 = (kt[n][name] for n in SIZES)
         entry = {
             "name": name, "route": "cuda", "source": spec["source"],
             "replaces": spec["replaces"],
-            "launches": launches[name] + codec_launches[name],
-            "launches_by_path": {"denoiser": launches[name], "codec": codec_launches[name]},
-            "max_abs_err": (worst[name] if name in DENOISER_KERNELS else 0.0),
+            "launches": sum(counts[name] for counts in by_path.values()),
+            "launches_by_path": {path: counts[name] for path, counts in by_path.items()},
+            "max_abs_err": max(batched_worst[name],
+                               worst[name] if name in DENOISER_KERNELS else 0.0),
             "ms": agg["ms"], "plain_ms": agg["plain_ms"],
             "bound_ms": agg["bound_ms"], "bound_by": agg["bound_by"],
             "library_ms": agg["library_ms"],
@@ -796,24 +1214,35 @@ def main() -> int:
             f"plain_ms_{THROUGHPUT_FRAMES}frames": agg400["plain_ms"],
             f"bound_ms_{THROUGHPUT_FRAMES}frames": agg400["bound_ms"],
             f"library_ms_{THROUGHPUT_FRAMES}frames": agg400["library_ms"],
+            f"streams_{BATCH}": {
+                f"frames_{n}": {key: kt_b[n][name][key] for key in
+                                ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+                for n in BATCH_SIZES},
         }
         if name in codec_worst:
             entry["max_abs_err"] = max(entry["max_abs_err"], codec_worst[name])
         if name == "rvq_assign":
             entry["max_abs_err_is"] = "largest distance excess of a near-tie pick"
-            entry["near_tie_rows"] = codec_ties
+            entry["near_tie_rows"] = codec_ties + batched_ties
             entry["code_mismatches"] = 0
         if name == "causal_conv":
             entry["codec_sites"] = {str(n): codec_ktimes[n]["causal_conv"]["sites"]
                                     for n in SIZES}
+            entry[f"codec_sites_streams_{BATCH}"] = {
+                str(n): codec_ktimes_b[n]["causal_conv"]["sites"] for n in BATCH_SIZES}
         entries.append(entry)
     report = {"card": name_power, "seconds": time.perf_counter() - started,
               "main_path_errors": main_errs, "codec_path_checks": codec_errs,
+              "multi_stream_checks": multi_checks, "multi_stream_times": multi_times,
               "times": times, "kernels": entries,
               "kernel_sites": {str(n): {k: v["sites"] for k, v in agg.items()}
                                for n, agg in ktimes.items()},
               "codec_kernel_sites": {str(n): {k: v["sites"] for k, v in agg.items()}
-                                     for n, agg in codec_ktimes.items()}}
+                                     for n, agg in codec_ktimes.items()},
+              f"kernel_sites_streams_{BATCH}": {
+                  str(n): {k: v["sites"] for k, v in agg.items()}
+                  for n, agg in (*ktimes_b.items(), *(
+                      (f"codec {n}", a) for n, a in codec_ktimes_b.items()))}}
     os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)

@@ -10,6 +10,15 @@
 // dl_speech_enhancement_tpu/ops/mega_kernel.py::make_mega_stream.enc_kernel
 // (input conv, downsamples) and .dec_kernel (output conv) evaluate in VMEM.
 //
+// B independent streams run in one launch: cache (B, (k-1)*d, Cin) with stream
+// stride `cache_bs` floats (rows contiguous), x (B, T, Cin), out (B, T/s, Cout).
+// The GEMM's M dimension is B * T/s; the A loader maps row m to (stream m /
+// (T/s), time m % (T/s)), so a window reads only its own stream's cache and
+// input, and at one frame per dispatch the deep downsamples get B times the
+// 4-20 rows of one stream. The division m / (T/s) is an integer division
+// per loaded element; it is compiled out for one stream (kStreams = false),
+// which then runs the arithmetic of the single-stream kernel.
+//
 // What bounds it: the downsamples are operation-bound (k*Cin*Cout
 // multiply-adds per output row against Cin*s + Cout floats moved); the input
 // and output convs are byte-bound (one input or output channel). Design: a
@@ -21,52 +30,61 @@
 
 namespace dse {
 
-template <int BN, typename WT>
+template <int BN, typename WT, bool kStreams>
 __global__ void __launch_bounds__(kThreads)
 causal_conv_kernel(const float* __restrict__ cache, const float* __restrict__ x,
                    const WT* __restrict__ w, const float* __restrict__ bias,
-                   float* __restrict__ out, int T_out, int Cin, int Cout, int taps, int stride,
-                   int dil) {
+                   float* __restrict__ out, long long cache_bs, int M, int T_out, int Cin,
+                   int Cout, int taps, int stride, int dil) {
   extern __shared__ __align__(16) float smem[];
   const int P = (taps - 1) * dil;
+  const int T_in = T_out * stride;
   const int m0 = blockIdx.x * Tile<BN>::BM;
   const int n0 = blockIdx.y * BN;
   tile_gemm<BN, WT>(
-      m0, min(Tile<BN>::BM, T_out - m0), n0, min(BN, Cout - n0), taps, Cin, Cout, smem,
+      m0, min(Tile<BN>::BM, M - m0), n0, min(BN, Cout - n0), taps, Cin, Cout, smem,
       [&](int m, int j, int c0, int kk) {
-        const int e = m * stride + j * dil, c = c0 + kk;
-        return e < P ? cache[(size_t)e * Cin + c] : x[(size_t)(e - P) * Cin + c];
+        const int b = kStreams ? m / T_out : 0;
+        const int e = (m - b * T_out) * stride + j * dil, c = c0 + kk;
+        return e < P ? cache[(size_t)b * cache_bs + (size_t)e * Cin + c]
+                     : x[((size_t)b * T_in + e - P) * Cin + c];
       },
       [&](int j) { return w + (size_t)j * Cin * Cout; },
       [&](int m, int n, float v) { out[(size_t)m * Cout + n] = bias ? v + bias[n] : v; });
 }
 
 template <int BN, typename WT>
-cudaError_t launch(const float* cache, const float* x, const void* w, const float* bias,
-                   float* out, int T_out, int Cin, int Cout, int taps, int stride, int dil,
-                   cudaStream_t stream) {
-  const dim3 grid((T_out + Tile<BN>::BM - 1) / Tile<BN>::BM, (Cout + BN - 1) / BN);
-  causal_conv_kernel<BN, WT><<<grid, kThreads, tile_smem_bytes(BN), stream>>>(
-      cache, x, static_cast<const WT*>(w), bias, out, T_out, Cin, Cout, taps, stride, dil);
+cudaError_t launch(const float* cache, long long cache_bs, const float* x, const void* w,
+                   const float* bias, float* out, int M, int T_out, int Cin, int Cout, int taps,
+                   int stride, int dil, cudaStream_t stream) {
+  const dim3 grid((M + Tile<BN>::BM - 1) / Tile<BN>::BM, (Cout + BN - 1) / BN);
+  auto kernel = M > T_out ? causal_conv_kernel<BN, WT, true>
+                          : causal_conv_kernel<BN, WT, false>;
+  kernel<<<grid, kThreads, tile_smem_bytes(BN), stream>>>(
+      cache, x, static_cast<const WT*>(w), bias, out, cache_bs, M, T_out, Cin, Cout, taps,
+      stride, dil);
   return cudaGetLastError();
 }
 
 }  // namespace dse
 
-extern "C" int dse_causal_conv(const float* cache, const float* x, const void* w,
-                               const float* bias, float* out, int T_out, int Cin, int Cout,
-                               int taps, int stride, int dil, int bf16, void* stream) {
+extern "C" int dse_causal_conv(const float* cache, long long cache_bs, const float* x,
+                               const void* w, const float* bias, float* out, int B, int T_out,
+                               int Cin, int Cout, int taps, int stride, int dil, int bf16,
+                               void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (T_out <= 0 || Cin <= 0 || Cout <= 0 || taps <= 0 || stride <= 0 || dil <= 0)
+  if (B <= 0 || T_out <= 0 || Cin <= 0 || Cout <= 0 || taps <= 0 || stride <= 0 || dil <= 0 ||
+      (long long)B * T_out * stride > 0x7fffffffLL)
     return cudaErrorInvalidValue;
+  const int M = B * T_out;
   const bool narrow = dse::tile_bn(Cout) == 32;
   if (bf16)
-    return narrow ? dse::launch<32, __nv_bfloat16>(cache, x, w, bias, out, T_out, Cin, Cout,
-                                                   taps, stride, dil, s)
-                  : dse::launch<64, __nv_bfloat16>(cache, x, w, bias, out, T_out, Cin, Cout,
-                                                   taps, stride, dil, s);
-  return narrow ? dse::launch<32, float>(cache, x, w, bias, out, T_out, Cin, Cout, taps, stride,
-                                         dil, s)
-                : dse::launch<64, float>(cache, x, w, bias, out, T_out, Cin, Cout, taps, stride,
-                                         dil, s);
+    return narrow ? dse::launch<32, __nv_bfloat16>(cache, cache_bs, x, w, bias, out, M, T_out,
+                                                   Cin, Cout, taps, stride, dil, s)
+                  : dse::launch<64, __nv_bfloat16>(cache, cache_bs, x, w, bias, out, M, T_out,
+                                                   Cin, Cout, taps, stride, dil, s);
+  return narrow ? dse::launch<32, float>(cache, cache_bs, x, w, bias, out, M, T_out, Cin, Cout,
+                                         taps, stride, dil, s)
+                : dse::launch<64, float>(cache, cache_bs, x, w, bias, out, M, T_out, Cin, Cout,
+                                         taps, stride, dil, s);
 }

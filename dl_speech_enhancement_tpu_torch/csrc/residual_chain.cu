@@ -14,8 +14,13 @@
 // above the card's f32 balance point, and its weights (<= 2.4 MB per chain in
 // f32) stay in L2 across blocks.
 //
-// Design: one thread-block cluster per output time tile. The tile plus its
-// halo is loaded once into shared memory and the three units run there, each
+// B independent streams run in one launch: cache (B, halo, C) with stream
+// stride `cache_bs` floats (rows contiguous, so a cache may be a view into the
+// previous activation), x and out (B, T, C). Each stream's halo comes from its
+// own cache and no window crosses a stream: a tile never spans two streams.
+//
+// Design: one thread-block cluster per (stream, output time tile). The tile
+// plus its halo is loaded once into shared memory and the three units run there, each
 // as two block GEMMs (tile_gemm.cuh) after one pass that writes E = ELU(X);
 // the residual stream X, E and the conv output H never leave shared memory,
 // and only the tile's final rows are written back. The halo is recomputed by
@@ -43,8 +48,8 @@ template <int BN, typename WT>
 __global__ void __launch_bounds__(kThreads)
 residual_chain_kernel(const float* __restrict__ cache, const float* __restrict__ x,
                       const WT* __restrict__ w1, const WT* __restrict__ w2,
-                      float* __restrict__ out, int T, int C, int d0, int d1, int d2,
-                      int tile) {
+                      float* __restrict__ out, long long cache_bs, int T, int C, int d0,
+                      int d1, int d2, int tile) {
   extern __shared__ __align__(16) float smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int n_blocks = (int)cluster.num_blocks();
@@ -53,7 +58,12 @@ residual_chain_kernel(const float* __restrict__ cache, const float* __restrict__
   const int c_base = rank * nc;
   const int dil[3] = {d0, d1, d2};
   const int halo = (kTaps - 1) * (d0 + d1 + d2);
-  const int t0 = (blockIdx.x / n_blocks) * tile;
+  const int n_tiles = (T + tile - 1) / tile;
+  const int b = (blockIdx.x / n_blocks) / n_tiles;  // this cluster's stream
+  const int t0 = (blockIdx.x / n_blocks - b * n_tiles) * tile;
+  cache += (size_t)b * cache_bs;
+  x += (size_t)b * T * C;
+  out += (size_t)b * T * C;
   const int count = min(tile, T - t0);
   const int rows = count + halo;
   float* stage = smem;
@@ -105,9 +115,9 @@ residual_chain_kernel(const float* __restrict__ cache, const float* __restrict__
 }
 
 template <int BN, typename WT>
-cudaError_t launch(const float* cache, const float* x, const void* w1, const void* w2,
-                   float* out, int T, int C, int d0, int d1, int d2, int tile, int cluster,
-                   size_t smem, cudaStream_t stream) {
+cudaError_t launch(const float* cache, long long cache_bs, const float* x, const void* w1,
+                   const void* w2, float* out, int B, int T, int C, int d0, int d1, int d2,
+                   int tile, int cluster, size_t smem, cudaStream_t stream) {
   static size_t configured = 0;
   auto kernel = residual_chain_kernel<BN, WT>;
   cudaError_t err = allow_smem(kernel, smem, &configured);
@@ -118,14 +128,14 @@ cudaError_t launch(const float* cache, const float* x, const void* w1, const voi
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(((T + tile - 1) / tile) * cluster);
+  cfg.gridDim = dim3(B * ((T + tile - 1) / tile) * cluster);
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   err = cudaLaunchKernelEx(&cfg, kernel, cache, x, static_cast<const WT*>(w1),
-                           static_cast<const WT*>(w2), out, T, C, d0, d1, d2, tile);
+                           static_cast<const WT*>(w2), out, cache_bs, T, C, d0, d1, d2, tile);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -147,23 +157,25 @@ extern "C" int dse_residual_chain_block_rows(int C, int cluster) {
   return dse::tile_bm(dse::tile_bn(C / cluster));
 }
 
-extern "C" int dse_residual_chain(const float* cache, const float* x, const void* w1,
-                                  const void* w2, float* out, int T, int C, int d0, int d1,
-                                  int d2, int tile, int cluster, int bf16, void* stream) {
+extern "C" int dse_residual_chain(const float* cache, long long cache_bs, const float* x,
+                                  const void* w1, const void* w2, float* out, int B, int T,
+                                  int C, int d0, int d1, int d2, int tile, int cluster, int bf16,
+                                  void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (T <= 0 || tile <= 0 || C <= 0 || cluster < 1 || cluster > dse::kMaxCluster ||
-      C % cluster != 0 || (cluster > 1 && (C / cluster) % dse::kBK != 0))
+  if (B <= 0 || T <= 0 || tile <= 0 || C <= 0 || cluster < 1 || cluster > dse::kMaxCluster ||
+      C % cluster != 0 || (cluster > 1 && (C / cluster) % dse::kBK != 0) ||
+      (long long)B * ((T + tile - 1) / tile) * cluster > 0x7fffffffLL)
     return cudaErrorInvalidValue;
   const size_t smem = dse_residual_chain_smem(tile, C, cluster, d0, d1, d2);
   if (smem > 232448) return cudaErrorInvalidValue;
   const bool narrow = dse::tile_bn(C / cluster) == 32;
   if (bf16)
-    return narrow ? dse::launch<32, __nv_bfloat16>(cache, x, w1, w2, out, T, C, d0, d1, d2,
-                                                   tile, cluster, smem, s)
-                  : dse::launch<64, __nv_bfloat16>(cache, x, w1, w2, out, T, C, d0, d1, d2,
-                                                   tile, cluster, smem, s);
-  return narrow ? dse::launch<32, float>(cache, x, w1, w2, out, T, C, d0, d1, d2, tile,
-                                         cluster, smem, s)
-                : dse::launch<64, float>(cache, x, w1, w2, out, T, C, d0, d1, d2, tile,
-                                         cluster, smem, s);
+    return narrow ? dse::launch<32, __nv_bfloat16>(cache, cache_bs, x, w1, w2, out, B, T, C, d0,
+                                                   d1, d2, tile, cluster, smem, s)
+                  : dse::launch<64, __nv_bfloat16>(cache, cache_bs, x, w1, w2, out, B, T, C, d0,
+                                                   d1, d2, tile, cluster, smem, s);
+  return narrow ? dse::launch<32, float>(cache, cache_bs, x, w1, w2, out, B, T, C, d0, d1, d2,
+                                         tile, cluster, smem, s)
+                : dse::launch<64, float>(cache, cache_bs, x, w1, w2, out, B, T, C, d0, d1, d2,
+                                         tile, cluster, smem, s);
 }

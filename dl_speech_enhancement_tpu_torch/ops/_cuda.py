@@ -29,19 +29,22 @@ SOURCES = ("residual_chain", "causal_conv", "causal_conv_transpose", "rvq_assign
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I, _Z = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
-# C entry points: name -> (argtypes, restype)
+_P, _I, _L, _Z = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_size_t
+# C entry points: name -> (argtypes, restype). The layer kernels take (cache,
+# cache stream stride, x, ...) and the stream count B.
 _ENTRIES = {
     "residual_chain": {
-        "dse_residual_chain": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P], _I),
+        "dse_residual_chain": ([_P, _L, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+                               _I),
         "dse_residual_chain_smem": ([_I, _I, _I, _I, _I, _I], _Z),
         "dse_residual_chain_block_rows": ([_I, _I], _I),
     },
     "causal_conv": {
-        "dse_causal_conv": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P], _I),
+        "dse_causal_conv": ([_P, _L, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P], _I),
     },
     "causal_conv_transpose": {
-        "dse_causal_conv_transpose": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
+        "dse_causal_conv_transpose": ([_P, _L, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+                                      _I),
     },
     "rvq_assign": {
         "dse_rvq_assign": ([_P, _P, _P, _P, _I, _I, _I, _I, _P], _I),

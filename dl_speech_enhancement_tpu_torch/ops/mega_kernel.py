@@ -1,10 +1,12 @@
 """Whole-model streaming of the AudioDec generator on hand-written kernels.
 
-Counterpart of dl_speech_enhancement_tpu/ops/mega_kernel.py::make_mega_stream.
-On the TPU that function compiles the whole encoder and the whole decoder
-into one Pallas kernel each, with ``grid=(n_frames,)`` running frame after
-frame and the streaming caches held in VMEM between grid steps. Hopper runs
-blocks in no order, so that design does not carry over. Instead:
+Counterpart of dl_speech_enhancement_tpu/ops/mega_kernel.py::make_mega_stream
+(K2) and ::make_mega_stream_batched (K3a). On the TPU those functions compile
+the whole encoder and the whole decoder into one Pallas kernel each, with
+``grid=(n_frames,)`` running frame after frame and the streaming caches held
+in VMEM between grid steps; K3a does the same for B streams in a (B, time,
+C) layout. Hopper runs blocks in no order, so that design does not carry
+over. Instead:
 
 - Every layer is causal and a dispatch's chunk is a whole number of hops, so
   streaming N consecutive frames with carried caches equals running each
@@ -12,31 +14,41 @@ blocks in no order, so that design does not carry over. Instead:
   does exactly that, layer by layer, which gives the card N frames of
   parallel work per launch; with N = 1 the same code is the real-time path.
   Each layer's new cache is the tail of its input.
-- The encoder is the launch sequence input conv -> 4 x (residual_chain,
-  downsample) and replaces the TPU ``enc_kernel``; the decoder is
-  4 x (upsample, residual_chain) -> output conv and replaces ``dec_kernel``.
-  That is 18 launches per dispatch, of three kernels: residual_chain
-  (ops/stream_kernel.py, csrc/residual_chain.cu), :func:`causal_conv`
-  (csrc/causal_conv.cu) and :func:`causal_conv_transpose`
-  (csrc/causal_conv_transpose.cu).
-- With PQC (the symAD codec) four launches join them, 22 per dispatch: the
-  projector (causal_conv, k=3, 512 -> code_dim) and :func:`rvq_assign`
+- B independent streams go through each layer in the same launch: the
+  activations are (B, N * chunk, C), the caches (B, ctx, C), and every kernel
+  keeps each window inside its own stream. So a dispatch is 18 launches (22
+  with PQC) whatever B is, and at N = 1 the deep layers get B times the 4-20
+  rows of one stream. One copy each way, outside the kernels, turns frames
+  (N, B, chunk) into per-stream samples (B, N * chunk) and back.
+- The encoder half (:func:`mega_encoder`) is the launch sequence input conv
+  -> 4 x (residual_chain, downsample) and replaces the TPU ``enc_kernel``;
+  the decoder half (:func:`mega_decoder`) is 4 x (upsample, residual_chain)
+  -> output conv and replaces ``dec_kernel``. They use three kernels:
+  residual_chain (ops/stream_kernel.py, csrc/residual_chain.cu),
+  :func:`causal_conv` (csrc/causal_conv.cu) and :func:`causal_conv_transpose`
+  (csrc/causal_conv_transpose.cu). :func:`join_halves` runs one after the
+  other; an asymmetric receiver joins one generator's encoder to another's
+  decoder (parallel/serve.py).
+- With PQC (the symAD codec) four launches join them: the projector
+  (causal_conv, k=3, 512 -> code_dim) and :func:`rvq_assign`
   (csrc/rvq_assign.cu, the residual-VQ search emitting the int32 wire codes)
-  end the encoder; :func:`codebook_lookup` (csrc/codebook_lookup.cu) and the
-  decoder input conv (causal_conv, k=7, code_dim -> 512) start the decoder.
-  The codes are returned beside the audio, as the TPU kernels hand them from
-  ``enc_kernel`` to ``dec_kernel``. The lookup reads back its bad-code flag,
-  so the host waits there for the encoder before it enqueues the decoder.
+  end the encoder half; :func:`codebook_lookup` (csrc/codebook_lookup.cu)
+  and the decoder input conv (causal_conv, k=7, code_dim -> 512) start the
+  decoder half. The wire codes are the hand-off between the halves and are
+  returned beside the audio, as the TPU kernels hand them from ``enc_kernel``
+  to ``dec_kernel``. The lookup reads back its bad-code flag, so the host
+  waits there once per dispatch for the encoder before it enqueues the
+  decoder.
 - Weights are assembled once, at build time, into the kernels' (tap, in,
   out) layout and ``weight_dtype`` (bf16 by default, as in the JAX package;
   activations and sums stay f32). Codebooks, their squared norms and the
   distances stay f32 whatever ``weight_dtype`` is. That is the counterpart
   of the TPU's one-time VMEM load.
-- The TPU's time folding and 0/1 selection / replication matmuls work around
-  TPU lanes and Mosaic; the CUDA kernels index strided rows and transposed
-  phases directly.
+- The TPU's time folding and 0/1 selection / replication / permutation
+  matmuls work around TPU lanes and Mosaic; the CUDA kernels index strided
+  rows, transposed phases and streams directly.
 
-Math (zero caches at stream start):
+Math (zero caches at stream start), per stream:
 
 - causal conv, stride s, dilation d: ``y[t] = b + sum_j x_ext[s*t + j*d] @
   W[j]`` with ``x_ext = [cache((k-1)*d); x]``.
@@ -46,6 +58,8 @@ Math (zero caches at stream start):
 """
 
 from __future__ import annotations
+
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -63,44 +77,50 @@ from dl_speech_enhancement_tpu_torch.ops.stream_kernel import (
 
 
 def causal_conv_plain(cache, x, w, b=None, stride: int = 1, dilation: int = 1):
-    """Plain PyTorch version of :func:`causal_conv`, in f32."""
-    h = torch.cat([cache, x])
+    """Plain PyTorch version of :func:`causal_conv`, in f32, on (time, C) or
+    (B, time, C)."""
+    h = torch.cat([cache, x], dim=-2)
     w = w.float()
-    rows = x.shape[0] // stride
+    rows = x.shape[-2] // stride
     span = stride * (rows - 1) + 1
-    y = h[0:span:stride] @ w[0]
+    y = h[..., 0:span:stride, :] @ w[0]
     for j in range(1, w.shape[0]):
-        y = y + h[j * dilation: j * dilation + span: stride] @ w[j]
+        y = y + h[..., j * dilation: j * dilation + span: stride, :] @ w[j]
     return y if b is None else y + b
 
 
 def causal_conv(cache: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
                 b: torch.Tensor | None = None, stride: int = 1,
                 dilation: int = 1) -> torch.Tensor:
-    """Causal conv over ``[cache; x]``: cache ((k-1)*d, Cin) f32, x (T, Cin)
-    f32 with T a multiple of ``stride``, w (k, Cin, Cout) f32 or bf16, b (Cout,)
-    f32 or None. Returns (T / stride, Cout) f32."""
+    """Causal conv over ``[cache; x]`` for B streams: cache (B, (k-1)*d,
+    Cin) f32, x (B, T, Cin) f32 with T a multiple of ``stride`` (or (ctx,
+    Cin) / (T, Cin) for one stream), w (k, Cin, Cout) f32 or bf16, b (Cout,)
+    f32 or None. Returns (B, T / stride, Cout) f32 (2-D for one stream)."""
     if x.device.type == "cpu":
         return causal_conv_plain(cache, x, w, b, stride, dilation)
     if x.device.type != "cuda":
         raise ValueError(f"causal_conv: unsupported device {x.device}")
-    T, cin = x.shape
+    if x.dim() == 2 and cache.dim() == 2:
+        return causal_conv(cache[None], x[None], w, b, stride, dilation)[0]
+    if x.dim() != 3:
+        raise ValueError(f"causal_conv: x must be (B, T, Cin), got {tuple(x.shape)}")
+    B, T, cin = x.shape
     k, _, cout = w.shape
     if T % stride:
         raise ValueError(f"causal_conv: chunk length {T} must be a multiple of "
                          f"stride {stride}")
-    if cache.shape != ((k - 1) * dilation, cin) or w.shape[1] != cin:
+    if cache.shape != (B, (k - 1) * dilation, cin) or w.shape[1] != cin:
         raise ValueError(f"causal_conv: cache {tuple(cache.shape)} / weight "
                          f"{tuple(w.shape)} do not fit input {tuple(x.shape)}")
     if b is not None and b.shape != (cout,):
         raise ValueError(f"causal_conv: bias {tuple(b.shape)} does not fit Cout={cout}")
-    _check_operands("causal_conv", x.device, {"cache": cache, "x": x}, (w,), b)
-    out = torch.empty((T // stride, cout), device=x.device)
-    if T == 0:
+    _check_operands("causal_conv", x.device, {"x": x}, (w,), b, cache=cache)
+    out = torch.empty((B, T // stride, cout), device=x.device)
+    if B * T == 0:
         return out
     lib = _cuda.load("causal_conv")
-    err = lib.dse_causal_conv(cache.data_ptr(), x.data_ptr(), w.data_ptr(),
-                              None if b is None else b.data_ptr(), out.data_ptr(),
+    err = lib.dse_causal_conv(cache.data_ptr(), cache.stride(0), x.data_ptr(), w.data_ptr(),
+                              None if b is None else b.data_ptr(), out.data_ptr(), B,
                               T // stride, cin, cout, k, stride, dilation,
                               int(w.dtype == torch.bfloat16), _cuda.stream_handle(x))
     _cuda.check(lib, err, "causal_conv")
@@ -112,42 +132,51 @@ causal_conv.launches = 0
 
 
 def causal_conv_transpose_plain(cache, x, w, b=None, stride: int = 1):
-    """Plain PyTorch version of :func:`causal_conv_transpose`, in f32."""
-    h = torch.cat([cache, x])
+    """Plain PyTorch version of :func:`causal_conv_transpose`, in f32, on
+    (time, C) or (B, time, C)."""
+    h = torch.cat([cache, x], dim=-2)
     w = w.float()
     cpad = stride - 1
-    y = x.new_empty((x.shape[0] * stride, w.shape[2]))
+    y = x.new_empty((*x.shape[:-2], x.shape[-2] * stride, w.shape[2]))
     for p in range(stride):
-        y[p::stride] = h[:-1] @ w[cpad - p] + h[1:] @ w[cpad + stride - p]
+        y[..., p::stride, :] = (h[..., :-1, :] @ w[cpad - p]
+                                + h[..., 1:, :] @ w[cpad + stride - p])
     return y if b is None else y + b
 
 
 def causal_conv_transpose(cache: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
                           b: torch.Tensor | None = None, stride: int = 1) -> torch.Tensor:
-    """Causal transposed conv (k = 2 * stride) over ``[cache; x]``: cache
-    (1, Cin) f32, x (T, Cin) f32, w (2s, Cin, Cout) conv-ready tap-flipped,
-    f32 or bf16, b (Cout,) f32 or None. Returns (T * stride, Cout) f32."""
+    """Causal transposed conv (k = 2 * stride) over ``[cache; x]`` for B
+    streams: cache (B, 1, Cin) f32, x (B, T, Cin) f32 (or (1, Cin) / (T, Cin)
+    for one stream), w (2s, Cin, Cout) conv-ready tap-flipped, f32 or bf16, b
+    (Cout,) f32 or None. Returns (B, T * stride, Cout) f32 (2-D for one
+    stream)."""
     if x.device.type == "cpu":
         return causal_conv_transpose_plain(cache, x, w, b, stride)
     if x.device.type != "cuda":
         raise ValueError(f"causal_conv_transpose: unsupported device {x.device}")
-    T, cin = x.shape
+    if x.dim() == 2 and cache.dim() == 2:
+        return causal_conv_transpose(cache[None], x[None], w, b, stride)[0]
+    if x.dim() != 3:
+        raise ValueError(f"causal_conv_transpose: x must be (B, T, Cin), got "
+                         f"{tuple(x.shape)}")
+    B, T, cin = x.shape
     k, _, cout = w.shape
-    if k != 2 * stride or cache.shape != (1, cin) or w.shape[1] != cin:
+    if k != 2 * stride or cache.shape != (B, 1, cin) or w.shape[1] != cin:
         raise ValueError(f"causal_conv_transpose: cache {tuple(cache.shape)} / weight "
                          f"{tuple(w.shape)} do not fit input {tuple(x.shape)} at "
                          f"stride {stride} (kernel must be 2 * stride)")
     if b is not None and b.shape != (cout,):
         raise ValueError(f"causal_conv_transpose: bias {tuple(b.shape)} does not fit "
                          f"Cout={cout}")
-    _check_operands("causal_conv_transpose", x.device, {"cache": cache, "x": x}, (w,), b)
-    out = torch.empty((T * stride, cout), device=x.device)
-    if T == 0:
+    _check_operands("causal_conv_transpose", x.device, {"x": x}, (w,), b, cache=cache)
+    out = torch.empty((B, T * stride, cout), device=x.device)
+    if B * T == 0:
         return out
     lib = _cuda.load("causal_conv_transpose")
-    err = lib.dse_causal_conv_transpose(cache.data_ptr(), x.data_ptr(), w.data_ptr(),
-                                        None if b is None else b.data_ptr(),
-                                        out.data_ptr(), T, cin, cout, stride,
+    err = lib.dse_causal_conv_transpose(cache.data_ptr(), cache.stride(0), x.data_ptr(),
+                                        w.data_ptr(), None if b is None else b.data_ptr(),
+                                        out.data_ptr(), B, T, cin, cout, stride,
                                         int(w.dtype == torch.bfloat16),
                                         _cuda.stream_handle(x))
     _cuda.check(lib, err, "causal_conv_transpose")
@@ -177,7 +206,8 @@ def rvq_assign_plain(z, books, sqnorm):
 def rvq_assign(z: torch.Tensor, books: torch.Tensor, sqnorm: torch.Tensor) -> torch.Tensor:
     """Residual-VQ nearest-codeword search: z (R, D) f32, books (L, D, K) f32,
     sqnorm (L, K) f32 (``(books ** 2).sum(1)``). Returns the flattened wire
-    codes (R, L) int32, ``ind + l * K``."""
+    codes (R, L) int32, ``ind + l * K``. Rows are independent: B streams of
+    N frames are B * N * chunk / hop rows of one launch."""
     if z.device.type == "cpu":
         return rvq_assign_plain(z, books, sqnorm)
     if z.device.type != "cuda":
@@ -289,7 +319,7 @@ def vq_tables(vq_state, device):
 
 
 def mega_topology_error(gen, chunk: int) -> str | None:
-    """Why :func:`make_mega_stream` cannot run ``gen`` at ``chunk``, or None.
+    """Why the whole-model stream cannot run ``gen`` at ``chunk``, or None.
 
     make_scan_stream asks this before it builds anything, in place of the
     JAX package's ``except AssertionError`` fallback."""
@@ -314,93 +344,198 @@ def mega_topology_error(gen, chunk: int) -> str | None:
     return None
 
 
-def make_mega_stream(gen, chunk: int, weight_dtype=torch.bfloat16, vq_state=None):
-    """Whole-model streaming for the ``AudioDecGenerator`` family.
+class StreamHalf(NamedTuple):
+    """The encoder or the decoder half of the whole-model stream."""
 
-    Returns ``(init_cache, run)`` with ``init_cache() -> cache dict`` and
+    shapes: dict  # cache name -> per-stream (rows, channels)
+    run: Callable  # (cache, activations) -> (activations, new cache entries)
+    hop: int  # samples per wire row
+    codes: bool  # the wire is int32 codes (PQC), not encoder features
 
-    - without PQC: ``run(cache, frames (N, chunk)) -> (out (N, chunk),
-      new_cache)``; per frame it matches ``gen.encode_step`` +
-      ``gen.decode_step`` from zero caches;
-    - with PQC (pass ``vq_state``): ``run(cache, frames) -> (out, new_cache,
-      codes (N, chunk / hop, L) int32)``, the flattened wire codes computed in
-      the same dispatch; per frame it matches ``encode_step -> quantize ->
-      lookup -> decode_step``. The codes equal the eager route's at
-      ``weight_dtype=float32``; at bf16 the encoder and projector weights
-      perturb ``z`` and a near-tie codeword can resolve differently.
 
-    The returned cache continues the stream in the next dispatch. The weights
-    are the generator's own, copied once now in ``weight_dtype`` (float32 or
-    bfloat16); the codebooks are copied in f32. Runs on the generator's
-    device: kernels on CUDA, their plain versions on the CPU."""
+def _check_half(gen, weight_dtype, vq_state):
     gen.check_vq_state(vq_state)
     if weight_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"weight_dtype must be float32 or bfloat16, got {weight_dtype}")
-    reason = mega_topology_error(gen, chunk)
+    reason = mega_topology_error(gen, gen.hop)
     if reason:
         raise ValueError(reason)
-    enc, dec = gen.encoder, gen.decoder
-    device = gen.device
-    halo = chain_halo()
-    wd = weight_dtype
 
+
+def mega_encoder(gen, weight_dtype=torch.bfloat16, vq_state=None) -> StreamHalf:
+    """The encoder half of ``gen``'s whole-model stream: input conv -> 4 x
+    (residual_chain, downsample), with PQC then the projector and
+    rvq_assign; 9 launches, 11 with PQC.
+
+    ``run(cache, x (B, T, 1)) -> (wire, new cache entries)``: ``wire`` is the
+    int32 wire codes (B, T / hop, L) with PQC (pass ``vq_state``), the
+    encoder features (B, T / hop, C) without. Weights are copied now in
+    ``weight_dtype``, the codebooks in f32."""
+    _check_half(gen, weight_dtype, vq_state)
+    enc, wd, halo = gen.encoder, weight_dtype, chain_halo()
     w_in = conv_weight(enc.conv, wd)
-    enc_levels = [(chain_weights(blk.res_units, wd), conv_weight(blk.conv, wd),
-                   _bias(blk.conv), blk.conv.stride) for blk in enc.blocks]
-    dec_levels = [(conv_transpose_weight(blk.conv, wd), _bias(blk.conv), blk.conv.stride,
-                   chain_weights(blk.res_units, wd)) for blk in dec.blocks]
-    w_out = conv_weight(dec.conv2, wd)
-    if gen.use_pqc:
-        w_pr, w_dc1 = conv_weight(gen.projector.conv, wd), conv_weight(dec.conv1, wd)
-        books, sqnorm, books_t = vq_tables(vq_state, device)
-        n_books = books.shape[0]
-        z_rows = chunk // gen.hop
-
+    levels = [(chain_weights(blk.res_units, wd), conv_weight(blk.conv, wd), _bias(blk.conv),
+               blk.conv.stride) for blk in enc.blocks]
     shapes = {"enc_in": (enc.conv.pad_length, 1)}
     for bi, blk in enumerate(enc.blocks):
         shapes[f"e{bi}ch"] = (halo, blk.conv.in_channels)
         shapes[f"e{bi}d"] = (blk.conv.pad_length, blk.conv.in_channels)
-    for bi, blk in enumerate(dec.blocks):
-        shapes[f"d{bi}u"] = (1, blk.conv.in_channels)
-        shapes[f"d{bi}ch"] = (halo, blk.conv.out_channels)
-    shapes["dec_out"] = (dec.conv2.pad_length, dec.conv2.in_channels)
     if gen.use_pqc:
+        w_pr = conv_weight(gen.projector.conv, wd)
+        books, sqnorm, _ = vq_tables(vq_state, gen.device)
         shapes["prj"] = (gen.projector.conv.pad_length, gen.projector.conv.in_channels)
-        shapes["dc1"] = (dec.conv1.pad_length, dec.conv1.in_channels)
 
-    def init_cache():
-        return {name: torch.zeros(shape, device=device) for name, shape in shapes.items()}
-
-    def run(cache, frames):
-        n, t = frames.shape
-        if t != chunk:
-            raise ValueError(f"frames of {t} samples given to a stream built for {chunk}")
-        x = frames.reshape(n * t, 1).contiguous()
+    def run(cache, x):
         # x may be a view of the caller's frames: keep the cache off it
         new = {"enc_in": tail(cache["enc_in"], x, shapes["enc_in"][0]).clone()}
         h = causal_conv(cache["enc_in"], x, w_in)
-        for bi, ((w1, w2), w_dn, b_dn, s) in enumerate(enc_levels):
+        for bi, ((w1, w2), w_dn, b_dn, s) in enumerate(levels):
             new[f"e{bi}ch"] = tail(cache[f"e{bi}ch"], h, halo)
             h = residual_chain(cache[f"e{bi}ch"], h, w1, w2)
             new[f"e{bi}d"] = tail(cache[f"e{bi}d"], h, 2 * s - 1)
             h = causal_conv(cache[f"e{bi}d"], h, w_dn, b_dn, stride=s)
-        codes = None
+        if not gen.use_pqc:
+            return h, new
+        new["prj"] = tail(cache["prj"], h, shapes["prj"][0])
+        z = causal_conv(cache["prj"], h, w_pr)
+        b, rows, dim = z.shape
+        return rvq_assign(z.reshape(b * rows, dim), books, sqnorm).reshape(b, rows, -1), new
+
+    return StreamHalf(shapes, run, gen.hop, gen.use_pqc)
+
+
+def mega_decoder(gen, weight_dtype=torch.bfloat16, vq_state=None) -> StreamHalf:
+    """The decoder half of ``gen``'s whole-model stream: with PQC first
+    codebook_lookup and the decoder input conv, then 4 x (upsample,
+    residual_chain) -> output conv; 9 launches, 11 with PQC.
+
+    ``run(cache, wire) -> (audio (B, T, 1), new cache entries)`` takes what
+    an encoder half sends: int32 wire codes (B, rows, L) with PQC (looked up
+    in ``vq_state``'s books; a code outside its book raises ValueError),
+    features (B, rows, C) without."""
+    _check_half(gen, weight_dtype, vq_state)
+    dec, wd, halo = gen.decoder, weight_dtype, chain_halo()
+    levels = [(conv_transpose_weight(blk.conv, wd), _bias(blk.conv), blk.conv.stride,
+               chain_weights(blk.res_units, wd)) for blk in dec.blocks]
+    w_out = conv_weight(dec.conv2, wd)
+    shapes = {}
+    if gen.use_pqc:
+        w_dc1 = conv_weight(dec.conv1, wd)
+        _, _, books_t = vq_tables(vq_state, gen.device)
+        shapes["dc1"] = (dec.conv1.pad_length, dec.conv1.in_channels)
+    for bi, blk in enumerate(dec.blocks):
+        shapes[f"d{bi}u"] = (1, blk.conv.in_channels)
+        shapes[f"d{bi}ch"] = (halo, blk.conv.out_channels)
+    shapes["dec_out"] = (dec.conv2.pad_length, dec.conv2.in_channels)
+
+    def run(cache, wire):
+        new, h = {}, wire
         if gen.use_pqc:
-            new["prj"] = tail(cache["prj"], h, shapes["prj"][0])
-            z = causal_conv(cache["prj"], h, w_pr)
-            codes = rvq_assign(z, books, sqnorm)
-            zq = codebook_lookup(codes, books_t)
+            b, rows, n_books = wire.shape
+            zq = codebook_lookup(wire.reshape(b * rows, n_books), books_t).reshape(b, rows, -1)
             new["dc1"] = tail(cache["dc1"], zq, shapes["dc1"][0])
             h = causal_conv(cache["dc1"], zq, w_dc1)
-        for bi, (w_up, b_up, s, (w1, w2)) in enumerate(dec_levels):
-            new[f"d{bi}u"] = h[h.shape[0] - 1:]
+        for bi, (w_up, b_up, s, (w1, w2)) in enumerate(levels):
+            new[f"d{bi}u"] = tail(cache[f"d{bi}u"], h, 1)
             h = causal_conv_transpose(cache[f"d{bi}u"], h, w_up, b_up, stride=s)
             new[f"d{bi}ch"] = tail(cache[f"d{bi}ch"], h, halo)
             h = residual_chain(cache[f"d{bi}ch"], h, w1, w2)
         new["dec_out"] = tail(cache["dec_out"], h, shapes["dec_out"][0])
-        y = causal_conv(cache["dec_out"], h, w_out)
-        if codes is None:
-            return y.reshape(n, t), new
-        return y.reshape(n, t), new, codes.reshape(n, z_rows, n_books)
+        return causal_conv(cache["dec_out"], h, w_out), new
+
+    return StreamHalf(shapes, run, gen.hop, gen.use_pqc)
+
+
+def join_halves(encoder: StreamHalf, decoder: StreamHalf, batch: int, device,
+                chunk: int | None = None):
+    """``(init_cache, run)`` streaming ``batch`` streams through an encoder
+    half and then a decoder half, which may come from different generators.
+
+    ``init_cache() -> {name: (batch, rows, channels)}`` zeros on ``device``;
+    ``run(cache, frames (N, batch, F)) -> (out (N, batch, F'), new_cache)``,
+    and with PQC also ``codes (N, batch, F / hop, L)`` int32. ``F`` must be
+    ``chunk``, or any positive multiple of the hop when ``chunk`` is None."""
+    if encoder.codes != decoder.codes:
+        raise ValueError("one half sends int32 wire codes (PQC) and the other takes "
+                         "encoder features")
+    if batch < 1:
+        raise ValueError(f"batch must be at least 1, got {batch}")
+    shapes = {**encoder.shapes, **decoder.shapes}
+
+    def init_cache():
+        return {name: torch.zeros((batch, *shape), device=device)
+                for name, shape in shapes.items()}
+
+    def run(cache, frames):
+        if frames.dim() != 3 or frames.shape[1] != batch:
+            raise ValueError(f"frames must be (N, {batch}, F), got {tuple(frames.shape)}")
+        n, b, t = frames.shape
+        if chunk is not None and t != chunk:
+            raise ValueError(f"frames of {t} samples given to a stream built for {chunk}")
+        if t <= 0 or t % encoder.hop:
+            raise ValueError(f"frames of {t} samples: not a positive multiple of the hop "
+                             f"{encoder.hop}")
+        x = frames.transpose(0, 1).reshape(b, n * t, 1).contiguous()
+        wire, new = encoder.run(cache, x)
+        y, dec_new = decoder.run(cache, wire)
+        new.update(dec_new)
+        out = y.reshape(b, n, -1).transpose(0, 1).contiguous()
+        if not encoder.codes:
+            return out, new
+        return out, new, wire.reshape(b, n, -1, wire.shape[-1]).transpose(0, 1).contiguous()
+
+    return init_cache, run
+
+
+def make_mega_stream_batched(gen, chunk: int, batch: int, weight_dtype=torch.bfloat16,
+                             vq_state=None):
+    """Whole-model streaming of ``batch`` independent streams of the
+    ``AudioDecGenerator`` family, 18 launches per dispatch (22 with PQC)
+    whatever ``batch`` is.
+
+    Returns ``(init_cache, run)`` with ``init_cache() -> {name: (B, ctx,
+    C)}`` and
+
+    - without PQC: ``run(cache, frames (N, B, chunk)) -> (out (N, B, chunk),
+      new_cache)``; per stream and frame it matches ``gen.encode_step`` +
+      ``gen.decode_step`` from zero caches;
+    - with PQC (pass ``vq_state``): ``run(cache, frames) -> (out, new_cache,
+      codes (N, B, chunk / hop, L) int32)``, the flattened wire codes
+      computed in the same dispatch; per stream and frame it matches
+      ``encode_step -> quantize -> lookup -> decode_step``. The codes equal
+      the eager route's at ``weight_dtype=float32``; at bf16 the encoder and
+      projector weights perturb ``z`` and a near-tie codeword can resolve
+      differently.
+
+    The returned cache continues the streams in the next dispatch. The
+    weights are the generator's own, copied once now in ``weight_dtype``
+    (float32 or bfloat16); the codebooks are copied in f32. Runs on the
+    generator's device: kernels on CUDA, their plain versions on the CPU."""
+    gen.check_vq_state(vq_state)
+    reason = mega_topology_error(gen, chunk)
+    if reason:
+        raise ValueError(reason)
+    return join_halves(mega_encoder(gen, weight_dtype, vq_state),
+                       mega_decoder(gen, weight_dtype, vq_state), batch, gen.device, chunk)
+
+
+def make_mega_stream(gen, chunk: int, weight_dtype=torch.bfloat16, vq_state=None):
+    """One stream of :func:`make_mega_stream_batched` (its B = 1 case) in the
+    single-stream layout of the JAX package's ``make_mega_stream``:
+    ``init_cache() -> {name: (ctx, C)}``, ``run(cache, frames (N, chunk)) ->
+    (out (N, chunk), new_cache)``, and with PQC also ``codes (N, chunk / hop,
+    L)`` int32."""
+    init_b, run_b = make_mega_stream_batched(gen, chunk, 1, weight_dtype, vq_state)
+
+    def init_cache():
+        return {name: t[0] for name, t in init_b().items()}
+
+    def run(cache, frames):
+        if frames.dim() != 2:
+            raise ValueError(f"frames must be (N, chunk), got {tuple(frames.shape)}")
+        out, new, *codes = run_b({name: t[None] for name, t in cache.items()},
+                                 frames[:, None])
+        return (out[:, 0], {name: t[0] for name, t in new.items()},
+                *(c[:, 0] for c in codes))
 
     return init_cache, run

@@ -11,7 +11,10 @@ as the JAX package leaves them to XLA.
 
 Each kernel wrapper takes its plain PyTorch version (tap-by-tap f32
 ``matmul``s) for CPU tensors only; for a CUDA tensor it launches the kernel
-or raises. ``<wrapper>.launches`` counts kernel launches.
+or raises. ``<wrapper>.launches`` counts kernel launches. The layer kernels
+take B independent streams in one launch, as (B, time, C) activations with
+(B, ctx, C) caches; a 2-D (time, C) call is the B = 1 case of the same
+kernel.
 """
 
 from __future__ import annotations
@@ -40,25 +43,34 @@ def chain_halo(dilations=DILATIONS, kernel_size: int = KERNEL_SIZE) -> int:
 
 
 def residual_chain_plain(cache, x, w1, w2, dilations=DILATIONS):
-    """Plain PyTorch version of :func:`residual_chain`, in f32."""
-    h = torch.cat([cache, x])
+    """Plain PyTorch version of :func:`residual_chain`, in f32, on (time, C)
+    or (B, time, C)."""
+    h = torch.cat([cache, x], dim=-2)
     w1, w2 = w1.float(), w2.float()
     for u, d in enumerate(dilations):
         pad = (KERNEL_SIZE - 1) * d
-        rows = h.shape[0] - pad
+        rows = h.shape[-2] - pad
         a = _elu(h)
-        acc = a[0:rows] @ w1[u, 0]
+        acc = a[..., 0:rows, :] @ w1[u, 0]
         for j in range(1, KERNEL_SIZE):
-            acc = acc + a[j * d: j * d + rows] @ w1[u, j]
-        h = h[pad:] + _elu(acc) @ w2[u]
+            acc = acc + a[..., j * d: j * d + rows, :] @ w1[u, j]
+        h = h[..., pad:, :] + _elu(acc) @ w2[u]
     return h
 
 
-def _check_operands(what, device, acts, weights, bias=None):
+def _check_operands(what, device, acts, weights, bias=None, cache=None):
+    """Raise unless the operands are what the kernels take: activations
+    contiguous f32, weights all f32 or all bf16, bias f32, and the cache f32
+    with contiguous rows (streams may lie at any stride: a cache is often the
+    tail of the previous activation, a view)."""
     for name, t in acts.items():
         if t.device != device or t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"{what}: {name} must be a contiguous float32 tensor on "
                              f"{device}, got {t.dtype} on {t.device}")
+    if cache is not None and (cache.device != device or cache.dtype != torch.float32
+                              or cache.stride(-1) != 1
+                              or (cache.shape[-2] > 1 and cache.stride(-2) != cache.shape[-1])):
+        raise ValueError(f"{what}: the cache must be float32 on {device} with contiguous rows")
     dtypes = {t.dtype for t in weights}
     if len(dtypes) != 1 or not dtypes <= {torch.float32, torch.bfloat16}:
         raise ValueError(f"{what}: weights must all be float32 or all bfloat16")
@@ -71,15 +83,17 @@ def _check_operands(what, device, acts, weights, bias=None):
 
 
 @functools.lru_cache(maxsize=256)
-def _chain_plan(rows: int, channels: int, dilations: tuple) -> tuple[int, int]:
+def _chain_plan(batch: int, rows: int, channels: int, dilations: tuple) -> tuple[int, int]:
     """(tile, cluster) for the residual-chain kernel: output rows per time
-    tile, and blocks per cluster splitting the channels of one tile.
+    tile, and blocks per cluster splitting the channels of one tile, for
+    ``batch`` streams of ``rows`` rows each.
 
     Every tile recomputes its halo, so long tiles waste less work, but fewer
     tiles use fewer SMs. The model counts, for each candidate, the GEMM steps
     one block makes (each step is the same work, tile_gemm.cuh) times the
-    blocks one SM runs in turn or side by side, and takes the smallest among
-    the candidates whose shared memory fits; ties go to fewer blocks."""
+    blocks one SM runs in turn or side by side, over the whole grid of
+    ``batch * ceil(rows / tile) * cluster`` blocks, and takes the smallest
+    among the candidates whose shared memory fits; ties go to fewer blocks."""
     lib = _cuda.load("residual_chain")
     halo = chain_halo(dilations)
     k_slices = -(-channels // _BK)
@@ -96,7 +110,7 @@ def _chain_plan(rows: int, channels: int, dilations: tuple) -> tuple[int, int]:
         for d in dilations:
             remaining -= (KERNEL_SIZE - 1) * d
             steps += -(-remaining // bm) * col_tiles * (KERNEL_SIZE + 1) * k_slices
-        blocks = -(-rows // tile) * cluster
+        blocks = batch * -(-rows // tile) * cluster
         per_sm = max(1, min(8, (_MAX_SMEM + 1024) // (smem + 1024)))
         waves = -(-blocks // (_N_SM * per_sm))
         sharing = min(per_sm, -(-blocks // _N_SM))  # blocks an SM runs at once
@@ -116,32 +130,37 @@ def _chain_plan(rows: int, channels: int, dilations: tuple) -> tuple[int, int]:
 
 def residual_chain(cache: torch.Tensor, x: torch.Tensor, w1: torch.Tensor,
                    w2: torch.Tensor, dilations=DILATIONS) -> torch.Tensor:
-    """Three fused causal residual units over ``[cache; x]``.
+    """Three fused causal residual units over ``[cache; x]``, for B streams.
 
-    cache: (sum (k-1)*d, C) f32, x: (T, C) f32, w1: (3, 7, C, C) and
-    w2: (3, C, C) in f32 or bf16 ((tap, in, out) layout). Returns (T, C) f32.
-    The new chain cache is the last ``halo`` rows of ``[cache; x]``."""
+    cache: (B, sum (k-1)*d, C) f32, x: (B, T, C) f32 (or (halo, C) / (T, C)
+    for one stream), w1: (3, 7, C, C) and w2: (3, C, C) in f32 or bf16 ((tap,
+    in, out) layout). Returns x's shape in f32. A stream's new chain cache is
+    the last ``halo`` rows of its ``[cache; x]``."""
     if x.device.type == "cpu":
         return residual_chain_plain(cache, x, w1, w2, dilations)
     if x.device.type != "cuda":
         raise ValueError(f"residual_chain: unsupported device {x.device}")
+    if x.dim() == 2 and cache.dim() == 2:
+        return residual_chain(cache[None], x[None], w1, w2, dilations)[0]
     dilations = tuple(int(d) for d in dilations)
-    T, C = x.shape
-    if len(dilations) != 3 or cache.shape != (chain_halo(dilations), C):
+    if x.dim() != 3:
+        raise ValueError(f"residual_chain: x must be (B, T, C), got {tuple(x.shape)}")
+    B, T, C = x.shape
+    if len(dilations) != 3 or cache.shape != (B, chain_halo(dilations), C):
         raise ValueError(f"residual_chain: cache {tuple(cache.shape)} does not fit "
-                         f"dilations {dilations} at C={C}")
+                         f"dilations {dilations} at x {tuple(x.shape)}")
     if w1.shape != (3, KERNEL_SIZE, C, C) or w2.shape != (3, C, C):
         raise ValueError(f"residual_chain: weights {tuple(w1.shape)}, {tuple(w2.shape)} "
                          f"do not fit C={C}")
-    _check_operands("residual_chain", x.device, {"cache": cache, "x": x}, (w1, w2))
+    _check_operands("residual_chain", x.device, {"x": x}, (w1, w2), cache=cache)
     out = torch.empty_like(x)
-    if T == 0:
+    if B * T == 0:
         return out
     lib = _cuda.load("residual_chain")
-    tile, cluster = _chain_plan(T, C, dilations)
-    err = lib.dse_residual_chain(cache.data_ptr(), x.data_ptr(), w1.data_ptr(),
-                                 w2.data_ptr(), out.data_ptr(), T, C, *dilations, tile,
-                                 cluster, int(w1.dtype == torch.bfloat16),
+    tile, cluster = _chain_plan(B, T, C, dilations)
+    err = lib.dse_residual_chain(cache.data_ptr(), cache.stride(0), x.data_ptr(),
+                                 w1.data_ptr(), w2.data_ptr(), out.data_ptr(), B, T, C,
+                                 *dilations, tile, cluster, int(w1.dtype == torch.bfloat16),
                                  _cuda.stream_handle(x))
     _cuda.check(lib, err, "residual_chain")
     residual_chain.launches += 1
@@ -173,10 +192,12 @@ def fused_residual_chain(units, x: torch.Tensor, *, dilations=DILATIONS,
 
 
 def tail(cache: torch.Tensor, x: torch.Tensor, n: int) -> torch.Tensor:
-    """The last ``n`` rows of ``[cache; x]`` (a layer's next cache)."""
-    if x.shape[0] >= n:
-        return x[x.shape[0] - n:]
-    return torch.cat([cache[x.shape[0]:], x])
+    """The last ``n`` rows of ``[cache; x]`` along the time axis (-2), per
+    stream: a layer's next cache. A view of ``x`` where it holds them."""
+    t = x.shape[-2]
+    if t >= n:
+        return x[..., t - n:, :]
+    return torch.cat([cache[..., t:, :], x], dim=-2)
 
 
 def chain_topology_error(gen) -> str | None:

@@ -1,34 +1,37 @@
-"""Single-stream streaming: the port's main entry point, and the codec's
-transmitter and receiver.
+"""Streaming of one or many streams: the port's main entry point, and the
+codec's transmitter and receiver.
 
 Counterpart of dl_speech_enhancement_tpu/stream/runtime.py::
-resolve_scan_backend, ::make_scan_stream for ``batch == 1``, and
-::StreamingTransmitter / ::StreamingReceiver. ``make_scan_stream`` returns
-``run(cache, frames (N, B, F, C)) -> (audio (N, B, F', C), cache)`` with
-``run.init_cache()``, the same frames layout and per-frame semantics as the
-JAX package: each frame runs ``encode_step`` (with PQC then ``quantize`` and
+resolve_scan_backend, ::make_scan_stream, and ::StreamingTransmitter /
+::StreamingReceiver. ``make_scan_stream`` returns ``run(cache, frames (N, B,
+F, C)) -> (audio (N, B, F', C), cache)`` with ``run.init_cache()``, the same
+frames layout and per-frame semantics as the JAX package: each frame of each
+of the B streams runs ``encode_step`` (with PQC then ``quantize`` and
 ``lookup``) then ``decode_step``, with the caches carried across frames and
 dispatches. With PQC, ``run.run_with_codes(cache, frames) -> (audio, cache,
-codes (N, F / hop, L) int32)`` also returns the wire codes of the same
-dispatch.
+codes)`` also returns the wire codes of the same dispatch, int32 ``(N, F /
+hop, L)`` for one stream and ``(N, B, F / hop, L)`` for B > 1, as in the JAX
+package.
 
 Backends:
 
-- ``'cuda'``: the whole-model kernel route (ops/mega_kernel.py, 18 launches
-  per dispatch, 22 with PQC); needs ``frame_size``. Where its topology check
-  fails (or no ``frame_size`` is given) the denoiser takes the
-  ``'cuda_chain'`` route, as the JAX package falls back from its mega kernel
-  to the fused chunk step. The codec has no such route (nor has the JAX
-  package a fused-chain route for PQC), and it does not give way to the
-  plain modules on the card: ``make_scan_stream`` raises, naming the reason.
+- ``'cuda'``: the whole-model kernel route for B streams at once
+  (ops/mega_kernel.py::make_mega_stream_batched, 18 launches per dispatch,
+  22 with PQC, for any B); needs ``frame_size``. Only the single-stream
+  denoiser gives way, where the topology check fails or no ``frame_size`` is
+  given, to the ``'cuda_chain'`` route, as the JAX package falls back from
+  its mega kernel to the fused chunk step. Otherwise (the codec, or B > 1)
+  the route does not give way to the plain modules on the card:
+  ``make_scan_stream`` raises, naming the reason.
 - ``'cuda_chain'``: per-frame steps with every residual chain on the
   residual_chain kernel and the boundary convs on the plain modules
-  (ops/stream_kernel.py::make_fused_chunk_step); without PQC only.
-- ``'eager'``: per-frame steps of the plain modules.
+  (ops/stream_kernel.py::make_fused_chunk_step); one stream of the
+  denoiser only.
+- ``'eager'``: per-frame steps of the plain modules at batch B.
 - ``'auto'``: see :func:`resolve_scan_backend`.
 
-Multi-stream batching (``batch > 1`` in ``make_scan_stream``), ``AudioCodec``,
-``AudioCodecStreamer`` and the CLI are later slices (ROADMAP.md).
+``AudioCodec``, ``AudioCodecStreamer`` and the CLI are later slices
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -37,7 +40,7 @@ import torch
 
 from dl_speech_enhancement_tpu_torch.nn.vq import VQState
 from dl_speech_enhancement_tpu_torch.ops.mega_kernel import (
-    make_mega_stream,
+    make_mega_stream_batched,
     mega_topology_error,
 )
 from dl_speech_enhancement_tpu_torch.ops.stream_kernel import make_fused_chunk_step
@@ -49,22 +52,22 @@ BACKENDS = ("auto", "cuda", "cuda_chain", "eager")
 def resolve_scan_backend(backend: str, *, on_cuda: bool, batch: int,
                          use_pqc: bool) -> str:
     """Resolve ``make_scan_stream``'s ``backend='auto'`` to a concrete route:
-    ``'cuda'`` for one stream on a CUDA device, for both codecs; ``'eager'``
-    otherwise (on the CPU, and for ``batch > 1`` until the multi-stream slice
-    is ported). ``use_pqc`` stays a parameter, as in the JAX router.
+    ``'cuda'`` on a CUDA device, for both codecs and every ``batch``;
+    ``'eager'`` on the CPU. The JAX router takes XLA for ``batch > 1``
+    because XLA beat its batched kernels on a TPU v5e; that measurement does
+    not carry over to the card, where the batched kernel route runs.
+    ``batch`` and ``use_pqc`` stay parameters, as in the JAX router.
     Explicit routes are returned unchanged."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; expected one of {BACKENDS}")
     if backend != "auto":
         return backend
-    if not on_cuda or batch > 1:
-        return "eager"
-    return "cuda"
+    return "cuda" if on_cuda else "eager"
 
 
-def _check_frames(frames, device):
-    if frames.device != device or frames.dim() != 4 or frames.shape[1] != 1:
-        raise ValueError(f"frames must be (N, 1, F, C) on {device}, got "
+def _check_frames(frames, device, batch):
+    if frames.device != device or frames.dim() != 4 or frames.shape[1] != batch:
+        raise ValueError(f"frames must be (N, {batch}, F, C) on {device}, got "
                          f"{tuple(frames.shape)} on {frames.device}")
 
 
@@ -74,34 +77,36 @@ def _vq_on(vq_state, device) -> VQState:
 
 def make_scan_stream(gen, vq_state=None, batch: int = 1, backend: str = "auto",
                      frame_size: int | None = None, weight_dtype=None, device="cuda"):
-    """Streaming of one stream: ``run(cache, frames (N, 1, F, C)) -> (audio
-    (N, 1, F', C), cache)``, ``run.init_cache() -> cache``; with PQC also
-    ``run.run_with_codes``.
+    """Streaming of ``batch`` independent streams: ``run(cache, frames (N, B,
+    F, C)) -> (audio (N, B, F', C), cache)``, ``run.init_cache() -> cache``;
+    with PQC also ``run.run_with_codes``.
 
     ``gen`` is the port's ``AudioDecGenerator``, already on ``device``;
     ``vq_state`` its ``VQState`` when ``gen.use_pqc``. ``weight_dtype`` goes
     to the whole-model kernel route (default bf16 there; activations, sums
     and codebooks stay f32; pass float32 where the wire codes must equal an
-    f32 peer's). ``run.backend`` names the route taken. With PQC, the
-    ``'cuda'`` route (``'auto'`` on the card) raises ValueError unless
-    ``frame_size`` is one the kernel route takes."""
+    f32 peer's). ``run.backend`` names the route taken. The ``'cuda'`` route
+    (``'auto'`` on the card) raises ValueError for the codec or for ``batch
+    > 1`` unless ``frame_size`` is one the kernel route takes."""
     device = resolve_device(device)
     gen.check_vq_state(vq_state)
-    if batch != 1:
-        raise NotImplementedError(
-            "batch > 1 (multi-stream batching) is not ported yet: see ROADMAP.md, "
-            "'Multi-stream batching'")
+    if batch < 1:
+        raise ValueError(f"batch must be at least 1, got {batch}")
     if gen.device != device:
         raise ValueError(f"generator is on {gen.device}, stream asked for {device}")
     backend = resolve_scan_backend(backend, on_cuda=device.type == "cuda", batch=batch,
                                    use_pqc=gen.use_pqc)
     if backend == "cuda_chain" and gen.use_pqc:
         raise ValueError("the 'cuda_chain' route covers the without-PQC denoiser")
-    if backend == "cuda" and gen.use_pqc:
+    if backend == "cuda_chain" and batch > 1:
+        raise ValueError("the 'cuda_chain' route runs one stream; batch > 1 takes the "
+                         "'cuda' route with a frame_size")
+    if backend == "cuda" and (gen.use_pqc or batch > 1):
         reason = ("no frame_size given" if frame_size is None
                   else mega_topology_error(gen, frame_size))
         if reason:
-            raise ValueError(f"the codec's 'cuda' route cannot run: {reason}; pass a "
+            who = "the codec's" if gen.use_pqc else f"the {batch}-stream"
+            raise ValueError(f"{who} 'cuda' route cannot run: {reason}; pass a "
                              "frame_size it takes, or backend='eager' for the plain modules")
     if backend in ("cuda", "cuda_chain") and device.type != "cuda":
         raise ValueError(f"backend {backend!r} runs CUDA kernels; device is {device}")
@@ -109,15 +114,17 @@ def make_scan_stream(gen, vq_state=None, batch: int = 1, backend: str = "auto",
         vq_state = _vq_on(vq_state, device)
     if (backend == "cuda" and frame_size is not None
             and mega_topology_error(gen, frame_size) is None):
-        init_mega, mega_run = make_mega_stream(
-            gen, frame_size, vq_state=vq_state,
+        init_mega, mega_run = make_mega_stream_batched(
+            gen, frame_size, batch, vq_state=vq_state,
             **({} if weight_dtype is None else {"weight_dtype": weight_dtype}))
 
         @torch.no_grad()
         def run_with_codes(cache, frames):
-            _check_frames(frames, device)
-            out, new_cache, *codes = mega_run(cache, frames[:, 0, :, 0])
-            return (out[:, None, :, None], new_cache, *codes)
+            _check_frames(frames, device, batch)
+            out, new_cache, *codes = mega_run(cache, frames[..., 0])
+            if batch == 1:
+                codes = [c[:, 0] for c in codes]
+            return (out[..., None], new_cache, *codes)
 
         def run(cache, frames):
             return run_with_codes(cache, frames)[:2]
@@ -131,7 +138,7 @@ def make_scan_stream(gen, vq_state=None, batch: int = 1, backend: str = "auto",
         init_fused, fstep = make_fused_chunk_step(gen)
 
         def run(cache, frames):
-            _check_frames(frames, device)
+            _check_frames(frames, device, batch)
             ys = []
             for frame in frames:
                 y, cache = fstep(cache, frame[0])
@@ -146,21 +153,22 @@ def make_scan_stream(gen, vq_state=None, batch: int = 1, backend: str = "auto",
 
     @torch.no_grad()
     def run_with_codes(cache, frames):
-        _check_frames(frames, device)
+        _check_frames(frames, device, batch)
         ys, codes = [], []
         for frame in frames:
             z, enc_cache = gen.encode_step(cache, frame)
             cache = {**cache, **enc_cache}
             if gen.use_pqc:
-                idx = gen.quantize(vq_state, z)  # (L, 1, T_code)
-                codes.append(idx[:, 0].t())
+                idx = gen.quantize(vq_state, z)  # (L, B, T_code)
+                codes.append(idx.permute(1, 2, 0))
                 z = gen.lookup(flat_cb, idx)
             y, dec_cache = gen.decode_step(cache, z)
             cache = {**cache, **dec_cache}
             ys.append(y)
         if not gen.use_pqc:
             return torch.stack(ys), cache
-        return torch.stack(ys), cache, torch.stack(codes)
+        codes = torch.stack(codes)
+        return torch.stack(ys), cache, codes[:, 0] if batch == 1 else codes
 
     def run(cache, frames):
         return run_with_codes(cache, frames)[:2]

@@ -6,6 +6,10 @@ CPU test runs) and run on a machine with an H100:
     python -m pytest tests/test_torch_port_cuda.py -q
 
 Tolerance: atol 1e-4, the same products summed in another order in f32.
+The layer kernels are also run on B streams at once, with a cache that is a
+strided view (the tail of a longer activation, as on the main path): each
+stream must match the plain version, and perturbing stream 0 must leave
+every other stream's output bit for bit as it was.
 The residual-VQ search is held to its plain version's codes up to near ties
 (``utils/checks.py::rvq_near_ties``: distances within 1e-5 of the
 smallest); the codebook lookup sums the same codewords in the same order,
@@ -26,8 +30,10 @@ from dl_speech_enhancement_tpu_torch.ops.mega_kernel import (
     codebook_lookup_plain,
     rvq_assign,
     rvq_assign_plain,
+    vq_tables,
 )
 from dl_speech_enhancement_tpu_torch.ops.stream_kernel import (
+    _chain_plan,
     residual_chain,
     residual_chain_plain,
 )
@@ -155,3 +161,105 @@ def test_pqc_cuda_route_matches_eager_on_the_card(card):
     # no frame_size: 'auto' takes the kernel route on the card, which raises
     with pytest.raises(ValueError, match="no frame_size given"):
         make_scan_stream(gen, vq)
+
+
+def _held_per_stream(kernel, plain, cache, x, *args):
+    """Run ``kernel`` on B streams against ``plain``; then perturb stream 0's
+    cache and input and require the other streams' outputs unchanged."""
+    got = kernel(cache, x, *args)
+    ref = plain(cache, x, *args)
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape
+    assert float((got - ref).abs().max()) <= ATOL
+    cache2, x2 = cache.clone(), x.clone()
+    cache2[0] += 1.0
+    x2[0] -= 1.0
+    again = kernel(cache2, x2, *args)
+    torch.cuda.synchronize()
+    assert not torch.equal(again[0], got[0])
+    assert torch.equal(again[1:], got[1:])
+
+
+def _tail_view(card, batch, rows, channels):
+    """A (batch, rows, channels) cache whose streams lie 5 rows further apart
+    than its own rows: the tail of a longer activation."""
+    return _randn(card, batch, rows + 5, channels)[:, 5:]
+
+
+@pytest.mark.parametrize("batch", [1, 3, 16])
+@pytest.mark.parametrize("channels,rows", [(32, 333), (256, 20)])
+def test_residual_chain_kernel_batched(card, batch, channels, rows):
+    cache, x = _tail_view(card, batch, 78, channels), _randn(card, batch, rows, channels)
+    w1 = _randn(card, 3, 7, channels, channels) / channels ** 0.5
+    w2 = _randn(card, 3, channels, channels) / channels ** 0.5
+    _held_per_stream(residual_chain, residual_chain_plain, cache, x, w1, w2)
+
+
+@pytest.mark.parametrize("batch", [1, 3, 16])
+@pytest.mark.parametrize("cin,cout,k,stride", [(1, 32, 7, 1), (256, 512, 10, 5), (32, 1, 7, 1)])
+def test_causal_conv_kernel_batched(card, batch, cin, cout, k, stride):
+    cache, x = _tail_view(card, batch, k - 1, cin), _randn(card, batch, stride * 4, cin)
+    w, b = _randn(card, k, cin, cout) / cin ** 0.5, _randn(card, cout)
+    _held_per_stream(causal_conv, causal_conv_plain, cache, x, w, b, stride)
+
+
+@pytest.mark.parametrize("batch", [1, 3, 16])
+@pytest.mark.parametrize("cin,cout,stride", [(512, 256, 5), (64, 32, 3)])
+def test_causal_conv_transpose_kernel_batched(card, batch, cin, cout, stride):
+    cache, x = _tail_view(card, batch, 1, cin), _randn(card, batch, 4, cin)
+    w, b = _randn(card, 2 * stride, cin, cout) / cin ** 0.5, _randn(card, cout)
+    _held_per_stream(causal_conv_transpose, causal_conv_transpose_plain, cache, x, w, b,
+                     stride)
+
+
+@pytest.mark.parametrize("batch", [4, 16, 64])
+@pytest.mark.parametrize("use_pqc", [False, True])
+def test_cuda_route_batched_matches_eager_on_the_card(card, batch, use_pqc):
+    """B streams through make_scan_stream's 'cuda' route: 2 + 2 per block
+    launches per dispatch (10 here, 18 at the flagship's 4 + 4 blocks; 4
+    more with PQC), and the eager route's codes up to near ties and audio
+    (on the streams whose codes are all equal)."""
+    gen = AudioDecGenerator(encode_channels=8, decode_channels=8, code_dim=16,
+                            codebook_num=3, codebook_size=32, enc_ratios=(2, 4),
+                            dec_ratios=(4, 2), enc_strides=(3, 4), dec_strides=(4, 3),
+                            use_pqc=use_pqc, device="cuda")
+    vq = gen.quantizer.init(seed=0, device="cuda") if use_pqc else None
+    frames = _randn(card, 3, batch, 120, 1)
+    eager = make_scan_stream(gen, vq, batch=batch, backend="eager")
+    run = make_scan_stream(gen, vq, batch=batch, frame_size=120, weight_dtype=torch.float32)
+    assert run.backend == "cuda"
+    counters = (residual_chain, causal_conv, causal_conv_transpose, rvq_assign,
+                codebook_lookup)
+    before = sum(k.launches for k in counters)
+    got, _ = run(run.init_cache(), frames)
+    torch.cuda.synchronize()
+    assert sum(k.launches for k in counters) - before == 10 + 4 * use_pqc
+    ref, _ = eager(eager.init_cache(), frames)
+    same = torch.ones(batch, dtype=torch.bool, device="cuda")
+    if use_pqc:
+        _, _, codes = run.run_with_codes(run.init_cache(), frames)
+        _, _, ref_codes = eager.run_with_codes(eager.init_cache(), frames)
+        cache, zs = gen.init_cache(batch), []
+        with torch.no_grad():
+            for f in frames:
+                z, enc_cache = gen.encode_step(cache, f)
+                cache.update(enc_cache)
+                zs.append(z)
+        books, sqnorm, _ = vq_tables(vq, "cuda")
+        held = rvq_near_ties(torch.stack(zs).reshape(-1, 16), books, sqnorm,
+                             codes.reshape(-1, 3), ref_codes.reshape(-1, 3))
+        assert held["mismatches"] == 0
+        same = (codes == ref_codes).flatten(2).all(-1).all(0)
+    assert float((got - ref)[:, same].abs().max()) <= 2e-5
+    with pytest.raises(ValueError, match="no frame_size given"):
+        make_scan_stream(gen, vq, batch=batch)
+
+
+def test_chain_plan_sees_the_whole_grid(card):
+    """On the real-time path's deepest chain (20 rows at C = 256) one stream
+    keeps the plan it had, one 8-block cluster; 16 clusters of 8 fill the
+    card's 132 SMs once; at B = 64 the plan stops spreading each tile over
+    8 blocks. (The plan reads the built library's shared memory sizes.)"""
+    plans = {b: _chain_plan(b, 20, 256, (1, 3, 9)) for b in (1, 16, 64)}
+    assert plans[1] == (20, 8)
+    assert plans[64][1] < 8

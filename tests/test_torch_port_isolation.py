@@ -23,7 +23,8 @@ def _modules():
 def test_port_has_the_slice_modules():
     names = set(_modules())
     for mod in ("nn.conv", "nn.vq", "models.autoencoder", "ops.stream_kernel", "ops.mega_kernel",
-                "ops._cuda", "stream.runtime", "utils.config", "utils.jax_params"):
+                "ops.mega_stacked", "ops._cuda", "parallel.serve", "stream.runtime",
+                "utils.config", "utils.jax_params"):
         assert f"dl_speech_enhancement_tpu_torch.{mod}" in names
 
 

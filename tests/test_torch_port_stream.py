@@ -20,6 +20,7 @@ from dl_speech_enhancement_tpu.stream.runtime import (
     resolve_scan_backend as jax_resolve,
 )
 from dl_speech_enhancement_tpu_torch.models import AudioDecGenerator
+from dl_speech_enhancement_tpu_torch.parallel import make_sharded_stream
 from dl_speech_enhancement_tpu_torch.stream.runtime import (
     make_scan_stream,
     resolve_scan_backend,
@@ -73,7 +74,7 @@ def test_scan_stream_cache_continues_across_dispatches(rng, pair):
 @pytest.mark.parametrize("backend,on_cuda,batch,expected", [
     ("auto", True, 1, "cuda"),
     ("auto", False, 1, "eager"),
-    ("auto", True, 4, "eager"),
+    ("auto", True, 4, "cuda"),
     ("auto", False, 4, "eager"),
     ("cuda", False, 1, "cuda"),
     ("cuda_chain", True, 1, "cuda_chain"),
@@ -85,12 +86,17 @@ def test_resolve_scan_backend(backend, on_cuda, batch, expected):
 
 
 def test_resolve_scan_backend_mirrors_jax_auto():
+    """The JAX router's choice, except for B > 1 on the card: the JAX router
+    takes XLA there (a TPU v5e measurement), the port its batched kernels."""
     names = {"cuda": "pallas", "eager": "xla"}
     for on_acc in (True, False):
         for batch in (1, 8):
             got = resolve_scan_backend("auto", on_cuda=on_acc, batch=batch, use_pqc=False)
-            assert names[got] == jax_resolve("auto", on_accelerator=on_acc, batch=batch,
-                                             use_pqc=False)
+            want = jax_resolve("auto", on_accelerator=on_acc, batch=batch, use_pqc=False)
+            if on_acc and batch > 1:
+                assert (got, want) == ("cuda", "xla")
+            else:
+                assert names[got] == want
 
 
 def test_resolve_scan_backend_rejects_unknown():
@@ -107,8 +113,12 @@ def test_cuda_routes_refuse_the_cpu(pair, backend):
 
 def test_later_slices_raise_not_implemented(pair):
     _, _, tgen = pair
-    with pytest.raises(NotImplementedError, match="multi-stream"):
-        make_scan_stream(tgen, batch=2, device="cpu")
+    # multi-stream is served (tests/test_torch_port_batched.py); the vocoder
+    # receiver and a fleet over several devices are later slices
+    with pytest.raises(NotImplementedError, match="vocoder"):
+        make_sharded_stream(tgen, batch=2, device="cpu", vocoder=object())
+    with pytest.raises(NotImplementedError, match="item 14"):
+        make_sharded_stream(tgen, batch=2, device=["cpu", "cpu"])
     # the PQC codec is served (tests/test_torch_port_pqc.py); the denoiser
     # refuses a VQ state
     with pytest.raises(ValueError, match="VQState"):
