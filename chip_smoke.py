@@ -4,25 +4,31 @@ Run from the repository root on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py
 
-Two models run, each at the full width of its configuration with seeded
+Three models run, each at the full width of its configuration with seeded
 random weights (no trained checkpoint is in the repository): the denoiser
-(the without-PQC generator of configs/denoise/symAD_vctk_48000_hop300.yaml)
-and the symAD codec (the PQC generator of configs/autoencoder/
+(the without-PQC generator of configs/denoise/symAD_vctk_48000_hop300.yaml),
+the symAD codec (the PQC generator of configs/autoencoder/
 symAD_vctk_48000_hop300.yaml, whose codebooks are drawn as a k-means init
-draws them, from the residuals of a seeded warm-up stream). Each runs as one
+draws them, from the residuals of a seeded warm-up stream), and the
+``vctk_v1`` pairing of that codec's transmitter with the AudioDec v1 HiFiGAN
+receiver (configs/vocoder/AudioDec_v1_symAD_vctk_48000_hop300_clean.yaml;
+seeded statistics, since the statistics file is not in the repository, and
+every weight-norm gain set to about unit gain, since at the official
+N(0, 0.01) init the receiver's output is almost all bias). Each runs as one
 stream and as 16 streams per dispatch. Phases (any failure exits non-zero
 before the result line):
 
-1. build the five CUDA kernels from ``dl_speech_enhancement_tpu_torch/csrc``
-   (one ``nvcc`` each, all at once) and both generators on the card;
-2. hold every kernel against its plain PyTorch version at every site of both
-   models, for one stream at 1, 100 (the single-stream paths' dispatch) and
-   400 frames per dispatch with f32 and bf16 weights, and with f32 weights
-   at every (streams, frames per dispatch) a multi-stream path below
-   dispatches (``BATCH_CHECKS``: 16 streams at 1, 8 and 16 frames; 1, 4 and
-   64 streams at 1 and 16), where perturbing stream 0 of a layer kernel must
-   leave every other stream bit for bit as it was; the residual-VQ search up
-   to near ties (``utils/checks.py::rvq_near_ties``);
+1. build the six CUDA kernels from ``dl_speech_enhancement_tpu_torch/csrc``
+   (one ``nvcc`` each, all at once) and the three models on the card;
+2. hold every kernel against its plain PyTorch version at every site of the
+   three models, for one stream at 1, 100 (the single-stream paths'
+   dispatch) and 400 frames per dispatch (the receiver at 1 and 100) with f32
+   and bf16 weights, and with f32 weights at every (streams, frames per
+   dispatch) a multi-stream path below dispatches (``BATCH_CHECKS``: 16
+   streams at 1, 8 and 16 frames; 1, 4 and 64 streams at 1 and 16; the
+   receiver's ``VOCODER_BATCH_CHECKS``), where perturbing stream 0 of a layer
+   kernel must leave every other stream bit for bit as it was; the
+   residual-VQ search up to near ties (``utils/checks.py::rvq_near_ties``);
 3. drive the main paths, each with every launch counter set to 0 just before
    and read just after:
    - one stream, ``make_scan_stream(batch=1, frame_size=1200)`` with
@@ -35,33 +41,43 @@ before the result line):
      frames against the CPU, and ``StreamingTransmitter``/
      ``StreamingReceiver`` against the route; every book must use at least
      32 codes; the bf16 route's agreement with it is printed;
+   - the receiver, ``make_vocoder_scan_stream(codec, books, vocoder,
+     1200)`` with ``'auto'`` (which must resolve to ``'cuda'``), f32
+     weights, 200 frames in two dispatches of 34 launches: its wire codes
+     equal the codec path's, its audio the ``'eager'`` route's where the
+     codes agree, the receiver half with bf16 weights the eager receiver on
+     the same codes, ``VocoderReceiver`` the route on the route's codes;
    - 16 streams, ``make_scan_stream(batch=16, frame_size=1200)`` and the
      single-card ``make_sharded_stream``, f32 weights, 16 frames in two
      dispatches: each stream is held against its own single-stream
      ``'cuda'`` run and against the batched ``'eager'`` route (codes up to
      near ties, audio where the codes agree), the fleet against the scan
      stream bit for bit, and the codec's asymmetric receiver (a second
-     codec's decoder and books) against its eager composition;
+     codec's decoder and books) against its eager composition; the
+     receiver's fleet ``make_sharded_stream(vocoder=)`` against each
+     stream's own single-stream run;
    - at every B and N that phase 4 times, one f32-weight dispatch of
-     ``make_scan_stream(batch=B)`` held per stream against the batched
-     ``'eager'`` route on the frames phase 4 times;
+     ``make_scan_stream(batch=B)`` (of the receiver's fleet) held per stream
+     against the batched ``'eager'`` route on the frames phase 4 times;
 4. time per-frame latency at 1 frame per dispatch, the device's busy share
    of it (``torch.profiler``), throughput at 400, and every kernel site at 1,
    100 and 400 frames against its plain version, its bound and its one-call
    PyTorch equivalent (``F.conv1d`` / ``F.conv_transpose1d`` /
-   ``F.embedding_bag``, yardsticks the port never calls), with CUDA events;
-   then the same sites at 16 streams of 1 and 16 frames, and per-stream-frame
-   time and busy share of B = 1, 4, 16 and 64 streams at 1 and 16 frames
-   per dispatch, through the kernel route, the batched eager route and B
-   single-stream kernel dispatches, with the launches of one dispatch
-   counted at every B and the card memory the returned cache keeps.
+   ``F.embedding_bag``, and two grouped ``F.conv1d`` calls for a HiFiGAN
+   unit: yardsticks the port never calls), with CUDA events; then the same
+   sites at 16 streams of 1 and 16 frames, and per-stream-frame time and
+   busy share of B = 1, 4, 16 and 64 streams (the receiver's fleet: 16 and
+   64) at 1 and 16 frames per dispatch, through the kernel route, the
+   batched eager route and (the codecs) B single-stream kernel dispatches,
+   with the launches of one dispatch counted at every B and the card memory
+   the returned cache keeps.
 
 Prints the per-kernel JSON line (times summed over the kernel's sites in one
 100-frame dispatch of the single-stream path that first runs it, the codec's
-causal conv sites beside them, and at 16 streams of 1 and 16 frames;
-launches summed over every main path), the card's name and power limit, and
-last ``{"ok": true, "device": {...}}``. The full report goes to
-``chiprun_out/chip_smoke.json``.
+and the receiver's causal conv sites beside them, and at 16 streams of 1
+and 16 frames; launches summed over every main path), the card's name and
+power limit, and last ``{"ok": true, "device": {...}}``. The full report
+goes to ``chiprun_out/chip_smoke.json``.
 """
 
 from __future__ import annotations
@@ -79,7 +95,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from dl_speech_enhancement_tpu_torch.models import AudioDecGenerator
+from dl_speech_enhancement_tpu_torch.models import AudioDecGenerator, HiFiGANGenerator
+from dl_speech_enhancement_tpu_torch.nn.conv import ConvTranspose1d
 from dl_speech_enhancement_tpu_torch.nn.vq import VQState
 from dl_speech_enhancement_tpu_torch.ops import _cuda
 from dl_speech_enhancement_tpu_torch.ops.mega_kernel import (
@@ -91,6 +108,8 @@ from dl_speech_enhancement_tpu_torch.ops.mega_kernel import (
     codebook_lookup_plain,
     conv_transpose_weight,
     conv_weight,
+    join_halves,
+    mega_encoder,
     rvq_assign,
     rvq_assign_plain,
     vq_tables,
@@ -104,11 +123,20 @@ from dl_speech_enhancement_tpu_torch.ops.stream_kernel import (
     residual_chain,
     residual_chain_plain,
 )
+from dl_speech_enhancement_tpu_torch.ops.vocoder_kernel import (
+    _unit_plan,
+    hifigan_unit,
+    hifigan_unit_plain,
+    make_stacked_vocoder,
+    vocoder_half,
+)
 from dl_speech_enhancement_tpu_torch.parallel import make_sharded_stream
 from dl_speech_enhancement_tpu_torch.stream.runtime import (
     StreamingReceiver,
     StreamingTransmitter,
+    VocoderReceiver,
     make_scan_stream,
+    make_vocoder_scan_stream,
 )
 from dl_speech_enhancement_tpu_torch.utils.checks import rvq_near_ties
 from dl_speech_enhancement_tpu_torch.utils.config import load_config
@@ -117,6 +145,8 @@ DEVICE = "cuda"  # the card; the port's entry points run there by default
 REPO = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(REPO, "configs", "denoise", "symAD_vctk_48000_hop300.yaml")
 CODEC_CONFIG = os.path.join(REPO, "configs", "autoencoder", "symAD_vctk_48000_hop300.yaml")
+VOCODER_CONFIG = os.path.join(REPO, "configs", "vocoder",
+                              "AudioDec_v1_symAD_vctk_48000_hop300_clean.yaml")
 SEED = 0
 FRAME = 1200
 SAMPLE_RATE = 48000
@@ -127,8 +157,11 @@ SIZES = (1, DISPATCH, THROUGHPUT_FRAMES)   # frames per dispatch of the kernel c
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 F32_FLOPS = 67e12          # H100 SXM f32 rate outside the tensor cores
 # Tolerances. Kernel vs plain: the same products summed in another order, up
-# to 2560 terms of O(1) values -> atol 1e-4 (f32 weights), and 1e-4 of the
-# largest output (bf16 weights, widened to f32 identically on both sides).
+# to 2816 terms of O(1) values (a HiFiGAN unit at stage 0: 11 taps x 256
+# channels, two such sums chained, the second over rows of the first's
+# output) -> atol 1e-4 (f32 weights; measured at most 2.3e-6 on the codec's
+# 2560-term sums), and 1e-4 of the largest output (bf16 weights, widened to
+# f32 identically on both sides).
 # Main path in f32 vs eager (cuDNN, TF32 off) and vs the CPU: 2e-4, the JAX
 # package's flagship tolerance. bf16-weight main path vs f32 eager: weight
 # rounding (2^-9 relative) through 34 layers -> 5e-2 of the largest output.
@@ -147,11 +180,15 @@ LOOKUP_ATOL = 1e-5
 MIN_DISTINCT_CODES = 32
 WARMUP_FRAMES = 2400  # 9600 code rows: 8 books of 1024 codewords drawn from distinct rows
 DENOISER_KERNELS = ("residual_chain", "causal_conv", "causal_conv_transpose")
-LAUNCHES_PER_DISPATCH = {"denoiser": 18, "codec": 22}
+CODEC_KERNELS = DENOISER_KERNELS + ("rvq_assign", "codebook_lookup")
+LAUNCHES_PER_DISPATCH = {"denoiser": 18, "codec": 22, "vocoder": 34}
 BATCH = 16  # streams of the multi-stream main paths and kernel checks
 MULTI_FRAMES = (8, 8)  # the multi-stream main paths: 16 frames in two dispatches
 BATCH_SIZES = (1, 16)  # frames per dispatch of the multi-stream times
 TIME_BATCHES = (1, 4, 16, 64)  # streams per dispatch of the multi-stream times
+# B single-stream dispatches as a yardstick, timed at these B only: from B = 16
+# on they cost B times the one-stream dispatch (PERF.md, the codecs' B-stream table)
+SINGLE_STREAM_BATCHES = (1, 4)
 # (streams, frames per dispatch) of the batch-axis kernel checks: every shape
 # a multi-stream path of this script dispatches (one stream at one frame is
 # among the single-stream checks)
@@ -160,6 +197,14 @@ BATCH_CHECKS = tuple(sorted({(BATCH, n) for n in MULTI_FRAMES}
                             - {(1, 1)}))
 # projector rows drawn for the search's checks: enough for the largest shape
 Z_FRAMES = max(THROUGHPUT_FRAMES, *(b * n for b, n in BATCH_CHECKS))
+VOCODER_TIME_BATCHES = (16, 64)  # streams per dispatch of the receiver fleet's times
+# (streams, frames per dispatch) of the receiver's batch-axis kernel checks:
+# its fleet's main path and every timed shape
+VOCODER_BATCH_CHECKS = tuple(sorted({(BATCH, n) for n in MULTI_FRAMES}
+                                    | {(b, n) for b in VOCODER_TIME_BATCHES
+                                       for n in (1, 16)}))
+MIN_AUDIO_STD = 1e-2  # the receiver's audio must not be a near constant ...
+MAX_SATURATED_SHARE = 0.05  # ... nor sit at tanh's saturation (|y| > 0.99)
 
 KERNELS = {
     "residual_chain": {
@@ -173,12 +218,14 @@ KERNELS = {
         "source": "dl_speech_enhancement_tpu_torch/csrc/causal_conv.cu",
         "replaces": "dl_speech_enhancement_tpu/ops/mega_kernel.py:324 (K2e input conv "
                     "and downsamples, PQC projector :412-417; K2d output conv, :522, "
-                    "PQC input conv :561-565)",
+                    "PQC input conv :561-565; K4 input conv, 1x1 fuses and tanh output "
+                    "conv, ops/vocoder_kernel.py:263-292, 577-586, 720-746)",
     },
     "causal_conv_transpose": {
         "fn": causal_conv_transpose,
         "source": "dl_speech_enhancement_tpu_torch/csrc/causal_conv_transpose.cu",
-        "replaces": "dl_speech_enhancement_tpu/ops/mega_kernel.py:522 (K2d upsamples)",
+        "replaces": "dl_speech_enhancement_tpu/ops/mega_kernel.py:522 (K2d upsamples; K4 "
+                    "LeakyReLU + upsamples, ops/vocoder_kernel.py:295-337)",
     },
     "rvq_assign": {
         "fn": rvq_assign,
@@ -190,9 +237,16 @@ KERNELS = {
         "fn": codebook_lookup,
         "source": "dl_speech_enhancement_tpu_torch/csrc/codebook_lookup.cu",
         "replaces": "dl_speech_enhancement_tpu/ops/mega_kernel.py:552 (K2d PQC arm: "
-                    "codebook lookup, :552-560)",
+                    "codebook lookup, :552-560; K4's lookup, ops/vocoder_kernel.py:229-256)",
+    },
+    "hifigan_unit": {
+        "fn": hifigan_unit,
+        "source": "dl_speech_enhancement_tpu_torch/csrc/hifigan_unit.cu",
+        "replaces": "dl_speech_enhancement_tpu/ops/vocoder_kernel.py:378 (K4 unit bodies "
+                    ":378-390, :443-452, :521-533; K5's, ops/vocoder_stacked.py:334-391)",
     },
 }
+VOCODER_KERNELS = tuple(KERNELS)  # the receiver's path (with its tx) runs all six
 
 
 class Failure(RuntimeError):
@@ -287,20 +341,37 @@ def lib_input(cache, x):
     return (h if h.dim() == 3 else h[None]).transpose(1, 2).contiguous()
 
 
-def conv_site(name, layer, rows, stride, bias, wd, rand, batch):
-    """One causal_conv launch as a Site."""
+def conv_site(name, layer, rows, stride, bias, wd, rand, batch, leaky=None, tanh=False):
+    """One causal_conv launch as a Site (``leaky`` / ``tanh`` as the
+    receiver's output conv fuses them; the yardstick is the bare conv)."""
     cin, cout, k = layer.in_channels, layer.out_channels, layer.kernel_size
-    cache, x = rand(layer.pad_length, cin, cache=True), rand(rows, cin)
+    cache, x = rand((k - 1) * layer.dilation, cin, cache=True), rand(rows, cin)
     w = conv_weight(layer, wd)
     b = None if not bias else layer.bias.detach().float().contiguous()
     x_lib, w_lib = lib_input(cache, x), layer.weight.detach().float()
     t_out = rows // stride
     return Site("causal_conv", name,
-                lambda: causal_conv(cache, x, w, b, stride),
-                lambda: causal_conv_plain(cache, x, w, b, stride),
+                lambda: causal_conv(cache, x, w, b, stride, 1, leaky, tanh),
+                lambda: causal_conv_plain(cache, x, w, b, stride, 1, leaky, tanh),
                 lambda: F.conv1d(x_lib, w_lib, b, stride),
                 2.0 * batch * t_out * k * cin * cout,
                 nbytes(cache, x, w, b) + 4 * batch * t_out * cout, (cache, x))
+
+
+def upsample_site(name, layer, rows, wd, rand, batch, leaky=None):
+    """One causal_conv_transpose launch as a Site (``leaky`` as the
+    receiver's upsamples fuse it; the yardstick is the bare transposed
+    conv)."""
+    s, cin, cout = layer.stride, layer.in_channels, layer.out_channels
+    cache, x = rand(1, cin, cache=True), rand(rows, cin)
+    w, b = conv_transpose_weight(layer, wd), layer.bias.detach().float().contiguous()
+    x_lib, w_lib = lib_input(cache, x), layer.weight.detach().float()
+    return Site("causal_conv_transpose", name,
+                lambda: causal_conv_transpose(cache, x, w, b, s, leaky),
+                lambda: causal_conv_transpose_plain(cache, x, w, b, s, leaky),
+                lambda: F.conv_transpose1d(x_lib, w_lib, b, s, s),
+                2.0 * batch * rows * s * 2 * cin * cout,
+                nbytes(cache, x, w, b) + 4 * batch * rows * s * cout, (cache, x))
 
 
 def sites(gen, n_frames: int, wd, rng: torch.Generator, batch: int | None = None):
@@ -320,22 +391,9 @@ def sites(gen, n_frames: int, wd, rng: torch.Generator, batch: int | None = None
         out.append(conv_site(f"e{bi}d", blk.conv, t, blk.conv.stride, True, wd, rand, nb))
         t //= blk.conv.stride
     for bi, blk in enumerate(gen.decoder.blocks):
-        layer, s = blk.conv, blk.conv.stride
-        cin, cout = layer.in_channels, layer.out_channels
-        cache, x = rand(1, cin, cache=True), rand(t, cin)
-        w, b = conv_transpose_weight(layer, wd), layer.bias.detach().float().contiguous()
-        x_lib, w_lib = lib_input(cache, x), layer.weight.detach().float()
-        out.append(Site("causal_conv_transpose", f"d{bi}u",
-                        lambda cache=cache, x=x, w=w, b=b, s=s: causal_conv_transpose(
-                            cache, x, w, b, s),
-                        lambda cache=cache, x=x, w=w, b=b, s=s: causal_conv_transpose_plain(
-                            cache, x, w, b, s),
-                        lambda x_lib=x_lib, w_lib=w_lib, b=b, s=s: F.conv_transpose1d(
-                            x_lib, w_lib, b, s, s),
-                        2.0 * nb * t * s * 2 * cin * cout,
-                        nbytes(cache, x, w, b) + 4 * nb * t * s * cout, (cache, x)))
-        t *= s
-        out.append(chain_site(f"d{bi}ch", blk, cout, t, wd, rand, nb))
+        out.append(upsample_site(f"d{bi}u", blk.conv, t, wd, rand, nb))
+        t *= blk.conv.stride
+        out.append(chain_site(f"d{bi}ch", blk, blk.conv.out_channels, t, wd, rand, nb))
     out.append(conv_site("dec_out", gen.decoder.conv2, t, 1, False, wd, rand, nb))
     return out
 
@@ -667,8 +725,9 @@ def held_codes(what, z, tables, codes, ref):
 
 
 def codec_path(gen, vq, tables):
-    """Phase 3, codec. Returns the launch counts of the main path's run and
-    its checks."""
+    """Phase 3, codec. Returns the launch counts of the main path's run, its
+    checks, and (the route's f32 wire codes, the eager route's, the eager
+    projector outputs) of its frames."""
     frames = frames_for(sum(MAIN_FRAMES), SEED)
     n_books = vq.embed.shape[0]
     try:
@@ -679,7 +738,7 @@ def codec_path(gen, vq, tables):
     run = make_scan_stream(gen, vq, frame_size=FRAME, weight_dtype=torch.float32)
     require(run.backend == "cuda", f"'auto' resolved to {run.backend!r}, not 'cuda'")
     (out, codes), launches = counted("codec", LAUNCHES_PER_DISPATCH["codec"],
-                                     len(MAIN_FRAMES), KERNELS,
+                                     len(MAIN_FRAMES), CODEC_KERNELS,
                                      lambda: stream_codes(run, frames, MAIN_FRAMES))
     require(out.shape == frames.shape and bool(torch.isfinite(out).all()),
             f"codec output {tuple(out.shape)} not finite or not the frames' shape")
@@ -737,7 +796,7 @@ def codec_path(gen, vq, tables):
                       "rx_vs_route": err_txrx, "near_tie_rows_tx_vs_route": held_tx["ties"],
                       "distinct_codes": distinct,
                       "bf16_code_share_equal_f32": share16, "bf16_vs_f32_audio": err16,
-                      "eager_max_abs": float(ref.abs().max())}
+                      "eager_max_abs": float(ref.abs().max())}, (codes, ref_codes, z_eager)
 
 
 # ---------------------------------------------------------------- many streams
@@ -800,7 +859,7 @@ def multi_stream_path(path, gen, vq, tables, rx=None):
     before and read after. ``rx`` is the asymmetric receiver's (codec,
     books). Returns the launch counts of both runs and the checks."""
     use_pqc = vq is not None
-    kernels = KERNELS if use_pqc else DENOISER_KERNELS
+    kernels = CODEC_KERNELS if use_pqc else DENOISER_KERNELS
     per_dispatch = LAUNCHES_PER_DISPATCH[path]
     frames = frames_for_streams(sum(MULTI_FRAMES), BATCH, SEED + 20)
     n = frames.shape[0]
@@ -887,6 +946,353 @@ def timed_shapes_held(path, gen, vq, tables):
                 f"{path} x{batch} N={n} vs the batched eager route", z, tables, out, codes,
                 ref, ref_codes)
     return checks
+
+
+# ---------------------------------------------------------------- vocoder
+
+
+def build_vocoder() -> HiFiGANGenerator:
+    """The AudioDec v1 receiver of VOCODER_CONFIG on the card, seeded. The
+    statistics file is not in the repository: mean N(0, 1) and scale
+    U(0.5, 2) of the code dim take its place. Every weight-norm gain g is set
+    to the conv's unit gain times U(0.8, 1.25) (1 per output channel of a
+    conv; sqrt(k * out / (2 * in)) per input channel of a k = 2s transposed
+    conv, whose outputs each sum 2 taps of every input channel), so no layer
+    fades to its bias as at the official N(0, 0.01) init; the output conv at
+    half that, as the residual blocks' sums grow the signal and the audio
+    must stay below tanh's saturation."""
+    gp = dict(load_config(VOCODER_CONFIG)["generator_params"])
+    act = gp.pop("nonlinear_activation")
+    require(act == "LeakyReLU", f"{VOCODER_CONFIG}: activation {act}")
+    gp["negative_slope"] = gp.pop("nonlinear_activation_params")["negative_slope"]
+    for key in ("use_weight_norm", "stats"):
+        gp.pop(key)
+    rng = np.random.default_rng(SEED + 40)
+    dim = gp["in_channels"]
+    stats = np.stack([rng.standard_normal(dim), rng.uniform(0.5, 2.0, dim)]).astype(np.float32)
+    voc = HiFiGANGenerator(**gp, stats=stats, seed=SEED, device=DEVICE)
+    with torch.no_grad():
+        for m in voc.modules():
+            if not getattr(m, "weight_norm", False):
+                continue
+            gain = 0.5 if m is voc.output_conv else 1.0
+            if isinstance(m, ConvTranspose1d):
+                gain = (m.kernel_size * m.out_channels / (2.0 * m.in_channels)) ** 0.5
+            m.g.copy_(torch.from_numpy(gain * rng.uniform(0.8, 1.25, tuple(m.g.shape))))
+    return voc
+
+
+def unit_site(name, blk, ui, rows, wd, rand, batch, slope):
+    """One hifigan_unit launch as a Site: its output and next conv2 cache
+    along the time axis. The yardstick is the unit's two grouped dilated
+    ``F.conv1d`` calls on inputs made ready for them."""
+    c1, c2 = blk.block.convs1[ui], blk.block.convs2[ui]
+    groups, gc, k, d = blk.groups, c1.out_channels, c1.kernel_size, c1.dilation
+    c = gc // groups
+    cin = c if ui == 0 else gc
+    cache1, cache2 = rand(c1.pad_length, cin, cache=True), rand(k - 1, gc, cache=True)
+    x = rand(rows, cin)
+    w1, b1 = conv_weight(c1, wd), c1.bias.detach().float().contiguous()
+    w2, b2 = conv_weight(c2, wd), c2.bias.detach().float().contiguous()
+
+    def both(pair):
+        return torch.cat(pair, dim=-2)
+
+    a = F.leaky_relu(torch.cat([cache1, x], dim=-2), slope)
+    a = a.repeat(*([1] * (a.dim() - 1)), groups) if ui == 0 else a
+    x1_lib = (a if a.dim() == 3 else a[None]).transpose(1, 2).contiguous()
+    h_lib = lib_input(cache2, rand(rows, gc))
+    w1_lib, w2_lib = c1.weight.detach().float(), c2.weight.detach().float()
+    return Site("hifigan_unit", name,
+                lambda: both(hifigan_unit(cache1, cache2, x, w1, b1, w2, b2, d, groups, slope)),
+                lambda: both(hifigan_unit_plain(cache1, cache2, x, w1, b1, w2, b2, d, groups,
+                                                slope)),
+                lambda: (F.conv1d(x1_lib, w1_lib, b1, dilation=d, groups=groups),
+                         F.conv1d(h_lib, w2_lib, b2, groups=groups)),
+                2 * 2.0 * batch * rows * k * c * gc,
+                nbytes(cache1, cache2, x, w1, b1, w2, b2) + 4 * batch * (rows + k - 1) * gc,
+                (cache1, x))
+
+
+def vocoder_sites(voc, n_frames: int, wd, rng: torch.Generator, batch: int | None = None):
+    """Every layer-kernel launch of one dispatch of the receiver, as Sites
+    (its codebook lookup is the codec's lookup site): the input conv, per
+    stage the activated upsample, three units and the 1x1 fuse, and the
+    activated tanh output conv."""
+    rand = make_rand(rng, batch)
+    nb = 1 if batch is None else batch
+    slope, t = voc.negative_slope, n_frames * FRAME // voc.total_upsample
+    out = [conv_site("v_in", voc.input_conv, t, 1, True, wd, rand, nb)]
+    for si, (up, blk) in enumerate(zip(voc.upsamples, voc.blocks)):
+        out.append(upsample_site(f"v{si}u", up, t, wd, rand, nb, slope))
+        t *= up.stride
+        for ui in range(len(blk.block.convs1)):
+            out.append(unit_site(f"v{si}r{ui}", blk, ui, t, wd, rand, nb, slope))
+        out.append(conv_site(f"v{si}f", blk.conv_out, t, 1, False, wd, rand, nb))
+    out.append(conv_site("v_out", voc.output_conv, t, 1, True, wd, rand, nb, 0.01, True))
+    return out
+
+
+def unit_plans(voc, batch: int, n_frames: int) -> dict:
+    """The unit kernel's tile at each stage for ``batch`` streams."""
+    plans, t = {}, n_frames * FRAME // voc.total_upsample
+    for si, (up, blk) in enumerate(zip(voc.upsamples, voc.blocks)):
+        t *= up.stride
+        plans[f"v{si}"] = _unit_plan(batch, t, up.out_channels, blk.groups,
+                                     blk.block.convs1[0].kernel_size)
+    return plans
+
+
+def check_vocoder_kernels(voc, rng):
+    """Phase 2, receiver: every layer site against its plain version for one
+    stream (SIZES: 1, 100 and the 400 frames of the throughput dispatch, f32
+    and bf16 weights) and at every (streams, frames) of VOCODER_BATCH_CHECKS
+    (f32, with the stream-leak check)."""
+    worst = {"causal_conv": 0.0, "causal_conv_transpose": 0.0, "hifigan_unit": 0.0}
+    for n_frames in SIZES:
+        for wd in (torch.float32, torch.bfloat16):
+            for st in vocoder_sites(voc, n_frames, wd, rng):
+                err = check_site(st.kernel, st.site, st.run, st.plain, n_frames, wd)
+                worst[st.kernel] = max(worst[st.kernel], err)
+    for batch, n_frames in VOCODER_BATCH_CHECKS:
+        layer_sites = vocoder_sites(voc, n_frames, torch.float32, rng, batch)
+        for st in layer_sites:
+            err = check_site(st.kernel, f"{st.site}x{batch}", st.run, st.plain, n_frames,
+                             torch.float32)
+            worst[st.kernel] = max(worst[st.kernel], err)
+            check_no_leak(st)
+        log(f"check receiver batch axis streams={batch} frames={n_frames}: "
+            f"{len(layer_sites)} layer sites hold their plain versions; no stream leaks; "
+            f"unit tiles {unit_plans(voc, batch, n_frames)}")
+        del layer_sites
+    return worst
+
+
+def joined(codec, vq, voc, batch: int, wd):
+    """The receiver's kernel route as ``run(cache, frames (N, B, F, 1))``
+    with ``run_with_codes``: the codec's encoder half joined to the vocoder
+    half, what ``make_vocoder_scan_stream``'s 'cuda' route (B = 1) and the
+    fleet (f32) run."""
+    init, fleet = join_halves(mega_encoder(codec, wd, vq), vocoder_half(voc, wd, vq), batch,
+                              DEVICE, FRAME)
+
+    def run_with_codes(cache, frames):
+        out, new, codes = fleet(cache, frames[..., 0])
+        return out[..., None], new, codes
+
+    def run(cache, frames):
+        return run_with_codes(cache, frames)[:2]
+
+    run.run_with_codes, run.init_cache = run_with_codes, init
+    return run
+
+
+def eager_vocoder_fleet(codec, vq, voc, batch: int):
+    """The receiver's fleet composed of plain modules, frame by frame on B
+    streams: encode, quantize, look up in the codec's books, ``voc.step``.
+    ``run(cache, frames (N, B, F, 1))`` with ``run_with_codes``."""
+    flat_cb = codec.flat_codebook(vq)
+
+    @torch.no_grad()
+    def run_with_codes(cache, frames):
+        outs, codes = [], []
+        for frame in frames:
+            z, enc_cache = codec.encode_step(cache["tx"], frame)
+            idx = codec.quantize(vq, z)
+            y, rx = voc.step(cache["rx"], codec.lookup(flat_cb, idx))
+            cache = {"tx": {**cache["tx"], **enc_cache}, "rx": rx}
+            outs.append(y)
+            codes.append(idx.permute(1, 2, 0))
+        return torch.stack(outs), cache, torch.stack(codes)
+
+    def run(cache, frames):
+        return run_with_codes(cache, frames)[:2]
+
+    run.run_with_codes = run_with_codes
+    run.init_cache = lambda: {"tx": codec.init_cache(batch), "rx": voc.init_cache(batch)}
+    return run
+
+
+def audio_stats(y) -> dict:
+    """std of the audio, of its pre-tanh values (atanh of the audio) and the
+    share of samples at tanh's saturation."""
+    pre = torch.atanh(y.clamp(-1 + 1e-6, 1 - 1e-6))
+    return {"audio_std": float(y.std()), "pre_tanh_std": float(pre.std()),
+            "saturated_share": float((y.abs() > 0.99).float().mean())}
+
+
+def vocoder_path(codec, vq, tables, voc, codec_wire):
+    """Phase 3, the receiver: ``make_vocoder_scan_stream`` on the card with
+    f32 weights, 200 frames in two dispatches of 34 launches. Returns the
+    launch counts of that run and the checks."""
+    codec_codes, codec_ref_codes, z_eager = codec_wire
+    frames4 = frames_for(sum(MAIN_FRAMES), SEED)  # the codec path's frames
+    frames = frames4[:, 0, :, 0]
+    run = make_vocoder_scan_stream(codec, vq, voc, FRAME, weight_dtype=torch.float32)
+    require(run.backend == "cuda", f"'auto' resolved to {run.backend!r}, not 'cuda'")
+    out, launches = counted("vocoder", LAUNCHES_PER_DISPATCH["vocoder"], len(MAIN_FRAMES),
+                            VOCODER_KERNELS, lambda: stream(run, frames, MAIN_FRAMES))
+    require(out.shape == frames.shape and bool(torch.isfinite(out).all()),
+            f"receiver output {tuple(out.shape)} not finite or not the frames' shape")
+    out_j, codes = stream_codes(joined(codec, vq, voc, 1, torch.float32), frames4, MAIN_FRAMES)
+    require(torch.equal(out_j[:, 0, :, 0], out), "the route differs from its joined halves")
+    codes = codes[:, 0]
+    require(torch.equal(codes, codec_codes), "the receiver path's wire codes differ from "
+            "the codec path's")
+    log("vocoder path: wire codes equal the codec path's")
+    stats = audio_stats(out)
+    log(f"vocoder path audio: {json.dumps(stats)}")
+    require(stats["audio_std"] >= MIN_AUDIO_STD, f"receiver audio std {stats['audio_std']}")
+    require(stats["saturated_share"] <= MAX_SATURATED_SHARE,
+            f"{stats['saturated_share']} of the receiver's samples saturate tanh")
+
+    eager = make_vocoder_scan_stream(codec, vq, voc, FRAME, backend="eager")
+    require(eager.backend == "eager", "eager route not taken")
+    ref = stream(eager, frames, MAIN_FRAMES)
+    held, agree = held_codes("vocoder route codes vs eager", z_eager, tables, codes,
+                             codec_ref_codes)
+    err_f32 = float((out[:agree] - ref[:agree]).abs().max())
+    log(f"vocoder f32 route vs eager ({agree} frames): max|err|={err_f32:.3e} "
+        f"max|ref|={float(ref.abs().max()):.3e}")
+    require(err_f32 <= MAIN_ATOL_F32, "vocoder f32 route disagrees with eager")
+
+    # the route and the receiver half alone with bf16 weights, on the route's
+    # codes, against the eager receiver on the same codes (one call over all
+    # frames), so every frame is held whatever near ties the eager codes had
+    rx_eager = VocoderReceiver(codec, voc, vq, backend="eager")
+    wire = codes.reshape(-1, codes.shape[-1]).t()[:, None].contiguous()  # (L, 1, N * T)
+    ref_rx = rx_eager.decode(wire).reshape(frames.shape)
+    err_rx_f32 = float((out - ref_rx).abs().max())
+    log(f"vocoder f32 route vs the eager receiver on the route's codes ({len(frames)} "
+        f"frames): max|err|={err_rx_f32:.3e}")
+    require(err_rx_f32 <= MAIN_ATOL_F32, "vocoder f32 route disagrees with the eager "
+            "receiver on its own codes")
+    init16, run16 = make_stacked_vocoder(voc, FRAME, 1, torch.bfloat16, vq)
+    out16 = run16(init16(), codes[:, None])[0][:, 0]
+    scale = float(ref_rx.abs().max())
+    err16 = float((out16 - ref_rx).abs().max())
+    log(f"vocoder receiver bf16 weights vs eager on the route's codes: max|err|={err16:.3e} "
+        f"max|ref|={scale:.3e}")
+    require(err16 <= MAIN_RTOL_BF16 * scale, "bf16 receiver disagrees with eager")
+
+    # VocoderReceiver (kernel route) on a StreamingTransmitter's codes, frame
+    # by frame, against the eager receiver on the same codes
+    n_rx = 40
+    tx = StreamingTransmitter(codec, vq)
+    rx = VocoderReceiver(codec, voc, vq, weight_dtype=torch.float32)
+    require(rx.backend == "cuda", f"VocoderReceiver took {rx.backend!r}")
+    tx_codes = [tx.encode(frame[None, :, None]) for frame in frames[:n_rx]]
+    rx_out = torch.cat([rx.decode(c) for c in tx_codes], dim=1)
+    rx_ref = VocoderReceiver(codec, voc, vq, backend="eager").decode(torch.cat(tx_codes, -1))
+    err_rx = float((rx_out - rx_ref).abs().max())
+    log(f"VocoderReceiver on StreamingTransmitter codes vs eager ({n_rx} frames): "
+        f"max|err|={err_rx:.3e}")
+    require(err_rx <= MAIN_ATOL_F32, "VocoderReceiver disagrees with eager")
+
+    run_bf16 = make_vocoder_scan_stream(codec, vq, voc, FRAME)
+    err_path16 = float((stream(run_bf16, frames, MAIN_FRAMES) - out).abs().max())
+    log(f"vocoder path bf16 weights vs f32 route (no bound; codes may differ): "
+        f"max|err|={err_path16:.3e}")
+    return launches, {"f32_vs_eager": err_f32, "f32_vs_eager_frames": agree,
+                      "near_tie_rows_vs_eager": held["ties"], "f32_vs_eager_rx": err_rx_f32,
+                      "rx_bf16_vs_eager": err16, "rx_eager_max_abs": scale,
+                      "vocoder_receiver_vs_eager": err_rx, "path_bf16_vs_f32": err_path16,
+                      "eager_max_abs": float(ref.abs().max()), **stats}
+
+
+def vocoder_fleet_path(codec, vq, voc):
+    """Phase 3, the receiver's fleet: ``make_sharded_stream(vocoder=)`` at
+    BATCH streams, 16 frames in two dispatches, each stream against its own
+    single-stream ``make_vocoder_scan_stream`` run (f32 both)."""
+    frames = frames_for_streams(sum(MULTI_FRAMES), BATCH, SEED + 20)
+    fleet = make_sharded_stream(codec, vq, batch=BATCH, vocoder=voc)
+    out, launches = counted(f"vocoder fleet x{BATCH}", LAUNCHES_PER_DISPATCH["vocoder"],
+                            len(MULTI_FRAMES), VOCODER_KERNELS,
+                            lambda: stream(fleet, frames, MULTI_FRAMES))
+    require(out.shape == frames.shape and bool(torch.isfinite(out).all()),
+            f"vocoder fleet output {tuple(out.shape)}")
+    single = make_vocoder_scan_stream(codec, vq, voc, FRAME, weight_dtype=torch.float32)
+    ref = torch.stack([stream(single, frames[:, b, :, 0], MULTI_FRAMES)
+                       for b in range(BATCH)], 1)[..., None]
+    checks = per_stream(f"vocoder fleet x{BATCH} vs {BATCH} single-stream 'cuda' runs",
+                        None, None, out, None, ref, None)
+    checks["bit_for_bit"] = torch.equal(out, ref)
+    log(f"vocoder fleet x{BATCH} equals the single-stream runs bit for bit: "
+        f"{checks['bit_for_bit']}")
+    return launches, checks
+
+
+def vocoder_timed_shapes_held(codec, vq, tables, voc):
+    """Phase 3, every (B, N) that phase 4 times for the receiver's fleet: one
+    f32 dispatch of the joined halves (the fleet's launches) from zero caches,
+    held per stream against the batched eager composition."""
+    checks = {}
+    for batch in VOCODER_TIME_BATCHES:
+        run, eager = joined(codec, vq, voc, batch, torch.float32), eager_vocoder_fleet(
+            codec, vq, voc, batch)
+        for n in (1, 16):
+            frames = frames_for_streams(n, batch, SEED + 30)
+            (out, codes), (ref, ref_codes) = (stream_codes(r, frames, (n,))
+                                              for r in (run, eager))
+            checks[f"B{batch}_N{n}"] = per_stream(
+                f"vocoder x{batch} N={n} vs the batched eager route",
+                streamed_z(codec, frames), tables, out, codes, ref, ref_codes)
+    return checks
+
+
+def vocoder_times(codec, vq, voc, rng):
+    """Phase 4, the receiver: latency at N = 1 (bf16 weights) and its busy
+    share, throughput at N = 400, per-stream-frame time of the fleet (f32)
+    against the batched eager route at VOCODER_TIME_BATCHES x N = 1, 16 with
+    busy share, launches and cache memory, and the kernel sites."""
+    run = make_vocoder_scan_stream(codec, vq, voc, FRAME)
+    eager1 = make_vocoder_scan_stream(codec, vq, voc, FRAME, backend="eager")
+
+    def as_batch(r):  # (N, 1, F, 1) frames, as latency() and throughput() give them
+        def wrapped(cache, frames):
+            return r(cache, frames[:, 0, :, 0])
+
+        wrapped.init_cache = r.init_cache
+        return wrapped
+
+    times = {"latency_n1": latency(as_batch(run), 200),
+             "latency_n1_eager": latency(as_batch(eager1), 30),
+             "throughput": throughput(as_batch(run), THROUGHPUT_FRAMES, 5)}
+    times["device_n1"] = device_profile(as_batch(run), frames_for(1, SEED + 3),
+                                        times["latency_n1"]["median_ms"])
+    for key, val in times.items():
+        log(f"vocoder {key}", json.dumps(val) if val else "not measured")
+    fleet_times = {}
+    for batch in VOCODER_TIME_BATCHES:
+        fleet = make_sharded_stream(codec, vq, batch=batch, vocoder=voc)
+        eager = eager_vocoder_fleet(codec, vq, voc, batch)
+        for n in (1, 16):
+            frames = frames_for_streams(n, batch, SEED + 30)
+            counted(f"vocoder fleet x{batch} N={n} (one timing dispatch)",
+                    LAUNCHES_PER_DISPATCH["vocoder"], 1, VOCODER_KERNELS,
+                    lambda: fleet(fleet.init_cache(), frames))
+            k_ms = dispatch_ms(fleet, frames, 30 if n == 1 else 10)
+            e_ms = dispatch_ms(eager, frames, 5 if n == 1 else 2)
+            prof = device_profile(fleet, frames, k_ms, 20 if n == 1 else 5)
+            mem = cache_memory(fleet, frames)
+            per = 1e3 / (batch * n)
+            fleet_times[f"B{batch}_N{n}"] = {
+                "streams": batch, "frames": n, "kernel_ms": k_ms, "eager_ms": e_ms,
+                "us_per_stream_frame": {"kernel": k_ms * per, "eager": e_ms * per},
+                "busy_share": prof["busy_share"] if prof else None, "device": prof,
+                "memory": mem, "unit_tiles": unit_plans(voc, batch, n)}
+            log(f"vocoder fleet B={batch:<3d} N={n:<3d} us per stream-frame: kernel "
+                f"{k_ms * per:.2f}, eager {e_ms * per:.2f}; busy share "
+                + (f"{prof['busy_share']:.3f}" if prof else "not measured")
+                + f"; cache holds {mem['cache_held_bytes']} B for its own "
+                f"{mem['cache_own_bytes']} B, dispatch peak {mem['dispatch_peak_bytes']} B")
+    times["fleet"] = fleet_times
+    names = ("causal_conv", "causal_conv_transpose", "hifigan_unit")
+    ktimes = time_kernels(lambda n, wd: vocoder_sites(voc, n, wd, rng), names,
+                          ((1, 30), (DISPATCH, 10), (THROUGHPUT_FRAMES, 3)))
+    ktimes_b = time_kernels(lambda n, wd: vocoder_sites(voc, n, wd, rng, BATCH), names,
+                            ((1, 20), (BATCH_SIZES[1], 10)))
+    return times, ktimes, ktimes_b
 
 
 # ---------------------------------------------------------------- times
@@ -1039,10 +1445,11 @@ def multi_stream_times(path, gen, vq):
     """Phase 4c: per-stream-frame time (median wall time of a dispatch over
     B * N) of B streams at N frames per dispatch, for B in TIME_BATCHES and N
     in BATCH_SIZES, through the kernel route (bf16 weights), the batched
-    eager route and B single-stream kernel dispatches; the kernel route's
-    busy share (torch.profiler) and the launches of one of its dispatches,
-    which must be the path's 18 or 22 at every B."""
-    kernels = KERNELS if vq is not None else DENOISER_KERNELS
+    eager route and (at SINGLE_STREAM_BATCHES) B single-stream kernel
+    dispatches; the kernel route's busy share (torch.profiler) and the
+    launches of one of its dispatches, which must be the path's 18 or 22 at
+    every B."""
+    kernels = CODEC_KERNELS if vq is not None else DENOISER_KERNELS
     single = make_scan_stream(gen, vq, frame_size=FRAME)
     report = {}
     for batch in TIME_BATCHES:
@@ -1056,19 +1463,21 @@ def multi_stream_times(path, gen, vq):
                     lambda: run(run.init_cache(), frames))
             k_ms = dispatch_ms(run, frames, 30 if n == 1 else 10)
             e_ms = dispatch_ms(eager, frames, 10 if n == 1 else 3)
-            s_ms = dispatch_ms(single_streams(single, batch), frames, 10 if n == 1 else 3)
+            s_ms = (dispatch_ms(single_streams(single, batch), frames, 10 if n == 1 else 3)
+                    if batch in SINGLE_STREAM_BATCHES else None)
             prof = device_profile(run, frames, k_ms, 20 if n == 1 else 5)
             mem = cache_memory(run, frames)
             per = 1e3 / (batch * n)
             entry = {"streams": batch, "frames": n, "kernel_ms": k_ms, "eager_ms": e_ms,
                      "single_streams_ms": s_ms,
                      "us_per_stream_frame": {"kernel": k_ms * per, "eager": e_ms * per,
-                                             "single_streams": s_ms * per},
+                                             "single_streams": s_ms and s_ms * per},
                      "busy_share": prof["busy_share"] if prof else None, "device": prof,
                      "memory": mem, "chain_plans": chain_plans(gen, batch, n)}
             log(f"{path} B={batch:<3d} N={n:<3d} us per stream-frame: kernel "
                 f"{k_ms * per:.2f}, eager {e_ms * per:.2f}, {batch} single-stream "
-                f"dispatches {s_ms * per:.2f}; kernel route busy share "
+                "dispatches " + (f"{s_ms * per:.2f}" if s_ms else "not timed")
+                + "; kernel route busy share "
                 + (f"{prof['busy_share']:.3f}" if prof else "not measured")
                 + f"; chain (tile, cluster) {entry['chain_plans']}; cache holds "
                 f"{mem['cache_held_bytes']} B for its own {mem['cache_own_bytes']} B, "
@@ -1091,6 +1500,11 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     started = time.perf_counter()
+    elapsed = {}  # step -> seconds since the start, where the step ended
+
+    def stamp(step):
+        elapsed[step] = time.perf_counter() - started
+        log(f"[{elapsed[step]:.1f} s] {step} done")
 
     t0 = time.perf_counter()
     built = _cuda.build()
@@ -1118,15 +1532,26 @@ def main() -> int:
 
     rx_codec = AudioDecGenerator(**codec_gp, use_pqc=True, seed=SEED + 1, device=DEVICE)
     rx_vq = codec_vq_state(rx_codec)
+    voc = build_vocoder()
+    log(f"vocoder receiver: {sum(p.numel() for p in voc.parameters())} params, total "
+        f"upsample {voc.total_upsample}, folded input conv in f64")
+    stamp("phase 1 (build, models)")
 
     log("phase 2: kernels vs plain versions")
     worst = check_kernels(gen, rng)
     codec_worst, codec_ties = check_codec_kernels(codec, tables, z_real, rng)
     batched_worst, batched_ties = check_batched_kernels(gen, codec, tables, z_real, rng)
+    stamp("phase 2, codecs")
+    voc_worst = check_vocoder_kernels(voc, rng)
+    stamp("phase 2, receiver")
 
     log("phase 3: main paths")
     launches, main_errs = main_path(gen)
-    codec_launches, codec_errs = codec_path(codec, vq, tables)
+    codec_launches, codec_errs, codec_wire = codec_path(codec, vq, tables)
+    stamp("phase 3, codecs' one-stream paths")
+    voc_launches, voc_checks = vocoder_path(codec, vq, tables, voc, codec_wire)
+    del codec_wire
+    stamp("phase 3, receiver path")
     multi_launches, multi_checks = {}, {}
     multi_launches["denoiser"], multi_checks["denoiser"] = multi_stream_path(
         "denoiser", gen, None, None)
@@ -1136,7 +1561,13 @@ def main() -> int:
         "denoiser", gen, None, None)
     multi_checks["codec"]["timed_shapes_vs_batched_eager"] = timed_shapes_held(
         "codec", codec, vq, tables)
-    by_path = {"denoiser": launches, "codec": codec_launches}
+    stamp("phase 3, codecs' multi-stream paths")
+    voc_fleet_launches, multi_checks["vocoder"] = vocoder_fleet_path(codec, vq, voc)
+    multi_checks["vocoder"]["timed_shapes_vs_batched_eager"] = vocoder_timed_shapes_held(
+        codec, vq, tables, voc)
+    stamp("phase 3, receiver fleet")
+    by_path = {"denoiser": launches, "codec": codec_launches, "vocoder": voc_launches,
+               f"vocoder fleet x{BATCH}": voc_fleet_launches}
     for path, runs in multi_launches.items():
         for kind, counts in runs.items():
             by_path[f"{path} {kind} x{BATCH}"] = counts
@@ -1183,16 +1614,22 @@ def main() -> int:
     codec_ktimes_b = time_kernels(
         lambda n, wd: codec_sites(codec, tables, z_real, n, wd, rng, BATCH),
         ("causal_conv", "rvq_assign", "codebook_lookup"), batch_sizes)
+    stamp("phase 4, codecs' one-stream times and sites")
     multi_times = {"denoiser": multi_stream_times("denoiser", gen, None),
                    "codec": multi_stream_times("codec", codec, vq)}
+    stamp("phase 4, codecs' multi-stream times")
+    voc_times, voc_ktimes, voc_ktimes_b = vocoder_times(codec, vq, voc, rng)
+    stamp("phase 4, receiver times")
 
     name_power = card()
     entries = []
     for name, spec in KERNELS.items():
-        first_path = "denoiser" if name in DENOISER_KERNELS else "codec"
-        kt = ktimes if name in DENOISER_KERNELS else codec_ktimes
-        prof = profile if name in DENOISER_KERNELS else codec_profile
-        kt_b = ktimes_b if name in DENOISER_KERNELS else codec_ktimes_b
+        first_path = ("denoiser" if name in DENOISER_KERNELS
+                      else "vocoder" if name == "hifigan_unit" else "codec")
+        kt, prof, kt_b = {"denoiser": (ktimes, profile, ktimes_b),
+                          "codec": (codec_ktimes, codec_profile, codec_ktimes_b),
+                          "vocoder": (voc_ktimes, voc_times["device_n1"], voc_ktimes_b),
+                          }[first_path]
         agg1, agg, agg400 = (kt[n][name] for n in SIZES)
         entry = {
             "name": name, "route": "cuda", "source": spec["source"],
@@ -1221,6 +1658,11 @@ def main() -> int:
         }
         if name in codec_worst:
             entry["max_abs_err"] = max(entry["max_abs_err"], codec_worst[name])
+        if name in voc_worst:
+            entry["max_abs_err"] = max(entry["max_abs_err"], voc_worst[name])
+            entry["vocoder_sites"] = {str(n): voc_ktimes[n][name]["sites"] for n in SIZES}
+            entry[f"vocoder_sites_streams_{BATCH}"] = {
+                str(n): voc_ktimes_b[n][name]["sites"] for n in BATCH_SIZES}
         if name == "rvq_assign":
             entry["max_abs_err_is"] = "largest distance excess of a near-tie pick"
             entry["near_tie_rows"] = codec_ties + batched_ties
@@ -1232,7 +1674,9 @@ def main() -> int:
                 str(n): codec_ktimes_b[n]["causal_conv"]["sites"] for n in BATCH_SIZES}
         entries.append(entry)
     report = {"card": name_power, "seconds": time.perf_counter() - started,
+              "elapsed_seconds_by_step": elapsed,
               "main_path_errors": main_errs, "codec_path_checks": codec_errs,
+              "vocoder_path_checks": voc_checks, "vocoder_times": voc_times,
               "multi_stream_checks": multi_checks, "multi_stream_times": multi_times,
               "times": times, "kernels": entries,
               "kernel_sites": {str(n): {k: v["sites"] for k, v in agg.items()}

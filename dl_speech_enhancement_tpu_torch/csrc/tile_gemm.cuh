@@ -39,6 +39,9 @@ __device__ __forceinline__ float elu(float x) {
   return x > 0.f ? x : expf(fminf(x, 0.f)) - 1.f;
 }
 
+// LeakyReLU as the reference writes it: x where x >= 0, else slope * x.
+__device__ __forceinline__ float leaky(float x, float slope) { return x >= 0.f ? x : slope * x; }
+
 template <int BN>
 struct Tile {
   static constexpr int kColThreads = BN / kTN;

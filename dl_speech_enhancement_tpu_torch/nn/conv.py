@@ -14,9 +14,21 @@ streaming generator uses:
   ``step(cache, x) -> (y, new_cache)``, with the cache a ``(B, pad, C)``
   tensor holding the last input rows, exactly as the reference's caches.
 - **Init**: the reference's torch-default kaiming-uniform bound
-  ``1/sqrt(fan_in)``, drawn on the CPU from an explicit ``torch.Generator``
-  and then moved to ``device``. Same distribution as the JAX init, other
+  ``1/sqrt(fan_in)``, or with ``w_init="normal"`` HiFiGAN's official
+  N(0, 0.01) weights, drawn on the CPU from an explicit ``torch.Generator``
+  and then moved to ``device``. Same distributions as the JAX init, other
   numbers; tests carry JAX params across with utils/jax_params.py.
+- **Weight norm** (``weight_norm=True``): the layer holds parameters ``v``
+  and ``g`` and ``layer.weight`` is the effective weight ``v * g / max(||v||,
+  1e-12)``, computed on each access as the JAX package computes it
+  (``dl_speech_enhancement_tpu/nn/conv.py::_norm_weight``). The norm runs
+  over dims (1, 2) of the PyTorch layout: per output channel for a conv
+  (out, in/groups, k), per input channel for a transposed conv (in, out, k),
+  which are the JAX package's axes; ``g`` is (out, 1, 1) or (in, 1, 1).
+- **Groups**: ``Conv1d`` and its subclasses take ``groups``; group g's
+  outputs read input channels [g * in/groups, (g + 1) * in/groups), as in
+  ``F.conv1d``. Transposed convs stay at ``groups == 1``, as in the JAX
+  package.
 """
 
 from __future__ import annotations
@@ -30,25 +42,63 @@ from torch import nn
 from dl_speech_enhancement_tpu_torch.utils.device import resolve_device
 
 
+NORMAL_INIT_STD = 0.01  # HiFiGAN's official init, N(0, 0.01)
+
+
 def _uniform(shape, fan_in: int, generator) -> torch.Tensor:
     bound = 1.0 / math.sqrt(fan_in) if fan_in > 0 else 0.0
     return torch.empty(shape).uniform_(-bound, bound, generator=generator)
 
 
-class Conv1d(nn.Module):
-    """Plain 1-D convolution over (B, T, C).
+def _norm_weight(v: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Weight norm: ``v * g / max(||v||, 1e-12)``, the norm over dims (1, 2)."""
+    norm = torch.sqrt((v * v).sum(dim=(1, 2), keepdim=True))
+    return v * (g / torch.clamp(norm, min=1e-12))
+
+
+class _Weighted(nn.Module):
+    """A layer whose ``weight`` is a parameter, or with weight norm the
+    effective weight of its ``v`` and ``g`` parameters."""
+
+    def _init_weight(self, shape, fan_in, weight_norm, w_init, generator, device):
+        if w_init == "normal":
+            w = torch.empty(shape).normal_(0.0, NORMAL_INIT_STD, generator=generator)
+        elif w_init == "torch":
+            w = _uniform(shape, fan_in, generator)
+        else:
+            raise ValueError(f"unknown w_init {w_init!r}; expected 'torch' or 'normal'")
+        self.weight_norm = weight_norm
+        if weight_norm:
+            self.v = nn.Parameter(w.to(device))
+            self.g = nn.Parameter(torch.sqrt((w * w).sum(dim=(1, 2), keepdim=True)).to(device))
+        else:
+            self.weight = nn.Parameter(w.to(device))
+
+    @property
+    def weight(self) -> torch.Tensor:
+        params = self._parameters
+        if "v" in params:
+            return _norm_weight(params["v"], params["g"])
+        if "weight" in params:
+            return params["weight"]
+        raise AttributeError("weight")
+
+
+class Conv1d(_Weighted):
+    """Plain 1-D convolution over (B, T, C), grouped and weight-normed if
+    asked.
 
     ``padding < 0`` selects "same" padding ``(k - 1) // 2 * dilation``
-    (reference NonCausalConv1d). Weight norm and ``groups != 1``, which only
-    the vocoder and discriminators use, are not ported yet."""
+    (reference NonCausalConv1d)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  stride: int = 1, padding: int = -1, dilation: int = 1,
-                 groups: int = 1, bias: bool = True, *,
+                 groups: int = 1, bias: bool = True, weight_norm: bool = False,
+                 w_init: str = "torch", *,
                  generator: torch.Generator | None = None, device="cuda"):
         super().__init__()
-        if groups != 1:
-            raise NotImplementedError("grouped convs are not ported yet")
+        if groups < 1 or in_channels % groups or out_channels % groups:
+            raise ValueError(f"groups {groups} must divide {in_channels} and {out_channels}")
         if padding < 0:
             padding = (kernel_size - 1) // 2 * dilation
         device = resolve_device(device)
@@ -58,9 +108,10 @@ class Conv1d(nn.Module):
         self.stride = stride
         self.padding = padding
         self.dilation = dilation
-        fan_in = kernel_size * in_channels
-        self.weight = nn.Parameter(_uniform(
-            (out_channels, in_channels, kernel_size), fan_in, generator).to(device))
+        self.groups = groups
+        fan_in = kernel_size * in_channels // groups
+        self._init_weight((out_channels, in_channels // groups, kernel_size), fan_in,
+                          weight_norm, w_init, generator, device)
         self.bias = (nn.Parameter(_uniform((out_channels,), fan_in, generator).to(device))
                      if bias else None)
 
@@ -68,7 +119,7 @@ class Conv1d(nn.Module):
         x = x.transpose(1, 2)
         if pad_lo or pad_hi:
             x = F.pad(x, (pad_lo, pad_hi))
-        y = F.conv1d(x, self.weight, self.bias, self.stride, 0, self.dilation)
+        y = F.conv1d(x, self.weight, self.bias, self.stride, 0, self.dilation, self.groups)
         return y.transpose(1, 2)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -113,18 +164,20 @@ class CausalConv1d(Conv1d):
         return self._conv(x, 0, 0), new_cache
 
 
-class ConvTranspose1d(nn.Module):
+class ConvTranspose1d(_Weighted):
     """Transposed 1-D conv over (B, T, C) with torch ConvTranspose1d
-    semantics. ``padding < 0`` / ``output_padding < 0`` select the reference
-    NonCausalConvTranspose1d defaults."""
+    semantics, weight-normed if asked. ``padding < 0`` / ``output_padding <
+    0`` select the reference NonCausalConvTranspose1d defaults."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  stride: int, padding: int = -1, output_padding: int = -1,
-                 groups: int = 1, bias: bool = True, *,
+                 groups: int = 1, bias: bool = True, weight_norm: bool = False,
+                 w_init: str = "torch", *,
                  generator: torch.Generator | None = None, device="cuda"):
         super().__init__()
         if groups != 1:
-            raise NotImplementedError("grouped transposed convs are not ported yet")
+            # the JAX package raises for them too (nn/conv.py::ConvTranspose1d)
+            raise NotImplementedError("grouped transposed convs are not ported")
         if padding < 0:
             padding = (stride + 1) // 2
         if output_padding < 0:
@@ -137,8 +190,8 @@ class ConvTranspose1d(nn.Module):
         self.padding = padding
         self.output_padding = output_padding
         fan_in = kernel_size * out_channels
-        self.weight = nn.Parameter(_uniform(
-            (in_channels, out_channels, kernel_size), fan_in, generator).to(device))
+        self._init_weight((in_channels, out_channels, kernel_size), fan_in, weight_norm,
+                          w_init, generator, device)
         self.bias = (nn.Parameter(_uniform((out_channels,), fan_in, generator).to(device))
                      if bias else None)
 

@@ -25,13 +25,15 @@ PACKAGE = pathlib.Path(__file__).resolve().parent.parent
 CSRC = PACKAGE / "csrc"
 BUILD_DIR = PACKAGE / "_build"
 SOURCES = ("residual_chain", "causal_conv", "causal_conv_transpose", "rvq_assign",
-           "codebook_lookup")
+           "codebook_lookup", "hifigan_unit")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I, _L, _Z = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_size_t
+_P, _I, _L, _Z, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_size_t,
+                      ctypes.c_float)
 # C entry points: name -> (argtypes, restype). The layer kernels take (cache,
-# cache stream stride, x, ...) and the stream count B.
+# cache stream stride, x, ...) and the stream count B; the boundary convs an
+# activation code and slope (and causal_conv a tanh flag) before the weight type.
 _ENTRIES = {
     "residual_chain": {
         "dse_residual_chain": ([_P, _L, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
@@ -40,17 +42,23 @@ _ENTRIES = {
         "dse_residual_chain_block_rows": ([_I, _I], _I),
     },
     "causal_conv": {
-        "dse_causal_conv": ([_P, _L, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P], _I),
+        "dse_causal_conv": ([_P, _L, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I,
+                             _I, _P], _I),
     },
     "causal_conv_transpose": {
-        "dse_causal_conv_transpose": ([_P, _L, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-                                      _I),
+        "dse_causal_conv_transpose": ([_P, _L, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
+                                       _I, _P], _I),
     },
     "rvq_assign": {
         "dse_rvq_assign": ([_P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
     },
     "codebook_lookup": {
         "dse_codebook_lookup": ([_P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
+    },
+    "hifigan_unit": {
+        "dse_hifigan_unit": ([_P, _L, _P, _L, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                              _I, _I, _I, _F, _I, _P], _I),
+        "dse_hifigan_unit_smem": ([_I, _I, _I], _Z),
     },
 }
 BAD_CODE = -1  # codebook_lookup's return for a code outside its layer's range

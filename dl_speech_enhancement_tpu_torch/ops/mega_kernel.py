@@ -76,32 +76,47 @@ from dl_speech_enhancement_tpu_torch.ops.stream_kernel import (
 # ---------------------------------------------------------------- kernels
 
 
-def causal_conv_plain(cache, x, w, b=None, stride: int = 1, dilation: int = 1):
+def _leaky(x, slope):
+    """LeakyReLU as the reference writes it: x where x >= 0, else slope * x."""
+    return torch.where(x >= 0, x, slope * x)
+
+
+def _loaded(cache, x, leaky):
+    """``[cache; x]``, with LeakyReLU(``leaky``) applied unless it is None."""
+    h = torch.cat([cache, x], dim=-2)
+    return h if leaky is None else _leaky(h, leaky)
+
+
+def causal_conv_plain(cache, x, w, b=None, stride: int = 1, dilation: int = 1,
+                      leaky: float | None = None, tanh: bool = False):
     """Plain PyTorch version of :func:`causal_conv`, in f32, on (time, C) or
     (B, time, C)."""
-    h = torch.cat([cache, x], dim=-2)
+    h = _loaded(cache, x, leaky)
     w = w.float()
     rows = x.shape[-2] // stride
     span = stride * (rows - 1) + 1
     y = h[..., 0:span:stride, :] @ w[0]
     for j in range(1, w.shape[0]):
         y = y + h[..., j * dilation: j * dilation + span: stride, :] @ w[j]
-    return y if b is None else y + b
+    y = y if b is None else y + b
+    return torch.tanh(y) if tanh else y
 
 
 def causal_conv(cache: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
-                b: torch.Tensor | None = None, stride: int = 1,
-                dilation: int = 1) -> torch.Tensor:
+                b: torch.Tensor | None = None, stride: int = 1, dilation: int = 1,
+                leaky: float | None = None, tanh: bool = False) -> torch.Tensor:
     """Causal conv over ``[cache; x]`` for B streams: cache (B, (k-1)*d,
     Cin) f32, x (B, T, Cin) f32 with T a multiple of ``stride`` (or (ctx,
     Cin) / (T, Cin) for one stream), w (k, Cin, Cout) f32 or bf16, b (Cout,)
-    f32 or None. Returns (B, T / stride, Cout) f32 (2-D for one stream)."""
+    f32 or None. ``leaky`` (a slope) applies LeakyReLU to the input as it is
+    loaded, ``tanh`` tanh to the output. Returns (B, T / stride, Cout) f32
+    (2-D for one stream)."""
     if x.device.type == "cpu":
-        return causal_conv_plain(cache, x, w, b, stride, dilation)
+        return causal_conv_plain(cache, x, w, b, stride, dilation, leaky, tanh)
     if x.device.type != "cuda":
         raise ValueError(f"causal_conv: unsupported device {x.device}")
     if x.dim() == 2 and cache.dim() == 2:
-        return causal_conv(cache[None], x[None], w, b, stride, dilation)[0]
+        return causal_conv(cache[None], x[None], w, b, stride, dilation, leaky, tanh)[0]
     if x.dim() != 3:
         raise ValueError(f"causal_conv: x must be (B, T, Cin), got {tuple(x.shape)}")
     B, T, cin = x.shape
@@ -121,8 +136,9 @@ def causal_conv(cache: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
     lib = _cuda.load("causal_conv")
     err = lib.dse_causal_conv(cache.data_ptr(), cache.stride(0), x.data_ptr(), w.data_ptr(),
                               None if b is None else b.data_ptr(), out.data_ptr(), B,
-                              T // stride, cin, cout, k, stride, dilation,
-                              int(w.dtype == torch.bfloat16), _cuda.stream_handle(x))
+                              T // stride, cin, cout, k, stride, dilation, int(leaky is not None),
+                              leaky or 0.0, int(tanh), int(w.dtype == torch.bfloat16),
+                              _cuda.stream_handle(x))
     _cuda.check(lib, err, "causal_conv")
     causal_conv.launches += 1
     return out
@@ -131,10 +147,11 @@ def causal_conv(cache: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
 causal_conv.launches = 0
 
 
-def causal_conv_transpose_plain(cache, x, w, b=None, stride: int = 1):
+def causal_conv_transpose_plain(cache, x, w, b=None, stride: int = 1,
+                                leaky: float | None = None):
     """Plain PyTorch version of :func:`causal_conv_transpose`, in f32, on
     (time, C) or (B, time, C)."""
-    h = torch.cat([cache, x], dim=-2)
+    h = _loaded(cache, x, leaky)
     w = w.float()
     cpad = stride - 1
     y = x.new_empty((*x.shape[:-2], x.shape[-2] * stride, w.shape[2]))
@@ -145,18 +162,20 @@ def causal_conv_transpose_plain(cache, x, w, b=None, stride: int = 1):
 
 
 def causal_conv_transpose(cache: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
-                          b: torch.Tensor | None = None, stride: int = 1) -> torch.Tensor:
+                          b: torch.Tensor | None = None, stride: int = 1,
+                          leaky: float | None = None) -> torch.Tensor:
     """Causal transposed conv (k = 2 * stride) over ``[cache; x]`` for B
-    streams: cache (B, 1, Cin) f32, x (B, T, Cin) f32 (or (1, Cin) / (T, Cin)
-    for one stream), w (2s, Cin, Cout) conv-ready tap-flipped, f32 or bf16, b
-    (Cout,) f32 or None. Returns (B, T * stride, Cout) f32 (2-D for one
+    streams: cache (B, 1, Cin) f32, x (B, T, Cin) f32 (or (1, Cin) / (T,
+    Cin) for one stream), w (2s, Cin, Cout) conv-ready tap-flipped, f32 or
+    bf16, b (Cout,) f32 or None; ``leaky`` (a slope) applies LeakyReLU to the
+    input as it is loaded. Returns (B, T * stride, Cout) f32 (2-D for one
     stream)."""
     if x.device.type == "cpu":
-        return causal_conv_transpose_plain(cache, x, w, b, stride)
+        return causal_conv_transpose_plain(cache, x, w, b, stride, leaky)
     if x.device.type != "cuda":
         raise ValueError(f"causal_conv_transpose: unsupported device {x.device}")
     if x.dim() == 2 and cache.dim() == 2:
-        return causal_conv_transpose(cache[None], x[None], w, b, stride)[0]
+        return causal_conv_transpose(cache[None], x[None], w, b, stride, leaky)[0]
     if x.dim() != 3:
         raise ValueError(f"causal_conv_transpose: x must be (B, T, Cin), got "
                          f"{tuple(x.shape)}")
@@ -177,6 +196,7 @@ def causal_conv_transpose(cache: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
     err = lib.dse_causal_conv_transpose(cache.data_ptr(), cache.stride(0), x.data_ptr(),
                                         w.data_ptr(), None if b is None else b.data_ptr(),
                                         out.data_ptr(), B, T, cin, cout, stride,
+                                        int(leaky is not None), leaky or 0.0,
                                         int(w.dtype == torch.bfloat16),
                                         _cuda.stream_handle(x))
     _cuda.check(lib, err, "causal_conv_transpose")
@@ -345,18 +365,36 @@ def mega_topology_error(gen, chunk: int) -> str | None:
 
 
 class StreamHalf(NamedTuple):
-    """The encoder or the decoder half of the whole-model stream."""
+    """The encoder or the decoder half of the whole-model stream (or the
+    vocoder receiver, ops/vocoder_kernel.py::vocoder_half)."""
 
     shapes: dict  # cache name -> per-stream (rows, channels)
     run: Callable  # (cache, activations) -> (activations, new cache entries)
     hop: int  # samples per wire row
     codes: bool  # the wire is int32 codes (PQC), not encoder features
+    fills: dict | None = None  # cache name -> (channels,) row a fresh cache holds; else zeros
+
+
+def init_half_cache(halves, batch: int, device) -> dict:
+    """A fresh cache of ``halves``: ``{name: (batch, rows, channels)}`` on
+    ``device``, zeros but where a half names the row it starts from."""
+    cache = {}
+    for half in halves:
+        for name, shape in half.shapes.items():
+            cache[name] = torch.zeros((batch, *shape), device=device)
+            if half.fills and name in half.fills:
+                cache[name][:] = half.fills[name].to(device)
+    return cache
+
+
+def _check_half_dtype(weight_dtype):
+    if weight_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"weight_dtype must be float32 or bfloat16, got {weight_dtype}")
 
 
 def _check_half(gen, weight_dtype, vq_state):
     gen.check_vq_state(vq_state)
-    if weight_dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"weight_dtype must be float32 or bfloat16, got {weight_dtype}")
+    _check_half_dtype(weight_dtype)
     reason = mega_topology_error(gen, gen.hop)
     if reason:
         raise ValueError(reason)
@@ -449,9 +487,11 @@ def mega_decoder(gen, weight_dtype=torch.bfloat16, vq_state=None) -> StreamHalf:
 def join_halves(encoder: StreamHalf, decoder: StreamHalf, batch: int, device,
                 chunk: int | None = None):
     """``(init_cache, run)`` streaming ``batch`` streams through an encoder
-    half and then a decoder half, which may come from different generators.
+    half and then a decoder half, which may come from different generators
+    (or the vocoder receiver, ops/vocoder_kernel.py::vocoder_half).
 
-    ``init_cache() -> {name: (batch, rows, channels)}`` zeros on ``device``;
+    ``init_cache() -> {name: (batch, rows, channels)}`` on ``device``
+    (:func:`init_half_cache`);
     ``run(cache, frames (N, batch, F)) -> (out (N, batch, F'), new_cache)``,
     and with PQC also ``codes (N, batch, F / hop, L)`` int32. ``F`` must be
     ``chunk``, or any positive multiple of the hop when ``chunk`` is None."""
@@ -460,11 +500,12 @@ def join_halves(encoder: StreamHalf, decoder: StreamHalf, batch: int, device,
                          "encoder features")
     if batch < 1:
         raise ValueError(f"batch must be at least 1, got {batch}")
-    shapes = {**encoder.shapes, **decoder.shapes}
+    if set(encoder.shapes) & set(decoder.shapes):
+        raise ValueError(f"the halves' cache names collide: "
+                         f"{sorted(set(encoder.shapes) & set(decoder.shapes))}")
 
     def init_cache():
-        return {name: torch.zeros((batch, *shape), device=device)
-                for name, shape in shapes.items()}
+        return init_half_cache((encoder, decoder), batch, device)
 
     def run(cache, frames):
         if frames.dim() != 3 or frames.shape[1] != batch:

@@ -1,0 +1,353 @@
+"""Streaming of the HiFiGAN vocoder receiver on hand-written kernels.
+
+Counterpart of dl_speech_enhancement_tpu/ops/vocoder_kernel.py::
+make_mega_vocoder (K4, its MultiGroupConv1d arm) and, through the batch
+axis, of ops/vocoder_stacked.py::make_stacked_vocoder (K5). On the TPU, K4
+packs the ~19.5 M parameters of the AudioDec v1 receiver into VMEM-budgeted
+segments, fuses a stage's groups into block-diagonal 128-lane matmuls
+because Mosaic pads lanes, and K5 stacks streams along sublanes; none of
+that applies to Hopper. As for the codec (ops/mega_kernel.py), every layer
+is causal and a dispatch's chunk a whole number of hops, so one launch per
+layer covers all B streams and all N frames, and each layer's cache is the
+tail of its input. A dispatch with PQC is 23 launches whatever B is:
+
+- :func:`~dl_speech_enhancement_tpu_torch.ops.mega_kernel.codebook_lookup`
+  of the int32 wire codes in the transmitter's books (without PQC the wire
+  is the encoder features);
+- the input conv (causal_conv), with the analyzer statistics folded into
+  its weights and bias in f64 at build time; its cache starts at the
+  statistics' mean, which is zero once normalised, as the reference's is;
+- per stage: the upsample (causal_conv_transpose with LeakyReLU(0.1) fused
+  on load), three :func:`hifigan_unit` launches (csrc/hifigan_unit.cu; the
+  first reads its c-channel input for every group, the reference's tile),
+  and the 1x1 fuse (causal_conv, no bias);
+- the output conv: causal_conv with LeakyReLU(0.01) on load and tanh.
+
+:func:`vocoder_half` is that sequence as a
+:class:`~dl_speech_enhancement_tpu_torch.ops.mega_kernel.StreamHalf`, so
+``join_halves(mega_encoder(codec, ...), vocoder_half(voc, ...), ...)`` is the
+tx -> wire codes -> rx stream of the ``vctk_v1`` pairing. Weights are
+copied once, at build time, in ``weight_dtype`` (bf16 by default;
+activations, sums, biases and books stay f32).
+
+K4's MultiReceptiveField arm (the v0 and v3 presets) is not on the kernel
+route yet: :func:`vocoder_topology_error` names it, and the routes that
+need the kernels raise for it.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from dl_speech_enhancement_tpu_torch.models.hifigan import (
+    HiFiGANGenerator,
+    MultiReceptiveField,
+)
+from dl_speech_enhancement_tpu_torch.ops import _cuda
+from dl_speech_enhancement_tpu_torch.ops.mega_kernel import (
+    StreamHalf,
+    _bias,
+    _check_half_dtype,
+    _leaky,
+    causal_conv,
+    causal_conv_transpose,
+    codebook_lookup,
+    conv_transpose_weight,
+    conv_weight,
+    init_half_cache,
+    vq_tables,
+)
+from dl_speech_enhancement_tpu_torch.ops.stream_kernel import (
+    _MAX_SMEM,
+    _N_SM,
+    _check_operands,
+    tail,
+)
+
+# ---------------------------------------------------------------- kernel
+
+
+def hifigan_unit_plain(cache1, cache2, x, w1, b1, w2, b2, dilation: int, groups: int,
+                       slope: float = 0.1):
+    """Plain PyTorch version of :func:`hifigan_unit`, in f32, on (time, C)
+    or (B, time, C). Returns (out, new cache2)."""
+    taps, c, gc = w1.shape
+    s = 0 if x.shape[-1] != gc else c  # tiled first unit: every group reads x
+    w1, w2 = w1.float(), w2.float()
+    T = x.shape[-2]
+    a = _leaky(torch.cat([cache1, x], dim=-2), slope)
+    hs = []
+    for g in range(groups):
+        a_g, cols = a[..., g * s: g * s + c], slice(g * c, (g + 1) * c)
+        acc = a_g[..., 0:T, :] @ w1[0, :, cols]
+        for j in range(1, taps):
+            acc = acc + a_g[..., j * dilation: j * dilation + T, :] @ w1[j, :, cols]
+        hs.append(acc)
+    h = torch.cat(hs, dim=-1)
+    h = _leaky(h if b1 is None else h + b1, slope)
+    h_ext = torch.cat([cache2, h], dim=-2)
+    ys = []
+    for g in range(groups):
+        cols = slice(g * c, (g + 1) * c)
+        acc = h_ext[..., 0:T, cols] @ w2[0, :, cols]
+        for j in range(1, taps):
+            acc = acc + h_ext[..., j: j + T, cols] @ w2[j, :, cols]
+        ys.append(acc)
+    y = torch.cat(ys, dim=-1)
+    y = y if b2 is None else y + b2
+    res = x if s else x.repeat(*([1] * (x.dim() - 1)), groups)
+    return res + y, tail(cache2, h, taps - 1)
+
+
+def _tile_bm(c: int) -> int:
+    return 128 if c <= 32 else 64  # csrc/tile_gemm.cuh Tile<BN>::BM
+
+
+@functools.lru_cache(maxsize=256)
+def _unit_plan(batch: int, rows: int, c: int, groups: int, taps: int) -> int:
+    """Output rows per block of the unit kernel, for ``batch`` streams of
+    ``rows`` rows. Each block recomputes the ``taps - 1`` h rows before its
+    tile, so long tiles waste less, but fewer tiles fill fewer SMs. As
+    ops/stream_kernel.py::_chain_plan does, the model counts the GEMM steps
+    one block makes times the blocks an SM runs in turn or side by side,
+    over the grid of ``batch * ceil(rows / tile) * groups`` blocks, and
+    takes the cheapest tile whose shared memory fits; ties go to fewer
+    blocks."""
+    lib = _cuda.load("hifigan_unit")
+    bm = _tile_bm(c)
+    col_tiles = -(-c // (32 if c <= 32 else 64))
+    k_slices = -(-c // 32)
+    candidates = {4, 8, 16, 32, 64, 128, 256, rows}
+    candidates |= {m * bm - (taps - 1) for m in (1, 2, 3, 4)}
+    plans = []
+    for tile in sorted(t for t in candidates if 0 < t <= rows):
+        smem = lib.dse_hifigan_unit_smem(tile, c, taps)
+        if smem > _MAX_SMEM:
+            continue
+        steps = (-(-(tile + taps - 1) // bm) + -(-tile // bm)) * col_tiles * taps * k_slices
+        blocks = batch * -(-rows // tile) * groups
+        per_sm = max(1, min(8, (_MAX_SMEM + 1024) // (smem + 1024)))
+        waves = -(-blocks // (_N_SM * per_sm))
+        sharing = min(per_sm, -(-blocks // _N_SM))
+        plans.append(((waves * sharing * steps, blocks), tile))
+    if not plans:
+        raise ValueError(f"hifigan_unit: no tile fits shared memory at c={c}, k={taps}")
+    return min(plans)[1]
+
+
+def hifigan_unit(cache1: torch.Tensor, cache2: torch.Tensor, x: torch.Tensor,
+                 w1: torch.Tensor, b1: torch.Tensor | None, w2: torch.Tensor,
+                 b2: torch.Tensor | None, dilation: int, groups: int, slope: float = 0.1):
+    """One grouped HiFiGAN dilation unit for B streams, ``x + conv2(leaky(
+    conv1(leaky(x))))`` (csrc/hifigan_unit.cu).
+
+    x (B, T, Cin) f32 with Cin = groups * c, or Cin = c for the first unit
+    of a MultiGroupConv1d (every group reads x); cache1 (B, (k-1) * dilation,
+    Cin), the tail of the raw unit input (any stream stride); cache2 (B, k-1,
+    groups * c), conv2's activated window rows; w1, w2 (k, c, groups * c) f32
+    or bf16; b1, b2 (groups * c,) f32 or None. 2-D tensors are one stream.
+    Returns (out (B, T, groups * c), new cache2 (B, k-1, groups * c))."""
+    if x.device.type == "cpu":
+        return hifigan_unit_plain(cache1, cache2, x, w1, b1, w2, b2, dilation, groups, slope)
+    if x.device.type != "cuda":
+        raise ValueError(f"hifigan_unit: unsupported device {x.device}")
+    if x.dim() == 2 and cache1.dim() == 2 and cache2.dim() == 2:
+        out, new2 = hifigan_unit(cache1[None], cache2[None], x[None], w1, b1, w2, b2,
+                                 dilation, groups, slope)
+        return out[0], new2[0]
+    if x.dim() != 3:
+        raise ValueError(f"hifigan_unit: x must be (B, T, Cin), got {tuple(x.shape)}")
+    B, T, cin = x.shape
+    taps, c, gc = w1.shape
+    if gc != groups * c or cin not in (c, gc) or w2.shape != w1.shape or taps < 2:
+        raise ValueError(f"hifigan_unit: weights {tuple(w1.shape)}, {tuple(w2.shape)} do "
+                         f"not fit {groups} groups at input {tuple(x.shape)}")
+    if (cache1.shape != (B, (taps - 1) * dilation, cin)
+            or cache2.shape != (B, taps - 1, gc)):
+        raise ValueError(f"hifigan_unit: caches {tuple(cache1.shape)}, {tuple(cache2.shape)} "
+                         f"do not fit input {tuple(x.shape)} at dilation {dilation}")
+    for b in (b1, b2):
+        if b is not None and b.shape != (gc,):
+            raise ValueError(f"hifigan_unit: bias {tuple(b.shape)} does not fit {gc}")
+    _check_operands("hifigan_unit", x.device, {"x": x}, (w1, w2), b1, cache=cache1)
+    _check_operands("hifigan_unit", x.device, {"x": x}, (w1, w2), b2, cache=cache2)
+    out = torch.empty((B, T, gc), device=x.device)
+    new2 = torch.empty((B, taps - 1, gc), device=x.device)
+    if B * T == 0:
+        return out, cache2.clone()
+    lib = _cuda.load("hifigan_unit")
+    tile = _unit_plan(B, T, c, groups, taps)
+    err = lib.dse_hifigan_unit(cache1.data_ptr(), cache1.stride(0), cache2.data_ptr(),
+                               cache2.stride(0), x.data_ptr(), w1.data_ptr(),
+                               None if b1 is None else b1.data_ptr(), w2.data_ptr(),
+                               None if b2 is None else b2.data_ptr(), out.data_ptr(),
+                               new2.data_ptr(), B, T, c, groups, int(cin != gc),
+                               taps, dilation, tile, slope, int(w1.dtype == torch.bfloat16),
+                               _cuda.stream_handle(x))
+    _cuda.check(lib, err, "hifigan_unit")
+    hifigan_unit.launches += 1
+    return out, new2
+
+
+hifigan_unit.launches = 0
+
+# ---------------------------------------------------------------- receiver
+
+
+def vocoder_topology_error(voc, chunk: int, hop: int | None = None) -> str | None:
+    """Why the vocoder's kernel route cannot run ``voc`` at ``chunk`` audio
+    samples per frame (behind a transmitter of hop ``hop``, if given), or
+    None. The routes ask this before they build anything, in place of the
+    JAX package's ``except AssertionError`` fallback."""
+    if not isinstance(voc, HiFiGANGenerator):
+        return f"the vocoder route takes a HiFiGANGenerator, got {type(voc).__name__}"
+    for si, blk in enumerate(voc.blocks):
+        if isinstance(blk, MultiReceptiveField):
+            return (f"stage {si} is a MultiReceptiveField block (the v0/v3 presets): K4's "
+                    "MultiReceptiveField arm is not on the kernel route yet (ROADMAP.md)")
+        if not blk.block.use_additional_convs:
+            return "the unit kernel needs the residual blocks' additional convs (conv2)"
+        c = voc.upsamples[si].out_channels
+        taps = blk.block.convs1[0].kernel_size
+        # csrc/tile_gemm.cuh's staging plus a 4-row tile's h window
+        floats = (5248 if c <= 32 else 4224) + (4 + taps - 1) * c
+        if 4 * floats > _MAX_SMEM:
+            return f"stage {si}: {c} channels per group do not fit the unit kernel's shared memory"
+    for name, conv in (("input", voc.input_conv), ("output", voc.output_conv)):
+        if conv.stride != 1 or conv.dilation != 1 or conv.groups != 1:
+            return f"the {name} conv must be unstrided, undilated and ungrouped"
+    if hop is not None and voc.total_upsample != hop:
+        return (f"the vocoder's total upsample {voc.total_upsample} must equal the "
+                f"transmitter's hop {hop}")
+    if chunk <= 0 or chunk % voc.total_upsample:
+        return (f"chunk {chunk} must be a positive multiple of the vocoder's total upsample "
+                f"{voc.total_upsample}")
+    return None
+
+
+def _folded_input_conv(voc, weight_dtype):
+    """The input conv's (k, in, out) weight and bias with the statistics
+    normalisation folded in, in f64: ``W' = W / scale``, ``b' = b - sum_j
+    (mean / scale) @ W[j]``."""
+    w = voc.input_conv.weight.detach().permute(2, 1, 0).double()
+    b = voc.input_conv.bias
+    b = w.new_zeros(w.shape[2]) if b is None else b.detach().double()
+    if voc.norm:
+        mean, scale = voc.mean.double(), voc.scale.double()
+        b = b - torch.einsum("i,kio->o", mean / scale, w)
+        w = w / scale[None, :, None]
+    return w.to(weight_dtype).contiguous(), b.float().contiguous()
+
+
+def vocoder_half(voc, weight_dtype=torch.bfloat16, vq_state=None) -> StreamHalf:
+    """The HiFiGAN receiver as a stream half: with PQC (``vq_state``, the
+    transmitter's ``VQState``) codebook_lookup first, then the input conv,
+    4 x (upsample, 3 x hifigan_unit, fuse) and the output conv; 23 launches,
+    22 without PQC.
+
+    ``run(cache, wire) -> (audio (B, rows * total_upsample, 1), new cache
+    entries)`` takes int32 wire codes (B, rows, L) (a code outside its book
+    raises ValueError), or features (B, rows, in_channels) without PQC.
+    Cache names start with ``v``, apart from the codec halves' names."""
+    reason = vocoder_topology_error(voc, voc.total_upsample)
+    if reason:
+        raise ValueError(reason)
+    _check_half_dtype(weight_dtype)
+    wd, slope = weight_dtype, voc.negative_slope
+    ci, co = voc.input_conv, voc.output_conv
+    w_in, b_in = _folded_input_conv(voc, wd)
+    w_in, b_in = w_in.to(voc.device), b_in.to(voc.device)
+    if vq_state is not None:
+        _, _, books_t = vq_tables(vq_state, voc.device)
+        if books_t.shape[2] != ci.in_channels:
+            raise ValueError(f"code dim {books_t.shape[2]} does not fit the vocoder's "
+                             f"{ci.in_channels} input channels")
+    shapes = {"v_in": (ci.pad_length, ci.in_channels)}
+    stages = []
+    for si, (up, blk) in enumerate(zip(voc.upsamples, voc.blocks)):
+        shapes[f"v{si}u"] = (1, up.in_channels)
+        units, c, groups = [], up.out_channels, blk.groups
+        for ui, (c1, c2) in enumerate(zip(blk.block.convs1, blk.block.convs2)):
+            shapes[f"v{si}r{ui}a"] = (c1.pad_length, c if ui == 0 else groups * c)
+            shapes[f"v{si}r{ui}b"] = (c2.pad_length, groups * c)
+            units.append((conv_weight(c1, wd), _bias(c1), conv_weight(c2, wd), _bias(c2),
+                          c1.dilation))
+        stages.append((conv_transpose_weight(up, wd), _bias(up), up.stride, units,
+                       conv_weight(blk.conv_out, wd), groups))
+    shapes["v_out"] = (co.pad_length, co.in_channels)
+    w_out, b_out = conv_weight(co, wd), _bias(co)
+    fills = {"v_in": voc.mean.detach().float()} if voc.norm else None
+
+    def run(cache, wire):
+        new, h = {}, wire
+        if vq_state is not None:
+            batch, rows, n_books = wire.shape
+            h = codebook_lookup(wire.reshape(batch * rows, n_books),
+                                books_t).reshape(batch, rows, -1)
+        # without PQC the wire may be the caller's tensor: keep the cache off it
+        new["v_in"] = tail(cache["v_in"], h, shapes["v_in"][0]).clone()
+        h = causal_conv(cache["v_in"], h, w_in, b_in)
+        for si, (w_up, b_up, s, units, w_f, groups) in enumerate(stages):
+            new[f"v{si}u"] = tail(cache[f"v{si}u"], h, 1)
+            h = causal_conv_transpose(cache[f"v{si}u"], h, w_up, b_up, s, leaky=slope)
+            for ui, (w1, b1, w2, b2, d) in enumerate(units):
+                raw, act = f"v{si}r{ui}a", f"v{si}r{ui}b"
+                new[raw] = tail(cache[raw], h, shapes[raw][0])
+                h, new[act] = hifigan_unit(cache[raw], cache[act], h, w1, b1, w2, b2, d,
+                                           groups, slope)
+            h = causal_conv(h.new_zeros((h.shape[0], 0, h.shape[2])), h, w_f)
+        new["v_out"] = tail(cache["v_out"], h, shapes["v_out"][0])
+        # upstream uses LeakyReLU(0.01) before the output conv (HiFiGAN.py:116)
+        return causal_conv(cache["v_out"], h, w_out, b_out, leaky=0.01, tanh=True), new
+
+    return StreamHalf(shapes, run, voc.total_upsample, vq_state is not None, fills)
+
+
+def make_stacked_vocoder(voc, chunk: int, batch: int, weight_dtype=torch.bfloat16,
+                         vq_state=None):
+    """The receiver alone for ``batch`` streams, the counterpart of JAX
+    ops/vocoder_stacked.py::make_stacked_vocoder (K5; re-exported from
+    ops/vocoder_stacked.py): ``init_cache() -> {name: (B, ctx, C)}`` and
+    ``run(cache, wire (N, B, chunk / total_upsample, L or in_channels)) ->
+    (audio (N, B, chunk), new_cache)``; per stream and frame it matches
+    ``voc.step`` (after the codebook lookup with PQC) from zero caches."""
+    reason = vocoder_topology_error(voc, chunk)
+    if reason:
+        raise ValueError(reason)
+    if batch < 1:
+        raise ValueError(f"batch must be at least 1, got {batch}")
+    half = vocoder_half(voc, weight_dtype, vq_state)
+    rows = chunk // voc.total_upsample
+
+    def init_cache():
+        return init_half_cache((half,), batch, voc.device)
+
+    def run(cache, wire):
+        if wire.dim() != 4 or wire.shape[1:3] != (batch, rows):
+            raise ValueError(f"wire must be (N, {batch}, {rows}, C), got {tuple(wire.shape)}")
+        n = wire.shape[0]
+        y, new = half.run(cache, wire.transpose(0, 1).reshape(batch, n * rows, -1).contiguous())
+        return y.reshape(batch, n, chunk).transpose(0, 1).contiguous(), new
+
+    return init_cache, run
+
+
+def make_mega_vocoder(voc, chunk: int, weight_dtype=torch.bfloat16, vq_state=None):
+    """One stream of :func:`make_stacked_vocoder` in the JAX package's
+    single-stream layout: ``init_cache() -> {name: (ctx, C)}``, ``run(cache,
+    zq (n, chunk / total_upsample, in_channels) f32, or int32 codes (n,
+    rows, L) with ``vq_state``) -> (audio (n, chunk), new_cache)``."""
+    init_b, run_b = make_stacked_vocoder(voc, chunk, 1, weight_dtype, vq_state)
+
+    def init_cache():
+        return {name: t[0] for name, t in init_b().items()}
+
+    def run(cache, x):
+        if x.dim() != 3:
+            raise ValueError(f"input must be (n, rows, C), got {tuple(x.shape)}")
+        y, new = run_b({name: t[None] for name, t in cache.items()}, x[:, None])
+        return y[:, 0], {name: t[0] for name, t in new.items()}
+
+    return init_cache, run

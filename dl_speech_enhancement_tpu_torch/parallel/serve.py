@@ -5,7 +5,8 @@ make_sharded_stream on one device. The JAX function shards B streams over a
 mesh and advances the whole fleet with one dispatch per call; streams are
 independent, so no collective is needed. On one card the fleet is the
 batched whole-model stream of ops/mega_kernel.py: each layer is one kernel
-launch over all B streams, 18 launches per dispatch (22 with PQC).
+launch over all B streams, 18 launches per dispatch (22 with PQC; 34 with
+the vocoder receiver).
 
 Receivers (the JAX package's paired presets):
 
@@ -14,8 +15,10 @@ Receivers (the JAX package's paired presets):
   half runs with ``gen``'s weights and books, the decoder half with
   ``rx_gen``'s; the hand-off is the int32 wire codes (encoder features
   without PQC), as on the wire;
-- ``vocoder``: the HiFiGAN receiver is the vocoder slice of the port
-  (ROADMAP.md) and raises NotImplementedError here.
+- ``vocoder``: the HiFiGAN receiver of the vocoder-paired presets
+  (``vctk_v1``): the codec's encoder half, then the vocoder half
+  (ops/vocoder_kernel.py::vocoder_half), which looks the wire codes up in
+  the transmitter's books, as the JAX fleet's ``step_paired`` does.
 
 Several cards (a mesh) are ROADMAP.md item 14 and raise
 NotImplementedError. The fleet computes with f32 weights, the JAX fleet's
@@ -33,6 +36,10 @@ from dl_speech_enhancement_tpu_torch.ops.mega_kernel import (
     mega_encoder,
     mega_topology_error,
 )
+from dl_speech_enhancement_tpu_torch.ops.vocoder_kernel import (
+    vocoder_half,
+    vocoder_topology_error,
+)
 from dl_speech_enhancement_tpu_torch.utils.device import resolve_device
 
 __all__ = ["make_sharded_stream"]
@@ -46,16 +53,12 @@ def make_sharded_stream(gen, vq_state=None, *, batch: int, device="cuda", rx_gen
     on the fleet's device) and ``run.batch``. ``F`` is any positive multiple
     of the hop, chosen by each call; the caches do not depend on it.
 
-    ``gen`` and ``rx_gen`` are the port's ``AudioDecGenerator``s on
-    ``device``; ``device`` is one device (a list of several raises
-    NotImplementedError). Runs the CUDA kernels on the card and their plain
-    versions on the CPU."""
+    ``gen`` and ``rx_gen`` are the port's ``AudioDecGenerator``s and
+    ``vocoder`` its ``HiFiGANGenerator`` on ``device``; ``device`` is one
+    device (a list of several raises NotImplementedError). Runs the CUDA
+    kernels on the card and their plain versions on the CPU."""
     if vocoder is not None and rx_gen is not None:
         raise ValueError("give either a vocoder rx or a codec rx, not both")
-    if vocoder is not None:
-        raise NotImplementedError(
-            "a vocoder receiver is the HiFiGAN vocoder slice of the port, not ported yet: "
-            "see ROADMAP.md, 'HiFiGAN vocoder receiver'")
     if rx_gen is None and rx_vq_state is not None:
         # a caller typo would otherwise degrade silently to a symmetric fleet
         raise ValueError("rx_vq_state requires rx_gen")
@@ -83,13 +86,22 @@ def make_sharded_stream(gen, vq_state=None, *, batch: int, device="cuda", rx_gen
         reason = mega_topology_error(g, g.hop)
         if reason:
             raise ValueError(f"the fleet cannot serve this generator: {reason}")
+    if vocoder is not None:
+        reason = vocoder_topology_error(vocoder, gen.hop, hop=gen.hop)
+        if reason:
+            raise ValueError(f"the fleet cannot serve this vocoder: {reason}")
+        if vocoder.device != device:
+            raise ValueError(f"vocoder is on {vocoder.device}, fleet asked for {device}")
 
     def on_device(vq):
         return None if vq is None else VQState(*(t.to(device) for t in vq))
 
-    init_cache, fleet = join_halves(
-        mega_encoder(gen, torch.float32, on_device(vq_state)),
-        mega_decoder(rx_gen, torch.float32, on_device(rx_vq_state)), batch, device)
+    if vocoder is not None:
+        receiver = vocoder_half(vocoder, torch.float32, on_device(vq_state))
+    else:
+        receiver = mega_decoder(rx_gen, torch.float32, on_device(rx_vq_state))
+    init_cache, fleet = join_halves(mega_encoder(gen, torch.float32, on_device(vq_state)),
+                                    receiver, batch, device)
 
     @torch.no_grad()
     def run(cache, frames):

@@ -30,6 +30,20 @@ Backends:
 - ``'eager'``: per-frame steps of the plain modules at batch B.
 - ``'auto'``: see :func:`resolve_scan_backend`.
 
+The vocoder-paired presets (``vctk_v1``: the symAD codec's transmitter, the
+int32 wire codes, the AudioDec v1 HiFiGAN receiver; counterpart of JAX
+``make_vocoder_scan_stream`` and ``VocoderReceiver``):
+
+- :func:`make_vocoder_scan_stream` streams one stream's frames ``(N, F)``
+  through the transmitter and the receiver. Its ``'cuda'`` route (``'auto'``
+  on the card) joins the codec's encoder half to the vocoder half
+  (ops/mega_kernel.py::mega_encoder, ops/vocoder_kernel.py::vocoder_half),
+  11 + 23 launches per dispatch with PQC, and raises where that cannot run;
+  ``'eager'`` is the per-frame loop of the plain modules.
+- :class:`VocoderReceiver` decodes wire codes ``(L, B, T)`` (features
+  ``(B, T, D)`` without PQC) of B streams into audio, on the vocoder half
+  for any B on the card, on the plain modules with ``'eager'``.
+
 ``AudioCodec``, ``AudioCodecStreamer`` and the CLI are later slices
 (ROADMAP.md).
 """
@@ -40,10 +54,17 @@ import torch
 
 from dl_speech_enhancement_tpu_torch.nn.vq import VQState
 from dl_speech_enhancement_tpu_torch.ops.mega_kernel import (
+    init_half_cache,
+    join_halves,
     make_mega_stream_batched,
+    mega_encoder,
     mega_topology_error,
 )
 from dl_speech_enhancement_tpu_torch.ops.stream_kernel import make_fused_chunk_step
+from dl_speech_enhancement_tpu_torch.ops.vocoder_kernel import (
+    vocoder_half,
+    vocoder_topology_error,
+)
 from dl_speech_enhancement_tpu_torch.utils.device import resolve_device
 
 BACKENDS = ("auto", "cuda", "cuda_chain", "eager")
@@ -183,6 +204,18 @@ def make_scan_stream(gen, vq_state=None, batch: int = 1, backend: str = "auto",
     return run
 
 
+def _check_wire_codes(gen, idx) -> None:
+    """Raise unless ``idx`` is (L, B, T) flattened wire codes of ``gen``'s
+    quantizer, each in its book's range [l*K, (l+1)*K)."""
+    q = gen.quantizer
+    base = (torch.arange(q.codebook_num, device=idx.device) * q.codebook_size).reshape(
+        -1, *[1] * (idx.dim() - 1))
+    if idx.shape[0] != q.codebook_num or bool(
+            ((idx < base) | (idx >= base + q.codebook_size)).any()):
+        raise ValueError(f"wire codes {tuple(idx.shape)} hold a code outside its "
+                         f"book's range [l*K, (l+1)*K), K={q.codebook_size}")
+
+
 def _check_endpoint(gen, device):
     device = resolve_device(device)
     if gen.device != device:
@@ -250,14 +283,147 @@ class StreamingReceiver:
     def decode(self, idx: torch.Tensor) -> torch.Tensor:
         idx = idx.to(self.device)
         if self.use_pqc:
-            q = self.gen.quantizer
-            base = (torch.arange(q.codebook_num, device=self.device) * q.codebook_size).reshape(
-                -1, *[1] * (idx.dim() - 1))
-            if idx.shape[0] != q.codebook_num or bool(
-                    ((idx < base) | (idx >= base + q.codebook_size)).any()):
-                raise ValueError(f"wire codes {tuple(idx.shape)} hold a code outside its "
-                                 f"book's range [l*K, (l+1)*K), K={q.codebook_size}")
+            _check_wire_codes(self.gen, idx)
         zq = self.gen.lookup(self.flat_cb, idx) if self.use_pqc else idx
         y, new_cache = self.gen.decode_step(self.cache, zq)
         self.cache.update(new_cache)
+        return y
+
+
+def _vocoder_route(backend, device, codec_gen, voc, rx_chunk, what):
+    """The route a vocoder entry point takes: ``'cuda'`` or ``'eager'``;
+    raises where the ``'cuda'`` route cannot run, naming the reason."""
+    backend = resolve_scan_backend(backend, on_cuda=device.type == "cuda", batch=1,
+                                   use_pqc=codec_gen.use_pqc)
+    if backend == "cuda_chain":
+        raise ValueError(f"{what} takes 'cuda', 'eager' or 'auto'; 'cuda_chain' runs the "
+                         "denoiser alone")
+    if backend == "cuda":
+        reason = (mega_topology_error(codec_gen, codec_gen.hop)
+                  or vocoder_topology_error(voc, rx_chunk, hop=codec_gen.hop))
+        if reason:
+            raise ValueError(f"{what}'s 'cuda' route cannot run: {reason}; pass "
+                             "backend='eager' for the plain modules")
+        if device.type != "cuda":
+            raise ValueError(f"backend 'cuda' runs CUDA kernels; device is {device}")
+    return backend
+
+
+def make_vocoder_scan_stream(codec_gen, vq_state, voc, frame_size: int, backend: str = "auto",
+                             weight_dtype=None, device="cuda"):
+    """One stream of a vocoder-paired preset, the codec's transmitter then
+    the wire codes (encoder features without PQC) then the HiFiGAN receiver:
+    ``run(cache, frames (N, frame_size)) -> (audio (N, frame_size *
+    total_upsample / hop), cache)``, ``run.init_cache()``, ``run.backend``.
+
+    ``codec_gen`` (the port's ``AudioDecGenerator``, with its ``VQState``
+    ``vq_state`` when it uses PQC; the codes are looked up in these books)
+    and ``voc`` (the port's ``HiFiGANGenerator``) are on ``device``.
+    ``weight_dtype`` goes to the kernel route (bf16 by default; pass float32
+    for wire codes equal to an f32 peer's). The ``'cuda'`` route (``'auto'``
+    on the card) raises ValueError where it cannot run (K4's
+    MultiReceptiveField arm, a vocoder whose total upsample is not the
+    codec's hop)."""
+    device = resolve_device(device)
+    codec_gen.check_vq_state(vq_state)
+    for g in (codec_gen, voc):
+        if g.device != device:
+            raise ValueError(f"generator is on {g.device}, stream asked for {device}")
+    if frame_size <= 0 or frame_size % codec_gen.hop:
+        raise ValueError(f"frame_size {frame_size} must be a positive multiple of the "
+                         f"codec's hop {codec_gen.hop}")
+    rx_chunk = frame_size // codec_gen.hop * voc.total_upsample
+    backend = _vocoder_route(backend, device, codec_gen, voc, rx_chunk, "the vocoder stream")
+    vq = _vq_on(vq_state, device) if codec_gen.use_pqc else None
+
+    def check(frames):
+        if frames.device != device or frames.dim() != 2 or frames.shape[1] != frame_size:
+            raise ValueError(f"frames must be (N, {frame_size}) on {device}, got "
+                             f"{tuple(frames.shape)} on {frames.device}")
+
+    if backend == "cuda":
+        wd = torch.bfloat16 if weight_dtype is None else weight_dtype
+        init_cache, joined = join_halves(mega_encoder(codec_gen, wd, vq),
+                                         vocoder_half(voc, wd, vq), 1, device, frame_size)
+
+        @torch.no_grad()
+        def run(cache, frames):
+            check(frames)
+            out, new_cache = joined(cache, frames[:, None])[:2]
+            return out[:, 0], new_cache
+
+        run.init_cache = init_cache
+        run.backend = "cuda"
+        return run
+
+    flat_cb = codec_gen.flat_codebook(vq) if vq is not None else None
+
+    @torch.no_grad()
+    def run(cache, frames):
+        check(frames)
+        ys = []
+        for frame in frames:
+            z, enc_cache = codec_gen.encode_step(cache["codec"], frame[None, :, None])
+            if vq is not None:
+                z = codec_gen.lookup(flat_cb, codec_gen.quantize(vq, z))
+            y, voc_cache = voc.step(cache["voc"], z)
+            cache = {"codec": {**cache["codec"], **enc_cache}, "voc": voc_cache}
+            ys.append(y[0, :, 0])
+        return torch.stack(ys), cache
+
+    run.init_cache = lambda: {"codec": codec_gen.init_cache(1), "voc": voc.init_cache(1)}
+    run.backend = "eager"
+    return run
+
+
+class VocoderReceiver:
+    """Rx side of a vocoder-paired preset: wire codes (L, B, T) int32 (or
+    encoder features (B, T, D) without PQC) -> codebook lookup in the
+    transmitter's books -> HiFiGAN streaming decode -> audio (B, T *
+    total_upsample, 1). The ``'cuda'`` route (``'auto'`` on the card, any
+    ``batch``) runs the vocoder half (ops/vocoder_kernel.py), 23 launches a
+    call, and raises where it cannot run; ``'eager'`` the plain modules.
+    The cache does not depend on T, so a long priming call and the frames
+    after it share it. A code outside its book's range raises ValueError."""
+
+    def __init__(self, codec_gen, vocoder, vq_state, batch: int = 1, backend: str = "auto",
+                 weight_dtype=None, device="cuda"):
+        self.device = _check_endpoint(vocoder, device)
+        codec_gen.check_vq_state(vq_state)
+        if batch < 1:
+            raise ValueError(f"batch must be at least 1, got {batch}")
+        self.codec_gen, self.vocoder, self.batch = codec_gen, vocoder, batch
+        self.use_pqc = codec_gen.use_pqc
+        vq = _vq_on(vq_state, self.device) if self.use_pqc else None
+        self.backend = _vocoder_route(backend, self.device, codec_gen, vocoder,
+                                      vocoder.total_upsample, "VocoderReceiver")
+        if self.backend == "cuda":
+            wd = torch.bfloat16 if weight_dtype is None else weight_dtype
+            self._half = vocoder_half(vocoder, wd, vq)
+        else:
+            self.flat_cb = codec_gen.flat_codebook(vq) if self.use_pqc else None
+        self.reset_buffer()
+
+    def reset_buffer(self):
+        if self.backend == "cuda":
+            self.cache = init_half_cache((self._half,), self.batch, self.device)
+        else:
+            self.cache = self.vocoder.init_cache(self.batch)
+
+    def initial_decoder(self, idx):
+        return self.decode(idx)
+
+    @torch.no_grad()
+    def decode(self, idx: torch.Tensor) -> torch.Tensor:
+        idx = idx.to(self.device)
+        if self.backend == "cuda":
+            # codebook_lookup checks the codes' range on the card
+            wire = idx.permute(1, 2, 0) if self.use_pqc else idx
+            y, new_cache = self._half.run(self.cache, wire.contiguous())
+            self.cache.update(new_cache)
+            return y
+        if self.use_pqc:
+            _check_wire_codes(self.codec_gen, idx)
+            idx = self.codec_gen.lookup(self.flat_cb, idx)
+        y, self.cache = self.vocoder.step(self.cache, idx)
         return y

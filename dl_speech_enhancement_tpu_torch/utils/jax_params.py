@@ -8,6 +8,13 @@ _w_out and ::_dw_out (the port imports nothing of the JAX package); inputs are
 numpy arrays (``np.asarray`` of the JAX leaves). The JAX ``VQState`` (``embed
 (L, D, K)``, ``cluster_size (L, K)``, ``embed_avg (L, D, K)``) keeps its layout
 in the port; :func:`vq_state_from_jax` only checks and converts it.
+
+Weight-normed convs (the vocoder's) carry ``{v, g[, b]}``: ``v`` maps as
+``w`` does, and ``g`` from JAX's ``(1, 1, out)`` (conv) or ``(1, in, 1)``
+(transposed conv) to the port's ``(out, 1, 1)`` or ``(in, 1, 1)``. A grouped
+conv's JAX weight is ``(k, in / groups, out)``, with group g owning output
+columns ``[g * out / groups, (g + 1) * out / groups)``, which maps onto
+PyTorch's grouped ``(out, in / groups, k)`` as it is.
 """
 
 from __future__ import annotations
@@ -15,6 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from dl_speech_enhancement_tpu_torch.models.hifigan import MultiGroupConv1d
 from dl_speech_enhancement_tpu_torch.nn.vq import VQState
 
 
@@ -28,19 +36,30 @@ def _dw_out(w) -> np.ndarray:
     return np.asarray(w).transpose(1, 2, 0)[:, :, ::-1].copy()
 
 
+def _copy(param, value, what) -> None:
+    value = np.asarray(value, np.float32)
+    if tuple(value.shape) != tuple(param.shape):
+        raise ValueError(f"{what} shape {value.shape} does not fit {tuple(param.shape)}")
+    with torch.no_grad():
+        param.copy_(torch.from_numpy(value.copy()))
+
+
 def load_conv(layer, p: dict, transposed: bool = False) -> None:
-    """Copy one JAX conv param dict ``{w[, b]}`` into a port conv layer."""
-    if "v" in p:
-        raise ValueError("weight-norm params {v, g} are not used by this generator")
-    w = (_dw_out if transposed else _w_out)(p["w"])
-    if tuple(w.shape) != tuple(layer.weight.shape):
-        raise ValueError(f"weight shape {w.shape} does not fit {tuple(layer.weight.shape)}")
+    """Copy one JAX conv param dict, ``{w[, b]}`` or with weight norm ``{v,
+    g[, b]}``, into a port conv layer."""
+    if ("v" in p) != layer.weight_norm:
+        raise ValueError(f"params {sorted(p)} do not fit a layer with "
+                         f"weight_norm={layer.weight_norm}")
     if ("b" in p) != (layer.bias is not None):
         raise ValueError("bias presence differs between the params and the layer")
-    with torch.no_grad():
-        layer.weight.copy_(torch.from_numpy(np.array(w, np.float32)))
-        if layer.bias is not None:
-            layer.bias.copy_(torch.from_numpy(np.array(p["b"], np.float32)))
+    w_map = _dw_out if transposed else _w_out
+    if layer.weight_norm:
+        _copy(layer.v, w_map(p["v"]), "weight")
+        _copy(layer.g, np.asarray(p["g"]).reshape(-1, 1, 1), "weight norm g")
+    else:
+        _copy(layer.weight, w_map(p["w"]), "weight")
+    if layer.bias is not None:
+        _copy(layer.bias, p["b"], "bias")
 
 
 def _load_res_units(units, ps) -> None:
@@ -72,6 +91,33 @@ def from_jax_params(gen, params: dict):
         _load_res_units(blk.res_units, bp["res"])
     load_conv(gen.decoder.conv2, dec["conv2"])
     return gen
+
+
+def _load_resblock(blk, p) -> None:
+    for conv, cp in zip(blk.convs1, p["convs1"], strict=True):
+        load_conv(conv, cp)
+    if ("convs2" in p) != blk.use_additional_convs:
+        raise ValueError("convs2 presence differs between the params and the block")
+    for conv, cp in zip(blk.convs2, p.get("convs2", []), strict=True):
+        load_conv(conv, cp)
+
+
+def vocoder_from_jax_params(voc, params: dict):
+    """Copy ``params`` (the JAX ``HiFiGANGenerator.init(key)``) into the
+    port's ``HiFiGANGenerator`` ``voc``; returns ``voc``. The analyzer
+    statistics are not params: both generators take them as ``stats``."""
+    load_conv(voc.input_conv, params["input_conv"])
+    for up, up_p in zip(voc.upsamples, params["upsamples"], strict=True):
+        load_conv(up, up_p, transposed=True)
+    for blk, bp in zip(voc.blocks, params["blocks"], strict=True):
+        if isinstance(blk, MultiGroupConv1d):
+            _load_resblock(blk.block, bp["block"])
+            load_conv(blk.conv_out, bp["conv_out"])
+        else:
+            for sub, sp in zip(blk.blocks, bp["blocks"], strict=True):
+                _load_resblock(sub, sp)
+    load_conv(voc.output_conv, params["output_conv"])
+    return voc
 
 
 def vq_state_from_jax(vq_state, gen=None) -> VQState:

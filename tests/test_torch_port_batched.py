@@ -361,14 +361,15 @@ def test_sharded_stream_asymmetric_codec_rx(rng):
 
 
 def test_sharded_stream_checks_its_arguments():
-    """The JAX fleet's argument checks (parallel/serve.py:75-93), and what
-    the single-card fleet does not serve yet."""
+    """The JAX fleet's argument checks (parallel/serve.py:75-93), a vocoder
+    receiver that is not a HiFiGANGenerator, and what the single-card fleet
+    does not serve yet."""
     _, _, _, tgen, tvq = _pair(True, seed=0)
     _, _, _, denoiser, _ = _pair(False, seed=0)
     with pytest.raises(ValueError, match="not both"):
         make_sharded_stream(tgen, tvq, batch=2, device="cpu", vocoder=object(),
                             rx_gen=tgen, rx_vq_state=tvq)
-    with pytest.raises(NotImplementedError, match="vocoder"):
+    with pytest.raises(ValueError, match="HiFiGANGenerator"):
         make_sharded_stream(tgen, tvq, batch=2, device="cpu", vocoder=object())
     with pytest.raises(ValueError, match="requires rx_gen"):
         make_sharded_stream(tgen, tvq, batch=2, device="cpu", rx_vq_state=tvq)

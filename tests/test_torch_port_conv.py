@@ -131,5 +131,9 @@ def test_transposed_weight_tap_flip(rng):
 
 
 def test_grouped_conv_not_ported():
+    """Grouped convs are ported (tests/test_torch_port_hifigan.py); grouped
+    transposed convs are not, as in the JAX package (nn/conv.py:338-339)."""
     with pytest.raises(NotImplementedError):
-        tconv.Conv1d(4, 4, 3, groups=2, device="cpu")
+        tconv.ConvTranspose1d(4, 4, 4, 2, groups=2, device="cpu")
+    with pytest.raises(NotImplementedError):
+        tconv.CausalConvTranspose1d(4, 4, 4, 2, groups=2, device="cpu")

@@ -10,7 +10,10 @@ The layer kernels are also run on B streams at once, with a cache that is a
 strided view (the tail of a longer activation, as on the main path): each
 stream must match the plain version, and perturbing stream 0 must leave
 every other stream's output bit for bit as it was.
-The residual-VQ search is held to its plain version's codes up to near ties
+The HiFiGAN unit kernel and the activated boundary convs (LeakyReLU on
+load, tanh out) are held the same way, at the v1 receiver's widths and at
+small ones, with caches at a stream stride, and the unit's next conv2 cache
+too. The residual-VQ search is held to its plain version's codes up to near ties
 (``utils/checks.py::rvq_near_ties``: distances within 1e-5 of the
 smallest); the codebook lookup sums the same codewords in the same order,
 atol 1e-6. chip_smoke.py makes the same checks at the flagship's shapes.
@@ -37,7 +40,16 @@ from dl_speech_enhancement_tpu_torch.ops.stream_kernel import (
     residual_chain,
     residual_chain_plain,
 )
-from dl_speech_enhancement_tpu_torch.stream.runtime import make_scan_stream
+from dl_speech_enhancement_tpu_torch.models.hifigan import HiFiGANGenerator
+from dl_speech_enhancement_tpu_torch.ops.vocoder_kernel import (
+    hifigan_unit,
+    hifigan_unit_plain,
+)
+from dl_speech_enhancement_tpu_torch.stream.runtime import (
+    VocoderReceiver,
+    make_scan_stream,
+    make_vocoder_scan_stream,
+)
 from dl_speech_enhancement_tpu_torch.utils.checks import rvq_near_ties
 
 pytestmark = pytest.mark.cuda
@@ -263,3 +275,117 @@ def test_chain_plan_sees_the_whole_grid(card):
     plans = {b: _chain_plan(b, 20, 256, (1, 3, 9)) for b in (1, 16, 64)}
     assert plans[1] == (20, 8)
     assert plans[64][1] < 8
+
+
+# ---------------------------------------------------------------- vocoder
+
+
+@pytest.mark.parametrize("batch", [1, 3, 16])
+@pytest.mark.parametrize("cin,cout,k,leaky,tanh", [
+    (64, 512, 7, None, False), (768, 256, 1, None, False), (32, 1, 7, 0.01, True),
+    (48, 20, 5, 0.1, False),
+])
+def test_causal_conv_kernel_activated(card, batch, cin, cout, k, leaky, tanh):
+    cache, x = _tail_view(card, batch, k - 1, cin), _randn(card, batch, 40, cin) * 3
+    w, b = _randn(card, k, cin, cout) / cin ** 0.5, _randn(card, cout)
+    _held_per_stream(lambda c, v: causal_conv(c, v, w, b, 1, 1, leaky, tanh),
+                     lambda c, v: causal_conv_plain(c, v, w, b, 1, 1, leaky, tanh), cache, x)
+
+
+@pytest.mark.parametrize("batch", [1, 3, 16])
+@pytest.mark.parametrize("cin,cout,stride", [(512, 256, 5), (64, 32, 3)])
+def test_causal_conv_transpose_kernel_activated(card, batch, cin, cout, stride):
+    cache, x = _tail_view(card, batch, 1, cin), _randn(card, batch, 4, cin) * 3
+    w, b = _randn(card, 2 * stride, cin, cout) / cin ** 0.5, _randn(card, cout)
+    _held_per_stream(lambda c, v: causal_conv_transpose(c, v, w, b, stride, 0.1),
+                     lambda c, v: causal_conv_transpose_plain(c, v, w, b, stride, 0.1), cache, x)
+
+
+@pytest.mark.parametrize("wd", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("batch,rows,c,groups,k,dilation,tiled", [
+    (1, 20, 256, 3, 11, 1, True), (1, 20, 256, 3, 11, 5, False), (3, 100, 128, 3, 11, 3, False),
+    (16, 25, 64, 3, 11, 5, False), (2, 1200, 32, 3, 11, 1, True), (3, 7, 8, 2, 3, 2, True),
+    (2, 33, 16, 1, 7, 3, False), (4, 3, 16, 2, 5, 1, False),
+])
+def test_hifigan_unit_kernel(card, batch, rows, c, groups, k, dilation, tiled, wd):
+    """Every unit of the v1 receiver's stages (and small ones, groups 1, a
+    dispatch shorter than the conv2 window): output and next conv2 cache
+    against the plain version, caches at a stream stride, and no stream
+    reaching another."""
+    cin = c if tiled else groups * c
+    cache1 = _tail_view(card, batch, (k - 1) * dilation, cin)
+    cache2 = _tail_view(card, batch, k - 1, groups * c)
+    x = _randn(card, batch, rows, cin) * 3
+    w1 = (_randn(card, k, c, groups * c) / (k * c) ** 0.5).to(wd)
+    w2 = (_randn(card, k, c, groups * c) / (k * c) ** 0.5).to(wd)
+    b1, b2 = _randn(card, groups * c), _randn(card, groups * c)
+    before = hifigan_unit.launches
+    got, got2 = hifigan_unit(cache1, cache2, x, w1, b1, w2, b2, dilation, groups)
+    assert hifigan_unit.launches == before + 1
+    ref, ref2 = hifigan_unit_plain(cache1, cache2, x, w1, b1, w2, b2, dilation, groups)
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape == (batch, rows, groups * c)
+    limit = ATOL if wd == torch.float32 else 1e-4 * float(ref.abs().max())
+    assert float((got - ref).abs().max()) <= limit
+    assert float((got2 - ref2).abs().max()) <= limit
+    c1, c2, x2 = cache1.clone(), cache2.clone(), x.clone()
+    c1[0] += 1.0
+    c2[0] -= 1.0
+    x2[0] += 1.0
+    again, again2 = hifigan_unit(c1, c2, x2, w1, b1, w2, b2, dilation, groups)
+    torch.cuda.synchronize()
+    assert not torch.equal(again[0], got[0])
+    assert torch.equal(again[1:], got[1:]) and torch.equal(again2[1:], got2[1:])
+
+
+def _vocoder_pair():
+    codec = AudioDecGenerator(encode_channels=8, decode_channels=8, code_dim=16,
+                              codebook_num=3, codebook_size=32, enc_ratios=(2, 4),
+                              dec_ratios=(4, 2), enc_strides=(3, 4), dec_strides=(4, 3),
+                              device="cuda")
+    vq = codec.quantizer.init(seed=0, device="cuda")
+    voc = HiFiGANGenerator(in_channels=16, channels=16, upsample_scales=(4, 3),
+                           upsample_kernel_sizes=(8, 6), resblock_kernel_sizes=(3,),
+                           resblock_dilations=((1, 2),), groups=2, device="cuda")
+    with torch.no_grad():  # unit gain, so a broken layer shows in the audio
+        for m in voc.modules():
+            if isinstance(getattr(m, "g", None), torch.nn.Parameter):
+                m.g.fill_(1.0)
+    return codec, vq, voc
+
+
+def test_vocoder_route_matches_eager_on_the_card(card):
+    """make_vocoder_scan_stream's 'cuda' route (7 + 11 launches per dispatch
+    at this topology; 11 + 23 at the v1 preset) against 'eager'."""
+    codec, vq, voc = _vocoder_pair()
+    frames = _randn(card, 6, 120)
+    eager = make_vocoder_scan_stream(codec, vq, voc, 120, backend="eager")
+    ref, _ = eager(eager.init_cache(), frames)
+    run = make_vocoder_scan_stream(codec, vq, voc, 120, weight_dtype=torch.float32)
+    assert run.backend == "cuda"
+    counters = (residual_chain, causal_conv, causal_conv_transpose, rvq_assign,
+                codebook_lookup, hifigan_unit)
+    before = sum(k.launches for k in counters)
+    first, cache = run(run.init_cache(), frames[:2])
+    second, _ = run(cache, frames[2:])
+    torch.cuda.synchronize()
+    assert sum(k.launches for k in counters) - before == 2 * 18
+    assert float((torch.cat([first, second]) - ref).abs().max()) <= 2e-5
+    assert float(ref.std()) > 1e-3
+
+
+@pytest.mark.parametrize("batch", [1, 4])
+def test_vocoder_receiver_matches_eager_on_the_card(card, batch):
+    codec, vq, voc = _vocoder_pair()
+    codes = (torch.randint(0, 32, (3, batch, 5), generator=card, device="cuda")
+             + torch.arange(3, device="cuda")[:, None, None] * 32).to(torch.int32)
+    rx = VocoderReceiver(codec, voc, vq, batch=batch, weight_dtype=torch.float32)
+    ref = VocoderReceiver(codec, voc, vq, batch=batch, backend="eager")
+    assert rx.backend == "cuda" and ref.backend == "eager"
+    for chunk in (codes, codes[..., :2], codes[..., 2:]):
+        got, want = rx.decode(chunk), ref.decode(chunk)
+        torch.cuda.synchronize()
+        assert got.shape == want.shape == (batch, chunk.shape[-1] * 12, 1)
+        assert float((got - want).abs().max()) <= 2e-5
+    with pytest.raises(ValueError, match="outside its book"):
+        rx.decode(codes * 0)

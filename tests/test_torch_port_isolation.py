@@ -22,9 +22,10 @@ def _modules():
 
 def test_port_has_the_slice_modules():
     names = set(_modules())
-    for mod in ("nn.conv", "nn.vq", "models.autoencoder", "ops.stream_kernel", "ops.mega_kernel",
-                "ops.mega_stacked", "ops._cuda", "parallel.serve", "stream.runtime",
-                "utils.config", "utils.jax_params"):
+    for mod in ("nn.conv", "nn.vq", "models.autoencoder", "models.hifigan", "ops.stream_kernel",
+                "ops.mega_kernel", "ops.mega_stacked", "ops.vocoder_kernel", "ops.vocoder_stacked",
+                "ops._cuda", "parallel.serve", "stream.runtime", "utils.config",
+                "utils.jax_params"):
         assert f"dl_speech_enhancement_tpu_torch.{mod}" in names
 
 

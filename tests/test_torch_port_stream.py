@@ -19,7 +19,7 @@ from dl_speech_enhancement_tpu.stream.runtime import make_scan_stream as jax_sca
 from dl_speech_enhancement_tpu.stream.runtime import (
     resolve_scan_backend as jax_resolve,
 )
-from dl_speech_enhancement_tpu_torch.models import AudioDecGenerator
+from dl_speech_enhancement_tpu_torch.models import AudioDecGenerator, HiFiGANGenerator
 from dl_speech_enhancement_tpu_torch.parallel import make_sharded_stream
 from dl_speech_enhancement_tpu_torch.stream.runtime import (
     make_scan_stream,
@@ -113,10 +113,14 @@ def test_cuda_routes_refuse_the_cpu(pair, backend):
 
 def test_later_slices_raise_not_implemented(pair):
     _, _, tgen = pair
-    # multi-stream is served (tests/test_torch_port_batched.py); the vocoder
-    # receiver and a fleet over several devices are later slices
-    with pytest.raises(NotImplementedError, match="vocoder"):
-        make_sharded_stream(tgen, batch=2, device="cpu", vocoder=object())
+    # multi-stream and the vocoder receiver are served (tests/
+    # test_torch_port_batched.py, test_torch_port_vocoder.py); K4's
+    # MultiReceptiveField arm on the kernel route and a fleet over several
+    # devices are later slices
+    mrf = HiFiGANGenerator(in_channels=512, channels=16, upsample_scales=(5, 5, 4, 3),
+                           upsample_kernel_sizes=(10, 10, 8, 6), device="cpu")
+    with pytest.raises(ValueError, match="MultiReceptiveField"):
+        make_sharded_stream(tgen, batch=2, device="cpu", vocoder=mrf)
     with pytest.raises(NotImplementedError, match="item 14"):
         make_sharded_stream(tgen, batch=2, device=["cpu", "cpu"])
     # the PQC codec is served (tests/test_torch_port_pqc.py); the denoiser
