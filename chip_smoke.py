@@ -4,7 +4,7 @@ Run from the repository root on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py
 
-Three models run, each at the full width of its configuration with seeded
+Three models serve, each at the full width of its configuration with seeded
 random weights (no trained checkpoint is in the repository): the denoiser
 (the without-PQC generator of configs/denoise/symAD_vctk_48000_hop300.yaml),
 the symAD codec (the PQC generator of configs/autoencoder/
@@ -15,11 +15,15 @@ receiver (configs/vocoder/AudioDec_v1_symAD_vctk_48000_hop300_clean.yaml;
 seeded statistics, since the statistics file is not in the repository, and
 every weight-norm gain set to about unit gain, since at the official
 N(0, 0.01) init the receiver's output is almost all bias). Each runs as one
-stream and as 16 streams per dispatch. Phases (any failure exits non-zero
-before the result line):
+stream and as 16 streams per dispatch. Then the training stack: the course
+denoise trainer's generator phase (configs/denoise/symAD_48MelWaveL1.yaml,
+16 x 48000 samples a batch) and the vocoder config's metric loss on the
+``vctk_v1`` receiver. Phases (any failure exits non-zero before the result
+line):
 
-1. build the six CUDA kernels from ``dl_speech_enhancement_tpu_torch/csrc``
-   (one ``nvcc`` each, all at once) and the three models on the card;
+1. build the seven CUDA kernel sources from
+   ``dl_speech_enhancement_tpu_torch/csrc`` (one ``nvcc`` each, all at once)
+   and the three models on the card;
 2. hold every kernel against its plain PyTorch version at every site of the
    three models, for one stream at 1, 100 (the single-stream paths'
    dispatch) and 400 frames per dispatch (the receiver at 1 and 100) with f32
@@ -70,12 +74,30 @@ before the result line):
    64) at 1 and 16 frames per dispatch, through the kernel route, the
    batched eager route and (the codecs) B single-stream kernel dispatches,
    with the launches of one dispatch counted at every B and the card memory
-   the returned cache keeps.
+   the returned cache keeps;
+5. training, with TF32 off: the log-mel (K6) and STFT-magnitude (K7) DFT
+   kernels against their plain versions at every call shape of the paths
+   below (forward, the autograd.Function's gradient, two calls and a batch
+   against its examples' calls bit for bit); one course train step with the
+   mel loss on the kernel route (``backend='auto'``, which must launch K6),
+   its plain version and the FFT, from the same params and batch, the
+   kernel route held to the plain one (fragments and every gradient) and
+   its log-mels to the FFT's; ``train_denoise_course`` for one LAPTOP epoch
+   (3 train and 3 validation batches of seeded clean and noise clips mixed by
+   the port's ``add_noise``), then 10 steps on one fixed batch whose loss
+   must fall, with the step's median wall time, peak memory and profiled
+   busy share; the vocoder config's metric loss (mel + three STFT
+   resolutions) on the receiver's offline forward of the codec's quantized
+   codes, forward and backward, kernel route against plain route; the
+   kernels' times against their plain versions, bounds, ``torch.stft().abs()``
+   (K7) and the FFT route's log-mel (K6), and the mel loss's forward and
+   backward on both routes.
 
 Prints the per-kernel JSON line (times summed over the kernel's sites in one
 100-frame dispatch of the single-stream path that first runs it, the codec's
 and the receiver's causal conv sites beside them, and at 16 streams of 1
-and 16 frames; launches summed over every main path), the card's name and
+and 16 frames; K6 at the course's mel loss and K7 summed over the three STFT
+resolutions; launches summed over every main path), the card's name and
 power limit, and last ``{"ok": true, "device": {...}}``. The full report
 goes to ``chiprun_out/chip_smoke.json``.
 """
@@ -84,6 +106,7 @@ from __future__ import annotations
 
 import copy
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -95,6 +118,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from dl_speech_enhancement_tpu_torch.data.mixing import add_noise
+from dl_speech_enhancement_tpu_torch.dsp.mel import MelSpectrogram
+from dl_speech_enhancement_tpu_torch.losses import MultiMelSpectrogramLoss
 from dl_speech_enhancement_tpu_torch.models import AudioDecGenerator, HiFiGANGenerator
 from dl_speech_enhancement_tpu_torch.nn.conv import ConvTranspose1d
 from dl_speech_enhancement_tpu_torch.nn.vq import VQState
@@ -113,6 +139,14 @@ from dl_speech_enhancement_tpu_torch.ops.mega_kernel import (
     rvq_assign,
     rvq_assign_plain,
     vq_tables,
+)
+from dl_speech_enhancement_tpu_torch.ops.mel_kernel import (
+    log_mel,
+    log_mel_plain,
+    make_fused_log_mel,
+    make_fused_stft_magnitude,
+    stft_magnitude,
+    stft_magnitude_plain,
 )
 from dl_speech_enhancement_tpu_torch.ops.stream_kernel import (
     DILATIONS,
@@ -138,6 +172,12 @@ from dl_speech_enhancement_tpu_torch.stream.runtime import (
     make_scan_stream,
     make_vocoder_scan_stream,
 )
+from dl_speech_enhancement_tpu_torch.train.criterion import build_criterion, metric_loss
+from dl_speech_enhancement_tpu_torch.train.denoise_course import (
+    make_course_steps,
+    train_denoise_course,
+)
+from dl_speech_enhancement_tpu_torch.train.optim import build_optimizer
 from dl_speech_enhancement_tpu_torch.utils.checks import rvq_near_ties
 from dl_speech_enhancement_tpu_torch.utils.config import load_config
 
@@ -205,6 +245,40 @@ VOCODER_BATCH_CHECKS = tuple(sorted({(BATCH, n) for n in MULTI_FRAMES}
                                        for n in (1, 16)}))
 MIN_AUDIO_STD = 1e-2  # the receiver's audio must not be a near constant ...
 MAX_SATURATED_SHARE = 0.05  # ... nor sit at tanh's saturation (|y| > 0.99)
+# Training (phase 5): the course denoise trainer's generator phase at the
+# configuration's own batch (16 x 48000 samples, batch_length = sample_rate as
+# cli/train_denoise.py sets it) and the vocoder config's metric loss at 16 x
+# 9600 samples.
+COURSE_CONFIG = os.path.join(REPO, "configs", "denoise", "symAD_48MelWaveL1.yaml")
+COURSE_BATCH = 16
+COURSE_LENGTH = SAMPLE_RATE
+VOCODER_METRIC_LENGTH = 9600
+FIXED_STEPS = 10
+SPECTRUM_KERNELS = ("log_mel", "stft_magnitude")
+# Tolerances. K6 / K7 kernel vs plain: the same f32 DFT as two matmuls summed
+# in another order over up to 2048 terms -> log-mel atol 1e-4 (JAX's
+# interpret-mode K6 and its plain version agree to 1.05e-5 at n_fft 512 on the CPU),
+# magnitudes 1e-5 of the largest; the autograd.Function's gradient (the JAX
+# VJP in torch ops) vs autograd through the plain version 1e-5 of the largest
+# (3e-6 measured on the CPU). Course step and vocoder metric loss, kernel
+# route vs plain route (TF32 off): fragments rtol 1e-5, gradients 1e-4 of each
+# tensor's largest (the mel loss's sign(delta) and 1/mel factors amplify the
+# forward's 1e-6 differences). Kernel vs FFT route: the JAX package's own
+# kernel-vs-FFT tolerance in log-mel, 5e-3 (tests/test_ops.py:24). The
+# log-STFT-magnitude term's gradient is X / |X|^2 per bin: the bins nearest
+# the 1e-7 power clamp dominate it and carry the f32 rounding of their whole
+# frame, so two f32 transforms summed in other orders differ there by ~1e-3
+# of the largest gradient (1.7e-3 measured kernel vs plain on the H100; FFT
+# against FFT 9.3e-4 on the CPU, tests/test_torch_port_losses.py) -> 1e-2,
+# which the FFT route's own distance from the plain route must meet too: the
+# bound is f32's on that term, not the kernel's.
+LOG_MEL_ATOL = 1e-4
+STFT_RTOL = 1e-5
+SPECTRUM_GRAD_RTOL = 1e-5
+ROUTE_FRAG_RTOL = 1e-5
+ROUTE_GRAD_RTOL = 1e-4
+EAGER_LOG_MEL_ATOL = 5e-3
+LOG_MAG_GRAD_RTOL = 1e-2
 
 KERNELS = {
     "residual_chain": {
@@ -245,8 +319,21 @@ KERNELS = {
         "replaces": "dl_speech_enhancement_tpu/ops/vocoder_kernel.py:378 (K4 unit bodies "
                     ":378-390, :443-452, :521-533; K5's, ops/vocoder_stacked.py:334-391)",
     },
+    "log_mel": {
+        "fn": log_mel,
+        "source": "dl_speech_enhancement_tpu_torch/csrc/dft_spectrum.cu",
+        "replaces": "dl_speech_enhancement_tpu/ops/mel_kernel.py:152 (K6 make_fused_log_mel: "
+                    "_kernel :119, call :177)",
+    },
+    "stft_magnitude": {
+        "fn": stft_magnitude,
+        "source": "dl_speech_enhancement_tpu_torch/csrc/dft_spectrum.cu",
+        "replaces": "dl_speech_enhancement_tpu/ops/mel_kernel.py:256 (K7 "
+                    "make_fused_stft_magnitude: _mag_kernel :247, call :270)",
+    },
 }
-VOCODER_KERNELS = tuple(KERNELS)  # the receiver's path (with its tx) runs all six
+SERVING_KERNELS = tuple(k for k in KERNELS if k not in SPECTRUM_KERNELS)
+VOCODER_KERNELS = SERVING_KERNELS  # the receiver's path (with its tx) runs all six
 
 
 class Failure(RuntimeError):
@@ -1295,6 +1382,389 @@ def vocoder_times(codec, vq, voc, rng):
     return times, ktimes, ktimes_b
 
 
+# ---------------------------------------------------------------- training
+
+
+def course_config() -> dict:
+    """COURSE_CONFIG as cli/train_denoise.py runs it (batch_length =
+    sample_rate), for one epoch."""
+    cfg = load_config(COURSE_CONFIG)
+    require(cfg["sample_rate"] == COURSE_LENGTH and cfg["batch_size"] == COURSE_BATCH,
+            f"{COURSE_CONFIG}: sample rate {cfg['sample_rate']}, batch {cfg['batch_size']}")
+    return dict(cfg, epochs=1)
+
+
+def course_generator(cfg) -> AudioDecGenerator:
+    """The course's without-PQC generator on the card, seeded: every call
+    gives the same weights."""
+    return AudioDecGenerator(**cfg["generator_params"], use_pqc=False, seed=SEED + 50,
+                             device=DEVICE)
+
+
+def course_clips(n: int, seed: int, length: int = COURSE_LENGTH):
+    """``n`` seeded (clean, noise) pairs of numpy (16, length, 1) f32
+    batches: four harmonics of a gliding pitch under a slow envelope over a
+    recording's noise floor (white, 60 dB below the harmonics: without one,
+    mel bands between the harmonics hold energy at f32's rounding floor of
+    the frame, where even the FFT departs from an f64 log-mel by 4e-2), and
+    white noise."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(length) / SAMPLE_RATE
+    pairs = []
+    for _ in range(n):
+        f0 = rng.uniform(100.0, 250.0, (COURSE_BATCH, 1)) * (1.0 + 0.1 * np.sin(np.pi * t))
+        phase = 2.0 * np.pi * np.cumsum(f0, axis=1) / SAMPLE_RATE
+        clean = sum(0.3 / h * np.sin(h * phase) for h in (1, 2, 3, 4))
+        clean *= 0.2 + np.sin(2.0 * np.pi * rng.uniform(1.0, 4.0, (COURSE_BATCH, 1)) * t) ** 2
+        clean += 3e-4 * rng.standard_normal(clean.shape)
+        noise = 0.3 * rng.standard_normal((COURSE_BATCH, length))
+        pairs.append((clean[..., None].astype(np.float32), noise[..., None].astype(np.float32)))
+    return pairs
+
+
+def course_batch(pair, snr=15):
+    """(mixed, clean) of one clip pair on the card, mixed by the port's add_noise."""
+    clean, noise = pair
+    mixed = add_noise(clean, noise, snr).astype(np.float32)
+    return torch.from_numpy(mixed).to(DEVICE), torch.from_numpy(clean).to(DEVICE)
+
+
+def spectrum_builders(case):
+    """(kernel fn, plain fn) of a K6 / K7 case: ("log_mel", sr, n_fft, hop,
+    win, n_mels, fmax, log_base) or ("stft_magnitude", n_fft, hop, win)."""
+    if case[0] == "log_mel":
+        _, sr, n_fft, hop, win, n_mels, fmax, base = case
+        kw = dict(sr=sr, n_fft=n_fft, hop=hop, win_length=win, n_mels=n_mels, fmin=0,
+                  fmax=fmax, log_base=base, device=DEVICE)
+        return make_fused_log_mel(**kw), make_fused_log_mel(**kw, plain=True)
+    _, n_fft, hop, win = case
+    return (make_fused_stft_magnitude(n_fft, hop, win, device=DEVICE),
+            make_fused_stft_magnitude(n_fft, hop, win, device=DEVICE, plain=True))
+
+
+def spectrum_cases(cfg, vcfg):
+    """Every K6 / K7 call shape of phase 5's paths (16 signals each): the
+    course's mel loss, the vocoder's mel loss and its three STFT
+    resolutions, and a log10 log-mel with a window shorter than its FFT."""
+    m, s = cfg["mel_loss_params"], vcfg["stft_loss_params"]
+    vm = vcfg["mel_loss_params"]
+    course = ("log_mel", m["fs"], m["fft_sizes"][0], m["hop_sizes"][0], m["win_lengths"][0],
+              m["num_mels"], m["fmax"], m["log_base"])
+    voc_mel = ("log_mel", vm["fs"], vm["fft_sizes"][0], vm["hop_sizes"][0],
+               vm["win_lengths"][0], vm["num_mels"], vm["fmax"], vm["log_base"])
+    cases = {"course mel": (course, COURSE_LENGTH),
+             "vocoder mel": (voc_mel, VOCODER_METRIC_LENGTH),
+             "24k log10 mel, win 240 < fft 512": (
+                 ("log_mel", 24000, 512, 120, 240, 40, 12000, 10.0), VOCODER_METRIC_LENGTH)}
+    for f, h, w in zip(s["fft_sizes"], s["hop_sizes"], s["win_lengths"]):
+        cases[f"stft {f}/{h}/{w}"] = (("stft_magnitude", f, h, w), VOCODER_METRIC_LENGTH)
+    return cases
+
+
+def check_spectrum_kernels(cases, rng):
+    """Phase 5a: K6 and K7 against their plain versions at every call shape:
+    forward (log-mel atol LOG_MEL_ATOL; magnitudes STFT_RTOL of the largest),
+    the autograd.Function's gradient against autograd through the plain
+    version (SPECTRUM_GRAD_RTOL of the largest), two calls bit-equal and a
+    batch bit-equal to its examples' own calls."""
+    worst, report = {name: 0.0 for name in SPECTRUM_KERNELS}, {}
+    x = torch.randn(COURSE_BATCH, COURSE_LENGTH, generator=rng, device=DEVICE) * 0.3
+    for what, (case, length) in cases.items():
+        fn, plain = spectrum_builders(case)
+        xs = x[:, :length]
+        got, ref = fn(xs), plain(xs)
+        require(got.shape == ref.shape, f"{what}: shape {tuple(got.shape)} vs {tuple(ref.shape)}")
+        err = float((got - ref).abs().max())
+        limit = LOG_MEL_ATOL if case[0] == "log_mel" else STFT_RTOL * float(ref.abs().max())
+        require(err <= limit, f"{what}: kernel vs plain max|err| {err} > {limit}")
+        require(torch.equal(fn(xs), got), f"{what}: two calls differ")
+        per = torch.cat([fn(xs[i:i + 1]) for i in range(COURSE_BATCH)])
+        require(torch.equal(per, got), f"{what}: a batch differs from its examples' calls")
+        g = torch.randn(got.shape, generator=rng, device=DEVICE)
+        xk, xp = xs.clone().requires_grad_(), xs.clone().requires_grad_()
+        fn(xk).backward(g)
+        plain(xp).backward(g)
+        err_g = float((xk.grad - xp.grad).abs().max())
+        g_limit = SPECTRUM_GRAD_RTOL * float(xp.grad.abs().max())
+        require(err_g <= g_limit, f"{what}: gradient max|err| {err_g} > {g_limit}")
+        worst[case[0]] = max(worst[case[0]], err)
+        report[what] = {"rows": got.shape[0] * got.shape[1], "max_abs_err": err, "limit": limit,
+                        "grad_max_abs_err": err_g, "grad_limit": g_limit, "deterministic": True}
+        log(f"{case[0]:14s} {what:34s} rows={report[what]['rows']:<5d} max|err|={err:.3e} "
+            f"(limit {limit:.1e}) grad {err_g:.3e} (limit {g_limit:.1e}); bit-equal per example")
+    return worst, report
+
+
+def held_routes(what, ref, got, frag_rtol, grad_rtol):
+    """Loss fragments within ``frag_rtol`` and each parameter's gradient
+    within ``grad_rtol`` of its largest, ``got`` against ``ref``; both
+    (fragments, {name: grad})."""
+    frag_err = {k: abs(float(got[0][k]) - float(v)) / abs(float(v)) for k, v in ref[0].items()}
+    grad_err = max(float((got[1][n] - g).abs().max()) / max(float(g.abs().max()), 1e-30)
+                   for n, g in ref[1].items())
+    log(f"{what}: fragment rel err {json.dumps(frag_err)}; worst gradient err "
+        f"{grad_err:.3e} of its tensor's max")
+    require(sorted(got[0]) == sorted(ref[0]), f"{what}: fragments {sorted(got[0])}")
+    require(max(frag_err.values()) <= frag_rtol, f"{what}: fragments differ beyond {frag_rtol}")
+    require(grad_err <= grad_rtol, f"{what}: gradients differ beyond {grad_rtol}")
+    return {"fragment_rel_err": frag_err, "grad_rel_err": grad_err}
+
+
+def course_routes(cfg, pair):
+    """Phase 5b: one course train step from the same params and batch with
+    the mel loss on the kernel route ('auto', 2 K6 launches), on its plain
+    version ('plain') and on the FFT ('eager'). The kernel route is held to
+    the plain one (fragments ROUTE_FRAG_RTOL, gradients ROUTE_GRAD_RTOL of
+    each tensor's largest); the FFT route, as the JAX package holds its
+    kernel to the FFT, by the log-mels of the step's input and target
+    (EAGER_LOG_MEL_ATOL). Returns (kernel route's launches, checks)."""
+    x, t = course_batch(pair)
+    routes, launches = {}, None
+    for route in ("auto", "plain", "eager"):
+        rcfg = dict(cfg, mel_loss_params=dict(cfg["mel_loss_params"], backend=route))
+        gen = course_generator(cfg)
+        opt = build_optimizer(gen.parameters(), "Adam", cfg["generator_optimizer_params"],
+                              grad_norm=cfg.get("generator_grad_norm", -1))
+        step = make_course_steps(gen, None, rcfg, opt, None)["train"]
+        if route == "auto":
+            (_, _, frags, _), launches = counted("course step, kernel route", 2, 1,
+                                                 ("log_mel",), lambda: step(x, t))
+        else:
+            _, _, frags, _ = step(x, t)
+        require(all(bool(torch.isfinite(v)) for v in frags.values()), f"{route}: {frags}")
+        routes[route] = ({k: float(v.detach()) for k, v in frags.items()},
+                         {n: p.grad.detach().clone() for n, p in gen.named_parameters()})
+        del gen, opt, step
+    checks = {"kernel_vs_plain": held_routes("course step, kernel vs plain route",
+                                             routes["plain"], routes["auto"],
+                                             ROUTE_FRAG_RTOL, ROUTE_GRAD_RTOL)}
+    m = dict(cfg["mel_loss_params"])
+    mel_kw = dict(fs=m["fs"], fft_size=m["fft_sizes"][0], hop_size=m["hop_sizes"][0],
+                  win_length=m["win_lengths"][0], num_mels=m["num_mels"], fmin=m["fmin"],
+                  fmax=m["fmax"], log_base=m["log_base"], device=DEVICE)
+    kernel, eager = (MelSpectrogram(**mel_kw, backend=b) for b in ("cuda", "eager"))
+    with torch.no_grad():
+        err = max(float((kernel(a[..., 0]) - eager(a[..., 0])).abs().max()) for a in (x, t))
+    log(f"course log-mel, kernel vs FFT route: max|err| {err:.3e} (limit {EAGER_LOG_MEL_ATOL}); "
+        f"fragments kernel {json.dumps(routes['auto'][0])}, FFT {json.dumps(routes['eager'][0])}")
+    require(err <= EAGER_LOG_MEL_ATOL, f"kernel vs FFT log-mel max|err| {err}")
+    checks["log_mel_kernel_vs_fft"] = err
+    checks["fragments"] = {r: v[0] for r, v in routes.items()}
+    return launches, checks
+
+
+def course_training(cfg, clips):
+    """Phase 5c: ``train_denoise_course`` for one LAPTOP epoch (3 train
+    batches, 3 validation batches; 2 K6 launches a step), then FIXED_STEPS
+    steps on one fixed batch (wall time of each, synchronised), whose loss
+    must fall, every loss finite; one more step for its peak memory and one
+    under the profiler. Returns (launches by run, report)."""
+    gen = course_generator(cfg)
+    train = ([c for c, _ in clips[:3]], [n for _, n in clips[:3]])
+    val = ([c for c, _ in clips[3:6]], [n for _, n in clips[3:6]])
+    (state, history), epoch_launches = counted(
+        "course epoch (LAPTOP)", 2, 6, ("log_mel",),
+        lambda: train_denoise_course(cfg, gen, None, train, val, environment="LAPTOP"))
+    require(state["steps"] == 3 and len(history) == 1, f"epoch: {state['steps']} steps")
+    h = history[0]
+    require(all(np.isfinite(v) for v in (h["train_gen"], h["val_gen"], *h["frags"].values())),
+            f"epoch history not finite: {h}")
+    log(f"course epoch: train {h['train_gen']:.4f}, validation {h['val_gen']:.4f}, "
+        f"fragments {json.dumps(h['frags'])}")
+
+    x, t = course_batch(clips[0])
+    opt = build_optimizer(gen.parameters(), "Adam", cfg["generator_optimizer_params"],
+                          grad_norm=cfg.get("generator_grad_norm", -1))
+    step = make_course_steps(gen, None, cfg, opt, None)["train"]
+
+    def fixed():
+        losses, walls = [], []
+        for _ in range(FIXED_STEPS):
+            t0 = time.perf_counter()
+            g_loss = float(step(x, t)[0])
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            losses.append(g_loss)
+        return losses, walls
+
+    (losses, walls), fixed_launches = counted("course fixed-batch steps", 2, FIXED_STEPS,
+                                              ("log_mel",), fixed)
+    log(f"course fixed batch, {FIXED_STEPS} steps: losses {[round(v, 4) for v in losses]}")
+    require(all(np.isfinite(losses)), "a fixed-batch loss is not finite")
+    require(losses[-1] < losses[0], f"the loss did not fall: {losses[0]} -> {losses[-1]}")
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    step(x, t)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = statistics.median(walls)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        step(x, t)
+        torch.cuda.synchronize()
+    device = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in device) / 1e3
+    k6_ms = sum(e.self_device_time_total for e in device if "log_mel_kernel" in e.key) / 1e3
+    report = {
+        "epoch": h, "fixed_batch_losses": losses, "step_walls_ms": walls,
+        "step_median_ms": step_ms, "step_peak_bytes": peak,
+        "step_peak_above_resident_bytes": peak - before,
+        "profiled_step": ({"device_ms": device_ms, "busy_share": device_ms / step_ms,
+                           "log_mel_kernel_ms": k6_ms} if device_ms > 0 else None),
+    }
+    log(f"course step: median {step_ms:.2f} ms over {FIXED_STEPS} (min {min(walls):.2f}); "
+        f"peak memory {peak / 2**30:.2f} GiB ({(peak - before) / 2**30:.2f} above resident); "
+        + (f"device {device_ms:.2f} ms, busy share {device_ms / step_ms:.3f}, K6 {k6_ms:.3f} ms"
+           if device_ms > 0 else "device time not measured (no device time in the trace)"))
+    return {"course epoch": epoch_launches, "course fixed steps": fixed_launches}, report
+
+
+def vocoder_metric_routes(codec, vq, voc, vcfg):
+    """Phase 5d: the vocoder config's metric loss (mel + multi-resolution
+    STFT) on the vctk_v1 receiver's offline forward of the codec's quantized
+    codes, forward and backward into the receiver's weights, on the kernel
+    route ('auto': 2 K6 + 6 K7 launches), the plain route and the FFT route.
+    The kernel route is held to the plain one: fragments ROUTE_FRAG_RTOL,
+    the gradient of the mel and spectral-convergence terms ROUTE_GRAD_RTOL
+    of each tensor's largest, and that of the log-STFT-magnitude term
+    LOG_MAG_GRAD_RTOL, which the FFT route must meet against the plain route
+    as well (that term's f32 conditioning, not the kernel, sets the bound).
+    Returns (launches, checks)."""
+    require(vcfg["use_mel_loss"] and vcfg["use_stft_loss"], f"{VOCODER_CONFIG}: metric losses")
+    clean, _ = course_clips(1, SEED + 61, VOCODER_METRIC_LENGTH)[0]
+    x = torch.from_numpy(clean).to(DEVICE)
+    with torch.no_grad():
+        zq, _ = codec.quantizer.inference(vq, codec.projector(codec.encoder(x)))
+    names, params = zip(*voc.named_parameters())
+    routes, launches = {}, None
+    for route in ("auto", "plain", "eager"):
+        rcfg = dict(vcfg, mel_loss_params=dict(vcfg["mel_loss_params"], backend=route),
+                    stft_loss_params=dict(vcfg["stft_loss_params"], backend=route))
+        crit = build_criterion(rcfg, device=DEVICE)
+
+        def drive():
+            _, frags = metric_loss(crit, vcfg, voc(zq), x)
+            rest = frags["mel_loss"] + frags["spectral_convergence_loss"]
+            g_rest = torch.autograd.grad(rest, params, retain_graph=True)
+            g_mag = torch.autograd.grad(frags["log_stft_magnitude_loss"], params)
+            return frags, g_rest, g_mag
+
+        if route == "auto":
+            (frags, g_rest, g_mag), launches = counted(
+                "vocoder metric loss, kernel route", 8, 1, SPECTRUM_KERNELS, drive)
+        else:
+            frags, g_rest, g_mag = drive()
+        routes[route] = ({k: float(v.detach()) for k, v in frags.items()},
+                         dict(zip(names, g_rest)), dict(zip(names, g_mag)))
+
+    def grad_err(route, part):
+        return max(float((routes[route][part][n] - g).abs().max())
+                   / max(float(g.abs().max()), 1e-30)
+                   for n, g in routes["plain"][part].items())
+
+    checks = held_routes("vocoder metric loss (mel + spectral convergence), kernel vs plain "
+                         "route", routes["plain"][:2], routes["auto"][:2], ROUTE_FRAG_RTOL,
+                         ROUTE_GRAD_RTOL)
+    checks["log_mag_grad_rel_err"] = grad_err("auto", 2)
+    checks["fft_route_vs_plain"] = {"grad_rel_err": grad_err("eager", 1),
+                                    "log_mag_grad_rel_err": grad_err("eager", 2),
+                                    "fragments": routes["eager"][0]}
+    log(f"vocoder metric loss, log-STFT-magnitude gradient: kernel vs plain route "
+        f"{checks['log_mag_grad_rel_err']:.3e} of its tensor's max (limit {LOG_MAG_GRAD_RTOL}); "
+        f"the FFT route vs plain: {json.dumps(checks['fft_route_vs_plain'])}")
+    for what, err in (("kernel", checks["log_mag_grad_rel_err"]),
+                      ("FFT", checks["fft_route_vs_plain"]["log_mag_grad_rel_err"])):
+        require(err <= LOG_MAG_GRAD_RTOL, f"vocoder metric loss: the {what} route's "
+                f"log-magnitude gradients differ from the plain route's beyond "
+                f"{LOG_MAG_GRAD_RTOL}: {err}")
+    checks["fragments"] = routes["auto"][0]
+    return launches, checks
+
+
+def spectrum_ops(n_fft: int, win: int, rows: int, mel_nnz: int = 0, n_mels: int = 0) -> float:
+    """Operations the spectral function needs for ``rows`` frames, as an FFT
+    computes it: the window (``win`` products), a real FFT of ``n_fft``
+    samples (5/2 n log2 n, half a complex FFT's 5 n log2 n), power, clamp
+    and sqrt (4 a frequency) and, for a log-mel, the mel projection over the
+    filterbank's nonzeros (2 each; the product is sparse) with clamp and log
+    (2 a mel)."""
+    n_freq = n_fft // 2 + 1
+    return rows * (win + 2.5 * n_fft * math.log2(n_fft) + 4 * n_freq
+                   + 2 * mel_nnz + 2 * n_mels)
+
+
+def spectrum_site(case, fn, x):
+    """(kernel call, plain call, library call or None, operations, bytes,
+    GEMM-form operations) of one K6 / K7 case on audio ``x`` (B, T): the
+    wrappers on the frames view and operands of the builder ``fn``. The
+    operations and bytes are what the function needs (spectrum_ops; the
+    audio and, for a log-mel, the filterbank's nonzeros read once, the
+    output written once: the bases are computed, not needed); the GEMM
+    form's are what the kernels do, 4 n_fft a frame and frequency."""
+    n_fft, hop, win = case[2:5] if case[0] == "log_mel" else case[1:4]
+    win = win or n_fft
+    frames = fn.frames_of(x)
+    rows = frames.shape[0] * frames.shape[1]
+    cos_b, sin_b = fn.bases
+    n_freq = n_fft // 2 + 1
+    gemm = 4.0 * rows * n_fft * n_freq
+    if case[0] == "log_mel":
+        _, _, _, _, _, n_mels, _, base = case
+        nnz = int((fn.mel_m != 0).sum())
+        return (lambda: log_mel(frames, cos_b, sin_b, fn.mel_m, 1e-10, base),
+                lambda: log_mel_plain(frames, cos_b, sin_b, fn.mel_m, 1e-10, base), None,
+                spectrum_ops(n_fft, win, rows, nnz, n_mels),
+                4 * (x.numel() + nnz + rows * n_mels), gemm + 2.0 * rows * n_freq * n_mels)
+    window = torch.hann_window(win, device=DEVICE)
+    return (lambda: stft_magnitude(frames, cos_b, sin_b, n_freq, 1e-7),
+            lambda: stft_magnitude_plain(frames, cos_b, sin_b, n_freq, 1e-7),
+            lambda: torch.stft(x, n_fft, hop, win, window, center=True,
+                               return_complex=True).abs(),
+            spectrum_ops(n_fft, win, rows), 4 * (x.numel() + rows * n_freq), gemm)
+
+
+def training_times(cfg, cases, rng):
+    """Phase 5e: each K6 / K7 call shape against its plain version, its
+    bound and (K7) ``torch.stft(...).abs()`` on cuFFT, a yardstick the port
+    never calls; K6 has no one-call equivalent, so the FFT route's log-mel
+    (``MelSpectrogram('eager')``) is timed beside it as ``eager_fft_ms``.
+    Then the course's mel loss forward and backward, kernel route against
+    the FFT route."""
+    x = torch.randn(COURSE_BATCH, COURSE_LENGTH, generator=rng, device=DEVICE) * 0.3
+    sites = {}
+    for what, (case, length) in cases.items():
+        xs = x[:, :length].contiguous()
+        run, plain, lib, flops, nb, gemm = spectrum_site(case, spectrum_builders(case)[0], xs)
+        b_ms, b_by = bound_ms(flops, nb)
+        site = {"kernel": case[0], "ms": gpu_ms(run, 10), "plain_ms": gpu_ms(plain, 10),
+                "library_ms": None if lib is None else gpu_ms(lib, 10),
+                "bound_ms": b_ms, "bound_by": b_by, "flops": flops, "bytes": nb,
+                "gemm_form_flops": gemm, "gemm_form_ops_ms": gemm / F32_FLOPS * 1e3}
+        if case[0] == "log_mel":
+            _, sr, n_fft, hop, win, n_mels, fmax, base = case
+            eager = MelSpectrogram(fs=sr, fft_size=n_fft, hop_size=hop, win_length=win,
+                                   num_mels=n_mels, fmin=0, fmax=fmax, log_base=base,
+                                   backend="eager", device=DEVICE)
+            site["eager_fft_ms"] = gpu_ms(lambda: eager(xs), 10)
+        sites[what] = site
+        log(f"time {case[0]:14s} {what:34s} kernel={site['ms']:.4f} ms plain="
+            f"{site['plain_ms']:.4f} library={site['library_ms']} eager FFT route="
+            f"{site.get('eager_fft_ms')} bound={b_ms:.5f} ms ({b_by}; the GEMM form's "
+            f"operations alone {site['gemm_form_ops_ms']:.4f} ms)")
+    y = (x[..., None] * 0.5).requires_grad_()
+    t = x[..., None]
+    loss_ms = {}
+    for route in ("auto", "eager"):
+        loss = MultiMelSpectrogramLoss(**dict(cfg["mel_loss_params"], backend=route),
+                                       device=DEVICE)
+        loss_ms[route] = gpu_ms(lambda: loss(y, t).backward(), 10)
+    log(f"course mel loss forward+backward: kernel route {loss_ms['auto']:.4f} ms, "
+        f"FFT route {loss_ms['eager']:.4f} ms")
+    return sites, {"mel_loss_fwd_bwd_ms": {"kernel": loss_ms["auto"],
+                                           "eager_fft": loss_ms["eager"]}}
+
+
 # ---------------------------------------------------------------- times
 
 
@@ -1486,6 +1956,51 @@ def multi_stream_times(path, gen, vq):
     return report
 
 
+def spectrum_entries(sites, worst, by_path) -> list:
+    """The ``kernels`` line's K6 and K7 entries: K6 at the course's mel loss,
+    K7 summed over the vocoder config's three STFT resolutions; every timed
+    shape under ``sites``."""
+    entries = []
+    for name in SPECTRUM_KERNELS:
+        spec = KERNELS[name]
+        own = {what: site for what, site in sites.items() if site["kernel"] == name}
+        main = ({"course mel": own["course mel"]} if name == "log_mel"
+                else {w: v for w, v in own.items() if w.startswith("stft")})
+        ops = sum(v["flops"] for v in main.values())
+        nb = sum(v["bytes"] for v in main.values())
+        entry = {
+            "name": name, "route": "cuda", "source": spec["source"],
+            "replaces": spec["replaces"],
+            "launches": sum(counts[name] for counts in by_path.values()),
+            "launches_by_path": {path: counts[name] for path, counts in by_path.items()},
+            "max_abs_err": worst[name],
+            "ms": sum(v["ms"] for v in main.values()),
+            "plain_ms": sum(v["plain_ms"] for v in main.values()),
+            "bound_ms": sum(v["bound_ms"] for v in main.values()),
+            "bound_by": bound_ms(ops, nb)[1],
+            "bound_is": ("what the function needs, as an FFT computes it (spectrum_ops), "
+                         "against the audio and output bytes"),
+            "gemm_form_ops_ms": sum(v["gemm_form_ops_ms"] for v in main.values()),
+            "gemm_form_ops_ms_is": ("the DFT-as-GEMM's operations (4 n_fft a frame and "
+                                    "frequency) at the f32 rate: what the kernel does, "
+                                    "not a bound of the function"),
+            "library_ms": (None if name == "log_mel"
+                           else sum(v["library_ms"] for v in main.values())),
+            "per": ("one call at the course's mel loss (16 x 48000 samples, 2576 frames, "
+                    "n_fft 2048, 80 mels)" if name == "log_mel" else
+                    "sum over the vocoder config's three STFT resolutions, 16 x 9600 samples"),
+            "sites": own,
+        }
+        if name == "log_mel":
+            entry["eager_fft_ms"] = main["course mel"]["eager_fft_ms"]
+            entry["library_ms_is"] = ("null: no one PyTorch call computes it; eager_fft_ms "
+                                      "times the FFT route's log-mel beside it")
+        else:
+            entry["max_abs_err_is"] = "largest magnitude error (limit 1e-5 of the largest)"
+        entries.append(entry)
+    return entries
+
+
 def card() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1508,7 +2023,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     built = _cuda.build()
-    for name in KERNELS:
+    for name in _cuda.SOURCES:
         _cuda.load(name)
     log(f"phase 1: built {sorted(built)} in {time.perf_counter() - t0:.1f} s")
     for name, info in built.items():
@@ -1621,9 +2136,25 @@ def main() -> int:
     voc_times, voc_ktimes, voc_ktimes_b = vocoder_times(codec, vq, voc, rng)
     stamp("phase 4, receiver times")
 
+    log("phase 5: training (the course generator phase, the vocoder metric loss)")
+    cfg, vcfg = course_config(), load_config(VOCODER_CONFIG)
+    cases = spectrum_cases(cfg, vcfg)
+    spectrum_worst, spectrum_checks = check_spectrum_kernels(cases, rng)
+    clips = course_clips(6, SEED + 60)
+    train_launches = {}
+    train_launches["course step"], course_checks = course_routes(cfg, clips[0])
+    runs, course_report = course_training(cfg, clips)
+    train_launches.update(runs)
+    train_launches["vocoder metric loss"], voc_metric_checks = vocoder_metric_routes(
+        codec, vq, voc, vcfg)
+    train_sites, train_times = training_times(cfg, cases, rng)
+    stamp("phase 5, training")
+    by_path.update(train_launches)
+
     name_power = card()
     entries = []
-    for name, spec in KERNELS.items():
+    for name in SERVING_KERNELS:
+        spec = KERNELS[name]
         first_path = ("denoiser" if name in DENOISER_KERNELS
                       else "vocoder" if name == "hifigan_unit" else "codec")
         kt, prof, kt_b = {"denoiser": (ktimes, profile, ktimes_b),
@@ -1673,12 +2204,17 @@ def main() -> int:
             entry[f"codec_sites_streams_{BATCH}"] = {
                 str(n): codec_ktimes_b[n]["causal_conv"]["sites"] for n in BATCH_SIZES}
         entries.append(entry)
+    entries += spectrum_entries(train_sites, spectrum_worst, by_path)
     report = {"card": name_power, "seconds": time.perf_counter() - started,
               "elapsed_seconds_by_step": elapsed,
               "main_path_errors": main_errs, "codec_path_checks": codec_errs,
               "vocoder_path_checks": voc_checks, "vocoder_times": voc_times,
               "multi_stream_checks": multi_checks, "multi_stream_times": multi_times,
               "times": times, "kernels": entries,
+              "training": {"spectrum_kernel_checks": spectrum_checks,
+                           "course_step_routes": course_checks, "course": course_report,
+                           "vocoder_metric_loss_routes": voc_metric_checks,
+                           "times": train_times, "spectrum_sites": train_sites},
               "kernel_sites": {str(n): {k: v["sites"] for k, v in agg.items()}
                                for n, agg in ktimes.items()},
               "codec_kernel_sites": {str(n): {k: v["sites"] for k, v in agg.items()}

@@ -16,7 +16,13 @@ small ones, with caches at a stream stride, and the unit's next conv2 cache
 too. The residual-VQ search is held to its plain version's codes up to near ties
 (``utils/checks.py::rvq_near_ties``: distances within 1e-5 of the
 smallest); the codebook lookup sums the same codewords in the same order,
-atol 1e-6. chip_smoke.py makes the same checks at the flagship's shapes.
+atol 1e-6. The DFT kernels (K6 log-mel, K7 STFT magnitude) are held to
+their plain versions (the same two f32 matmuls, summed in another order over
+up to 2048 terms): log-mel atol 1e-4, magnitudes 1e-5 of the largest, the
+autograd.Functions' gradients (the JAX package's analytic VJP) against
+autograd through the plain versions 1e-5 of the largest; two calls, and a
+batch against its examples' own calls, are equal bit for bit. chip_smoke.py
+makes the same checks at the flagship's shapes.
 """
 
 import numpy as np
@@ -40,7 +46,13 @@ from dl_speech_enhancement_tpu_torch.ops.stream_kernel import (
     residual_chain,
     residual_chain_plain,
 )
+from dl_speech_enhancement_tpu_torch.dsp.mel import MelSpectrogram
+from dl_speech_enhancement_tpu_torch.losses import (
+    MultiMelSpectrogramLoss,
+    MultiResolutionSTFTLoss,
+)
 from dl_speech_enhancement_tpu_torch.models.hifigan import HiFiGANGenerator
+from dl_speech_enhancement_tpu_torch.ops import mel_kernel
 from dl_speech_enhancement_tpu_torch.ops.vocoder_kernel import (
     hifigan_unit,
     hifigan_unit_plain,
@@ -389,3 +401,71 @@ def test_vocoder_receiver_matches_eager_on_the_card(card, batch):
         assert float((got - want).abs().max()) <= 2e-5
     with pytest.raises(ValueError, match="outside its book"):
         rx.decode(codes * 0)
+
+
+LOG_MEL_CASES = [  # (B, T, sr, n_fft, hop, win, n_mels, fmax, log_base)
+    (2, 9600, 48000, 2048, 300, None, 80, 24000, None),
+    (3, 4800, 24000, 512, 120, 240, 40, 12000, 10.0),
+    (2, 999, 4800, 256, 60, 200, 20, 2400, 2.0),
+    (1, 3000, 22050, 1024, 256, None, 128, 7600, 10.0),
+]
+STFT_CASES = [(1024, 120, 600), (2048, 240, 1200), (512, 50, 240), (256, 64, 100)]
+
+
+def _kernel_and_plain(card, fn, plain, batch, t):
+    """Forward of both on the same audio, gradients of both for one upstream
+    gradient, and the kernel's determinism checks."""
+    x = _randn(card, batch, t)
+    before = fn_launches()
+    got = fn(x)
+    assert fn_launches() == before + 1
+    ref = plain(x)
+    assert got.shape == ref.shape and got.dtype == torch.float32
+    assert torch.equal(fn(x), got)
+    assert torch.equal(torch.cat([fn(x[i:i + 1]) for i in range(batch)]), got)
+    g = torch.randn(got.shape, generator=card, device="cuda")
+    xk, xp = x.clone().requires_grad_(), x.clone().requires_grad_()
+    fn(xk).backward(g)
+    plain(xp).backward(g)
+    assert (xk.grad - xp.grad).abs().max() <= 1e-5 * xp.grad.abs().max()
+    return got, ref
+
+
+def fn_launches():
+    return mel_kernel.log_mel.launches + mel_kernel.stft_magnitude.launches
+
+
+@pytest.mark.parametrize("case", LOG_MEL_CASES, ids=lambda c: f"{c[3]}-{c[4]}-{c[6]}")
+def test_log_mel_kernel(card, case):
+    b, t, sr, n_fft, hop, win, n_mels, fmax, base = case
+    kw = dict(sr=sr, n_fft=n_fft, hop=hop, win_length=win, n_mels=n_mels, fmin=0,
+              fmax=fmax, log_base=base, device="cuda")
+    got, ref = _kernel_and_plain(card, mel_kernel.make_fused_log_mel(**kw),
+                                 mel_kernel.make_fused_log_mel(**kw, plain=True), b, t)
+    assert (got - ref).abs().max() <= 1e-4
+
+
+@pytest.mark.parametrize("case", STFT_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_stft_magnitude_kernel(card, case):
+    n_fft, hop, win = case
+    got, ref = _kernel_and_plain(
+        card, mel_kernel.make_fused_stft_magnitude(n_fft, hop, win, device="cuda"),
+        mel_kernel.make_fused_stft_magnitude(n_fft, hop, win, device="cuda", plain=True),
+        3, 4000)
+    assert (got - ref).abs().max() <= 1e-5 * ref.abs().max()
+
+
+def test_spectral_losses_auto_launch_the_kernels(card):
+    """'auto' on the card is the kernel route: the mel loss launches K6 twice
+    per resolution, the STFT loss K7 twice per resolution."""
+    assert MelSpectrogram(fs=48000, fft_size=2048, hop_size=300, device="cuda").backend == "cuda"
+    x, y = _randn(card, 2, 4800, 1), _randn(card, 2, 4800, 1)
+    mel = MultiMelSpectrogramLoss(fs=48000, fft_sizes=[2048, 512], hop_sizes=[300, 120],
+                                  win_lengths=[None, 240], fmax=24000, device="cuda")
+    before = mel_kernel.log_mel.launches
+    mel(x, y)
+    assert mel_kernel.log_mel.launches == before + 4
+    stft = MultiResolutionSTFTLoss(device="cuda")
+    before = mel_kernel.stft_magnitude.launches
+    stft(x, y)
+    assert mel_kernel.stft_magnitude.launches == before + 6

@@ -25,7 +25,10 @@ def test_port_has_the_slice_modules():
     for mod in ("nn.conv", "nn.vq", "models.autoencoder", "models.hifigan", "ops.stream_kernel",
                 "ops.mega_kernel", "ops.mega_stacked", "ops.vocoder_kernel", "ops.vocoder_stacked",
                 "ops._cuda", "parallel.serve", "stream.runtime", "utils.config",
-                "utils.jax_params"):
+                "utils.jax_params", "dsp.stft", "dsp.mel", "ops.mel_kernel", "losses.metrics",
+                "losses.mel_loss", "losses.stft_loss", "losses.waveform_loss",
+                "losses.adversarial_loss", "losses.feat_match_loss", "train.optim",
+                "train.criterion", "train.denoise_course", "data.mixing"):
         assert f"dl_speech_enhancement_tpu_torch.{mod}" in names
 
 
