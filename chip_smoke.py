@@ -15,15 +15,22 @@ receiver (configs/vocoder/AudioDec_v1_symAD_vctk_48000_hop300_clean.yaml;
 seeded statistics, since the statistics file is not in the repository, and
 every weight-norm gain set to about unit gain, since at the official
 N(0, 0.01) init the receiver's output is almost all bias). Each runs as one
-stream and as 16 streams per dispatch. Then the training stack: the course
+stream and as 16 streams per dispatch. The ``vctk_v0`` pairing (the same
+transmitter and the AudioDec v0 receiver, configs/vocoder/
+AudioDec_v0_symAD_vctk_48000_hop300_clean.yaml: MultiReceptiveField blocks of
+kernel 3/7/11, K4's MRF arm, seeded the same way) runs as one stream and 16,
+and through the normal entry point, ``cli/stream.py --model vctk_v0`` and
+``--model vctk_univ`` (v3 is v0's network), from seeded checkpoints under a
+temporary exp/ tree. The AudioDec v2 receiver (MultiGroupConv1d at 256
+channels) runs its kernel route once. Then the training stack: the course
 denoise trainer's generator phase (configs/denoise/symAD_48MelWaveL1.yaml,
 16 x 48000 samples a batch) and the vocoder config's metric loss on the
 ``vctk_v1`` receiver. Phases (any failure exits non-zero before the result
 line):
 
-1. build the seven CUDA kernel sources from
+1. build the eight CUDA kernel sources from
    ``dl_speech_enhancement_tpu_torch/csrc`` (one ``nvcc`` each, all at once)
-   and the three models on the card;
+   and the models on the card;
 2. hold every kernel against its plain PyTorch version at every site of the
    three models, for one stream at 1, 100 (the single-stream paths'
    dispatch) and 400 frames per dispatch (the receiver at 1 and 100) with f32
@@ -33,6 +40,9 @@ line):
    receiver's ``VOCODER_BATCH_CHECKS``), where perturbing stream 0 of a layer
    kernel must leave every other stream bit for bit as it was; the
    residual-VQ search up to near ties (``utils/checks.py::rvq_near_ties``);
+   every site of the v0 receiver (36 unit sites at k =
+   3/7/11, the last unit of each block with the accumulate epilogue) at 1,
+   100 and 400 frames and at 16 streams of 1, 8 and 16 frames;
 3. drive the main paths, each with every launch counter set to 0 just before
    and read just after:
    - one stream, ``make_scan_stream(batch=1, frame_size=1200)`` with
@@ -42,8 +52,8 @@ line):
      against the CPU, and its ``'cuda_chain'`` route against ``'eager'``.
      The codec runs through ``run_with_codes`` with f32 weights: its wire
      codes and audio are held against the ``'eager'`` route, the first
-     frames against the CPU, and ``StreamingTransmitter``/
-     ``StreamingReceiver`` against the route; every book must use at least
+     frames against the CPU, and the kernel routes of ``StreamingTransmitter``
+     / ``StreamingReceiver`` against the route; every book must use at least
      32 codes; the bf16 route's agreement with it is printed;
    - the receiver, ``make_vocoder_scan_stream(codec, books, vocoder,
      1200)`` with ``'auto'`` (which must resolve to ``'cuda'``), f32
@@ -60,6 +70,20 @@ line):
      codec's decoder and books) against its eager composition; the
      receiver's fleet ``make_sharded_stream(vocoder=)`` against each
      stream's own single-stream run;
+   - the v0 receiver as the v1 one above, at 54 launches a dispatch (and
+     its fleet at 16 streams); the v2 receiver's kernel route against eager
+     on one stream, 1 frame then 100;
+   - K1f (``fused_residual_chain_folded``) at the denoiser's chains of 32
+     and 64 channels, fold 1/2/3 and 1/2: equal to K1, within 1e-4 of its
+     folded plain version; T1 (``tools/reshape_probe.py``): its six shapes
+     through ``fold_copy`` equal to numpy's reshape, or refused as numpy
+     refuses them;
+   - the normal entry point: ``cli.stream.main --model vctk_v0`` and
+     ``vctk_univ`` (the transmitter's and the receiver's kernels, 54
+     launches a frame, priming and warm-up included) held to
+     ``make_vocoder_scan_stream`` on the same audio, ``--model vctk_sym``
+     (22 a frame) and ``--checkpoint`` (the fused streamer, 22 a frame) to
+     ``make_scan_stream``, 0 frames dropped;
    - at every B and N that phase 4 times, one f32-weight dispatch of
      ``make_scan_stream(batch=B)`` (of the receiver's fleet) held per stream
      against the batched ``'eager'`` route on the frames phase 4 times;
@@ -74,7 +98,7 @@ line):
    64) at 1 and 16 frames per dispatch, through the kernel route, the
    batched eager route and (the codecs) B single-stream kernel dispatches,
    with the launches of one dispatch counted at every B and the card memory
-   the returned cache keeps;
+   the returned cache keeps; the v0 receiver as the v1 one at 16 streams;
 5. training, with TF32 off: the log-mel (K6) and STFT-magnitude (K7) DFT
    kernels against their plain versions at every call shape of the paths
    below (forward, the autograd.Function's gradient, two calls and a batch
@@ -111,6 +135,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from typing import Callable, NamedTuple
 
@@ -118,10 +143,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from dl_speech_enhancement_tpu_torch.cli import stream as stream_cli
+from dl_speech_enhancement_tpu_torch.data import read_wav, write_wav
 from dl_speech_enhancement_tpu_torch.data.mixing import add_noise
 from dl_speech_enhancement_tpu_torch.dsp.mel import MelSpectrogram
 from dl_speech_enhancement_tpu_torch.losses import MultiMelSpectrogramLoss
 from dl_speech_enhancement_tpu_torch.models import AudioDecGenerator, HiFiGANGenerator
+from dl_speech_enhancement_tpu_torch.models.hifigan import MultiReceptiveField
 from dl_speech_enhancement_tpu_torch.nn.conv import ConvTranspose1d
 from dl_speech_enhancement_tpu_torch.nn.vq import VQState
 from dl_speech_enhancement_tpu_torch.ops import _cuda
@@ -135,6 +163,7 @@ from dl_speech_enhancement_tpu_torch.ops.mega_kernel import (
     conv_transpose_weight,
     conv_weight,
     join_halves,
+    mega_decoder,
     mega_encoder,
     rvq_assign,
     rvq_assign_plain,
@@ -154,6 +183,9 @@ from dl_speech_enhancement_tpu_torch.ops.stream_kernel import (
     _chain_plan,
     chain_halo,
     chain_weights,
+    fused_residual_chain,
+    fused_residual_chain_folded,
+    fused_residual_chain_folded_plain,
     residual_chain,
     residual_chain_plain,
 )
@@ -163,6 +195,7 @@ from dl_speech_enhancement_tpu_torch.ops.vocoder_kernel import (
     hifigan_unit_plain,
     make_stacked_vocoder,
     vocoder_half,
+    vocoder_topology_error,
 )
 from dl_speech_enhancement_tpu_torch.parallel import make_sharded_stream
 from dl_speech_enhancement_tpu_torch.stream.runtime import (
@@ -177,7 +210,10 @@ from dl_speech_enhancement_tpu_torch.train.denoise_course import (
     make_course_steps,
     train_denoise_course,
 )
+from dl_speech_enhancement_tpu_torch.train.checkpoint import save_checkpoint
 from dl_speech_enhancement_tpu_torch.train.optim import build_optimizer
+from dl_speech_enhancement_tpu_torch.tools import reshape_probe
+from dl_speech_enhancement_tpu_torch.utils.audiodec import assign_model
 from dl_speech_enhancement_tpu_torch.utils.checks import rvq_near_ties
 from dl_speech_enhancement_tpu_torch.utils.config import load_config
 
@@ -187,6 +223,14 @@ CONFIG = os.path.join(REPO, "configs", "denoise", "symAD_vctk_48000_hop300.yaml"
 CODEC_CONFIG = os.path.join(REPO, "configs", "autoencoder", "symAD_vctk_48000_hop300.yaml")
 VOCODER_CONFIG = os.path.join(REPO, "configs", "vocoder",
                               "AudioDec_v1_symAD_vctk_48000_hop300_clean.yaml")
+V0_CONFIG = os.path.join(REPO, "configs", "vocoder",
+                         "AudioDec_v0_symAD_vctk_48000_hop300_clean.yaml")
+V2_CONFIG = os.path.join(REPO, "configs", "vocoder",
+                         "AudioDec_v2_symAD_vctk_48000_hop300_clean.yaml")
+V3_CONFIG = os.path.join(REPO, "configs", "vocoder",
+                         "AudioDec_v3_symADuniv_vctk_48000_hop300_clean.yaml")
+UNIV_CODEC_CONFIG = os.path.join(REPO, "configs", "autoencoder",
+                                 "symADuniv_vctk_48000_hop300.yaml")
 SEED = 0
 FRAME = 1200
 SAMPLE_RATE = 48000
@@ -221,7 +265,10 @@ MIN_DISTINCT_CODES = 32
 WARMUP_FRAMES = 2400  # 9600 code rows: 8 books of 1024 codewords drawn from distinct rows
 DENOISER_KERNELS = ("residual_chain", "causal_conv", "causal_conv_transpose")
 CODEC_KERNELS = DENOISER_KERNELS + ("rvq_assign", "codebook_lookup")
-LAUNCHES_PER_DISPATCH = {"denoiser": 18, "codec": 22, "vocoder": 34}
+# the receivers' paths: the codec's transmitter (11 launches) and the v1
+# receiver (23: MultiGroupConv1d) or the v0 receiver (43: MultiReceptiveField,
+# 4 stages of an upsample and 3 blocks of 3 units)
+LAUNCHES_PER_DISPATCH = {"denoiser": 18, "codec": 22, "vocoder": 34, "vocoder_v0": 54}
 BATCH = 16  # streams of the multi-stream main paths and kernel checks
 MULTI_FRAMES = (8, 8)  # the multi-stream main paths: 16 frames in two dispatches
 BATCH_SIZES = (1, 16)  # frames per dispatch of the multi-stream times
@@ -243,6 +290,17 @@ VOCODER_TIME_BATCHES = (16, 64)  # streams per dispatch of the receiver fleet's 
 VOCODER_BATCH_CHECKS = tuple(sorted({(BATCH, n) for n in MULTI_FRAMES}
                                     | {(b, n) for b in VOCODER_TIME_BATCHES
                                        for n in (1, 16)}))
+V0_TIME_BATCHES = (16,)  # streams per dispatch of the v0 receiver fleet's times
+V0_BATCH_CHECKS = tuple(sorted({(BATCH, n) for n in MULTI_FRAMES}
+                               | {(b, n) for b in V0_TIME_BATCHES for n in (1, 16)}))
+V2_FRAMES = (1, DISPATCH)  # the v2 receiver's kernel route vs eager: N = 1 then 100
+# The normal entry point (cli/stream.py): seconds of seeded 48 kHz audio, and a
+# --max-latency no frame reaches (file-driven frames queue up behind each other)
+CLI_SECONDS = 4
+CLI_MAX_LATENCY = 1000.0
+PCM16_STEP = 1.0 / 32768  # the output wav's rounding
+# K1f at the denoiser's narrow chains: (encoder block, fold) at C = 32 and 64
+FOLDED_SITES = ((0, 1), (0, 2), (0, 3), (1, 1), (1, 2))
 MIN_AUDIO_STD = 1e-2  # the receiver's audio must not be a near constant ...
 MAX_SATURATED_SHARE = 0.05  # ... nor sit at tanh's saturation (|y| > 0.99)
 # Training (phase 5): the course denoise trainer's generator phase at the
@@ -317,7 +375,9 @@ KERNELS = {
         "fn": hifigan_unit,
         "source": "dl_speech_enhancement_tpu_torch/csrc/hifigan_unit.cu",
         "replaces": "dl_speech_enhancement_tpu/ops/vocoder_kernel.py:378 (K4 unit bodies "
-                    ":378-390, :443-452, :521-533; K5's, ops/vocoder_stacked.py:334-391)",
+                    ":378-390, :443-452, :521-533, and the MultiReceptiveField arm add_mrf "
+                    ":667-714 through the accumulate epilogue; K5's, "
+                    "ops/vocoder_stacked.py:334-391)",
     },
     "log_mel": {
         "fn": log_mel,
@@ -332,8 +392,17 @@ KERNELS = {
                     "make_fused_stft_magnitude: _mag_kernel :247, call :270)",
     },
 }
-SERVING_KERNELS = tuple(k for k in KERNELS if k not in SPECTRUM_KERNELS)
+KERNELS["fold_copy"] = {  # T1
+    "fn": reshape_probe.fold_copy,
+    "source": "dl_speech_enhancement_tpu_torch/csrc/fold_copy.cu",
+    "replaces": "tools/reshape_probe.py:37 (T1 probe: fold / unfold reshapes inside a "
+                "Pallas kernel, call :46)",
+}
+SERVING_KERNELS = ("residual_chain", "causal_conv", "causal_conv_transpose", "rvq_assign",
+                   "codebook_lookup", "hifigan_unit")
 VOCODER_KERNELS = SERVING_KERNELS  # the receiver's path (with its tx) runs all six
+RECEIVER_KERNELS = ("causal_conv", "causal_conv_transpose", "codebook_lookup",
+                    "hifigan_unit")  # a receiver behind an eager transmitter
 
 
 class Failure(RuntimeError):
@@ -703,8 +772,8 @@ def counted(path: str, per_dispatch: int, dispatches: int, kernels, drive):
     for name in kernels:
         require(launches[name] > 0, f"the {path} path never launched {name}")
     want = per_dispatch * dispatches
-    require(sum(launches.values()) == want,
-            f"the {path} path made {sum(launches.values())} launches, not {want}")
+    total = sum(launches.values())
+    require(total == want, f"the {path} path made {total} launches, not {want}")
     return result, launches
 
 
@@ -860,9 +929,13 @@ def codec_path(gen, vq, tables):
     log(f"codec f32 route vs CPU eager ({agree_cpu} frames): max|err|={err_cpu:.3e}")
     require(err_cpu <= MAIN_ATOL_F32, "codec route disagrees with the CPU")
 
-    # the transmitter's codes against the route's; the receiver decodes the
-    # route's own codes, so its audio is held over every frame, near ties or not
-    tx, rx = StreamingTransmitter(gen, vq), StreamingReceiver(gen, vq)
+    # the endpoints' kernel routes at f32 weights: the transmitter's codes
+    # against the route's; the receiver decodes the route's own codes, so its
+    # audio is held over every frame, near ties or not
+    tx = StreamingTransmitter(gen, vq)
+    rx = StreamingReceiver(gen, vq, weight_dtype=torch.float32)
+    require((tx.backend, rx.backend) == ("cuda", "cuda"),
+            f"the codec's endpoints took {tx.backend!r} / {rx.backend!r}, not 'cuda'")
     tx_codes = torch.stack([tx.encode(frame)[:, 0].t() for frame in frames])
     rx_out = torch.stack([rx.decode(c.t()[:, None]) for c in codes])
     held_tx, _ = held_codes("StreamingTransmitter vs the codec route", z_eager, tables,
@@ -1038,9 +1111,10 @@ def timed_shapes_held(path, gen, vq, tables):
 # ---------------------------------------------------------------- vocoder
 
 
-def build_vocoder() -> HiFiGANGenerator:
-    """The AudioDec v1 receiver of VOCODER_CONFIG on the card, seeded. The
-    statistics file is not in the repository: mean N(0, 1) and scale
+def build_vocoder(config: str = VOCODER_CONFIG) -> HiFiGANGenerator:
+    """The HiFiGAN receiver of ``config`` (by default the AudioDec v1 one) on
+    the card, seeded. The statistics file is not in the repository: mean
+    N(0, 1) and scale
     U(0.5, 2) of the code dim take its place. Every weight-norm gain g is set
     to the conv's unit gain times U(0.8, 1.25) (1 per output channel of a
     conv; sqrt(k * out / (2 * in)) per input channel of a k = 2s transposed
@@ -1048,9 +1122,9 @@ def build_vocoder() -> HiFiGANGenerator:
     fades to its bias as at the official N(0, 0.01) init; the output conv at
     half that, as the residual blocks' sums grow the signal and the audio
     must stay below tanh's saturation."""
-    gp = dict(load_config(VOCODER_CONFIG)["generator_params"])
+    gp = dict(load_config(config)["generator_params"])
     act = gp.pop("nonlinear_activation")
-    require(act == "LeakyReLU", f"{VOCODER_CONFIG}: activation {act}")
+    require(act == "LeakyReLU", f"{config}: activation {act}")
     gp["negative_slope"] = gp.pop("nonlinear_activation_params")["negative_slope"]
     for key in ("use_weight_norm", "stats"):
         gp.pop(key)
@@ -1069,16 +1143,20 @@ def build_vocoder() -> HiFiGANGenerator:
     return voc
 
 
-def unit_site(name, blk, ui, rows, wd, rand, batch, slope):
-    """One hifigan_unit launch as a Site: its output and next conv2 cache
-    along the time axis. The yardstick is the unit's two grouped dilated
-    ``F.conv1d`` calls on inputs made ready for them."""
-    c1, c2 = blk.block.convs1[ui], blk.block.convs2[ui]
-    groups, gc, k, d = blk.groups, c1.out_channels, c1.kernel_size, c1.dilation
+def unit_site(name, rb, ui, groups, rows, wd, rand, batch, slope, acc=False, scale=1.0):
+    """One hifigan_unit launch (unit ``ui`` of the residual block ``rb``) as
+    a Site: its output and next conv2 cache along the time axis. With
+    ``acc`` it adds a running sum of the unit's output width and scales by
+    ``scale`` (a MultiReceptiveField block's last unit). The yardstick is
+    the unit's two dilated ``F.conv1d`` calls (grouped as the unit) on
+    inputs made ready for them."""
+    c1, c2 = rb.convs1[ui], rb.convs2[ui]
+    gc, k, d = c1.out_channels, c1.kernel_size, c1.dilation
     c = gc // groups
     cin = c if ui == 0 else gc
     cache1, cache2 = rand(c1.pad_length, cin, cache=True), rand(k - 1, gc, cache=True)
     x = rand(rows, cin)
+    total = rand(rows, gc) if acc else None
     w1, b1 = conv_weight(c1, wd), c1.bias.detach().float().contiguous()
     w2, b2 = conv_weight(c2, wd), c2.bias.detach().float().contiguous()
 
@@ -1086,26 +1164,45 @@ def unit_site(name, blk, ui, rows, wd, rand, batch, slope):
         return torch.cat(pair, dim=-2)
 
     a = F.leaky_relu(torch.cat([cache1, x], dim=-2), slope)
-    a = a.repeat(*([1] * (a.dim() - 1)), groups) if ui == 0 else a
+    a = a.repeat(*([1] * (a.dim() - 1)), groups) if cin != gc else a
     x1_lib = (a if a.dim() == 3 else a[None]).transpose(1, 2).contiguous()
     h_lib = lib_input(cache2, rand(rows, gc))
     w1_lib, w2_lib = c1.weight.detach().float(), c2.weight.detach().float()
     return Site("hifigan_unit", name,
-                lambda: both(hifigan_unit(cache1, cache2, x, w1, b1, w2, b2, d, groups, slope)),
+                lambda: both(hifigan_unit(cache1, cache2, x, w1, b1, w2, b2, d, groups, slope,
+                                          total, scale)),
                 lambda: both(hifigan_unit_plain(cache1, cache2, x, w1, b1, w2, b2, d, groups,
-                                                slope)),
+                                                slope, total, scale)),
                 lambda: (F.conv1d(x1_lib, w1_lib, b1, dilation=d, groups=groups),
                          F.conv1d(h_lib, w2_lib, b2, groups=groups)),
                 2 * 2.0 * batch * rows * k * c * gc,
-                nbytes(cache1, cache2, x, w1, b1, w2, b2) + 4 * batch * (rows + k - 1) * gc,
-                (cache1, x))
+                nbytes(cache1, cache2, x, w1, b1, w2, b2, total)
+                + 4 * batch * (rows + k - 1) * gc, (cache1, x))
+
+
+def fusion_units(blk):
+    """A fusion block's unit launches as the kernel route makes them:
+    ``(site suffix, residual block, unit, groups, adds a running sum, output
+    scale)``. MultiGroupConv1d: one grouped block; MultiReceptiveField: per
+    block three units, the last adding to the blocks' sum (from block 1 on)
+    and the last block's scaling by 1 / blocks."""
+    if not isinstance(blk, MultiReceptiveField):
+        return [(f"r{ui}", blk.block, ui, blk.groups, False, 1.0)
+                for ui in range(len(blk.block.convs1))]
+    n, units = len(blk.blocks), []
+    for bi, rb in enumerate(blk.blocks):
+        for ui in range(len(rb.convs1)):
+            last = ui == len(rb.convs1) - 1
+            units.append((f"b{bi}r{ui}", rb, ui, 1, last and bi > 0,
+                          1.0 / n if last and bi == n - 1 else 1.0))
+    return units
 
 
 def vocoder_sites(voc, n_frames: int, wd, rng: torch.Generator, batch: int | None = None):
     """Every layer-kernel launch of one dispatch of the receiver, as Sites
     (its codebook lookup is the codec's lookup site): the input conv, per
-    stage the activated upsample, three units and the 1x1 fuse, and the
-    activated tanh output conv."""
+    stage the activated upsample, the fusion block's units (and a
+    MultiGroupConv1d's 1x1 fuse), and the activated tanh output conv."""
     rand = make_rand(rng, batch)
     nb = 1 if batch is None else batch
     slope, t = voc.negative_slope, n_frames * FRAME // voc.total_upsample
@@ -1113,27 +1210,34 @@ def vocoder_sites(voc, n_frames: int, wd, rng: torch.Generator, batch: int | Non
     for si, (up, blk) in enumerate(zip(voc.upsamples, voc.blocks)):
         out.append(upsample_site(f"v{si}u", up, t, wd, rand, nb, slope))
         t *= up.stride
-        for ui in range(len(blk.block.convs1)):
-            out.append(unit_site(f"v{si}r{ui}", blk, ui, t, wd, rand, nb, slope))
-        out.append(conv_site(f"v{si}f", blk.conv_out, t, 1, False, wd, rand, nb))
+        for suffix, rb, ui, groups, acc, scale in fusion_units(blk):
+            out.append(unit_site(f"v{si}{suffix}", rb, ui, groups, t, wd, rand, nb, slope,
+                                 acc, scale))
+        if not isinstance(blk, MultiReceptiveField):
+            out.append(conv_site(f"v{si}f", blk.conv_out, t, 1, False, wd, rand, nb))
     out.append(conv_site("v_out", voc.output_conv, t, 1, True, wd, rand, nb, 0.01, True))
     return out
 
 
 def unit_plans(voc, batch: int, n_frames: int) -> dict:
-    """The unit kernel's tile at each stage for ``batch`` streams."""
+    """The unit kernel's tile at each stage (and block) for ``batch`` streams."""
     plans, t = {}, n_frames * FRAME // voc.total_upsample
     for si, (up, blk) in enumerate(zip(voc.upsamples, voc.blocks)):
         t *= up.stride
-        plans[f"v{si}"] = _unit_plan(batch, t, up.out_channels, blk.groups,
-                                     blk.block.convs1[0].kernel_size)
+        if isinstance(blk, MultiReceptiveField):
+            for bi, rb in enumerate(blk.blocks):
+                plans[f"v{si}b{bi}"] = _unit_plan(batch, t, up.out_channels, 1,
+                                                  rb.convs1[0].kernel_size)
+        else:
+            plans[f"v{si}"] = _unit_plan(batch, t, up.out_channels, blk.groups,
+                                         blk.block.convs1[0].kernel_size)
     return plans
 
 
-def check_vocoder_kernels(voc, rng):
-    """Phase 2, receiver: every layer site against its plain version for one
-    stream (SIZES: 1, 100 and the 400 frames of the throughput dispatch, f32
-    and bf16 weights) and at every (streams, frames) of VOCODER_BATCH_CHECKS
+def check_vocoder_kernels(voc, rng, batch_checks=VOCODER_BATCH_CHECKS):
+    """Phase 2, a receiver: every layer site against its plain version for
+    one stream (SIZES: 1, 100 and the 400 frames of the throughput dispatch,
+    f32 and bf16 weights) and at every (streams, frames) of ``batch_checks``
     (f32, with the stream-leak check)."""
     worst = {"causal_conv": 0.0, "causal_conv_transpose": 0.0, "hifigan_unit": 0.0}
     for n_frames in SIZES:
@@ -1141,7 +1245,7 @@ def check_vocoder_kernels(voc, rng):
             for st in vocoder_sites(voc, n_frames, wd, rng):
                 err = check_site(st.kernel, st.site, st.run, st.plain, n_frames, wd)
                 worst[st.kernel] = max(worst[st.kernel], err)
-    for batch, n_frames in VOCODER_BATCH_CHECKS:
+    for batch, n_frames in batch_checks:
         layer_sites = vocoder_sites(voc, n_frames, torch.float32, rng, batch)
         for st in layer_sites:
             err = check_site(st.kernel, f"{st.site}x{batch}", st.run, st.plain, n_frames,
@@ -1208,16 +1312,17 @@ def audio_stats(y) -> dict:
             "saturated_share": float((y.abs() > 0.99).float().mean())}
 
 
-def vocoder_path(codec, vq, tables, voc, codec_wire):
-    """Phase 3, the receiver: ``make_vocoder_scan_stream`` on the card with
-    f32 weights, 200 frames in two dispatches of 34 launches. Returns the
-    launch counts of that run and the checks."""
+def vocoder_path(codec, vq, tables, voc, codec_wire, path="vocoder"):
+    """Phase 3, a receiver (``path``: 'vocoder' for v1, 'vocoder_v0'):
+    ``make_vocoder_scan_stream`` on the card with f32 weights, 200 frames in
+    two dispatches of 34 (v1) or 54 (v0) launches. Returns the launch counts
+    of that run and the checks."""
     codec_codes, codec_ref_codes, z_eager = codec_wire
     frames4 = frames_for(sum(MAIN_FRAMES), SEED)  # the codec path's frames
     frames = frames4[:, 0, :, 0]
     run = make_vocoder_scan_stream(codec, vq, voc, FRAME, weight_dtype=torch.float32)
     require(run.backend == "cuda", f"'auto' resolved to {run.backend!r}, not 'cuda'")
-    out, launches = counted("vocoder", LAUNCHES_PER_DISPATCH["vocoder"], len(MAIN_FRAMES),
+    out, launches = counted(path, LAUNCHES_PER_DISPATCH[path], len(MAIN_FRAMES),
                             VOCODER_KERNELS, lambda: stream(run, frames, MAIN_FRAMES))
     require(out.shape == frames.shape and bool(torch.isfinite(out).all()),
             f"receiver output {tuple(out.shape)} not finite or not the frames' shape")
@@ -1226,9 +1331,9 @@ def vocoder_path(codec, vq, tables, voc, codec_wire):
     codes = codes[:, 0]
     require(torch.equal(codes, codec_codes), "the receiver path's wire codes differ from "
             "the codec path's")
-    log("vocoder path: wire codes equal the codec path's")
+    log(f"{path} path: wire codes equal the codec path's")
     stats = audio_stats(out)
-    log(f"vocoder path audio: {json.dumps(stats)}")
+    log(f"{path} path audio: {json.dumps(stats)}")
     require(stats["audio_std"] >= MIN_AUDIO_STD, f"receiver audio std {stats['audio_std']}")
     require(stats["saturated_share"] <= MAX_SATURATED_SHARE,
             f"{stats['saturated_share']} of the receiver's samples saturate tanh")
@@ -1236,12 +1341,12 @@ def vocoder_path(codec, vq, tables, voc, codec_wire):
     eager = make_vocoder_scan_stream(codec, vq, voc, FRAME, backend="eager")
     require(eager.backend == "eager", "eager route not taken")
     ref = stream(eager, frames, MAIN_FRAMES)
-    held, agree = held_codes("vocoder route codes vs eager", z_eager, tables, codes,
+    held, agree = held_codes(f"{path} route codes vs eager", z_eager, tables, codes,
                              codec_ref_codes)
     err_f32 = float((out[:agree] - ref[:agree]).abs().max())
-    log(f"vocoder f32 route vs eager ({agree} frames): max|err|={err_f32:.3e} "
+    log(f"{path} f32 route vs eager ({agree} frames): max|err|={err_f32:.3e} "
         f"max|ref|={float(ref.abs().max()):.3e}")
-    require(err_f32 <= MAIN_ATOL_F32, "vocoder f32 route disagrees with eager")
+    require(err_f32 <= MAIN_ATOL_F32, f"{path} f32 route disagrees with eager")
 
     # the route and the receiver half alone with bf16 weights, on the route's
     # codes, against the eager receiver on the same codes (one call over all
@@ -1250,17 +1355,17 @@ def vocoder_path(codec, vq, tables, voc, codec_wire):
     wire = codes.reshape(-1, codes.shape[-1]).t()[:, None].contiguous()  # (L, 1, N * T)
     ref_rx = rx_eager.decode(wire).reshape(frames.shape)
     err_rx_f32 = float((out - ref_rx).abs().max())
-    log(f"vocoder f32 route vs the eager receiver on the route's codes ({len(frames)} "
+    log(f"{path} f32 route vs the eager receiver on the route's codes ({len(frames)} "
         f"frames): max|err|={err_rx_f32:.3e}")
-    require(err_rx_f32 <= MAIN_ATOL_F32, "vocoder f32 route disagrees with the eager "
+    require(err_rx_f32 <= MAIN_ATOL_F32, f"{path} f32 route disagrees with the eager "
             "receiver on its own codes")
     init16, run16 = make_stacked_vocoder(voc, FRAME, 1, torch.bfloat16, vq)
     out16 = run16(init16(), codes[:, None])[0][:, 0]
     scale = float(ref_rx.abs().max())
     err16 = float((out16 - ref_rx).abs().max())
-    log(f"vocoder receiver bf16 weights vs eager on the route's codes: max|err|={err16:.3e} "
+    log(f"{path} receiver bf16 weights vs eager on the route's codes: max|err|={err16:.3e} "
         f"max|ref|={scale:.3e}")
-    require(err16 <= MAIN_RTOL_BF16 * scale, "bf16 receiver disagrees with eager")
+    require(err16 <= MAIN_RTOL_BF16 * scale, f"{path}: bf16 receiver disagrees with eager")
 
     # VocoderReceiver (kernel route) on a StreamingTransmitter's codes, frame
     # by frame, against the eager receiver on the same codes
@@ -1274,11 +1379,11 @@ def vocoder_path(codec, vq, tables, voc, codec_wire):
     err_rx = float((rx_out - rx_ref).abs().max())
     log(f"VocoderReceiver on StreamingTransmitter codes vs eager ({n_rx} frames): "
         f"max|err|={err_rx:.3e}")
-    require(err_rx <= MAIN_ATOL_F32, "VocoderReceiver disagrees with eager")
+    require(err_rx <= MAIN_ATOL_F32, f"{path}: VocoderReceiver disagrees with eager")
 
     run_bf16 = make_vocoder_scan_stream(codec, vq, voc, FRAME)
     err_path16 = float((stream(run_bf16, frames, MAIN_FRAMES) - out).abs().max())
-    log(f"vocoder path bf16 weights vs f32 route (no bound; codes may differ): "
+    log(f"{path} path bf16 weights vs f32 route (no bound; codes may differ): "
         f"max|err|={err_path16:.3e}")
     return launches, {"f32_vs_eager": err_f32, "f32_vs_eager_frames": agree,
                       "near_tie_rows_vs_eager": held["ties"], "f32_vs_eager_rx": err_rx_f32,
@@ -1287,34 +1392,35 @@ def vocoder_path(codec, vq, tables, voc, codec_wire):
                       "eager_max_abs": float(ref.abs().max()), **stats}
 
 
-def vocoder_fleet_path(codec, vq, voc):
-    """Phase 3, the receiver's fleet: ``make_sharded_stream(vocoder=)`` at
+def vocoder_fleet_path(codec, vq, voc, path="vocoder"):
+    """Phase 3, a receiver's fleet: ``make_sharded_stream(vocoder=)`` at
     BATCH streams, 16 frames in two dispatches, each stream against its own
     single-stream ``make_vocoder_scan_stream`` run (f32 both)."""
     frames = frames_for_streams(sum(MULTI_FRAMES), BATCH, SEED + 20)
     fleet = make_sharded_stream(codec, vq, batch=BATCH, vocoder=voc)
-    out, launches = counted(f"vocoder fleet x{BATCH}", LAUNCHES_PER_DISPATCH["vocoder"],
+    out, launches = counted(f"{path} fleet x{BATCH}", LAUNCHES_PER_DISPATCH[path],
                             len(MULTI_FRAMES), VOCODER_KERNELS,
                             lambda: stream(fleet, frames, MULTI_FRAMES))
     require(out.shape == frames.shape and bool(torch.isfinite(out).all()),
-            f"vocoder fleet output {tuple(out.shape)}")
+            f"{path} fleet output {tuple(out.shape)}")
     single = make_vocoder_scan_stream(codec, vq, voc, FRAME, weight_dtype=torch.float32)
     ref = torch.stack([stream(single, frames[:, b, :, 0], MULTI_FRAMES)
                        for b in range(BATCH)], 1)[..., None]
-    checks = per_stream(f"vocoder fleet x{BATCH} vs {BATCH} single-stream 'cuda' runs",
+    checks = per_stream(f"{path} fleet x{BATCH} vs {BATCH} single-stream 'cuda' runs",
                         None, None, out, None, ref, None)
     checks["bit_for_bit"] = torch.equal(out, ref)
-    log(f"vocoder fleet x{BATCH} equals the single-stream runs bit for bit: "
+    log(f"{path} fleet x{BATCH} equals the single-stream runs bit for bit: "
         f"{checks['bit_for_bit']}")
     return launches, checks
 
 
-def vocoder_timed_shapes_held(codec, vq, tables, voc):
-    """Phase 3, every (B, N) that phase 4 times for the receiver's fleet: one
+def vocoder_timed_shapes_held(codec, vq, tables, voc, batches=VOCODER_TIME_BATCHES,
+                              path="vocoder"):
+    """Phase 3, every (B, N) that phase 4 times for a receiver's fleet: one
     f32 dispatch of the joined halves (the fleet's launches) from zero caches,
     held per stream against the batched eager composition."""
     checks = {}
-    for batch in VOCODER_TIME_BATCHES:
+    for batch in batches:
         run, eager = joined(codec, vq, voc, batch, torch.float32), eager_vocoder_fleet(
             codec, vq, voc, batch)
         for n in (1, 16):
@@ -1322,16 +1428,16 @@ def vocoder_timed_shapes_held(codec, vq, tables, voc):
             (out, codes), (ref, ref_codes) = (stream_codes(r, frames, (n,))
                                               for r in (run, eager))
             checks[f"B{batch}_N{n}"] = per_stream(
-                f"vocoder x{batch} N={n} vs the batched eager route",
+                f"{path} x{batch} N={n} vs the batched eager route",
                 streamed_z(codec, frames), tables, out, codes, ref, ref_codes)
     return checks
 
 
-def vocoder_times(codec, vq, voc, rng):
-    """Phase 4, the receiver: latency at N = 1 (bf16 weights) and its busy
+def vocoder_times(codec, vq, voc, rng, batches=VOCODER_TIME_BATCHES, path="vocoder"):
+    """Phase 4, a receiver: latency at N = 1 (bf16 weights) and its busy
     share, throughput at N = 400, per-stream-frame time of the fleet (f32)
-    against the batched eager route at VOCODER_TIME_BATCHES x N = 1, 16 with
-    busy share, launches and cache memory, and the kernel sites."""
+    against the batched eager route at ``batches`` x N = 1, 16 with busy
+    share, launches and cache memory, and the kernel sites."""
     run = make_vocoder_scan_stream(codec, vq, voc, FRAME)
     eager1 = make_vocoder_scan_stream(codec, vq, voc, FRAME, backend="eager")
 
@@ -1348,15 +1454,15 @@ def vocoder_times(codec, vq, voc, rng):
     times["device_n1"] = device_profile(as_batch(run), frames_for(1, SEED + 3),
                                         times["latency_n1"]["median_ms"])
     for key, val in times.items():
-        log(f"vocoder {key}", json.dumps(val) if val else "not measured")
+        log(f"{path} {key}", json.dumps(val) if val else "not measured")
     fleet_times = {}
-    for batch in VOCODER_TIME_BATCHES:
+    for batch in batches:
         fleet = make_sharded_stream(codec, vq, batch=batch, vocoder=voc)
         eager = eager_vocoder_fleet(codec, vq, voc, batch)
         for n in (1, 16):
             frames = frames_for_streams(n, batch, SEED + 30)
-            counted(f"vocoder fleet x{batch} N={n} (one timing dispatch)",
-                    LAUNCHES_PER_DISPATCH["vocoder"], 1, VOCODER_KERNELS,
+            counted(f"{path} fleet x{batch} N={n} (one timing dispatch)",
+                    LAUNCHES_PER_DISPATCH[path], 1, VOCODER_KERNELS,
                     lambda: fleet(fleet.init_cache(), frames))
             k_ms = dispatch_ms(fleet, frames, 30 if n == 1 else 10)
             e_ms = dispatch_ms(eager, frames, 5 if n == 1 else 2)
@@ -1368,7 +1474,7 @@ def vocoder_times(codec, vq, voc, rng):
                 "us_per_stream_frame": {"kernel": k_ms * per, "eager": e_ms * per},
                 "busy_share": prof["busy_share"] if prof else None, "device": prof,
                 "memory": mem, "unit_tiles": unit_plans(voc, batch, n)}
-            log(f"vocoder fleet B={batch:<3d} N={n:<3d} us per stream-frame: kernel "
+            log(f"{path} fleet B={batch:<3d} N={n:<3d} us per stream-frame: kernel "
                 f"{k_ms * per:.2f}, eager {e_ms * per:.2f}; busy share "
                 + (f"{prof['busy_share']:.3f}" if prof else "not measured")
                 + f"; cache holds {mem['cache_held_bytes']} B for its own "
@@ -1380,6 +1486,219 @@ def vocoder_times(codec, vq, voc, rng):
     ktimes_b = time_kernels(lambda n, wd: vocoder_sites(voc, n, wd, rng, BATCH), names,
                             ((1, 20), (BATCH_SIZES[1], 10)))
     return times, ktimes, ktimes_b
+
+
+def v2_path(codec, vq, tables, v2):
+    """The AudioDec v2 receiver (MultiGroupConv1d at 256 channels), first
+    run on the card: ``make_vocoder_scan_stream``'s 'auto' route must take
+    the kernels; its joined halves (f32) against the eager composition on
+    one stream, a dispatch of 1 frame then one of 100, the cache carried."""
+    require(make_vocoder_scan_stream(codec, vq, v2, FRAME).backend == "cuda",
+            "vctk_v2: 'auto' did not take the kernel route")
+    frames = frames_for(sum(V2_FRAMES), SEED + 70)
+    run = joined(codec, vq, v2, 1, torch.float32)
+    (out, codes), launches = counted("vocoder_v2", LAUNCHES_PER_DISPATCH["vocoder"],
+                                     len(V2_FRAMES), VOCODER_KERNELS,
+                                     lambda: stream_codes(run, frames, V2_FRAMES))
+    ref, ref_codes = stream_codes(eager_vocoder_fleet(codec, vq, v2, 1), frames, V2_FRAMES)
+    stats = audio_stats(out)
+    log(f"vctk_v2 audio: {json.dumps(stats)}")
+    require(stats["audio_std"] >= MIN_AUDIO_STD and
+            stats["saturated_share"] <= MAX_SATURATED_SHARE, f"vctk_v2 audio {stats}")
+    checks = per_stream("vctk_v2 kernel route vs eager (N = 1, then 100)",
+                        streamed_z(codec, frames), tables, out, codes, ref, ref_codes)
+    return launches, {**checks, **stats}
+
+
+def folded_phase(gen, rng):
+    """K1f at the denoiser's narrow chains (FOLDED_SITES: C = 32 at fold 1, 2,
+    3 and C = 64 at fold 1, 2) on one frame's rows: the counted run of its
+    wrapper, then each output against K1 on the same input (equal) and the
+    folded plain version (KERNEL_ATOL_F32); times at 1 and 100 frames."""
+    sites = []
+    for n_frames in (1, DISPATCH):
+        for bi, fold in FOLDED_SITES:
+            blk = gen.encoder.blocks[bi]
+            rows = n_frames * FRAME // math.prod(b.conv.stride for b in gen.encoder.blocks[:bi])
+            x = torch.randn(chain_halo() + rows, blk.conv.in_channels, generator=rng,
+                            device=DEVICE) * 0.3
+            sites.append((n_frames, f"e{bi}ch/fold{fold}", blk.res_units, x, fold))
+    one = [st for st in sites if st[0] == 1]
+    outs, launches = counted("K1f", 1, len(one), ("residual_chain",),
+                             lambda: [fused_residual_chain_folded(u, x, f)
+                                      for _, _, u, x, f in one])
+    worst, times = 0.0, {}
+    for (_, name, units, x, fold), got in zip(one, outs):
+        plain = fused_residual_chain_folded_plain(units, x, fold)
+        k1 = fused_residual_chain(units, x)
+        torch.cuda.synchronize()
+        require(torch.equal(got, k1), f"K1f {name}: differs from K1 on the same input")
+        err = float((got - plain).abs().max())
+        require(err <= KERNEL_ATOL_F32, f"K1f {name}: max|err| {err} vs its plain version")
+        worst = max(worst, err)
+        log(f"check K1f {name}: equals K1; vs folded plain "
+            f"max|err|={err:.3e}")
+    for n_frames, name, units, x, fold in sites:
+        c, rows = x.shape[1], x.shape[0] - chain_halo()
+        ops = chain_flops(c, rows)
+        nb = 4.0 * (x.numel() + rows * c) + 4.0 * 3 * (KERNEL_SIZE + 1) * c * c
+        b_ms, b_by = bound_ms(ops, nb)
+        reps = 30 if n_frames == 1 else 5
+        times[f"{name} frames={n_frames}"] = entry = {
+            "ms": gpu_ms(lambda: fused_residual_chain_folded(units, x, fold), reps),
+            "plain_ms": gpu_ms(lambda: fused_residual_chain_folded_plain(units, x, fold),
+                               reps),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, "ops": ops, "bytes": nb}
+        log(f"time K1f {name} frames={n_frames}: {json.dumps(entry)}")
+    return launches, worst, times
+
+
+def probe_phase():
+    """T1: the relayout probe's ``main`` (its six shapes through the
+    fold_copy kernel, held to numpy's reshape; the two numpy refuses must be
+    refused), counted; then each defined shape's kernel output against its
+    plain version (``reshape().clone()``) bit for bit, and times (the library
+    call: ``torch.clone`` of the reshaped view, the whole function)."""
+    rc, launches = counted("T1", 1, 4, ("fold_copy",), reshape_probe.main)
+    require(rc == 0, "reshape_probe: a shape disagrees with numpy")
+    times = {}
+    for shape, s, mode in reshape_probe.SHAPES:
+        x = torch.arange(shape[0] * shape[1], dtype=torch.float32,
+                         device=DEVICE).reshape(shape)
+        try:
+            reshape_probe.folded_shape(shape, s, mode)
+        except ValueError:
+            continue
+        got = reshape_probe.fold_copy(x, s, mode)
+        view = x.reshape(reshape_probe.folded_shape(shape, s, mode))
+        require(torch.equal(got, reshape_probe.fold_copy_plain(x, s, mode)),
+                f"fold_copy {mode} {shape}: differs from its plain version")
+        nb = 2.0 * x.numel() * 4
+        b_ms, b_by = bound_ms(0.0, nb)
+        times[f"{mode} {shape} s={s}"] = entry = {
+            "ms": gpu_ms(lambda: reshape_probe.fold_copy(x, s, mode), 200),
+            "plain_ms": gpu_ms(lambda: reshape_probe.fold_copy_plain(x, s, mode), 200),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": gpu_ms(view.clone, 200),
+            "ops": 0.0, "bytes": nb}
+        log(f"time fold_copy {mode} {shape} s={s}: {json.dumps(entry)}")
+    return launches, times
+
+
+def write_exp_tree(root, codec, vq, presets):
+    """The seeded models as checkpoints under ``root/exp`` where
+    ``assign_model`` looks for each of ``presets`` ({name: (codec config,
+    vocoder config, vocoder)}, the vocoder None for a symmetric preset), each
+    with its configuration file's contents beside it, and the statistics the
+    vocoder configs name under ``root``."""
+    for model, (codec_config, voc_config, voc) in presets.items():
+        _, tx_ckpt, rx_ckpt = assign_model(model, os.path.join(root, "exp"))
+        save_checkpoint(tx_ckpt, {"params_generator": codec.state_dict(), "vq_state": vq},
+                        load_config(codec_config))
+        if voc is None:
+            continue
+        cfg = load_config(voc_config)
+        stats_path = os.path.join(root, cfg["generator_params"]["stats"])
+        os.makedirs(os.path.dirname(stats_path), exist_ok=True)
+        np.save(stats_path, torch.stack([voc.mean, voc.scale]).cpu().numpy())
+        save_checkpoint(rx_ckpt, {"params_generator": voc.state_dict()}, cfg)
+
+
+def produced(y, n_frames: int) -> np.ndarray:
+    """The frames a streamer produced, in order: its mono output cut in
+    frames, the all-zero frames (the pipeline's underflow) left out; there
+    must be ``n_frames``."""
+    frames = y.reshape(-1, FRAME)
+    got = frames[np.abs(frames).max(axis=1) > 0]
+    require(len(got) == n_frames, f"{len(got)} frames produced of {n_frames}")
+    return got
+
+
+def cli_phase(codec, vq, v0):
+    """The normal entry point: seeded checkpoints under a temporary exp/
+    tree, a seeded 48 kHz wav of CLI_SECONDS, and ``cli.stream.main`` on the
+    card from that directory:
+
+    - ``--model vctk_v0`` and ``--model vctk_univ`` (the transmitter's
+      kernels with f32 weights, the v0 receiver's with bf16: 54 launches a
+      frame, the priming call and the warm-up frame), each wav held at
+      MAIN_RTOL_BF16 plus one PCM16 step to the direct stream on the same
+      audio: the halves that ``make_vocoder_scan_stream`` joins, at f32
+      weights, primed as the two-thread streamer primes (one chunk of the
+      codec's receptive length, which leaves the receiver's caches short of
+      their steady state); every frame out and none dropped;
+    - ``--model vctk_sym`` (both codec endpoints' kernels, 22 launches a
+      frame) held to the codec's halves the same way;
+    - ``--checkpoint`` of the codec (the fused streamer: ``make_scan_stream``,
+      22 launches a frame) held to ``make_scan_stream`` primed as that
+      streamer primes, with whole frames of zeros."""
+    n = CLI_SECONDS * SAMPLE_RATE // FRAME
+    primed_len = -(-codec.receptive_length // codec.hop) * codec.hop
+    audio = frames_for(n, SEED + 80)[:, 0, :, 0]  # (n, FRAME)
+    cwd, report, by_path = os.getcwd(), {}, {}
+    with tempfile.TemporaryDirectory() as root:
+        # v3's receiver is v0's network: the v0 receiver stands for both
+        write_exp_tree(root, codec, vq, {"vctk_v0": (CODEC_CONFIG, V0_CONFIG, v0),
+                                         "vctk_univ": (UNIV_CODEC_CONFIG, V3_CONFIG, v0),
+                                         "vctk_sym": (CODEC_CONFIG, None, None)})
+        write_wav(os.path.join(root, "in.wav"), audio.reshape(-1).cpu().numpy(), SAMPLE_RATE)
+        pcm = torch.from_numpy(read_wav(os.path.join(root, "in.wav"))[0][:, 0]).to(DEVICE)
+        frames = pcm.reshape(n, FRAME)  # the audio as the CLI reads it
+        refs, f32 = {}, torch.float32
+        for model, rx_half in (("vctk_v0", vocoder_half(v0, f32, vq)),
+                               ("vctk_sym", mega_decoder(codec, f32, vq))):
+            init, direct = join_halves(mega_encoder(codec, f32, vq), rx_half, 1, DEVICE)
+            cache = direct(init(), torch.zeros((1, 1, primed_len), device=DEVICE))[1]
+            refs[model] = direct(cache, frames[:, None])[0][:, 0].cpu().numpy()
+        refs["vctk_univ"] = refs["vctk_v0"]
+        os.chdir(root)
+        try:
+            for model, per_frame, kernels in (
+                    ("vctk_v0", LAUNCHES_PER_DISPATCH["vocoder_v0"], VOCODER_KERNELS),
+                    ("vctk_univ", LAUNCHES_PER_DISPATCH["vocoder_v0"], VOCODER_KERNELS),
+                    ("vctk_sym", LAUNCHES_PER_DISPATCH["codec"], CODEC_KERNELS)):
+                out = f"{model}.wav"
+                stats, launches = counted(
+                    f"cli --model {model}", per_frame, n + 2, kernels,
+                    lambda: stream_cli.main(["--model", model, "-i", "in.wav", "-o", out,
+                                             "--max-latency", str(CLI_MAX_LATENCY)]))
+                got = produced(read_wav(out)[0][:, 0], n)
+                ref = refs[model]
+                scale = float(np.abs(ref).max())
+                err = float(np.abs(got - ref).max())
+                log(f"cli --model {model}: {n} frames, drops {stats['frame_drops']}, max|err| "
+                    f"vs the direct stream {err:.3e} (max|ref| {scale:.3e}); latency "
+                    f"{stats['latency_ms_mean']:.1f} ms mean, encoder "
+                    f"{stats['encoder_ms_mean']:.2f} ms mean, decoder "
+                    f"{stats['decoder_ms_mean']:.2f} ms mean")
+                require(stats["frames"] == n and stats["frame_drops"] == 0,
+                        f"cli --model {model}: {stats}")
+                require(err <= MAIN_RTOL_BF16 * scale + PCM16_STEP,
+                        f"cli --model {model} disagrees with the direct stream")
+                report[model] = {"max_abs_err": err, "max_abs_ref": scale, "stats": stats}
+                by_path[f"cli {model}"] = launches
+            ckpt = "exp/autoencoder/symAD_vctk_48000_hop300/checkpoint-200000steps"
+            stats, launches = counted(
+                "cli --checkpoint (fused)", LAUNCHES_PER_DISPATCH["codec"], n + 2,
+                CODEC_KERNELS,
+                lambda: stream_cli.main(["--checkpoint", ckpt, "-i", "in.wav", "-o",
+                                         "fused.wav", "--max-latency", str(CLI_MAX_LATENCY)]))
+            got = produced(read_wav("fused.wav")[0][:, 0], n)
+        finally:
+            os.chdir(cwd)
+        direct = make_scan_stream(codec, vq, frame_size=FRAME)
+        zeros = torch.zeros((-(-codec.receptive_length // FRAME), 1, FRAME, 1), device=DEVICE)
+        _, cache = direct(direct.init_cache(), zeros)
+        ref = direct(cache, frames[:, None, :, None])[0][:, 0, :, 0].cpu().numpy()
+        err = float(np.abs(got - ref).max())
+        log(f"cli --checkpoint (fused): {n} frames, drops {stats['frame_drops']}, max|err| vs "
+            f"make_scan_stream {err:.3e}; fused frame {stats['fused_ms_mean']:.2f} ms mean")
+        require(stats["frames"] == n and stats["frame_drops"] == 0,
+                f"cli --checkpoint: {stats}")
+        require(err <= MAIN_ATOL_F32 + PCM16_STEP, "the fused streamer disagrees with "
+                "make_scan_stream")
+        report["checkpoint_fused"] = {"max_abs_err": err, "stats": stats}
+        by_path["cli checkpoint (fused)"] = launches
+    return by_path, report
 
 
 # ---------------------------------------------------------------- training
@@ -2050,6 +2369,11 @@ def main() -> int:
     voc = build_vocoder()
     log(f"vocoder receiver: {sum(p.numel() for p in voc.parameters())} params, total "
         f"upsample {voc.total_upsample}, folded input conv in f64")
+    v0, v2 = build_vocoder(V0_CONFIG), build_vocoder(V2_CONFIG)
+    require(vocoder_topology_error(v0, FRAME, hop=codec.hop) is None,
+            "the v0 receiver is not on the kernel route")
+    log(f"v0 receiver (MultiReceptiveField): {sum(p.numel() for p in v0.parameters())} "
+        f"params; v2 receiver: {sum(p.numel() for p in v2.parameters())} params")
     stamp("phase 1 (build, models)")
 
     log("phase 2: kernels vs plain versions")
@@ -2059,14 +2383,27 @@ def main() -> int:
     stamp("phase 2, codecs")
     voc_worst = check_vocoder_kernels(voc, rng)
     stamp("phase 2, receiver")
+    v0_worst = check_vocoder_kernels(v0, rng, V0_BATCH_CHECKS)
+    stamp("phase 2, v0 receiver (MultiReceptiveField sites)")
 
     log("phase 3: main paths")
     launches, main_errs = main_path(gen)
     codec_launches, codec_errs, codec_wire = codec_path(codec, vq, tables)
     stamp("phase 3, codecs' one-stream paths")
     voc_launches, voc_checks = vocoder_path(codec, vq, tables, voc, codec_wire)
-    del codec_wire
     stamp("phase 3, receiver path")
+    v0_launches, v0_checks = vocoder_path(codec, vq, tables, v0, codec_wire, "vocoder_v0")
+    del codec_wire
+    v0_fleet_launches, v0_fleet_checks = vocoder_fleet_path(codec, vq, v0, "vocoder_v0")
+    v0_fleet_checks["timed_shapes_vs_batched_eager"] = vocoder_timed_shapes_held(
+        codec, vq, tables, v0, V0_TIME_BATCHES, "vocoder_v0")
+    stamp("phase 3, v0 receiver path and fleet")
+    v2_launches, v2_checks = v2_path(codec, vq, tables, v2)
+    del v2
+    folded_launches, folded_worst, folded_times = folded_phase(gen, rng)
+    probe_launches, probe_times = probe_phase()
+    cli_launches, cli_checks = cli_phase(codec, vq, v0)
+    stamp("phase 3, vctk_v2, K1f, T1 and the CLI")
     multi_launches, multi_checks = {}, {}
     multi_launches["denoiser"], multi_checks["denoiser"] = multi_stream_path(
         "denoiser", gen, None, None)
@@ -2082,7 +2419,9 @@ def main() -> int:
         codec, vq, tables, voc)
     stamp("phase 3, receiver fleet")
     by_path = {"denoiser": launches, "codec": codec_launches, "vocoder": voc_launches,
-               f"vocoder fleet x{BATCH}": voc_fleet_launches}
+               f"vocoder fleet x{BATCH}": voc_fleet_launches, "vocoder_v0": v0_launches,
+               f"vocoder_v0 fleet x{BATCH}": v0_fleet_launches, "vocoder_v2": v2_launches,
+               "K1f": folded_launches, "T1": probe_launches, **cli_launches}
     for path, runs in multi_launches.items():
         for kind, counts in runs.items():
             by_path[f"{path} {kind} x{BATCH}"] = counts
@@ -2135,6 +2474,9 @@ def main() -> int:
     stamp("phase 4, codecs' multi-stream times")
     voc_times, voc_ktimes, voc_ktimes_b = vocoder_times(codec, vq, voc, rng)
     stamp("phase 4, receiver times")
+    v0_times, v0_ktimes, v0_ktimes_b = vocoder_times(codec, vq, v0, rng, V0_TIME_BATCHES,
+                                                     "vocoder_v0")
+    stamp("phase 4, v0 receiver times")
 
     log("phase 5: training (the course generator phase, the vocoder metric loss)")
     cfg, vcfg = course_config(), load_config(VOCODER_CONFIG)
@@ -2190,10 +2532,24 @@ def main() -> int:
         if name in codec_worst:
             entry["max_abs_err"] = max(entry["max_abs_err"], codec_worst[name])
         if name in voc_worst:
-            entry["max_abs_err"] = max(entry["max_abs_err"], voc_worst[name])
+            entry["max_abs_err"] = max(entry["max_abs_err"], voc_worst[name], v0_worst[name])
             entry["vocoder_sites"] = {str(n): voc_ktimes[n][name]["sites"] for n in SIZES}
             entry[f"vocoder_sites_streams_{BATCH}"] = {
                 str(n): voc_ktimes_b[n][name]["sites"] for n in BATCH_SIZES}
+            entry["vocoder_v0"] = {
+                f"frames_{n}": {key: v0_ktimes[n][name][key] for key in
+                                ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+                for n in SIZES}
+            entry["vocoder_v0"].update({
+                f"streams_{BATCH}_frames_{n}": {key: v0_ktimes_b[n][name][key] for key in
+                                                ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                 "library_ms")}
+                for n in BATCH_SIZES})
+            entry["vocoder_v0_sites"] = {str(n): v0_ktimes[n][name]["sites"] for n in SIZES}
+            entry[f"vocoder_v0_sites_streams_{BATCH}"] = {
+                str(n): v0_ktimes_b[n][name]["sites"] for n in BATCH_SIZES}
+        if name == "hifigan_unit":
+            entry["max_abs_err_v0"] = v0_worst[name]
         if name == "rvq_assign":
             entry["max_abs_err_is"] = "largest distance excess of a near-tie pick"
             entry["near_tie_rows"] = codec_ties + batched_ties
@@ -2205,10 +2561,39 @@ def main() -> int:
                 str(n): codec_ktimes_b[n]["causal_conv"]["sites"] for n in BATCH_SIZES}
         entries.append(entry)
     entries += spectrum_entries(train_sites, spectrum_worst, by_path)
+    k1f_main = {k: v for k, v in folded_times.items() if k.endswith("frames=1")}
+    k1f = {key: sum(v[key] for v in k1f_main.values())
+           for key in ("ms", "plain_ms", "bound_ms")}
+    chain = next(e for e in entries if e["name"] == "residual_chain")
+    chain["max_abs_err"] = max(chain["max_abs_err"], folded_worst)
+    chain["k1f"] = {
+        **k1f, "bound_by": bound_ms(sum(v["ops"] for v in k1f_main.values()),
+                                    sum(v["bytes"] for v in k1f_main.values()))[1],
+        "library_ms": None, "max_abs_err_vs_folded_plain": folded_worst,
+        "launches": by_path["K1f"]["residual_chain"],
+        "per": "K1f (fused_residual_chain_folded runs this kernel): sum over FOLDED_SITES "
+               f"(C = 32 at fold 1/2/3, C = 64 at fold 1/2) at one frame; at {DISPATCH} "
+               "frames under sites",
+        "sites": folded_times}
+    probe_main = probe_times.values()
+    entries.append({
+        "name": "fold_copy", "route": "cuda", "source": KERNELS["fold_copy"]["source"],
+        "replaces": KERNELS["fold_copy"]["replaces"],
+        "launches": sum(counts["fold_copy"] for counts in by_path.values()),
+        "launches_by_path": {path: counts["fold_copy"] for path, counts in by_path.items()},
+        "max_abs_err": 0.0,
+        **{key: sum(v[key] for v in probe_main)
+           for key in ("ms", "plain_ms", "bound_ms", "library_ms")},
+        "bound_by": bound_ms(0.0, sum(v["bytes"] for v in probe_main))[1],
+        "library_ms_is": "torch.clone of the folded view",
+        "per": "sum over the probe's four defined shapes", "sites": probe_times})
     report = {"card": name_power, "seconds": time.perf_counter() - started,
               "elapsed_seconds_by_step": elapsed,
               "main_path_errors": main_errs, "codec_path_checks": codec_errs,
               "vocoder_path_checks": voc_checks, "vocoder_times": voc_times,
+              "vocoder_v0_path_checks": v0_checks, "vocoder_v0_fleet_checks": v0_fleet_checks,
+              "vocoder_v0_times": v0_times, "vocoder_v2_checks": v2_checks,
+              "cli_checks": cli_checks,
               "multi_stream_checks": multi_checks, "multi_stream_times": multi_times,
               "times": times, "kernels": entries,
               "training": {"spectrum_kernel_checks": spectrum_checks,

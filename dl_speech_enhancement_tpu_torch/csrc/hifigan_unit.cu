@@ -2,13 +2,21 @@
 // streams in one launch,
 //
 //     h   = leaky(b1 + conv1_d(leaky(x_ext1)))      grouped, k taps, dilation d
-//     out = x + b2 + conv2_1(h_ext)                  grouped, k taps, dilation 1
+//     out = (acc + (x + b2 + conv2_1(h_ext))) * out_scale   grouped, k taps, dilation 1
 //     x_ext1 = [cache1 ((k-1)*d rows); x],  h_ext = [cache2 (k-1 rows); h]
 //
-// with LeakyReLU(slope) (0.1 in HiFiGAN). Replaces the unit bodies of the TPU
-// kernels dl_speech_enhancement_tpu/ops/vocoder_kernel.py::make_mega_vocoder
-// (add_resunit / add_resunit_packed / add_resunit_chunked) and of ops/
-// vocoder_stacked.py::make_stacked_vocoder (r_body). Those pack groups into
+// with LeakyReLU(slope) (0.1 in HiFiGAN); `acc` (B, T, groups*c) is optional
+// (absent: 0, and out_scale 1 leaves the unit's output as it is). Replaces the
+// unit bodies of the TPU kernels dl_speech_enhancement_tpu/ops/
+// vocoder_kernel.py::make_mega_vocoder (add_resunit / add_resunit_packed /
+// add_resunit_chunked; and add_mrf's block sum and mean, :667-714) and of ops/
+// vocoder_stacked.py::make_stacked_vocoder (r_body).
+//
+// The accumulate epilogue is the MultiReceptiveField stage (v0/v3 receivers):
+// its output is the mean of n blocks over the same entrance. Block 0's last
+// unit writes the running sum, each later block's last unit adds its output to
+// it, and the last one scales by 1/n: the JAX order (acc + y, then / n) at no
+// extra launch. Those pack groups into
 // block-diagonal 128-lane matmuls because Mosaic pads every operand to 128
 // lanes; here each group is its own dense GEMM.
 //
@@ -48,7 +56,8 @@ hifigan_unit_kernel(const float* __restrict__ cache1, long long c1_bs,
                     const float* __restrict__ cache2, long long c2_bs,
                     const float* __restrict__ x, const WT* __restrict__ w1,
                     const float* __restrict__ b1, const WT* __restrict__ w2,
-                    const float* __restrict__ b2, float* __restrict__ out,
+                    const float* __restrict__ b2, const float* __restrict__ acc,
+                    float out_scale, float* __restrict__ out,
                     float* __restrict__ new_cache2, int T, int c, int groups, int in_gstride,
                     int Cin, int taps, int dil, int tile, float slope) {
   extern __shared__ __align__(16) float smem[];
@@ -69,6 +78,7 @@ hifigan_unit_kernel(const float* __restrict__ cache1, long long c1_bs,
   cache2 += (size_t)b * c2_bs;
   x += (size_t)b * T * Cin;
   out += (size_t)b * T * gc;
+  if (acc) acc += (size_t)b * T * gc;
 
   tile_gemm<BN, WT>(
       0, count + ctx2, n0, c, taps, c, gc, stage,
@@ -100,14 +110,16 @@ hifigan_unit_kernel(const float* __restrict__ cache1, long long c1_bs,
       [&](int j) { return w2 + (size_t)j * c * gc; },
       [&](int m, int n, float v) {
         const int t = t0 + m;
-        out[(size_t)t * gc + n] = x[(size_t)t * Cin + ch0 + n - n0] + (b2 ? v + b2[n] : v);
+        const float y = x[(size_t)t * Cin + ch0 + n - n0] + (b2 ? v + b2[n] : v);
+        out[(size_t)t * gc + n] = (acc ? acc[(size_t)t * gc + n] + y : y) * out_scale;
       });
 }
 
 template <int BN, typename WT>
 cudaError_t launch(const float* cache1, long long c1_bs, const float* cache2, long long c2_bs,
                    const float* x, const void* w1, const float* b1, const void* w2,
-                   const float* b2, float* out, float* new_cache2, int B, int T, int c,
+                   const float* b2, const float* acc, float out_scale, float* out,
+                   float* new_cache2, int B, int T, int c,
                    int groups, int in_gstride, int Cin, int taps, int dil, int tile, float slope,
                    size_t smem, cudaStream_t stream) {
   static size_t configured = 0;
@@ -117,8 +129,8 @@ cudaError_t launch(const float* cache1, long long c1_bs, const float* cache2, lo
   const dim3 grid(B * ((T + tile - 1) / tile) * groups);
   kernel<<<grid, kThreads, smem, stream>>>(
       cache1, c1_bs, cache2, c2_bs, x, static_cast<const WT*>(w1), b1,
-      static_cast<const WT*>(w2), b2, out, new_cache2, T, c, groups, in_gstride, Cin, taps,
-      dil, tile, slope);
+      static_cast<const WT*>(w2), b2, acc, out_scale, out, new_cache2, T, c, groups, in_gstride,
+      Cin, taps, dil, tile, slope);
   return cudaGetLastError();
 }
 
@@ -131,9 +143,10 @@ extern "C" size_t dse_hifigan_unit_smem(int tile, int c, int taps) {
 
 extern "C" int dse_hifigan_unit(const float* cache1, long long c1_bs, const float* cache2,
                                 long long c2_bs, const float* x, const void* w1, const float* b1,
-                                const void* w2, const float* b2, float* out, float* new_cache2,
-                                int B, int T, int c, int groups, int tiled, int taps, int dil,
-                                int tile, float slope, int bf16, void* stream) {
+                                const void* w2, const float* b2, const float* acc,
+                                float out_scale, float* out, float* new_cache2, int B, int T,
+                                int c, int groups, int tiled, int taps, int dil, int tile,
+                                float slope, int bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0 || T <= 0 || c <= 0 || groups <= 0 || taps <= 1 || dil <= 0 || tile <= 0 ||
       (long long)B * ((T + tile - 1) / tile) * groups > 0x7fffffffLL ||
@@ -145,18 +158,18 @@ extern "C" int dse_hifigan_unit(const float* cache1, long long c1_bs, const floa
   const int Cin = tiled ? c : groups * c;
   const bool narrow = dse::tile_bn(c) == 32;
   if (bf16)
-    return narrow ? dse::launch<32, __nv_bfloat16>(cache1, c1_bs, cache2, c2_bs, x, w1, b1, w2,
-                                                   b2, out, new_cache2, B, T, c, groups,
-                                                   in_gstride, Cin, taps, dil, tile, slope, smem,
-                                                   s)
-                  : dse::launch<64, __nv_bfloat16>(cache1, c1_bs, cache2, c2_bs, x, w1, b1, w2,
-                                                   b2, out, new_cache2, B, T, c, groups,
-                                                   in_gstride, Cin, taps, dil, tile, slope, smem,
-                                                   s);
-  return narrow ? dse::launch<32, float>(cache1, c1_bs, cache2, c2_bs, x, w1, b1, w2, b2, out,
-                                         new_cache2, B, T, c, groups, in_gstride, Cin, taps, dil,
-                                         tile, slope, smem, s)
-                : dse::launch<64, float>(cache1, c1_bs, cache2, c2_bs, x, w1, b1, w2, b2, out,
-                                         new_cache2, B, T, c, groups, in_gstride, Cin, taps, dil,
-                                         tile, slope, smem, s);
+    return narrow ? dse::launch<32, __nv_bfloat16>(
+                        cache1, c1_bs, cache2, c2_bs, x, w1, b1, w2, b2, acc, out_scale, out,
+                        new_cache2, B, T, c, groups, in_gstride, Cin, taps, dil, tile, slope,
+                        smem, s)
+                  : dse::launch<64, __nv_bfloat16>(
+                        cache1, c1_bs, cache2, c2_bs, x, w1, b1, w2, b2, acc, out_scale, out,
+                        new_cache2, B, T, c, groups, in_gstride, Cin, taps, dil, tile, slope,
+                        smem, s);
+  return narrow ? dse::launch<32, float>(cache1, c1_bs, cache2, c2_bs, x, w1, b1, w2, b2, acc,
+                                         out_scale, out, new_cache2, B, T, c, groups,
+                                         in_gstride, Cin, taps, dil, tile, slope, smem, s)
+                : dse::launch<64, float>(cache1, c1_bs, cache2, c2_bs, x, w1, b1, w2, b2, acc,
+                                         out_scale, out, new_cache2, B, T, c, groups,
+                                         in_gstride, Cin, taps, dil, tile, slope, smem, s);
 }

@@ -25,7 +25,7 @@ PACKAGE = pathlib.Path(__file__).resolve().parent.parent
 CSRC = PACKAGE / "csrc"
 BUILD_DIR = PACKAGE / "_build"
 SOURCES = ("residual_chain", "causal_conv", "causal_conv_transpose", "rvq_assign",
-           "codebook_lookup", "hifigan_unit", "dft_spectrum")
+           "codebook_lookup", "hifigan_unit", "dft_spectrum", "fold_copy")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -34,6 +34,7 @@ _P, _I, _L, _Z, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c
 # C entry points: name -> (argtypes, restype). The layer kernels take (cache,
 # cache stream stride, x, ...) and the stream count B; the boundary convs an
 # activation code and slope (and causal_conv a tanh flag) before the weight type;
+# hifigan_unit an optional running sum and an output scale after its biases;
 # the DFT kernels the padded signal and its frames' geometry (signal stride, hop,
 # frames per signal, rows, n_fft) before the bases.
 _ENTRIES = {
@@ -58,13 +59,16 @@ _ENTRIES = {
         "dse_codebook_lookup": ([_P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
     },
     "hifigan_unit": {
-        "dse_hifigan_unit": ([_P, _L, _P, _L, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                              _I, _I, _I, _F, _I, _P], _I),
+        "dse_hifigan_unit": ([_P, _L, _P, _L, _P, _P, _P, _P, _P, _P, _F, _P, _P, _I, _I, _I,
+                              _I, _I, _I, _I, _I, _F, _I, _P], _I),
         "dse_hifigan_unit_smem": ([_I, _I, _I], _Z),
     },
     "dft_spectrum": {
         "dse_log_mel": ([_P, _L, _I, _I, _I, _I, _P, _P, _I, _P, _I, _F, _I, _P, _P], _I),
         "dse_stft_magnitude": ([_P, _L, _I, _I, _I, _I, _P, _P, _I, _I, _F, _P, _P], _I),
+    },
+    "fold_copy": {
+        "dse_fold_copy": ([_P, _P, _I, _I, _I, _I, _P], _I),
     },
 }
 BAD_CODE = -1  # codebook_lookup's return for a code outside its layer's range

@@ -191,6 +191,68 @@ def fused_residual_chain(units, x: torch.Tensor, *, dilations=DILATIONS,
     return residual_chain(x[:halo], x[halo:], w1, w2, dilations)
 
 
+def _check_fold(x: torch.Tensor, fold: int, dilations, kernel_size: int) -> None:
+    """JAX ``fused_residual_chain_folded``'s asserts as ValueErrors."""
+    c, t_in = x.shape[1], x.shape[0]
+    pads = [(kernel_size - 1) * d for d in dilations]
+    if fold < 1 or fold * c > 128:
+        raise ValueError(f"fold {fold} x {c} channels must pack into at most 128 lanes")
+    if any(p % fold for p in pads):
+        raise ValueError(f"fold {fold} must divide every unit's pad {pads}")
+    if t_in % fold:
+        raise ValueError(f"fold {fold} must divide the input length {t_in}")
+    if t_in <= sum(pads):
+        raise ValueError(f"input of {t_in} rows holds no row past the chain's {sum(pads)}")
+
+
+def fused_residual_chain_folded_plain(units, x: torch.Tensor, fold: int, *,
+                                      dilations=DILATIONS,
+                                      kernel_size: int = KERNEL_SIZE) -> torch.Tensor:
+    """Plain PyTorch version of :func:`fused_residual_chain_folded`, in the
+    JAX kernel's folded form: ``fold`` consecutive rows side by side, each
+    dilated conv a sum over row offsets ``o`` of (fold*C, fold*C) block
+    matrices ``M_o[b-block, p-block] = W_j`` where ``(o, b) = divmod(p + j*d,
+    fold)``, the 1x1 conv block-diagonal. x (T_in, C) -> (T_in - halo, C)."""
+    _check_fold(x, fold, dilations, kernel_size)
+    k, (t_in, c) = kernel_size, x.shape
+    h = x.float().reshape(t_in // fold, fold * c)
+    for u, d in zip(units, dilations):
+        w1 = u.conv1.weight.detach().permute(2, 1, 0).float()  # (k, in, out)
+        w2 = u.conv2.weight.detach()[:, :, 0].t().float()
+        offsets = (k - 1) * d // fold
+        m1 = w1.new_zeros((offsets + 1, fold * c, fold * c))
+        for j in range(k):
+            for p in range(fold):
+                o, b = divmod(p + j * d, fold)
+                m1[o, b * c:(b + 1) * c, p * c:(p + 1) * c] = w1[j]
+        m2 = torch.block_diag(*[w2] * fold)
+        rows = h.shape[0] - offsets
+        a = _elu(h)
+        acc = a[0:rows] @ m1[0]
+        for o in range(1, offsets + 1):
+            acc = acc + a[o:o + rows] @ m1[o]
+        h = h[offsets:] + _elu(acc) @ m2
+    return h.reshape(-1, c)
+
+
+def fused_residual_chain_folded(units, x: torch.Tensor, fold: int, *, dilations=DILATIONS,
+                                kernel_size: int = KERNEL_SIZE) -> torch.Tensor:
+    """Counterpart of the JAX ``fused_residual_chain_folded`` (K1f): the three
+    causal residual units of :func:`fused_residual_chain` on ``x`` (T_in, C),
+    with JAX's contract (``fold * C <= 128``, ``fold`` divides every pad
+    ``(k-1)*d`` and ``T_in``; else ValueError). Returns (T_in - sum of pads,
+    C).
+
+    On the TPU, folding ``fold`` time steps into 128 lanes fills lanes that a
+    narrow chain leaves idle. A Hopper block has no lanes to fill: the
+    residual_chain kernel (csrc/residual_chain.cu) tiles time and channels
+    itself, and the folded function equals the unfolded one. So K1f runs that
+    kernel on the unfolded layout; :func:`fused_residual_chain_folded_plain`
+    keeps the folded arithmetic, and the two are held against each other."""
+    _check_fold(x, fold, dilations, kernel_size)
+    return fused_residual_chain(units, x, dilations=dilations, kernel_size=kernel_size)
+
+
 def tail(cache: torch.Tensor, x: torch.Tensor, n: int) -> torch.Tensor:
     """The last ``n`` rows of ``[cache; x]`` along the time axis (-2), per
     stream: a layer's next cache. A view of ``x`` where it holds them."""

@@ -1,7 +1,7 @@
 """Streaming of the HiFiGAN vocoder receiver on hand-written kernels.
 
 Counterpart of dl_speech_enhancement_tpu/ops/vocoder_kernel.py::
-make_mega_vocoder (K4, its MultiGroupConv1d arm) and, through the batch
+make_mega_vocoder (K4, both arms) and, through the batch
 axis, of ops/vocoder_stacked.py::make_stacked_vocoder (K5). On the TPU, K4
 packs the ~19.5 M parameters of the AudioDec v1 receiver into VMEM-budgeted
 segments, fuses a stage's groups into block-diagonal 128-lane matmuls
@@ -9,7 +9,8 @@ because Mosaic pads lanes, and K5 stacks streams along sublanes; none of
 that applies to Hopper. As for the codec (ops/mega_kernel.py), every layer
 is causal and a dispatch's chunk a whole number of hops, so one launch per
 layer covers all B streams and all N frames, and each layer's cache is the
-tail of its input. A dispatch with PQC is 23 launches whatever B is:
+tail of its input. A dispatch with PQC is 23 launches (v1) or 43 (v0)
+whatever B is:
 
 - :func:`~dl_speech_enhancement_tpu_torch.ops.mega_kernel.codebook_lookup`
   of the int32 wire codes in the transmitter's books (without PQC the wire
@@ -18,21 +19,22 @@ tail of its input. A dispatch with PQC is 23 launches whatever B is:
   its weights and bias in f64 at build time; its cache starts at the
   statistics' mean, which is zero once normalised, as the reference's is;
 - per stage: the upsample (causal_conv_transpose with LeakyReLU(0.1) fused
-  on load), three :func:`hifigan_unit` launches (csrc/hifigan_unit.cu; the
-  first reads its c-channel input for every group, the reference's tile),
-  and the 1x1 fuse (causal_conv, no bias);
+  on load), then the fusion block: for MultiGroupConv1d (v1, v2) three
+  :func:`hifigan_unit` launches (csrc/hifigan_unit.cu; the first reads its
+  c-channel input for every group, the reference's tile) and the 1x1 fuse
+  (causal_conv, no bias); for MultiReceptiveField (v0, v3; K4's ``add_mrf``)
+  three ungrouped blocks of three units over the same entrance, averaged in
+  the units' accumulate epilogue (43 launches a dispatch with PQC);
 - the output conv: causal_conv with LeakyReLU(0.01) on load and tanh.
 
 :func:`vocoder_half` is that sequence as a
 :class:`~dl_speech_enhancement_tpu_torch.ops.mega_kernel.StreamHalf`, so
 ``join_halves(mega_encoder(codec, ...), vocoder_half(voc, ...), ...)`` is the
-tx -> wire codes -> rx stream of the ``vctk_v1`` pairing. Weights are
+tx -> wire codes -> rx stream of a vocoder-paired preset. Weights are
 copied once, at build time, in ``weight_dtype`` (bf16 by default;
-activations, sums, biases and books stay f32).
-
-K4's MultiReceptiveField arm (the v0 and v3 presets) is not on the kernel
-route yet: :func:`vocoder_topology_error` names it, and the routes that
-need the kernels raise for it.
+activations, sums, biases and books stay f32). The JAX K5 refuses a
+MultiReceptiveField receiver; the port's batch axis serves it, as the JAX
+``VocoderReceiver`` does through XLA.
 """
 
 from __future__ import annotations
@@ -70,7 +72,7 @@ from dl_speech_enhancement_tpu_torch.ops.stream_kernel import (
 
 
 def hifigan_unit_plain(cache1, cache2, x, w1, b1, w2, b2, dilation: int, groups: int,
-                       slope: float = 0.1):
+                       slope: float = 0.1, acc=None, out_scale: float = 1.0):
     """Plain PyTorch version of :func:`hifigan_unit`, in f32, on (time, C)
     or (B, time, C). Returns (out, new cache2)."""
     taps, c, gc = w1.shape
@@ -81,24 +83,27 @@ def hifigan_unit_plain(cache1, cache2, x, w1, b1, w2, b2, dilation: int, groups:
     hs = []
     for g in range(groups):
         a_g, cols = a[..., g * s: g * s + c], slice(g * c, (g + 1) * c)
-        acc = a_g[..., 0:T, :] @ w1[0, :, cols]
+        part = a_g[..., 0:T, :] @ w1[0, :, cols]
         for j in range(1, taps):
-            acc = acc + a_g[..., j * dilation: j * dilation + T, :] @ w1[j, :, cols]
-        hs.append(acc)
+            part = part + a_g[..., j * dilation: j * dilation + T, :] @ w1[j, :, cols]
+        hs.append(part)
     h = torch.cat(hs, dim=-1)
     h = _leaky(h if b1 is None else h + b1, slope)
     h_ext = torch.cat([cache2, h], dim=-2)
     ys = []
     for g in range(groups):
         cols = slice(g * c, (g + 1) * c)
-        acc = h_ext[..., 0:T, cols] @ w2[0, :, cols]
+        part = h_ext[..., 0:T, cols] @ w2[0, :, cols]
         for j in range(1, taps):
-            acc = acc + h_ext[..., j: j + T, cols] @ w2[j, :, cols]
-        ys.append(acc)
+            part = part + h_ext[..., j: j + T, cols] @ w2[j, :, cols]
+        ys.append(part)
     y = torch.cat(ys, dim=-1)
     y = y if b2 is None else y + b2
     res = x if s else x.repeat(*([1] * (x.dim() - 1)), groups)
-    return res + y, tail(cache2, h, taps - 1)
+    out = res + y
+    if acc is not None:
+        out = acc + out
+    return out * out_scale, tail(cache2, h, taps - 1)
 
 
 def _tile_bm(c: int) -> int:
@@ -139,23 +144,29 @@ def _unit_plan(batch: int, rows: int, c: int, groups: int, taps: int) -> int:
 
 def hifigan_unit(cache1: torch.Tensor, cache2: torch.Tensor, x: torch.Tensor,
                  w1: torch.Tensor, b1: torch.Tensor | None, w2: torch.Tensor,
-                 b2: torch.Tensor | None, dilation: int, groups: int, slope: float = 0.1):
+                 b2: torch.Tensor | None, dilation: int, groups: int, slope: float = 0.1,
+                 acc: torch.Tensor | None = None, out_scale: float = 1.0):
     """One grouped HiFiGAN dilation unit for B streams, ``x + conv2(leaky(
-    conv1(leaky(x))))`` (csrc/hifigan_unit.cu).
+    conv1(leaky(x))))`` (csrc/hifigan_unit.cu), optionally added to a
+    running sum and scaled: ``(acc + unit) * out_scale``, a
+    MultiReceptiveField stage's block sum and mean.
 
     x (B, T, Cin) f32 with Cin = groups * c, or Cin = c for the first unit
     of a MultiGroupConv1d (every group reads x); cache1 (B, (k-1) * dilation,
     Cin), the tail of the raw unit input (any stream stride); cache2 (B, k-1,
     groups * c), conv2's activated window rows; w1, w2 (k, c, groups * c) f32
-    or bf16; b1, b2 (groups * c,) f32 or None. 2-D tensors are one stream.
-    Returns (out (B, T, groups * c), new cache2 (B, k-1, groups * c))."""
+    or bf16; b1, b2 (groups * c,) f32 or None; acc None or x's batch and
+    time by groups * c, f32. 2-D tensors are one stream. Returns (out (B, T,
+    groups * c), new cache2 (B, k-1, groups * c))."""
     if x.device.type == "cpu":
-        return hifigan_unit_plain(cache1, cache2, x, w1, b1, w2, b2, dilation, groups, slope)
+        return hifigan_unit_plain(cache1, cache2, x, w1, b1, w2, b2, dilation, groups, slope,
+                                  acc, out_scale)
     if x.device.type != "cuda":
         raise ValueError(f"hifigan_unit: unsupported device {x.device}")
     if x.dim() == 2 and cache1.dim() == 2 and cache2.dim() == 2:
         out, new2 = hifigan_unit(cache1[None], cache2[None], x[None], w1, b1, w2, b2,
-                                 dilation, groups, slope)
+                                 dilation, groups, slope,
+                                 None if acc is None else acc[None], out_scale)
         return out[0], new2[0]
     if x.dim() != 3:
         raise ValueError(f"hifigan_unit: x must be (B, T, Cin), got {tuple(x.shape)}")
@@ -171,8 +182,12 @@ def hifigan_unit(cache1: torch.Tensor, cache2: torch.Tensor, x: torch.Tensor,
     for b in (b1, b2):
         if b is not None and b.shape != (gc,):
             raise ValueError(f"hifigan_unit: bias {tuple(b.shape)} does not fit {gc}")
+    if acc is not None and acc.shape != (B, T, gc):
+        raise ValueError(f"hifigan_unit: running sum {tuple(acc.shape)} does not fit "
+                         f"output {(B, T, gc)}")
     _check_operands("hifigan_unit", x.device, {"x": x}, (w1, w2), b1, cache=cache1)
-    _check_operands("hifigan_unit", x.device, {"x": x}, (w1, w2), b2, cache=cache2)
+    _check_operands("hifigan_unit", x.device, {"x": x, **({} if acc is None else {"acc": acc})},
+                    (w1, w2), b2, cache=cache2)
     out = torch.empty((B, T, gc), device=x.device)
     new2 = torch.empty((B, taps - 1, gc), device=x.device)
     if B * T == 0:
@@ -182,10 +197,11 @@ def hifigan_unit(cache1: torch.Tensor, cache2: torch.Tensor, x: torch.Tensor,
     err = lib.dse_hifigan_unit(cache1.data_ptr(), cache1.stride(0), cache2.data_ptr(),
                                cache2.stride(0), x.data_ptr(), w1.data_ptr(),
                                None if b1 is None else b1.data_ptr(), w2.data_ptr(),
-                               None if b2 is None else b2.data_ptr(), out.data_ptr(),
-                               new2.data_ptr(), B, T, c, groups, int(cin != gc),
-                               taps, dilation, tile, slope, int(w1.dtype == torch.bfloat16),
-                               _cuda.stream_handle(x))
+                               None if b2 is None else b2.data_ptr(),
+                               None if acc is None else acc.data_ptr(), out_scale,
+                               out.data_ptr(), new2.data_ptr(), B, T, c, groups,
+                               int(cin != gc), taps, dilation, tile, slope,
+                               int(w1.dtype == torch.bfloat16), _cuda.stream_handle(x))
     _cuda.check(lib, err, "hifigan_unit")
     hifigan_unit.launches += 1
     return out, new2
@@ -204,17 +220,21 @@ def vocoder_topology_error(voc, chunk: int, hop: int | None = None) -> str | Non
     if not isinstance(voc, HiFiGANGenerator):
         return f"the vocoder route takes a HiFiGANGenerator, got {type(voc).__name__}"
     for si, blk in enumerate(voc.blocks):
-        if isinstance(blk, MultiReceptiveField):
-            return (f"stage {si} is a MultiReceptiveField block (the v0/v3 presets): K4's "
-                    "MultiReceptiveField arm is not on the kernel route yet (ROADMAP.md)")
-        if not blk.block.use_additional_convs:
-            return "the unit kernel needs the residual blocks' additional convs (conv2)"
         c = voc.upsamples[si].out_channels
-        taps = blk.block.convs1[0].kernel_size
-        # csrc/tile_gemm.cuh's staging plus a 4-row tile's h window
-        floats = (5248 if c <= 32 else 4224) + (4 + taps - 1) * c
-        if 4 * floats > _MAX_SMEM:
-            return f"stage {si}: {c} channels per group do not fit the unit kernel's shared memory"
+        resblocks = blk.blocks if isinstance(blk, MultiReceptiveField) else [blk.block]
+        for bi, rb in enumerate(resblocks):
+            if not rb.use_additional_convs:
+                return "the unit kernel needs the residual blocks' additional convs (conv2)"
+            taps = rb.convs1[0].kernel_size
+            if isinstance(blk, MultiReceptiveField) and (rb.convs1[0].in_channels != c
+                                                         or rb.convs1[0].groups != 1):
+                return (f"stage {si} block {bi}: a MultiReceptiveField block must take the "
+                        f"stage's {c} channels, ungrouped")
+            # csrc/tile_gemm.cuh's staging plus a 4-row tile's h window (c per group)
+            floats = (5248 if c <= 32 else 4224) + (4 + taps - 1) * c
+            if 4 * floats > _MAX_SMEM:
+                return (f"stage {si}: {c} channels per group at kernel {taps} do not fit "
+                        "the unit kernel's shared memory")
     for name, conv in (("input", voc.input_conv), ("output", voc.output_conv)):
         if conv.stride != 1 or conv.dilation != 1 or conv.groups != 1:
             return f"the {name} conv must be unstrided, undilated and ungrouped"
@@ -241,11 +261,41 @@ def _folded_input_conv(voc, weight_dtype):
     return w.to(weight_dtype).contiguous(), b.float().contiguous()
 
 
+def _stage_blocks(si, blk, c, wd):
+    """A fusion block's residual blocks as the kernel runs them: ``(blocks,
+    fuse weight or None, groups, {cache name: (rows, channels)})``, each
+    block a list of ``(w1, b1, w2, b2, dilation, raw cache, act cache)``.
+    MultiGroupConv1d: one grouped block over the tiled input, then the 1x1
+    fuse; names ``v{si}r{ui}a/b``. MultiReceptiveField: ungrouped blocks
+    over the same entrance, averaged; names ``v{si}b{bi}r{ui}a/b``."""
+    mrf = isinstance(blk, MultiReceptiveField)
+    resblocks = blk.blocks if mrf else [blk.block]
+    groups = 1 if mrf else blk.groups
+    blocks, shapes = [], {}
+    for bi, rb in enumerate(resblocks):
+        units = []
+        for ui, (c1, c2) in enumerate(zip(rb.convs1, rb.convs2)):
+            name = f"v{si}b{bi}r{ui}" if mrf else f"v{si}r{ui}"
+            shapes[f"{name}a"] = (c1.pad_length, c if ui == 0 else groups * c)
+            shapes[f"{name}b"] = (c2.pad_length, groups * c)
+            units.append((conv_weight(c1, wd), _bias(c1), conv_weight(c2, wd), _bias(c2),
+                          c1.dilation, f"{name}a", f"{name}b"))
+        blocks.append(units)
+    return blocks, None if mrf else conv_weight(blk.conv_out, wd), groups, shapes
+
+
 def vocoder_half(voc, weight_dtype=torch.bfloat16, vq_state=None) -> StreamHalf:
     """The HiFiGAN receiver as a stream half: with PQC (``vq_state``, the
     transmitter's ``VQState``) codebook_lookup first, then the input conv,
-    4 x (upsample, 3 x hifigan_unit, fuse) and the output conv; 23 launches,
-    22 without PQC.
+    per stage the upsample and the fusion block, and the output conv.
+
+    - MultiGroupConv1d (v1, v2): 3 hifigan_unit launches and the 1x1 fuse
+      a stage, 23 launches a dispatch, 22 without PQC.
+    - MultiReceptiveField (v0, v3): per block 3 hifigan_unit launches, every
+      block from the stage's entrance; the last unit of block 0 writes the
+      running sum, of each later block adds to it, of the last also scales
+      by 1 / blocks (the kernel's epilogue), so the stage's mean costs no
+      launch: 43 launches a dispatch with 3 blocks, 42 without PQC.
 
     ``run(cache, wire) -> (audio (B, rows * total_upsample, 1), new cache
     entries)`` takes int32 wire codes (B, rows, L) (a code outside its book
@@ -268,14 +318,10 @@ def vocoder_half(voc, weight_dtype=torch.bfloat16, vq_state=None) -> StreamHalf:
     stages = []
     for si, (up, blk) in enumerate(zip(voc.upsamples, voc.blocks)):
         shapes[f"v{si}u"] = (1, up.in_channels)
-        units, c, groups = [], up.out_channels, blk.groups
-        for ui, (c1, c2) in enumerate(zip(blk.block.convs1, blk.block.convs2)):
-            shapes[f"v{si}r{ui}a"] = (c1.pad_length, c if ui == 0 else groups * c)
-            shapes[f"v{si}r{ui}b"] = (c2.pad_length, groups * c)
-            units.append((conv_weight(c1, wd), _bias(c1), conv_weight(c2, wd), _bias(c2),
-                          c1.dilation))
-        stages.append((conv_transpose_weight(up, wd), _bias(up), up.stride, units,
-                       conv_weight(blk.conv_out, wd), groups))
+        blocks, w_f, groups, unit_shapes = _stage_blocks(si, blk, up.out_channels, wd)
+        shapes.update(unit_shapes)
+        stages.append((conv_transpose_weight(up, wd), _bias(up), up.stride, blocks, w_f,
+                       groups))
     shapes["v_out"] = (co.pad_length, co.in_channels)
     w_out, b_out = conv_weight(co, wd), _bias(co)
     fills = {"v_in": voc.mean.detach().float()} if voc.norm else None
@@ -289,15 +335,20 @@ def vocoder_half(voc, weight_dtype=torch.bfloat16, vq_state=None) -> StreamHalf:
         # without PQC the wire may be the caller's tensor: keep the cache off it
         new["v_in"] = tail(cache["v_in"], h, shapes["v_in"][0]).clone()
         h = causal_conv(cache["v_in"], h, w_in, b_in)
-        for si, (w_up, b_up, s, units, w_f, groups) in enumerate(stages):
+        for si, (w_up, b_up, s, blocks, w_f, groups) in enumerate(stages):
             new[f"v{si}u"] = tail(cache[f"v{si}u"], h, 1)
             h = causal_conv_transpose(cache[f"v{si}u"], h, w_up, b_up, s, leaky=slope)
-            for ui, (w1, b1, w2, b2, d) in enumerate(units):
-                raw, act = f"v{si}r{ui}a", f"v{si}r{ui}b"
-                new[raw] = tail(cache[raw], h, shapes[raw][0])
-                h, new[act] = hifigan_unit(cache[raw], cache[act], h, w1, b1, w2, b2, d,
-                                           groups, slope)
-            h = causal_conv(h.new_zeros((h.shape[0], 0, h.shape[2])), h, w_f)
+            total = None  # the running sum of the blocks (MultiReceptiveField)
+            for bi, units in enumerate(blocks):
+                y = h
+                for ui, (w1, b1, w2, b2, d, raw, act) in enumerate(units):
+                    new[raw] = tail(cache[raw], y, shapes[raw][0])
+                    sums = w_f is None and ui == len(units) - 1
+                    scale = 1.0 / len(blocks) if sums and bi == len(blocks) - 1 else 1.0
+                    y, new[act] = hifigan_unit(cache[raw], cache[act], y, w1, b1, w2, b2, d,
+                                               groups, slope, total if sums else None, scale)
+                total = y
+            h = total if w_f is None else causal_conv(total[:, :0], total, w_f)
         new["v_out"] = tail(cache["v_out"], h, shapes["v_out"][0])
         # upstream uses LeakyReLU(0.01) before the output conv (HiFiGAN.py:116)
         return causal_conv(cache["v_out"], h, w_out, b_out, leaky=0.01, tanh=True), new

@@ -21,7 +21,11 @@ entry of ``--order`` runs one child process on that tree's package, which:
 - times ``make_scan_stream(gen, frame_size=1200)`` of each codec at one
   frame per dispatch, the cache carried (10 warm-up and 200 timed
   dispatches; wall time on the host clock around the call and a
-  synchronize, and the host time until the call returns);
+  synchronize, and the host time until the call returns), and the same for
+  the ``vctk_v1`` receiver path, ``make_vocoder_scan_stream`` of the codec
+  and the AudioDec v1 receiver (bf16 weights);
+- digests (SHA-256) the receiver path's audio over those frames from zero
+  caches, so two trees whose digests agree computed it bit for bit alike;
 - times the host cost of one ``causal_conv`` / ``causal_conv_transpose``
   wrapper call (2000 calls on a 4-row, 32-channel input whose kernel takes
   a few microseconds, so the host sets the pace).
@@ -37,6 +41,7 @@ order such as ``parent,change,change,parent``), which one was lower.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import statistics
@@ -76,10 +81,8 @@ def _wrapper_us(torch, fn, *args):
     return host / WRAPPER_CALLS * 1e6
 
 
-def _drive_vocoder(torch, root, codec, vq, load_config):
+def _v1_receiver(root, load_config):
     from dl_speech_enhancement_tpu_torch.models import HiFiGANGenerator
-    from dl_speech_enhancement_tpu_torch.parallel import make_sharded_stream
-    from dl_speech_enhancement_tpu_torch.stream.runtime import make_vocoder_scan_stream
 
     gp = dict(load_config(os.path.join(
         root, "configs", "vocoder", "AudioDec_v1_symAD_vctk_48000_hop300_clean.yaml"))
@@ -88,7 +91,14 @@ def _drive_vocoder(torch, root, codec, vq, load_config):
     gp["negative_slope"] = gp.pop("nonlinear_activation_params")["negative_slope"]
     for key in ("use_weight_norm", "stats"):
         gp.pop(key)
-    voc = HiFiGANGenerator(**gp, seed=0)
+    return HiFiGANGenerator(**gp, seed=0)
+
+
+def _drive_vocoder(torch, root, codec, vq, load_config):
+    from dl_speech_enhancement_tpu_torch.parallel import make_sharded_stream
+    from dl_speech_enhancement_tpu_torch.stream.runtime import make_vocoder_scan_stream
+
+    voc = _v1_receiver(root, load_config)
     kept = [voc]
     run = make_vocoder_scan_stream(codec, vq, voc, FRAME, weight_dtype=torch.float32)
     frames = torch.randn(200, FRAME, device="cuda") * 0.1
@@ -120,7 +130,10 @@ def child(root: str, vocoder: bool) -> dict:
         causal_conv,
         causal_conv_transpose,
     )
-    from dl_speech_enhancement_tpu_torch.stream.runtime import make_scan_stream
+    from dl_speech_enhancement_tpu_torch.stream.runtime import (
+        make_scan_stream,
+        make_vocoder_scan_stream,
+    )
     from dl_speech_enhancement_tpu_torch.utils.config import load_config
 
     if not os.path.abspath(port.__file__).startswith(os.path.abspath(root)):
@@ -146,6 +159,10 @@ def child(root: str, vocoder: bool) -> dict:
               "cuda_reserved_bytes": torch.cuda.memory_reserved()}
     report["denoiser"] = _latency(torch, make_scan_stream(gen, frame_size=FRAME), frames)
     report["codec"] = _latency(torch, make_scan_stream(codec, vq, frame_size=FRAME), frames)
+    receiver = make_vocoder_scan_stream(codec, vq, _v1_receiver(root, load_config), FRAME)
+    report["receiver_v1"] = _latency(torch, receiver, frames[:, 0, :, 0])
+    audio, _ = receiver(receiver.init_cache(), frames[:, 0, :, 0])
+    report["receiver_v1_digest"] = hashlib.sha256(audio.cpu().numpy().tobytes()).hexdigest()
     g = torch.Generator(device="cuda").manual_seed(2)
     x = torch.randn(1, 4, 32, device="cuda", generator=g)
     cache = torch.randn(1, 6, 32, device="cuda", generator=g)
@@ -158,7 +175,7 @@ def child(root: str, vocoder: bool) -> dict:
     return report
 
 
-METRICS = (("denoiser", "median_ms"), ("codec", "median_ms"),
+METRICS = (("denoiser", "median_ms"), ("codec", "median_ms"), ("receiver_v1", "median_ms"),
            ("causal_conv_host_us", None), ("causal_conv_transpose_host_us", None))
 
 
@@ -170,6 +187,12 @@ def _quartiles(xs):
 def summary(result: dict) -> list[str]:
     runs, lines = result["runs"], [result["card"]]
     entries = sorted({r["entry"] for r in runs})
+    digests = {r["entry"]: sorted({q["receiver_v1_digest"] for q in runs
+                                   if q["entry"] == r["entry"]}) for r in runs}
+    lines.append("receiver v1 audio digests: " + "; ".join(
+        f"{entry} {' '.join(d[:12] for d in ds)}" for entry, ds in sorted(digests.items()))
+        + ("; all equal" if len({d for ds in digests.values() for d in ds}) == 1
+           else "; they differ"))
     for key, sub in METRICS:
         def value(r):
             return r[key][sub] if sub else r[key]
@@ -227,7 +250,9 @@ def main() -> int:
         print(f"{i + 1:2d} {entry:16s} denoiser {rep['denoiser']['median_ms']:.3f} ms "
               f"(enqueue {rep['denoiser']['enqueue_median_ms']:.3f}) codec "
               f"{rep['codec']['median_ms']:.3f} ms (enqueue "
-              f"{rep['codec']['enqueue_median_ms']:.3f}); wrapper host us: causal_conv "
+              f"{rep['codec']['enqueue_median_ms']:.3f}) receiver v1 "
+              f"{rep['receiver_v1']['median_ms']:.3f} ms, digest "
+              f"{rep['receiver_v1_digest'][:12]}; wrapper host us: causal_conv "
               f"{rep['causal_conv_host_us']:.2f}, causal_conv_transpose "
               f"{rep['causal_conv_transpose_host_us']:.2f}; gc objects "
               f"{rep['gc_tracked_objects']}", flush=True)

@@ -21,8 +21,15 @@ their plain versions (the same two f32 matmuls, summed in another order over
 up to 2048 terms): log-mel atol 1e-4, magnitudes 1e-5 of the largest, the
 autograd.Functions' gradients (the JAX package's analytic VJP) against
 autograd through the plain versions 1e-5 of the largest; two calls, and a
-batch against its examples' own calls, are equal bit for bit. chip_smoke.py
-makes the same checks at the flagship's shapes.
+batch against its examples' own calls, are equal bit for bit. The unit's
+accumulate epilogue (the MultiReceptiveField arm) is held at the v0
+receiver's widths, and passes a unit's output through bit for bit without a
+running sum; the codec endpoints' kernel routes equal their plain modules;
+K1f (the residual_chain kernel behind the folded chain's
+contract) equals K1 bit for bit; T1's fold_copy equals numpy's reshape
+exactly; ``cli.stream.main --model vctk_v0`` runs on the card from a small
+checkpoint tree. chip_smoke.py makes the same checks at the flagship's
+shapes.
 """
 
 import numpy as np
@@ -43,6 +50,9 @@ from dl_speech_enhancement_tpu_torch.ops.mega_kernel import (
 )
 from dl_speech_enhancement_tpu_torch.ops.stream_kernel import (
     _chain_plan,
+    fused_residual_chain,
+    fused_residual_chain_folded,
+    fused_residual_chain_folded_plain,
     residual_chain,
     residual_chain_plain,
 )
@@ -51,6 +61,7 @@ from dl_speech_enhancement_tpu_torch.losses import (
     MultiMelSpectrogramLoss,
     MultiResolutionSTFTLoss,
 )
+from dl_speech_enhancement_tpu_torch.models.autoencoder import ResidualUnit
 from dl_speech_enhancement_tpu_torch.models.hifigan import HiFiGANGenerator
 from dl_speech_enhancement_tpu_torch.ops import mel_kernel
 from dl_speech_enhancement_tpu_torch.ops.vocoder_kernel import (
@@ -58,10 +69,13 @@ from dl_speech_enhancement_tpu_torch.ops.vocoder_kernel import (
     hifigan_unit_plain,
 )
 from dl_speech_enhancement_tpu_torch.stream.runtime import (
+    StreamingReceiver,
+    StreamingTransmitter,
     VocoderReceiver,
     make_scan_stream,
     make_vocoder_scan_stream,
 )
+from dl_speech_enhancement_tpu_torch.tools import reshape_probe
 from dl_speech_enhancement_tpu_torch.utils.checks import rvq_near_ties
 
 pytestmark = pytest.mark.cuda
@@ -348,6 +362,170 @@ def test_hifigan_unit_kernel(card, batch, rows, c, groups, k, dilation, tiled, w
     torch.cuda.synchronize()
     assert not torch.equal(again[0], got[0])
     assert torch.equal(again[1:], got[1:]) and torch.equal(again2[1:], got2[1:])
+
+
+@pytest.mark.parametrize("batch,rows,c,k,dilation", [
+    (1, 20, 256, 11, 5), (1, 100, 128, 7, 3), (3, 400, 64, 3, 1), (16, 1200, 32, 11, 1),
+    (2, 3, 16, 5, 2),
+])
+def test_hifigan_unit_kernel_accumulates(card, batch, rows, c, k, dilation):
+    """The accumulate epilogue at the v0 receiver's MRF sites (groups 1):
+    ``(acc + unit) * scale`` against the plain version; without a running
+    sum at scale 1 the output equals the unit's bit for bit, as the MGC
+    sites call it."""
+    cache1 = _tail_view(card, batch, (k - 1) * dilation, c)
+    cache2 = _tail_view(card, batch, k - 1, c)
+    x, acc = _randn(card, batch, rows, c) * 3, _randn(card, batch, rows, c) * 3
+    w1, w2 = ((_randn(card, k, c, c) / (k * c) ** 0.5) for _ in range(2))
+    b1, b2 = _randn(card, c), _randn(card, c)
+    args = (cache1, cache2, x, w1, b1, w2, b2, dilation, 1)
+    for total, scale in ((acc, 1.0), (acc, 1 / 3), (None, 1 / 3)):
+        got, got2 = hifigan_unit(*args, 0.1, total, scale)
+        ref, ref2 = hifigan_unit_plain(*args, 0.1, total, scale)
+        torch.cuda.synchronize()
+        assert float((got - ref).abs().max()) <= ATOL
+        assert float((got2 - ref2).abs().max()) <= ATOL
+    unit, unit2 = hifigan_unit(*args)
+    zero_sum, _ = hifigan_unit(*args, 0.1, torch.zeros_like(acc), 1.0)
+    again, again2 = hifigan_unit(*args, 0.1, None, 1.0)
+    torch.cuda.synchronize()
+    assert torch.equal(again, unit) and torch.equal(again2, unit2)
+    assert torch.equal(zero_sum, unit)
+
+
+def _mrf_vocoder():
+    voc = HiFiGANGenerator(in_channels=16, channels=16, upsample_scales=(4, 3),
+                           upsample_kernel_sizes=(8, 6), resblock_kernel_sizes=(3, 5, 7),
+                           resblock_dilations=((1, 2),) * 3, groups=1, device="cuda")
+    with torch.no_grad():
+        for m in voc.modules():
+            if isinstance(getattr(m, "g", None), torch.nn.Parameter):
+                m.g.fill_(1.0)
+    return voc
+
+
+def test_mrf_vocoder_route_matches_eager_on_the_card(card):
+    """K4's MultiReceptiveField arm: make_vocoder_scan_stream's 'auto' route
+    (11 + 17 launches a dispatch at this topology: 2 stages of an upsample
+    and 3 blocks of 2 units, 12 unit launches; 11 + 43 at the v0 preset) and
+    VocoderReceiver at 3 streams against 'eager'."""
+    codec, vq, _ = _vocoder_pair()
+    voc = _mrf_vocoder()
+    frames = _randn(card, 6, 120)
+    eager = make_vocoder_scan_stream(codec, vq, voc, 120, backend="eager")
+    ref, _ = eager(eager.init_cache(), frames)
+    run = make_vocoder_scan_stream(codec, vq, voc, 120, weight_dtype=torch.float32)
+    assert run.backend == "cuda"
+    before = hifigan_unit.launches
+    first, cache = run(run.init_cache(), frames[:2])
+    second, _ = run(cache, frames[2:])
+    torch.cuda.synchronize()
+    assert hifigan_unit.launches - before == 2 * 12
+    assert float((torch.cat([first, second]) - ref).abs().max()) <= 2e-5
+    assert float(ref.std()) > 1e-3
+    codes = (torch.randint(0, 32, (3, 3, 5), generator=card, device="cuda")
+             + torch.arange(3, device="cuda")[:, None, None] * 32).to(torch.int32)
+    rx = VocoderReceiver(codec, voc, vq, batch=3, weight_dtype=torch.float32)
+    want = VocoderReceiver(codec, voc, vq, batch=3, backend="eager").decode(codes)
+    assert rx.backend == "cuda"
+    assert float((rx.decode(codes) - want).abs().max()) <= 2e-5
+
+
+@pytest.mark.parametrize("channels,fold", [(32, 1), (32, 2), (32, 3), (64, 2)])
+def test_folded_chain_kernel(card, channels, fold):
+    """K1f on the card: the residual_chain kernel, equal to K1 bit for bit
+    and within ATOL of its folded plain version."""
+    units = [ResidualUnit(channels, dilation=d, device="cuda") for d in (1, 3, 9)]
+    x = _randn(card, 78 + 240, channels) * 3
+    before = residual_chain.launches
+    got = fused_residual_chain_folded(units, x, fold)
+    assert residual_chain.launches == before + 1
+    ref = fused_residual_chain_folded_plain(units, x, fold)
+    torch.cuda.synchronize()
+    assert torch.equal(got, fused_residual_chain(units, x))
+    assert float((got - ref).abs().max()) <= ATOL
+
+
+@pytest.mark.parametrize("shape,s,mode", reshape_probe.SHAPES,
+                         ids=lambda v: str(v).replace(" ", ""))
+def test_fold_copy_kernel(card, shape, s, mode):
+    """T1: the fold_copy kernel equals numpy's reshape exactly, or refuses
+    what numpy refuses, at the JAX probe's six shapes."""
+    before = reshape_probe.fold_copy.launches
+    res = reshape_probe.probe(shape, s, mode)
+    assert res["ok"], res
+    launched = reshape_probe.fold_copy.launches - before
+    assert launched == (0 if res["result"].startswith("REFUSED") else 1)
+
+
+def test_cli_stream_on_the_card(card, tmp_path, monkeypatch):
+    """cli.stream.main --model vctk_v0 on the card from a small exp/ tree:
+    the receiver runs its kernels ('auto'), every frame comes out, and the
+    produced frames equal an 'eager' run of the same CLI within bf16
+    weights' rounding."""
+    from dl_speech_enhancement_tpu_torch.cli import stream as cli
+    from dl_speech_enhancement_tpu_torch.data import read_wav, write_wav
+    from dl_speech_enhancement_tpu_torch.train.checkpoint import save_checkpoint
+
+    codec, vq, _ = _vocoder_pair()
+    voc = _mrf_vocoder()
+    exp = tmp_path / "exp"
+    topology = {"encode_channels": 8, "decode_channels": 8, "code_dim": 16,
+                "codebook_num": 3, "codebook_size": 32, "enc_ratios": [2, 4],
+                "dec_ratios": [4, 2], "enc_strides": [3, 4], "dec_strides": [4, 3]}
+    save_checkpoint(str(exp / "autoencoder" / "symAD_vctk_48000_hop300" /
+                        "checkpoint-200000steps"),
+                    {"params_generator": codec.state_dict(), "vq_state": vq},
+                    {"model_type": "symAudioDec", "generator_params": topology})
+    vgp = {"in_channels": 16, "channels": 16, "upsample_scales": [4, 3],
+           "upsample_kernel_sizes": [8, 6], "resblock_kernel_sizes": [3, 5, 7],
+           "resblock_dilations": [[1, 2]] * 3, "groups": 1}
+    save_checkpoint(str(exp / "vocoder" / "AudioDec_v0_symAD_vctk_48000_hop300_clean" /
+                        "checkpoint-500000steps"),
+                    {"params_generator": voc.state_dict()},
+                    {"model_type": "HiFiGAN", "train_mode": "vocoder",
+                     "generator_params": vgp})
+    monkeypatch.chdir(tmp_path)
+    write_wav("in.wav", (0.3 * np.random.default_rng(0).standard_normal(24 * 40)), 48000)
+    outs = {}
+    for backend in ("auto", "eager"):
+        before = hifigan_unit.launches, rvq_assign.launches
+        stats = cli.main(["--model", "vctk_v0", "-i", "in.wav", "-o", f"{backend}.wav",
+                          "--frame-size", "24", "--max-latency", "1000",
+                          "--rx-backend", backend])
+        assert stats["frames"] == 40 and stats["frame_drops"] == 0
+        assert (hifigan_unit.launches > before[0]) == (backend == "auto")
+        assert rvq_assign.launches > before[1]  # the transmitter's kernels, either way
+        y = read_wav(f"{backend}.wav")[0][:, 0].reshape(-1, 24)
+        outs[backend] = y[np.abs(y).max(axis=1) > 0]
+        assert len(outs[backend]) == 40
+    scale = float(np.abs(outs["eager"]).max())
+    assert np.abs(outs["auto"] - outs["eager"]).max() <= 5e-2 * scale + 1.0 / 32768
+
+
+@pytest.mark.parametrize("batch", [1, 3])
+def test_codec_endpoints_kernel_route_on_the_card(card, batch):
+    """StreamingTransmitter / StreamingReceiver take the whole-model
+    stream's halves on the card ('auto'): priming then four chunks with
+    carried caches, codes equal to the plain modules' and audio within
+    ATOL at f32 weights."""
+    codec, vq, _ = _vocoder_pair()
+    tx = StreamingTransmitter(codec, vq, batch)
+    rx = StreamingReceiver(codec, vq, batch, weight_dtype=torch.float32)
+    assert (tx.backend, rx.backend) == ("cuda", "cuda")
+    etx = StreamingTransmitter(codec, vq, batch, backend="eager")
+    erx = StreamingReceiver(codec, vq, batch, backend="eager")
+    chunks = [torch.zeros((batch, 600, 1), device="cuda")]  # the priming call's length
+    chunks += [_randn(card, batch, 24, 1) for _ in range(4)]
+    for chunk in chunks:
+        before = rvq_assign.launches, codebook_lookup.launches
+        idx = tx.encode(chunk)
+        assert (rvq_assign.launches, codebook_lookup.launches) == (before[0] + 1, before[1])
+        want = etx.encode(chunk)
+        assert idx.dtype == torch.int32 and torch.equal(idx, want)
+        y = rx.decode(idx)
+        assert codebook_lookup.launches == before[1] + 1
+        assert float((y - erx.decode(want)).abs().max()) <= ATOL
 
 
 def _vocoder_pair():

@@ -28,7 +28,9 @@ def test_port_has_the_slice_modules():
                 "utils.jax_params", "dsp.stft", "dsp.mel", "ops.mel_kernel", "losses.metrics",
                 "losses.mel_loss", "losses.stft_loss", "losses.waveform_loss",
                 "losses.adversarial_loss", "losses.feat_match_loss", "train.optim",
-                "train.criterion", "train.denoise_course", "data.mixing"):
+                "train.criterion", "train.denoise_course", "data.mixing", "utils.audiodec",
+                "utils.audiodec_without_pqc", "utils.model_factory", "train.checkpoint",
+                "data.audio_io", "cli.stream", "tools.reshape_probe"):
         assert f"dl_speech_enhancement_tpu_torch.{mod}" in names
 
 

@@ -114,11 +114,12 @@ def test_cuda_routes_refuse_the_cpu(pair, backend):
 def test_later_slices_raise_not_implemented(pair):
     _, _, tgen = pair
     # multi-stream and the vocoder receiver are served (tests/
-    # test_torch_port_batched.py, test_torch_port_vocoder.py); K4's
-    # MultiReceptiveField arm on the kernel route and a fleet over several
-    # devices are later slices
-    mrf = HiFiGANGenerator(in_channels=512, channels=16, upsample_scales=(5, 5, 4, 3),
-                           upsample_kernel_sizes=(10, 10, 8, 6), device="cpu")
+    # test_torch_port_batched.py, test_torch_port_vocoder.py, and K4's
+    # MultiReceptiveField arm, test_torch_port_vocoder_mrf.py); a grouped
+    # MultiReceptiveField block is not on the kernel route, and a fleet over
+    # several devices is a later slice
+    mrf = HiFiGANGenerator(in_channels=512, channels=32, upsample_scales=(5, 5, 4, 3),
+                           upsample_kernel_sizes=(10, 10, 8, 6), groups=2, device="cpu")
     with pytest.raises(ValueError, match="MultiReceptiveField"):
         make_sharded_stream(tgen, batch=2, device="cpu", vocoder=mrf)
     with pytest.raises(NotImplementedError, match="item 14"):

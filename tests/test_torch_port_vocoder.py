@@ -162,8 +162,12 @@ def test_stacked_vocoder_matches_jax_interpret(rng):
 
 def test_vocoder_topology_error_names_what_the_route_cannot_run():
     _, _, _, codec, vq = _codecs(CODEC_SMALL, seed=0)
-    mrf = HiFiGANGenerator(**dict(MRF, in_channels=16, upsample_scales=(4, 3),
-                                  upsample_kernel_sizes=(8, 6)), device="cpu")
+    paired_mrf = dict(MRF, in_channels=16, upsample_scales=(4, 3), upsample_kernel_sizes=(8, 6))
+    # an ungrouped MultiReceptiveField receiver (v0/v3) is on the route; a
+    # grouped one is not
+    mrf = HiFiGANGenerator(**dict(paired_mrf, groups=2), device="cpu")
+    assert vocoder_topology_error(HiFiGANGenerator(**paired_mrf, device="cpu"), 12,
+                                  hop=codec.hop) is None
     off_hop = HiFiGANGenerator(**dict(VOC_PAIRED, upsample_scales=(2, 3),
                                       upsample_kernel_sizes=(4, 6)), device="cpu")
     good = HiFiGANGenerator(**VOC_PAIRED, device="cpu")
