@@ -30,7 +30,9 @@ line):
 
 1. build the eight CUDA kernel sources from
    ``dl_speech_enhancement_tpu_torch/csrc`` (one ``nvcc`` each, all at once)
-   and the models on the card;
+   and the models on the card; log every ``hifigan_unit`` site's (tile,
+   cluster) plan at one stream of one frame, where each stage-0 unit must
+   run on a cluster of more than one block;
 2. hold every kernel against its plain PyTorch version at every site of the
    three models, for one stream at 1, 100 (the single-stream paths'
    dispatch) and 400 frames per dispatch (the receiver at 1 and 100) with f32
@@ -69,7 +71,8 @@ line):
      stream bit for bit, and the codec's asymmetric receiver (a second
      codec's decoder and books) against its eager composition; the
      receiver's fleet ``make_sharded_stream(vocoder=)`` against each
-     stream's own single-stream run;
+     stream's own single-stream run, bit for bit (the unit kernel's plans
+     differ between 16 streams and one);
    - the v0 receiver as the v1 one above, at 54 launches a dispatch (and
      its fleet at 16 streams); the v2 receiver's kernel route against eager
      on one stream, 1 frame then 100;
@@ -92,7 +95,8 @@ line):
    100 and 400 frames against its plain version, its bound and its one-call
    PyTorch equivalent (``F.conv1d`` / ``F.conv_transpose1d`` /
    ``F.embedding_bag``, and two grouped ``F.conv1d`` calls for a HiFiGAN
-   unit: yardsticks the port never calls), with CUDA events; then the same
+   unit: yardsticks the port never calls), with CUDA events (a unit's bound
+   at the split-TF32 rate it runs, its f32-core bound beside it); then the same
    sites at 16 streams of 1 and 16 frames, and per-stream-frame time and
    busy share of B = 1, 4, 16 and 64 streams (the receiver's fleet: 16 and
    64) at 1 and 16 frames per dispatch, through the kernel route, the
@@ -240,12 +244,18 @@ THROUGHPUT_FRAMES = 400
 SIZES = (1, DISPATCH, THROUGHPUT_FRAMES)   # frames per dispatch of the kernel checks
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 F32_FLOPS = 67e12          # H100 SXM f32 rate outside the tensor cores
+TF32_FLOPS = 495e12        # H100 SXM dense TF32 tensor-core rate
+# hifigan_unit's products are split-TF32 tensor-core passes: 2 with bf16
+# weights (exact in TF32), 3 with f32 weights.
+UNIT_PASSES = {torch.bfloat16: 2, torch.float32: 3}
 # Tolerances. Kernel vs plain: the same products summed in another order, up
 # to 2816 terms of O(1) values (a HiFiGAN unit at stage 0: 11 taps x 256
 # channels, two such sums chained, the second over rows of the first's
 # output) -> atol 1e-4 (f32 weights; measured at most 2.3e-6 on the codec's
 # 2560-term sums), and 1e-4 of the largest output (bf16 weights, widened to
-# f32 identically on both sides).
+# f32 identically on both sides). hifigan_unit's split-TF32 tensor-core
+# products hold the same tolerances: emulated at a stage-0 unit they stay
+# within ~1e-6 of f64 (tests/test_torch_port_unit_plan.py).
 # Main path in f32 vs eager (cuDNN, TF32 off) and vs the CPU: 2e-4, the JAX
 # package's flagship tolerance. bf16-weight main path vs f32 eager: weight
 # rounding (2^-9 relative) through 34 layers -> 5e-2 of the largest output.
@@ -437,8 +447,10 @@ def gpu_ms(fn, reps: int, groups: int = 5) -> float:
     return statistics.median(times)
 
 
-def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
-    t_ops, t_bytes = flops / F32_FLOPS, nbytes / HBM_BYTES_PER_S
+def bound_ms(flops: float, nbytes: float, rate: float = F32_FLOPS) -> tuple[float, str]:
+    """The least time for ``flops`` operations at ``rate`` and ``nbytes``
+    moved at the card's memory rate, and which of the two bounds it."""
+    t_ops, t_bytes = flops / rate, nbytes / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -463,8 +475,9 @@ def nbytes(*ts):
 class Site(NamedTuple):
     """One kernel launch of a main-path dispatch: the kernel call, its plain
     version and its one-call PyTorch yardstick (or None) on the same
-    inputs, the operations and bytes its bound counts, and the (cache, x)
-    inputs of a layer kernel (None for the codec's search and lookup)."""
+    inputs, the operations and bytes its bound counts, the (cache, x)
+    inputs of a layer kernel (None for the codec's search and lookup), and
+    the operation rate of the arithmetic the kernel uses."""
 
     kernel: str
     site: str
@@ -474,6 +487,7 @@ class Site(NamedTuple):
     flops: float
     bytes: float
     inputs: tuple | None
+    rate: float = F32_FLOPS
 
 
 def make_rand(rng, batch):
@@ -1149,7 +1163,8 @@ def unit_site(name, rb, ui, groups, rows, wd, rand, batch, slope, acc=False, sca
     ``acc`` it adds a running sum of the unit's output width and scales by
     ``scale`` (a MultiReceptiveField block's last unit). The yardstick is
     the unit's two dilated ``F.conv1d`` calls (grouped as the unit) on
-    inputs made ready for them."""
+    inputs made ready for them. Its bound counts the operations at the
+    split-TF32 rate the kernel runs (``TF32_FLOPS / UNIT_PASSES``)."""
     c1, c2 = rb.convs1[ui], rb.convs2[ui]
     gc, k, d = c1.out_channels, c1.kernel_size, c1.dilation
     c = gc // groups
@@ -1177,7 +1192,7 @@ def unit_site(name, rb, ui, groups, rows, wd, rand, batch, slope, acc=False, sca
                          F.conv1d(h_lib, w2_lib, b2, groups=groups)),
                 2 * 2.0 * batch * rows * k * c * gc,
                 nbytes(cache1, cache2, x, w1, b1, w2, b2, total)
-                + 4 * batch * (rows + k - 1) * gc, (cache1, x))
+                + 4 * batch * (rows + k - 1) * gc, (cache1, x), TF32_FLOPS / UNIT_PASSES[wd])
 
 
 def fusion_units(blk):
@@ -1219,18 +1234,28 @@ def vocoder_sites(voc, n_frames: int, wd, rng: torch.Generator, batch: int | Non
     return out
 
 
-def unit_plans(voc, batch: int, n_frames: int) -> dict:
-    """The unit kernel's tile at each stage (and block) for ``batch`` streams."""
+def unit_plans(voc, batch: int, n_frames: int, wd=torch.float32) -> dict:
+    """The unit kernel's (tile, cluster) at each unit site for ``batch``
+    streams of ``n_frames`` frames with ``wd`` weights."""
     plans, t = {}, n_frames * FRAME // voc.total_upsample
     for si, (up, blk) in enumerate(zip(voc.upsamples, voc.blocks)):
         t *= up.stride
-        if isinstance(blk, MultiReceptiveField):
-            for bi, rb in enumerate(blk.blocks):
-                plans[f"v{si}b{bi}"] = _unit_plan(batch, t, up.out_channels, 1,
-                                                  rb.convs1[0].kernel_size)
-        else:
-            plans[f"v{si}"] = _unit_plan(batch, t, up.out_channels, blk.groups,
-                                         blk.block.convs1[0].kernel_size)
+        for suffix, rb, ui, groups, _, _ in fusion_units(blk):
+            conv = rb.convs1[ui]
+            plans[f"v{si}{suffix}"] = _unit_plan(batch, t, up.out_channels, groups,
+                                                 conv.kernel_size, conv.dilation,
+                                                 wd == torch.bfloat16)
+    return plans
+
+
+def check_stage0_clusters(voc, what: str) -> dict:
+    """One stream of one frame, bf16 weights (the real-time path): every
+    stage-0 unit must spread over a cluster of more than one block."""
+    plans = unit_plans(voc, 1, 1, torch.bfloat16)
+    stage0 = {site: plan for site, plan in plans.items() if site.startswith("v0")}
+    require(all(cluster > 1 for _, cluster in stage0.values()),
+            f"{what}: a stage-0 unit runs on one block at one stream: {stage0}")
+    log(f"{what} unit plans (tile, cluster) at one stream, one frame: {plans}")
     return plans
 
 
@@ -1254,7 +1279,7 @@ def check_vocoder_kernels(voc, rng, batch_checks=VOCODER_BATCH_CHECKS):
             check_no_leak(st)
         log(f"check receiver batch axis streams={batch} frames={n_frames}: "
             f"{len(layer_sites)} layer sites hold their plain versions; no stream leaks; "
-            f"unit tiles {unit_plans(voc, batch, n_frames)}")
+            f"unit plans (tile, cluster) {unit_plans(voc, batch, n_frames)}")
         del layer_sites
     return worst
 
@@ -1409,8 +1434,9 @@ def vocoder_fleet_path(codec, vq, voc, path="vocoder"):
     checks = per_stream(f"{path} fleet x{BATCH} vs {BATCH} single-stream 'cuda' runs",
                         None, None, out, None, ref, None)
     checks["bit_for_bit"] = torch.equal(out, ref)
-    log(f"{path} fleet x{BATCH} equals the single-stream runs bit for bit: "
-        f"{checks['bit_for_bit']}")
+    require(checks["bit_for_bit"], f"{path} fleet x{BATCH}: a stream differs from its "
+            "single-stream run (the unit kernel's sums must not depend on its plan)")
+    log(f"{path} fleet x{BATCH} equals the single-stream runs bit for bit")
     return launches, checks
 
 
@@ -1473,7 +1499,7 @@ def vocoder_times(codec, vq, voc, rng, batches=VOCODER_TIME_BATCHES, path="vocod
                 "streams": batch, "frames": n, "kernel_ms": k_ms, "eager_ms": e_ms,
                 "us_per_stream_frame": {"kernel": k_ms * per, "eager": e_ms * per},
                 "busy_share": prof["busy_share"] if prof else None, "device": prof,
-                "memory": mem, "unit_tiles": unit_plans(voc, batch, n)}
+                "memory": mem, "unit_plans": unit_plans(voc, batch, n)}
             log(f"{path} fleet B={batch:<3d} N={n:<3d} us per stream-frame: kernel "
                 f"{k_ms * per:.2f}, eager {e_ms * per:.2f}; busy share "
                 + (f"{prof['busy_share']:.3f}" if prof else "not measured")
@@ -2145,27 +2171,33 @@ def time_kernels(site_fn, names, sizes=None):
     report = {}
     for n_frames, reps in sizes or ((1, 50), (DISPATCH, 20), (THROUGHPUT_FRAMES, 10)):
         per_kernel = {name: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-                             "library_ms": None, "ops": 0.0, "bytes": 0.0, "sites": {}}
+                             "library_ms": None, "ops": 0.0, "bytes": 0.0, "ops_s": 0.0,
+                             "sites": {}}
                       for name in names}
         for st in site_fn(n_frames, torch.bfloat16):
             k_ms, p_ms = gpu_ms(st.run, reps), gpu_ms(st.plain, reps)
             l_ms = None if st.lib is None else gpu_ms(st.lib, reps)
-            b_ms, b_by = bound_ms(st.flops, st.bytes)
+            b_ms, b_by = bound_ms(st.flops, st.bytes, st.rate)
             agg = per_kernel[st.kernel]
             agg["ms"] += k_ms
             agg["plain_ms"] += p_ms
             agg["bound_ms"] += b_ms
             agg["ops"] += st.flops
+            agg["ops_s"] += st.flops / st.rate
             agg["bytes"] += st.bytes
             if l_ms is not None:
                 agg["library_ms"] = (agg["library_ms"] or 0.0) + l_ms
             agg["sites"][st.site] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
                                      "bound_ms": b_ms, "bound_by": b_by}
+            if st.rate != F32_FLOPS:  # beside it, the f32-core bound earlier runs reported
+                f32_ms = bound_ms(st.flops, st.bytes)[0]
+                agg["bound_ms_f32_cores"] = agg.get("bound_ms_f32_cores", 0.0) + f32_ms
+                agg["sites"][st.site]["bound_ms_f32_cores"] = f32_ms
             log(f"time {st.kernel:22s} {st.site:7s} frames={n_frames:<4d} kernel={k_ms:.4f} ms "
                 f"plain={p_ms:.4f} ms library={l_ms if l_ms is None else round(l_ms, 4)} "
                 f"bound={b_ms:.4f} ms ({b_by})")
         for agg in per_kernel.values():
-            t_ops, t_bytes = agg["ops"] / F32_FLOPS, agg["bytes"] / HBM_BYTES_PER_S
+            t_ops, t_bytes = agg.pop("ops_s"), agg["bytes"] / HBM_BYTES_PER_S
             agg["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
         report[n_frames] = per_kernel
     return report
@@ -2372,6 +2404,8 @@ def main() -> int:
     v0, v2 = build_vocoder(V0_CONFIG), build_vocoder(V2_CONFIG)
     require(vocoder_topology_error(v0, FRAME, hop=codec.hop) is None,
             "the v0 receiver is not on the kernel route")
+    stage0_plans = {"vocoder": check_stage0_clusters(voc, "vctk_v1"),
+                    "vocoder_v0": check_stage0_clusters(v0, "vctk_v0")}
     log(f"v0 receiver (MultiReceptiveField): {sum(p.numel() for p in v0.parameters())} "
         f"params; v2 receiver: {sum(p.numel() for p in v2.parameters())} params")
     stamp("phase 1 (build, models)")
@@ -2504,6 +2538,8 @@ def main() -> int:
                           "vocoder": (voc_ktimes, voc_times["device_n1"], voc_ktimes_b),
                           }[first_path]
         agg1, agg, agg400 = (kt[n][name] for n in SIZES)
+        keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms") + (
+            ("bound_ms_f32_cores",) if name == "hifigan_unit" else ())
         entry = {
             "name": name, "route": "cuda", "source": spec["source"],
             "replaces": spec["replaces"],
@@ -2525,10 +2561,16 @@ def main() -> int:
             f"bound_ms_{THROUGHPUT_FRAMES}frames": agg400["bound_ms"],
             f"library_ms_{THROUGHPUT_FRAMES}frames": agg400["library_ms"],
             f"streams_{BATCH}": {
-                f"frames_{n}": {key: kt_b[n][name][key] for key in
-                                ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+                f"frames_{n}": {key: kt_b[n][name][key] for key in keys}
                 for n in BATCH_SIZES},
         }
+        if name == "hifigan_unit":
+            entry["bound_is"] = (f"operations at {TF32_FLOPS:.3g} FLOP/s TF32 over the split "
+                                 "passes (2 with bf16 weights); bound_ms_f32_cores at "
+                                 f"{F32_FLOPS:.3g}, the f32 rate earlier runs reported")
+            entry["bound_ms_f32_cores"] = agg["bound_ms_f32_cores"]
+            entry["bound_ms_f32_cores_1frame"] = agg1["bound_ms_f32_cores"]
+            entry[f"bound_ms_f32_cores_{THROUGHPUT_FRAMES}frames"] = agg400["bound_ms_f32_cores"]
         if name in codec_worst:
             entry["max_abs_err"] = max(entry["max_abs_err"], codec_worst[name])
         if name in voc_worst:
@@ -2537,13 +2579,11 @@ def main() -> int:
             entry[f"vocoder_sites_streams_{BATCH}"] = {
                 str(n): voc_ktimes_b[n][name]["sites"] for n in BATCH_SIZES}
             entry["vocoder_v0"] = {
-                f"frames_{n}": {key: v0_ktimes[n][name][key] for key in
-                                ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+                f"frames_{n}": {key: v0_ktimes[n][name][key] for key in keys}
                 for n in SIZES}
             entry["vocoder_v0"].update({
-                f"streams_{BATCH}_frames_{n}": {key: v0_ktimes_b[n][name][key] for key in
-                                                ("ms", "plain_ms", "bound_ms", "bound_by",
-                                                 "library_ms")}
+                f"streams_{BATCH}_frames_{n}": {key: v0_ktimes_b[n][name][key]
+                                                for key in keys}
                 for n in BATCH_SIZES})
             entry["vocoder_v0_sites"] = {str(n): v0_ktimes[n][name]["sites"] for n in SIZES}
             entry[f"vocoder_v0_sites_streams_{BATCH}"] = {
@@ -2591,6 +2631,7 @@ def main() -> int:
               "elapsed_seconds_by_step": elapsed,
               "main_path_errors": main_errs, "codec_path_checks": codec_errs,
               "vocoder_path_checks": voc_checks, "vocoder_times": voc_times,
+              "unit_plans_one_stream_one_frame": stage0_plans,
               "vocoder_v0_path_checks": v0_checks, "vocoder_v0_fleet_checks": v0_fleet_checks,
               "vocoder_v0_times": v0_times, "vocoder_v2_checks": v2_checks,
               "cli_checks": cli_checks,

@@ -34,7 +34,8 @@ _P, _I, _L, _Z, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c
 # C entry points: name -> (argtypes, restype). The layer kernels take (cache,
 # cache stream stride, x, ...) and the stream count B; the boundary convs an
 # activation code and slope (and causal_conv a tanh flag) before the weight type;
-# hifigan_unit an optional running sum and an output scale after its biases;
+# hifigan_unit an optional running sum and an output scale after its biases,
+# and its (tile, cluster) plan;
 # the DFT kernels the padded signal and its frames' geometry (signal stride, hop,
 # frames per signal, rows, n_fft) before the bases.
 _ENTRIES = {
@@ -60,8 +61,8 @@ _ENTRIES = {
     },
     "hifigan_unit": {
         "dse_hifigan_unit": ([_P, _L, _P, _L, _P, _P, _P, _P, _P, _P, _F, _P, _P, _I, _I, _I,
-                              _I, _I, _I, _I, _I, _F, _I, _P], _I),
-        "dse_hifigan_unit_smem": ([_I, _I, _I], _Z),
+                              _I, _I, _I, _I, _I, _I, _F, _I, _P], _I),
+        "dse_hifigan_unit_smem": ([_I, _I, _I, _I, _I, _I], _Z),
     },
     "dft_spectrum": {
         "dse_log_mel": ([_P, _L, _I, _I, _I, _I, _P, _P, _I, _P, _I, _F, _I, _P, _P], _I),

@@ -106,40 +106,111 @@ def hifigan_unit_plain(cache1, cache2, x, w1, b1, w2, b2, dilation: int, groups:
     return out * out_scale, tail(cache2, h, taps - 1)
 
 
-def _tile_bm(c: int) -> int:
-    return 128 if c <= 32 else 64  # csrc/tile_gemm.cuh Tile<BN>::BM
+# csrc/tile_mma.cuh and csrc/hifigan_unit.cu, as the planner needs them
+_UNIT_CLUSTERS = (1, 2, 4, 8)  # blocks splitting a group's columns
+_UNIT_STAGES, _UNIT_KC = 4, 64  # W ring depth, input channels per ring stage
+_UNIT_BLOCKS_PER_SM = 2  # of 256 threads: 65,536 registers at up to 128 a thread
 
 
-@functools.lru_cache(maxsize=256)
-def _unit_plan(batch: int, rows: int, c: int, groups: int, taps: int) -> int:
-    """Output rows per block of the unit kernel, for ``batch`` streams of
-    ``rows`` rows. Each block recomputes the ``taps - 1`` h rows before its
-    tile, so long tiles waste less, but fewer tiles fill fewer SMs. As
-    ops/stream_kernel.py::_chain_plan does, the model counts the GEMM steps
-    one block makes times the blocks an SM runs in turn or side by side,
-    over the grid of ``batch * ceil(rows / tile) * groups`` blocks, and
-    takes the cheapest tile whose shared memory fits; ties go to fewer
-    blocks."""
-    lib = _cuda.load("hifigan_unit")
-    bm = _tile_bm(c)
-    col_tiles = -(-c // (32 if c <= 32 else 64))
-    k_slices = -(-c // 32)
-    candidates = {4, 8, 16, 32, 64, 128, 256, rows}
-    candidates |= {m * bm - (taps - 1) for m in (1, 2, 3, 4)}
+def _round16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def _unit_fragments(nc: int) -> int:
+    """8-column mma fragments across a block computing ``nc`` columns (NF)."""
+    return 1 if nc <= 8 else 2 if nc <= 16 else 4 if nc <= 32 else 8
+
+
+def _unit_clusters(c: int) -> list[int]:
+    """Cluster sizes the kernel takes for ``c`` columns a group: each block's
+    share a multiple of 4 columns (16-byte weight copies), at most 64."""
+    return [n for n in _UNIT_CLUSTERS if c % n == 0 and (c // n) % 4 == 0 and c // n <= 64]
+
+
+def _unit_fit_error(c: int, taps: int, dilation: int) -> str | None:
+    """Why no (tile, cluster) plan of the unit kernel fits ``c`` columns a
+    group at kernel ``taps`` and ``dilation``, or None: the planner's own
+    test at its shortest tile, one row, with f32 weights (the larger ring)."""
+    if not _unit_clusters(c):
+        return (f"the unit kernel takes a multiple of 4 channels per group, at most "
+                f"{64 * _UNIT_CLUSTERS[-1]}, not {c}")
+    if not any(unit_smem_bytes(1, c, taps, dilation, n, False) <= _MAX_SMEM
+               for n in _unit_clusters(c)):
+        return (f"{c} channels per group at kernel {taps}, dilation {dilation} do not fit "
+                "the unit kernel's shared memory")
+    return None
+
+
+def unit_smem_bytes(tile: int, c: int, taps: int, dilation: int, cluster: int,
+                    bf16: bool) -> int:
+    """Shared memory of one hifigan_unit block (csrc/hifigan_unit.cu::
+    dse_hifigan_unit_smem): the W ring, the input window of ``tile + taps -
+    1`` h rows (rounded up to 16) reaching back ``(taps - 1) * dilation``
+    rows, and the h window of ``tile`` rows (rounded up to 16) plus ``taps -
+    1``, each row ``c`` floats rounded up to 8 plus 4 of padding."""
+    nf = _unit_fragments(c // cluster)
+    ring = _UNIT_STAGES * _UNIT_KC * (8 * nf + 8) * (2 if bf16 else 4)
+    lda = -(-c // 8) * 8 + 4
+    rows = (_round16(tile + taps - 1) + (taps - 1) * dilation) + (_round16(tile) + taps - 1)
+    return ring + 4 * lda * rows
+
+
+def _unit_warp_rows(tile: int, taps: int, nf: int) -> int:
+    """16-row fragments per warp (csrc/hifigan_unit.cu::unit_wm): 2 once GEMM
+    1's window outgrows one block chunk of 1."""
+    return 2 if _round16(tile + taps - 1) > 16 * (8 // min(nf, 4)) else 1
+
+
+@functools.lru_cache(maxsize=512)
+def _unit_plan(batch: int, rows: int, c: int, groups: int, taps: int, dilation: int,
+               bf16: bool) -> tuple[int, int]:
+    """(tile, cluster) for the unit kernel: output rows per block, and blocks
+    per cluster splitting a group's ``c`` columns, for ``batch`` streams of
+    ``rows`` rows. Each cluster recomputes the ``taps - 1`` h rows before its
+    tile, so long tiles waste less, but fewer tiles fill fewer SMs; a wider
+    cluster spreads a tile over more SMs, each with fewer columns. As
+    ops/stream_kernel.py::_chain_plan does, the model counts the serial work
+    of one block times the blocks an SM runs in turn or side by side, over
+    the grid of ``batch * ceil(rows / tile) * groups * cluster`` blocks. A
+    block's work is a barrier per (tap, 64-channel) step and, per 8-channel
+    slice, 3 + the mma fragments a warp holds in eighths (a step is mostly
+    latency: a warp with twice the fragments takes ~1.2x as long), and its
+    staging and gather copies. Among the plans whose shared memory fits it
+    takes the one with the fewest blocks within 5 % of the cheapest (the
+    model is no finer than that, and every extra block reads its weights
+    again). Pure Python, so the CPU tests hold it."""
     plans = []
-    for tile in sorted(t for t in candidates if 0 < t <= rows):
-        smem = lib.dse_hifigan_unit_smem(tile, c, taps)
-        if smem > _MAX_SMEM:
-            continue
-        steps = (-(-(tile + taps - 1) // bm) + -(-tile // bm)) * col_tiles * taps * k_slices
-        blocks = batch * -(-rows // tile) * groups
-        per_sm = max(1, min(8, (_MAX_SMEM + 1024) // (smem + 1024)))
-        waves = -(-blocks // (_N_SM * per_sm))
-        sharing = min(per_sm, -(-blocks // _N_SM))
-        plans.append(((waves * sharing * steps, blocks), tile))
+    slices, k8 = -(-c // _UNIT_KC), -(-c // 8)
+    kp = 8 * k8
+    for cluster in _unit_clusters(c):
+        nc = c // cluster
+        nf = _unit_fragments(nc)
+        warps_n = min(nf, 4)
+        wn = nf // warps_n
+        candidates = {1, 4, 8, 16, 32, 64, 128, 256, rows}
+        for wm in (1, 2):
+            candidates |= {m * 16 * wm * (8 // warps_n) - (taps - 1) for m in range(1, 9)}
+        for tile in sorted(t for t in candidates if 0 < t <= rows):
+            smem = unit_smem_bytes(tile, c, taps, dilation, cluster, bf16)
+            if smem > _MAX_SMEM:
+                continue
+            wm = _unit_warp_rows(tile, taps, nf)
+            bm = 16 * wm * (8 // warps_n)
+            chunks = -(-(tile + taps - 1) // bm) + -(-tile // bm)
+            copies = ((_round16(tile + taps - 1) + (taps - 1) * dilation) * kp
+                      + (tile + taps - 1) * (c - nc)) / 256
+            work = chunks * taps * (2 * slices + k8 * (3 + wm * wn) / 8) + copies
+            blocks = batch * -(-rows // tile) * groups * cluster
+            per_sm = max(1, min(_UNIT_BLOCKS_PER_SM, (_MAX_SMEM + 1024) // (smem + 1024)))
+            waves = -(-blocks // (_N_SM * per_sm))
+            sharing = min(per_sm, -(-blocks // _N_SM))
+            plans.append((waves * sharing * work, blocks, (tile, cluster)))
     if not plans:
-        raise ValueError(f"hifigan_unit: no tile fits shared memory at c={c}, k={taps}")
-    return min(plans)[1]
+        raise ValueError(f"hifigan_unit: no plan fits at {c} columns a group, kernel {taps}, "
+                         f"dilation {dilation}")
+    cheapest = min(p[0] for p in plans)
+    return min((blocks, cost, plan) for cost, blocks, plan in plans
+               if cost <= 1.05 * cheapest)[2]
 
 
 def hifigan_unit(cache1: torch.Tensor, cache2: torch.Tensor, x: torch.Tensor,
@@ -155,9 +226,11 @@ def hifigan_unit(cache1: torch.Tensor, cache2: torch.Tensor, x: torch.Tensor,
     of a MultiGroupConv1d (every group reads x); cache1 (B, (k-1) * dilation,
     Cin), the tail of the raw unit input (any stream stride); cache2 (B, k-1,
     groups * c), conv2's activated window rows; w1, w2 (k, c, groups * c) f32
-    or bf16; b1, b2 (groups * c,) f32 or None; acc None or x's batch and
-    time by groups * c, f32. 2-D tensors are one stream. Returns (out (B, T,
-    groups * c), new cache2 (B, k-1, groups * c))."""
+    or bf16, 16-byte aligned, c a multiple of 4; b1, b2 (groups * c,) f32 or
+    None; acc None or x's batch and time by groups * c, f32. 2-D tensors are
+    one stream. Returns (out (B, T, groups * c), new cache2 (B, k-1, groups *
+    c)). On the card the products are split-TF32 tensor-core passes in a
+    fixed order, so a stream's bits do not depend on B or the plan."""
     if x.device.type == "cpu":
         return hifigan_unit_plain(cache1, cache2, x, w1, b1, w2, b2, dilation, groups, slope,
                                   acc, out_scale)
@@ -192,16 +265,20 @@ def hifigan_unit(cache1: torch.Tensor, cache2: torch.Tensor, x: torch.Tensor,
     new2 = torch.empty((B, taps - 1, gc), device=x.device)
     if B * T == 0:
         return out, cache2.clone()
+    if c % 4 or any(w.data_ptr() % 16 for w in (w1, w2)):
+        raise ValueError(f"hifigan_unit: {c} columns a group must be a multiple of 4, and "
+                         "the weights 16-byte aligned")
+    bf16 = w1.dtype == torch.bfloat16
+    tile, cluster = _unit_plan(B, T, c, groups, taps, dilation, bf16)
     lib = _cuda.load("hifigan_unit")
-    tile = _unit_plan(B, T, c, groups, taps)
     err = lib.dse_hifigan_unit(cache1.data_ptr(), cache1.stride(0), cache2.data_ptr(),
                                cache2.stride(0), x.data_ptr(), w1.data_ptr(),
                                None if b1 is None else b1.data_ptr(), w2.data_ptr(),
                                None if b2 is None else b2.data_ptr(),
                                None if acc is None else acc.data_ptr(), out_scale,
                                out.data_ptr(), new2.data_ptr(), B, T, c, groups,
-                               int(cin != gc), taps, dilation, tile, slope,
-                               int(w1.dtype == torch.bfloat16), _cuda.stream_handle(x))
+                               int(cin != gc), taps, dilation, tile, cluster, slope,
+                               int(bf16), _cuda.stream_handle(x))
     _cuda.check(lib, err, "hifigan_unit")
     hifigan_unit.launches += 1
     return out, new2
@@ -230,11 +307,10 @@ def vocoder_topology_error(voc, chunk: int, hop: int | None = None) -> str | Non
                                                          or rb.convs1[0].groups != 1):
                 return (f"stage {si} block {bi}: a MultiReceptiveField block must take the "
                         f"stage's {c} channels, ungrouped")
-            # csrc/tile_gemm.cuh's staging plus a 4-row tile's h window (c per group)
-            floats = (5248 if c <= 32 else 4224) + (4 + taps - 1) * c
-            if 4 * floats > _MAX_SMEM:
-                return (f"stage {si}: {c} channels per group at kernel {taps} do not fit "
-                        "the unit kernel's shared memory")
+            for conv in rb.convs1:
+                reason = _unit_fit_error(c, taps, conv.dilation)
+                if reason:
+                    return f"stage {si}: {reason}"
     for name, conv in (("input", voc.input_conv), ("output", voc.output_conv)):
         if conv.stride != 1 or conv.dilation != 1 or conv.groups != 1:
             return f"the {name} conv must be unstrided, undilated and ungrouped"

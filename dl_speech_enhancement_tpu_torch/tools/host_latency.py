@@ -1,5 +1,5 @@
-"""N=1 latency of the codecs' streams in fresh processes, to tell a change in
-host time apart from run-to-run spread, on one card.
+"""N=1 latency of the codec and receiver streams in fresh processes, to tell a
+change in host time apart from run-to-run spread, on one card.
 
     python dl_speech_enhancement_tpu_torch/tools/host_latency.py \\
         --tree parent=DIR --tree change=DIR \\
@@ -22,9 +22,10 @@ entry of ``--order`` runs one child process on that tree's package, which:
   frame per dispatch, the cache carried (10 warm-up and 200 timed
   dispatches; wall time on the host clock around the call and a
   synchronize, and the host time until the call returns), and the same for
-  the ``vctk_v1`` receiver path, ``make_vocoder_scan_stream`` of the codec
-  and the AudioDec v1 receiver (bf16 weights);
-- digests (SHA-256) the receiver path's audio over those frames from zero
+  the ``vctk_v1`` and ``vctk_v0`` receiver paths, ``make_vocoder_scan_stream``
+  of the codec and the AudioDec v1 receiver, and of the codec and the
+  AudioDec v0 (MultiReceptiveField) receiver (bf16 weights);
+- digests (SHA-256) each receiver path's audio over those frames from zero
   caches, so two trees whose digests agree computed it bit for bit alike;
 - times the host cost of one ``causal_conv`` / ``causal_conv_transpose``
   wrapper call (2000 calls on a 4-row, 32-channel input whose kernel takes
@@ -81,11 +82,11 @@ def _wrapper_us(torch, fn, *args):
     return host / WRAPPER_CALLS * 1e6
 
 
-def _v1_receiver(root, load_config):
+def _receiver(root, load_config, version="v1"):
     from dl_speech_enhancement_tpu_torch.models import HiFiGANGenerator
 
     gp = dict(load_config(os.path.join(
-        root, "configs", "vocoder", "AudioDec_v1_symAD_vctk_48000_hop300_clean.yaml"))
+        root, "configs", "vocoder", f"AudioDec_{version}_symAD_vctk_48000_hop300_clean.yaml"))
         ["generator_params"])
     gp.pop("nonlinear_activation")
     gp["negative_slope"] = gp.pop("nonlinear_activation_params")["negative_slope"]
@@ -98,7 +99,7 @@ def _drive_vocoder(torch, root, codec, vq, load_config):
     from dl_speech_enhancement_tpu_torch.parallel import make_sharded_stream
     from dl_speech_enhancement_tpu_torch.stream.runtime import make_vocoder_scan_stream
 
-    voc = _v1_receiver(root, load_config)
+    voc = _receiver(root, load_config)
     kept = [voc]
     run = make_vocoder_scan_stream(codec, vq, voc, FRAME, weight_dtype=torch.float32)
     frames = torch.randn(200, FRAME, device="cuda") * 0.1
@@ -159,10 +160,13 @@ def child(root: str, vocoder: bool) -> dict:
               "cuda_reserved_bytes": torch.cuda.memory_reserved()}
     report["denoiser"] = _latency(torch, make_scan_stream(gen, frame_size=FRAME), frames)
     report["codec"] = _latency(torch, make_scan_stream(codec, vq, frame_size=FRAME), frames)
-    receiver = make_vocoder_scan_stream(codec, vq, _v1_receiver(root, load_config), FRAME)
-    report["receiver_v1"] = _latency(torch, receiver, frames[:, 0, :, 0])
-    audio, _ = receiver(receiver.init_cache(), frames[:, 0, :, 0])
-    report["receiver_v1_digest"] = hashlib.sha256(audio.cpu().numpy().tobytes()).hexdigest()
+    for version in ("v1", "v0"):
+        receiver = make_vocoder_scan_stream(codec, vq, _receiver(root, load_config, version),
+                                            FRAME)
+        report[f"receiver_{version}"] = _latency(torch, receiver, frames[:, 0, :, 0])
+        audio, _ = receiver(receiver.init_cache(), frames[:, 0, :, 0])
+        report[f"receiver_{version}_digest"] = hashlib.sha256(
+            audio.cpu().numpy().tobytes()).hexdigest()
     g = torch.Generator(device="cuda").manual_seed(2)
     x = torch.randn(1, 4, 32, device="cuda", generator=g)
     cache = torch.randn(1, 6, 32, device="cuda", generator=g)
@@ -176,7 +180,8 @@ def child(root: str, vocoder: bool) -> dict:
 
 
 METRICS = (("denoiser", "median_ms"), ("codec", "median_ms"), ("receiver_v1", "median_ms"),
-           ("causal_conv_host_us", None), ("causal_conv_transpose_host_us", None))
+           ("receiver_v0", "median_ms"), ("causal_conv_host_us", None),
+           ("causal_conv_transpose_host_us", None))
 
 
 def _quartiles(xs):
@@ -187,12 +192,15 @@ def _quartiles(xs):
 def summary(result: dict) -> list[str]:
     runs, lines = result["runs"], [result["card"]]
     entries = sorted({r["entry"] for r in runs})
-    digests = {r["entry"]: sorted({q["receiver_v1_digest"] for q in runs
-                                   if q["entry"] == r["entry"]}) for r in runs}
-    lines.append("receiver v1 audio digests: " + "; ".join(
-        f"{entry} {' '.join(d[:12] for d in ds)}" for entry, ds in sorted(digests.items()))
-        + ("; all equal" if len({d for ds in digests.values() for d in ds}) == 1
-           else "; they differ"))
+    for version in ("v1", "v0"):
+        key = f"receiver_{version}_digest"
+        digests = {r["entry"]: sorted({q[key] for q in runs
+                                       if q["entry"] == r["entry"] and key in q})
+                   for r in runs}
+        lines.append(f"receiver {version} audio digests: " + "; ".join(
+            f"{entry} {' '.join(d[:12] for d in ds)}" for entry, ds in sorted(digests.items()))
+            + ("; all equal" if len({d for ds in digests.values() for d in ds}) == 1
+               else "; they differ"))
     for key, sub in METRICS:
         def value(r):
             return r[key][sub] if sub else r[key]
@@ -252,7 +260,9 @@ def main() -> int:
               f"{rep['codec']['median_ms']:.3f} ms (enqueue "
               f"{rep['codec']['enqueue_median_ms']:.3f}) receiver v1 "
               f"{rep['receiver_v1']['median_ms']:.3f} ms, digest "
-              f"{rep['receiver_v1_digest'][:12]}; wrapper host us: causal_conv "
+              f"{rep['receiver_v1_digest'][:12]}; receiver v0 "
+              f"{rep['receiver_v0']['median_ms']:.3f} ms, digest "
+              f"{rep['receiver_v0_digest'][:12]}; wrapper host us: causal_conv "
               f"{rep['causal_conv_host_us']:.2f}, causal_conv_transpose "
               f"{rep['causal_conv_transpose_host_us']:.2f}; gc objects "
               f"{rep['gc_tracked_objects']}", flush=True)

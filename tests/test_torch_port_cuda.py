@@ -28,7 +28,11 @@ running sum; the codec endpoints' kernel routes equal their plain modules;
 K1f (the residual_chain kernel behind the folded chain's
 contract) equals K1 bit for bit; T1's fold_copy equals numpy's reshape
 exactly; ``cli.stream.main --model vctk_v0`` runs on the card from a small
-checkpoint tree. chip_smoke.py makes the same checks at the flagship's
+checkpoint tree. The unit kernel is also held at every cluster size its
+planner can pick (each equal bit for bit to the planned run), its
+shared-memory formula against the Python one the planner uses, and one
+stream's output alone, among 16 streams (another plan) and across two
+runs, bit for bit. chip_smoke.py makes the same checks at the flagship's
 shapes.
 """
 
@@ -63,10 +67,13 @@ from dl_speech_enhancement_tpu_torch.losses import (
 )
 from dl_speech_enhancement_tpu_torch.models.autoencoder import ResidualUnit
 from dl_speech_enhancement_tpu_torch.models.hifigan import HiFiGANGenerator
-from dl_speech_enhancement_tpu_torch.ops import mel_kernel
+from dl_speech_enhancement_tpu_torch.ops import _cuda, mel_kernel
+from dl_speech_enhancement_tpu_torch.ops import vocoder_kernel
 from dl_speech_enhancement_tpu_torch.ops.vocoder_kernel import (
+    _unit_plan,
     hifigan_unit,
     hifigan_unit_plain,
+    unit_smem_bytes,
 )
 from dl_speech_enhancement_tpu_torch.stream.runtime import (
     StreamingReceiver,
@@ -332,12 +339,15 @@ def test_causal_conv_transpose_kernel_activated(card, batch, cin, cout, stride):
     (1, 20, 256, 3, 11, 1, True), (1, 20, 256, 3, 11, 5, False), (3, 100, 128, 3, 11, 3, False),
     (16, 25, 64, 3, 11, 5, False), (2, 1200, 32, 3, 11, 1, True), (3, 7, 8, 2, 3, 2, True),
     (2, 33, 16, 1, 7, 3, False), (4, 3, 16, 2, 5, 1, False),
+    (1, 20, 256, 1, 3, 1, False), (1, 20, 256, 1, 7, 3, False), (1, 20, 256, 1, 11, 5, False),
+    (1, 1200, 32, 1, 11, 5, False),
 ])
 def test_hifigan_unit_kernel(card, batch, rows, c, groups, k, dilation, tiled, wd):
-    """Every unit of the v1 receiver's stages (and small ones, groups 1, a
-    dispatch shorter than the conv2 window): output and next conv2 cache
-    against the plain version, caches at a stream stride, and no stream
-    reaching another."""
+    """Every unit of the v1 receiver's stages and the v0 receiver's
+    MultiReceptiveField stage shapes (groups 1, k = 3/7/11 at stage 0, and
+    stage 3), and small ones (groups 1, a dispatch shorter than the conv2
+    window): output and next conv2 cache against the plain version, caches
+    at a stream stride, and no stream reaching another."""
     cin = c if tiled else groups * c
     cache1 = _tail_view(card, batch, (k - 1) * dilation, cin)
     cache2 = _tail_view(card, batch, k - 1, groups * c)
@@ -362,6 +372,73 @@ def test_hifigan_unit_kernel(card, batch, rows, c, groups, k, dilation, tiled, w
     torch.cuda.synchronize()
     assert not torch.equal(again[0], got[0])
     assert torch.equal(again[1:], got[1:]) and torch.equal(again2[1:], got2[1:])
+
+
+def _unit_operands(card, batch, rows, c, groups, k, dilation, wd=torch.float32):
+    cache1 = _tail_view(card, batch, (k - 1) * dilation, groups * c)
+    cache2 = _tail_view(card, batch, k - 1, groups * c)
+    x = _randn(card, batch, rows, groups * c) * 3
+    w1 = (_randn(card, k, c, groups * c) / (k * c) ** 0.5).to(wd)
+    w2 = (_randn(card, k, c, groups * c) / (k * c) ** 0.5).to(wd)
+    return cache1, cache2, x, w1, _randn(card, groups * c), w2, _randn(card, groups * c)
+
+
+@pytest.mark.parametrize("wd", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+def test_hifigan_unit_kernel_every_cluster(card, monkeypatch, cluster, wd):
+    """Every cluster size the planner can pick (64 columns a group: 64, 32,
+    16 and 8 columns a block), at a short tile and a long one (one and two
+    16-row fragments a warp): each within ATOL of the plain version and
+    equal bit for bit to the planner's own plan."""
+    args = _unit_operands(card, 2, 150, 64, 2, 7, 3, wd)
+    ref, ref2 = hifigan_unit_plain(*args, 3, 2, 0.1)
+    planned, planned2 = hifigan_unit(*args, 3, 2, 0.1)
+    limit = ATOL if wd == torch.float32 else 1e-4 * float(ref.abs().max())
+    for tile in (10, 150):
+        monkeypatch.setattr(vocoder_kernel, "_unit_plan", lambda *a: (tile, cluster))
+        got, got2 = hifigan_unit(*args, 3, 2, 0.1)
+        torch.cuda.synchronize()
+        assert float((got - ref).abs().max()) <= limit
+        assert float((got2 - ref2).abs().max()) <= limit
+        assert torch.equal(got, planned) and torch.equal(got2, planned2)
+
+
+def test_hifigan_unit_smem_formula_matches_the_library(card):
+    """ops/vocoder_kernel.py::unit_smem_bytes, which the planner and
+    vocoder_topology_error ask, equals the library's dse_hifigan_unit_smem."""
+    lib = _cuda.load("hifigan_unit")
+    for tile in (1, 4, 20, 54, 118, 510):
+        for c, cluster in ((4, 1), (8, 2), (16, 1), (32, 4), (48, 1), (64, 2), (128, 2),
+                           (256, 4), (256, 8)):
+            for taps, dilation in ((3, 1), (7, 3), (11, 5)):
+                for bf16 in (False, True):
+                    assert lib.dse_hifigan_unit_smem(tile, c, taps, dilation, cluster,
+                                                     int(bf16)) == unit_smem_bytes(
+                        tile, c, taps, dilation, cluster, bf16)
+
+
+@pytest.mark.parametrize("wd", [torch.float32, torch.bfloat16])
+def test_hifigan_unit_stream_bits_do_not_depend_on_the_batch(card, wd):
+    """At the v0 receiver's stage 0 (20 rows a stream, c = 256, k = 3) one
+    stream alone and the same stream among 16 take different plans (8-row
+    and 20-row tiles), yet give the same bits, and so do two runs of
+    either."""
+    batch, rows, c, k, d = 16, 20, 256, 3, 5
+    assert _unit_plan(1, rows, c, 1, k, d, wd == torch.bfloat16) != _unit_plan(
+        batch, rows, c, 1, k, d, wd == torch.bfloat16)
+    cache1, cache2, x, w1, b1, w2, b2 = _unit_operands(card, batch, rows, c, 1, k, d, wd)
+    acc = _randn(card, batch, rows, c)
+    fleet = hifigan_unit(cache1, cache2, x, w1, b1, w2, b2, d, 1, 0.1, acc, 1 / 3)
+    again = hifigan_unit(cache1, cache2, x, w1, b1, w2, b2, d, 1, 0.1, acc, 1 / 3)
+    for b in (0, 7, 15):
+        alone = hifigan_unit(cache1[b:b + 1], cache2[b:b + 1], x[b:b + 1].contiguous(), w1, b1,
+                             w2, b2, d, 1, 0.1, acc[b:b + 1].contiguous(), 1 / 3)
+        twice = hifigan_unit(cache1[b:b + 1], cache2[b:b + 1], x[b:b + 1].contiguous(), w1, b1,
+                             w2, b2, d, 1, 0.1, acc[b:b + 1].contiguous(), 1 / 3)
+        torch.cuda.synchronize()
+        for one, other in ((alone, twice), (alone, (fleet[0][b:b + 1], fleet[1][b:b + 1]))):
+            assert torch.equal(one[0], other[0]) and torch.equal(one[1], other[1])
+    assert torch.equal(fleet[0], again[0]) and torch.equal(fleet[1], again[1])
 
 
 @pytest.mark.parametrize("batch,rows,c,k,dilation", [
