@@ -32,7 +32,9 @@ line):
    ``dl_speech_enhancement_tpu_torch/csrc`` (one ``nvcc`` each, all at once)
    and the models on the card; log every ``hifigan_unit`` site's (tile,
    cluster) plan at one stream of one frame, where each stage-0 unit must
-   run on a cluster of more than one block;
+   run on a cluster of more than one block, and every ``causal_conv``
+   site's (arm, tile, steps per block) plan of each path (the times of
+   phase 4 log each site's plan too);
 2. hold every kernel against its plain PyTorch version at every site of the
    three models, for one stream at 1, 100 (the single-stream paths'
    dispatch) and 400 frames per dispatch (the receiver at 1 and 100) with f32
@@ -95,8 +97,9 @@ line):
    100 and 400 frames against its plain version, its bound and its one-call
    PyTorch equivalent (``F.conv1d`` / ``F.conv_transpose1d`` /
    ``F.embedding_bag``, and two grouped ``F.conv1d`` calls for a HiFiGAN
-   unit: yardsticks the port never calls), with CUDA events (a unit's bound
-   at the split-TF32 rate it runs, its f32-core bound beside it); then the same
+   unit: yardsticks the port never calls), with CUDA events (a unit's and a
+   GEMM-arm causal_conv's bound at the split-TF32 rate it runs, the f32-core
+   bound beside it); then the same
    sites at 16 streams of 1 and 16 frames, and per-stream-frame time and
    busy share of B = 1, 4, 16 and 64 streams (the receiver's fleet: 16 and
    64) at 1 and 16 frames per dispatch, through the kernel route, the
@@ -158,6 +161,7 @@ from dl_speech_enhancement_tpu_torch.nn.conv import ConvTranspose1d
 from dl_speech_enhancement_tpu_torch.nn.vq import VQState
 from dl_speech_enhancement_tpu_torch.ops import _cuda
 from dl_speech_enhancement_tpu_torch.ops.mega_kernel import (
+    _conv_plan,
     causal_conv,
     causal_conv_plain,
     causal_conv_transpose,
@@ -195,6 +199,7 @@ from dl_speech_enhancement_tpu_torch.ops.stream_kernel import (
 )
 from dl_speech_enhancement_tpu_torch.ops.vocoder_kernel import (
     _unit_plan,
+    conv_sites,
     hifigan_unit,
     hifigan_unit_plain,
     make_stacked_vocoder,
@@ -245,9 +250,9 @@ SIZES = (1, DISPATCH, THROUGHPUT_FRAMES)   # frames per dispatch of the kernel c
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 F32_FLOPS = 67e12          # H100 SXM f32 rate outside the tensor cores
 TF32_FLOPS = 495e12        # H100 SXM dense TF32 tensor-core rate
-# hifigan_unit's products are split-TF32 tensor-core passes: 2 with bf16
-# weights (exact in TF32), 3 with f32 weights.
-UNIT_PASSES = {torch.bfloat16: 2, torch.float32: 3}
+# hifigan_unit's products, and causal_conv's on its GEMM arm, are split-TF32
+# tensor-core passes: 2 with bf16 weights (exact in TF32), 3 with f32 weights.
+TF32_PASSES = {torch.bfloat16: 2, torch.float32: 3}
 # Tolerances. Kernel vs plain: the same products summed in another order, up
 # to 2816 terms of O(1) values (a HiFiGAN unit at stage 0: 11 taps x 256
 # channels, two such sums chained, the second over rows of the first's
@@ -476,8 +481,9 @@ class Site(NamedTuple):
     """One kernel launch of a main-path dispatch: the kernel call, its plain
     version and its one-call PyTorch yardstick (or None) on the same
     inputs, the operations and bytes its bound counts, the (cache, x)
-    inputs of a layer kernel (None for the codec's search and lookup), and
-    the operation rate of the arithmetic the kernel uses."""
+    inputs of a layer kernel (None for the codec's search and lookup), the
+    operation rate of the arithmetic the kernel uses, and a causal_conv
+    launch's (arm, tile, steps per block) plan."""
 
     kernel: str
     site: str
@@ -488,6 +494,7 @@ class Site(NamedTuple):
     bytes: float
     inputs: tuple | None
     rate: float = F32_FLOPS
+    plan: tuple | None = None
 
 
 def make_rand(rng, batch):
@@ -511,21 +518,33 @@ def lib_input(cache, x):
     return (h if h.dim() == 3 else h[None]).transpose(1, 2).contiguous()
 
 
+def conv_plan(layer, batch: int, t_out: int, wd) -> tuple:
+    """causal_conv's (arm, tile, steps per block) for ``batch`` streams of
+    ``t_out`` output rows of ``layer`` with ``wd`` weights."""
+    return _conv_plan(batch, t_out, layer.in_channels, layer.out_channels, layer.kernel_size,
+                      layer.stride, layer.dilation, wd == torch.bfloat16)
+
+
 def conv_site(name, layer, rows, stride, bias, wd, rand, batch, leaky=None, tanh=False):
     """One causal_conv launch as a Site (``leaky`` / ``tanh`` as the
-    receiver's output conv fuses them; the yardstick is the bare conv)."""
+    receiver's output conv fuses them; the yardstick is the bare conv). Its
+    bound counts the operations at the split-TF32 rate where the planner
+    puts it on the GEMM arm, at the f32 rate on the Cin = 1 and Cout = 1
+    arms."""
     cin, cout, k = layer.in_channels, layer.out_channels, layer.kernel_size
     cache, x = rand((k - 1) * layer.dilation, cin, cache=True), rand(rows, cin)
     w = conv_weight(layer, wd)
     b = None if not bias else layer.bias.detach().float().contiguous()
     x_lib, w_lib = lib_input(cache, x), layer.weight.detach().float()
     t_out = rows // stride
+    plan = conv_plan(layer, batch, t_out, wd)
     return Site("causal_conv", name,
                 lambda: causal_conv(cache, x, w, b, stride, 1, leaky, tanh),
                 lambda: causal_conv_plain(cache, x, w, b, stride, 1, leaky, tanh),
                 lambda: F.conv1d(x_lib, w_lib, b, stride),
                 2.0 * batch * t_out * k * cin * cout,
-                nbytes(cache, x, w, b) + 4 * batch * t_out * cout, (cache, x))
+                nbytes(cache, x, w, b) + 4 * batch * t_out * cout, (cache, x),
+                TF32_FLOPS / TF32_PASSES[wd] if plan[0] == "gemm" else F32_FLOPS, plan)
 
 
 def upsample_site(name, layer, rows, wd, rand, batch, leaky=None):
@@ -566,6 +585,24 @@ def sites(gen, n_frames: int, wd, rng: torch.Generator, batch: int | None = None
         out.append(chain_site(f"d{bi}ch", blk, blk.conv.out_channels, t, wd, rand, nb))
     out.append(conv_site("dec_out", gen.decoder.conv2, t, 1, False, wd, rand, nb))
     return out
+
+
+CONV_PLAN_SHAPES = ((1, 1), (1, DISPATCH), (1, THROUGHPUT_FRAMES), (BATCH, 1), (BATCH, 16),
+                    (64, 1), (64, 16))
+
+
+def conv_plans(models: dict) -> dict:
+    """Phase 1: causal_conv's (arm, tile, steps per block) at every site of
+    each path's models, bf16 weights, at one stream of 1, 100 and 400 frames
+    and 16 and 64 streams of 1 and 16; logged at one stream of one frame."""
+    report = {}
+    for path, model in models.items():
+        report[path] = {f"B{b}_N{n}": {site: list(conv_plan(layer, b, rows * n, torch.bfloat16))
+                                        for site, layer, rows in conv_sites(model, FRAME)}
+                        for b, n in CONV_PLAN_SHAPES}
+        log(f"{path} causal_conv plans (arm, tile, steps per block) at one stream, one "
+            f"frame: {report[path]['B1_N1']}")
+    return report
 
 
 def chain_site(name, blk, c, t, wd, rand, batch):
@@ -1164,7 +1201,7 @@ def unit_site(name, rb, ui, groups, rows, wd, rand, batch, slope, acc=False, sca
     ``scale`` (a MultiReceptiveField block's last unit). The yardstick is
     the unit's two dilated ``F.conv1d`` calls (grouped as the unit) on
     inputs made ready for them. Its bound counts the operations at the
-    split-TF32 rate the kernel runs (``TF32_FLOPS / UNIT_PASSES``)."""
+    split-TF32 rate the kernel runs (``TF32_FLOPS / TF32_PASSES``)."""
     c1, c2 = rb.convs1[ui], rb.convs2[ui]
     gc, k, d = c1.out_channels, c1.kernel_size, c1.dilation
     c = gc // groups
@@ -1192,7 +1229,7 @@ def unit_site(name, rb, ui, groups, rows, wd, rand, batch, slope, acc=False, sca
                          F.conv1d(h_lib, w2_lib, b2, groups=groups)),
                 2 * 2.0 * batch * rows * k * c * gc,
                 nbytes(cache1, cache2, x, w1, b1, w2, b2, total)
-                + 4 * batch * (rows + k - 1) * gc, (cache1, x), TF32_FLOPS / UNIT_PASSES[wd])
+                + 4 * batch * (rows + k - 1) * gc, (cache1, x), TF32_FLOPS / TF32_PASSES[wd])
 
 
 def fusion_units(blk):
@@ -2171,8 +2208,8 @@ def time_kernels(site_fn, names, sizes=None):
     report = {}
     for n_frames, reps in sizes or ((1, 50), (DISPATCH, 20), (THROUGHPUT_FRAMES, 10)):
         per_kernel = {name: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-                             "library_ms": None, "ops": 0.0, "bytes": 0.0, "ops_s": 0.0,
-                             "sites": {}}
+                             "bound_ms_f32_cores": 0.0, "library_ms": None, "ops": 0.0,
+                             "bytes": 0.0, "ops_s": 0.0, "sites": {}}
                       for name in names}
         for st in site_fn(n_frames, torch.bfloat16):
             k_ms, p_ms = gpu_ms(st.run, reps), gpu_ms(st.plain, reps)
@@ -2189,13 +2226,16 @@ def time_kernels(site_fn, names, sizes=None):
                 agg["library_ms"] = (agg["library_ms"] or 0.0) + l_ms
             agg["sites"][st.site] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
                                      "bound_ms": b_ms, "bound_by": b_by}
-            if st.rate != F32_FLOPS:  # beside it, the f32-core bound earlier runs reported
-                f32_ms = bound_ms(st.flops, st.bytes)[0]
-                agg["bound_ms_f32_cores"] = agg.get("bound_ms_f32_cores", 0.0) + f32_ms
+            if st.plan:
+                agg["sites"][st.site]["plan"] = list(st.plan)
+            # beside it, the bound at the f32 rate outside the tensor cores
+            f32_ms = bound_ms(st.flops, st.bytes)[0]
+            agg["bound_ms_f32_cores"] += f32_ms
+            if st.rate != F32_FLOPS:
                 agg["sites"][st.site]["bound_ms_f32_cores"] = f32_ms
             log(f"time {st.kernel:22s} {st.site:7s} frames={n_frames:<4d} kernel={k_ms:.4f} ms "
                 f"plain={p_ms:.4f} ms library={l_ms if l_ms is None else round(l_ms, 4)} "
-                f"bound={b_ms:.4f} ms ({b_by})")
+                f"bound={b_ms:.4f} ms ({b_by})" + (f" plan={st.plan}" if st.plan else ""))
         for agg in per_kernel.values():
             t_ops, t_bytes = agg.pop("ops_s"), agg["bytes"] / HBM_BYTES_PER_S
             agg["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
@@ -2408,6 +2448,8 @@ def main() -> int:
                     "vocoder_v0": check_stage0_clusters(v0, "vctk_v0")}
     log(f"v0 receiver (MultiReceptiveField): {sum(p.numel() for p in v0.parameters())} "
         f"params; v2 receiver: {sum(p.numel() for p in v2.parameters())} params")
+    conv_plan_report = conv_plans({"denoiser": gen, "codec": codec, "vocoder": voc,
+                                   "vocoder_v0": v0, "vocoder_v2": v2})
     stamp("phase 1 (build, models)")
 
     log("phase 2: kernels vs plain versions")
@@ -2538,8 +2580,9 @@ def main() -> int:
                           "vocoder": (voc_ktimes, voc_times["device_n1"], voc_ktimes_b),
                           }[first_path]
         agg1, agg, agg400 = (kt[n][name] for n in SIZES)
+        split_tf32 = name in ("hifigan_unit", "causal_conv")  # kernels on the tensor cores
         keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms") + (
-            ("bound_ms_f32_cores",) if name == "hifigan_unit" else ())
+            ("bound_ms_f32_cores",) if split_tf32 else ())
         entry = {
             "name": name, "route": "cuda", "source": spec["source"],
             "replaces": spec["replaces"],
@@ -2564,10 +2607,13 @@ def main() -> int:
                 f"frames_{n}": {key: kt_b[n][name][key] for key in keys}
                 for n in BATCH_SIZES},
         }
-        if name == "hifigan_unit":
+        if split_tf32:
             entry["bound_is"] = (f"operations at {TF32_FLOPS:.3g} FLOP/s TF32 over the split "
-                                 "passes (2 with bf16 weights); bound_ms_f32_cores at "
-                                 f"{F32_FLOPS:.3g}, the f32 rate earlier runs reported")
+                                 "passes (2 with bf16 weights)"
+                                 + (" on the GEMM arm's sites, at the f32 rate on the Cin = 1 "
+                                    "and Cout = 1 arms'" if name == "causal_conv" else "")
+                                 + f"; bound_ms_f32_cores at {F32_FLOPS:.3g}, the f32 rate "
+                                 "earlier runs reported")
             entry["bound_ms_f32_cores"] = agg["bound_ms_f32_cores"]
             entry["bound_ms_f32_cores_1frame"] = agg1["bound_ms_f32_cores"]
             entry[f"bound_ms_f32_cores_{THROUGHPUT_FRAMES}frames"] = agg400["bound_ms_f32_cores"]
@@ -2632,6 +2678,7 @@ def main() -> int:
               "main_path_errors": main_errs, "codec_path_checks": codec_errs,
               "vocoder_path_checks": voc_checks, "vocoder_times": voc_times,
               "unit_plans_one_stream_one_frame": stage0_plans,
+              "causal_conv_plans": conv_plan_report,
               "vocoder_v0_path_checks": v0_checks, "vocoder_v0_fleet_checks": v0_fleet_checks,
               "vocoder_v0_times": v0_times, "vocoder_v2_checks": v2_checks,
               "cli_checks": cli_checks,

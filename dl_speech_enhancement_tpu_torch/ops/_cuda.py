@@ -33,7 +33,8 @@ _P, _I, _L, _Z, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c
                       ctypes.c_float)
 # C entry points: name -> (argtypes, restype). The layer kernels take (cache,
 # cache stream stride, x, ...) and the stream count B; the boundary convs an
-# activation code and slope (and causal_conv a tanh flag) before the weight type;
+# activation code and slope (and causal_conv a tanh flag) before the weight type,
+# causal_conv its (arm, tile, steps per block) plan after it;
 # hifigan_unit an optional running sum and an output scale after its biases,
 # and its (tile, cluster) plan;
 # the DFT kernels the padded signal and its frames' geometry (signal stride, hop,
@@ -47,7 +48,8 @@ _ENTRIES = {
     },
     "causal_conv": {
         "dse_causal_conv": ([_P, _L, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I,
-                             _I, _P], _I),
+                             _I, _I, _I, _I, _P], _I),
+        "dse_causal_conv_smem": ([_I, _I, _I, _I, _I, _I, _I, _I, _I], _Z),
     },
     "causal_conv_transpose": {
         "dse_causal_conv_transpose": ([_P, _L, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,

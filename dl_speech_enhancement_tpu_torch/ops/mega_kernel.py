@@ -59,12 +59,15 @@ Math (zero caches at stream start), per stream:
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, NamedTuple
 
 import torch
 
 from dl_speech_enhancement_tpu_torch.ops import _cuda
 from dl_speech_enhancement_tpu_torch.ops.stream_kernel import (
+    _MAX_SMEM,
+    _N_SM,
     _check_operands,
     chain_halo,
     chain_topology_error,
@@ -102,6 +105,133 @@ def causal_conv_plain(cache, x, w, b=None, stride: int = 1, dilation: int = 1,
     return torch.tanh(y) if tanh else y
 
 
+# csrc/causal_conv.cu, as the planner needs it
+CONV_ARMS = ("cin1", "cout1", "gemm")  # the C entry's arm codes 0, 1, 2
+# The GEMM arm's tiles by index (DSE_CONV_TILES): warps along rows and columns,
+# 16-row and 8-column mma fragments a warp.
+_CONV_TILES = ((1, 2, 1, 1), (1, 4, 1, 1), (2, 4, 1, 2), (2, 4, 2, 2), (4, 2, 1, 2),
+               (8, 1, 1, 4))
+# The planner's model of a tile (_gemm_cost): registers a thread (-Xptxas -v;
+# 256-thread tiles are held to 128, two blocks an SM) and the time of one
+# 64-term step, in us, with the block, fold and fold-element times below,
+# fitted so that at every GEMM site of the paths the model picks a plan close
+# to the fastest of an H100 sweep of them all (tools/conv_timing.py --sweep,
+# then --fit on its report).
+_CONV_TILE_REGS = (120, 115, 128, 128, 128, 128)
+_CONV_STEP_US = (0.3, 0.2, 0.216, 0.475, 0.864, 0.864)
+_CONV_BLOCK_US, _CONV_FOLD_US, _CONV_FOLD_US_PER_ELEM = 3.54, 0.444, 0.0067
+_CONV_STAGES, _CONV_KC, _CONV_LDA = 3, 64, 68  # ring depth, channels a step, A row stride
+_CONV_MAX_CLUSTER = 8
+_CONV_MIN_BLOCKS = 32  # SMs a plan within 10 % of the cheapest should cover
+_DIRECT_ROWS = (256, 128, 64, 32, 16, 8, 4, 2, 1)  # Cout = 1 arm: output rows a block
+
+
+def conv_tile_dims(tile: int) -> tuple[int, int, int]:
+    """(BM, BN, threads) of the GEMM arm's tile ``tile``."""
+    wm, wn, fm, fn = _CONV_TILES[tile]
+    return 16 * fm * wm, 8 * fn * wn, 32 * wm * wn
+
+
+def conv_chunks(taps: int, cin: int) -> list[tuple[int, int]]:
+    """The GEMM arm's fixed cut of the reduction, in the order its partial
+    sums are folded: the ``taps * cin`` terms in (tap, channel) order (term
+    ``j * cin + c``, the row of the (taps * cin, cout) weight), 64 at a time,
+    as ``(first term, end term)``. It depends on the layer alone; a plan only
+    says how many consecutive chunks a block of a cluster takes."""
+    terms = taps * cin
+    return [(g0, min(terms, g0 + _CONV_KC)) for g0 in range(0, terms, _CONV_KC)]
+
+
+def conv_smem_bytes(arm: str, tile: int, cin: int, cout: int, taps: int, stride: int,
+                    dilation: int, steps_per_block: int, bf16: bool) -> int:
+    """Shared memory of one causal_conv block (csrc/causal_conv.cu::
+    dse_causal_conv_smem): ``cin1`` W in f32; ``cout1`` the input window of
+    ``tile`` output rows at an odd row stride and W; ``gemm`` the (A, W) ring
+    of tile index ``tile``, a stage per step a block takes up to 3, and,
+    where a cluster splits the steps, one f32 BM x BN slot per step."""
+    if arm == "cin1":
+        return 4 * taps * cout
+    if arm == "cout1":
+        return 4 * (((tile - 1) * stride + (taps - 1) * dilation + 1) * (cin | 1) + taps * cin)
+    bm, bn, _ = conv_tile_dims(tile)
+    ring = min(_CONV_STAGES, steps_per_block) * (4 * bm * _CONV_LDA
+                                                 + _CONV_KC * (bn + 8) * (2 if bf16 else 4))
+    split = steps_per_block < len(conv_chunks(taps, cin))
+    return ring + (4 * steps_per_block * bm * bn if split else 0)
+
+
+def _gemm_cost(rows: int, cin: int, cout: int, taps: int, tile: int, steps_per_block: int,
+               smem: int) -> tuple[float, int]:
+    """The planner's model of one GEMM-arm launch: (us, blocks). The grid
+    runs in waves of the blocks the SMs hold (threads, registers and shared
+    memory bound it); a block takes a fixed time, then its steps, each the
+    tile's step time scaled by the terms it holds (a part of a step is
+    latency, whatever its terms) and by the blocks that share its SM, then
+    with a cluster the fold over distributed shared memory."""
+    bm, bn, threads = conv_tile_dims(tile)
+    cluster = -(-len(conv_chunks(taps, cin)) // steps_per_block)
+    k8 = -(-min(taps * cin, _CONV_KC) // 8)
+    per_sm = max(1, min(2048 // threads, 65536 // (threads * _CONV_TILE_REGS[tile]),
+                        (_MAX_SMEM + 1024) // (smem + 1024), 32))
+    blocks = -(-rows // bm) * -(-cout // bn) * cluster
+    sharing = min(per_sm, -(-blocks // _N_SM))
+    waves = -(-blocks // (_N_SM * per_sm))
+    step = _CONV_STEP_US[tile] * (0.25 + 0.75 * k8 / 8) * sharing
+    fold = 0.0 if cluster == 1 else (_CONV_FOLD_US
+                                     + _CONV_FOLD_US_PER_ELEM * bm * bn * cluster / threads)
+    return waves * (_CONV_BLOCK_US + steps_per_block * step + fold), blocks
+
+
+def conv_gemm_plans(cin: int, cout: int, taps: int, stride: int, dilation: int,
+                    bf16: bool) -> list[tuple[int, int, int]]:
+    """Every plan the GEMM arm can take for a (taps, cin, cout) layer, as
+    ``(tile, steps per block, shared memory)``: each tile of
+    ``_CONV_TILES`` with each cluster split of the steps (1 to 8 blocks),
+    where the block's shared memory fits."""
+    steps = len(conv_chunks(taps, cin))
+    splits = sorted({-(-steps // n) for n in range(1, _CONV_MAX_CLUSTER + 1)})
+    plans = []
+    for tile in range(len(_CONV_TILES)):
+        for q in splits:
+            smem = conv_smem_bytes("gemm", tile, cin, cout, taps, stride, dilation, q, bf16)
+            if smem <= _MAX_SMEM:
+                plans.append((tile, q, smem))
+    return plans
+
+
+@functools.lru_cache(maxsize=1024)
+def _conv_plan(batch: int, t_out: int, cin: int, cout: int, taps: int, stride: int,
+               dilation: int, bf16: bool) -> tuple[str, int, int]:
+    """(arm, tile, steps per block) for ``batch`` streams of ``t_out`` output
+    rows of a (taps, cin, cout) conv: ``cin1`` for one input channel,
+    ``cout1`` for one output channel (``tile`` its output rows a block, the
+    most whose window fits), else ``gemm``: of :func:`conv_gemm_plans` on
+    tiles no more than twice as wide as ``cout``, the plans within 10 % of
+    the cheapest by :func:`_gemm_cost`, of those the ones whose grid covers
+    32 SMs if any, and the cheapest of them. Raises ValueError where no plan fits. Pure
+    Python, so the CPU tests hold it."""
+    if cin == 1:
+        if conv_smem_bytes("cin1", 0, cin, cout, taps, stride, dilation, 1, bf16) <= _MAX_SMEM:
+            return "cin1", 0, 1
+    elif cout == 1:
+        for rows in _DIRECT_ROWS:
+            if rows <= max(t_out, 1) and conv_smem_bytes(
+                    "cout1", rows, cin, cout, taps, stride, dilation, 1, bf16) <= _MAX_SMEM:
+                return "cout1", rows, 1
+    else:
+        widest = max(16, 1 << (cout - 1).bit_length())  # no tile twice as wide as Cout
+        plans = [(*_gemm_cost(batch * t_out, cin, cout, taps, tile, q, smem), tile, q)
+                 for tile, q, smem in conv_gemm_plans(cin, cout, taps, stride, dilation, bf16)
+                 if conv_tile_dims(tile)[1] <= widest]
+        if plans:
+            near = [p for p in plans if p[0] <= 1.1 * min(p[0] for p in plans)]
+            spread = [p for p in near if p[1] >= _CONV_MIN_BLOCKS] or near
+            _, _, tile, q = min(spread)
+            return "gemm", tile, q
+    raise ValueError(f"causal_conv: no plan fits {cin} -> {cout} channels at kernel {taps}, "
+                     f"stride {stride}, dilation {dilation}")
+
+
 def causal_conv(cache: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
                 b: torch.Tensor | None = None, stride: int = 1, dilation: int = 1,
                 leaky: float | None = None, tanh: bool = False) -> torch.Tensor:
@@ -110,35 +240,41 @@ def causal_conv(cache: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
     Cin) / (T, Cin) for one stream), w (k, Cin, Cout) f32 or bf16, b (Cout,)
     f32 or None. ``leaky`` (a slope) applies LeakyReLU to the input as it is
     loaded, ``tanh`` tanh to the output. Returns (B, T / stride, Cout) f32
-    (2-D for one stream)."""
+    (2-D for one stream). On the card the arm and plan come from
+    :func:`_conv_plan`; the GEMM arm's products are split-TF32 tensor-core
+    passes summed in an order fixed by the layer, so a stream's bits do not
+    depend on B, T or the plan."""
     if x.device.type == "cpu":
         return causal_conv_plain(cache, x, w, b, stride, dilation, leaky, tanh)
     if x.device.type != "cuda":
         raise ValueError(f"causal_conv: unsupported device {x.device}")
-    if x.dim() == 2 and cache.dim() == 2:
-        return causal_conv(cache[None], x[None], w, b, stride, dilation, leaky, tanh)[0]
-    if x.dim() != 3:
-        raise ValueError(f"causal_conv: x must be (B, T, Cin), got {tuple(x.shape)}")
-    B, T, cin = x.shape
+    if x.dim() not in (2, 3) or cache.dim() != x.dim():
+        raise ValueError(f"causal_conv: x must be (B, T, Cin) or (T, Cin) with a cache of "
+                         f"its rank, got {tuple(x.shape)} and {tuple(cache.shape)}")
+    T, cin = x.shape[-2:]
     k, _, cout = w.shape
     if T % stride:
         raise ValueError(f"causal_conv: chunk length {T} must be a multiple of "
                          f"stride {stride}")
-    if cache.shape != (B, (k - 1) * dilation, cin) or w.shape[1] != cin:
+    if cache.shape != (*x.shape[:-2], (k - 1) * dilation, cin) or w.shape[1] != cin:
         raise ValueError(f"causal_conv: cache {tuple(cache.shape)} / weight "
                          f"{tuple(w.shape)} do not fit input {tuple(x.shape)}")
     if b is not None and b.shape != (cout,):
         raise ValueError(f"causal_conv: bias {tuple(b.shape)} does not fit Cout={cout}")
     _check_operands("causal_conv", x.device, {"x": x}, (w,), b, cache=cache)
-    out = torch.empty((B, T // stride, cout), device=x.device)
+    B = x.shape[0] if x.dim() == 3 else 1
+    out = torch.empty((*x.shape[:-2], T // stride, cout), device=x.device)
     if B * T == 0:
         return out
+    bf16 = w.dtype == torch.bfloat16
+    arm, tile, steps = _conv_plan(B, T // stride, cin, cout, k, stride, dilation, bf16)
     lib = _cuda.load("causal_conv")
-    err = lib.dse_causal_conv(cache.data_ptr(), cache.stride(0), x.data_ptr(), w.data_ptr(),
+    err = lib.dse_causal_conv(cache.data_ptr(), cache.stride(0) if B > 1 else 0, x.data_ptr(),
+                              w.data_ptr(),
                               None if b is None else b.data_ptr(), out.data_ptr(), B,
                               T // stride, cin, cout, k, stride, dilation, int(leaky is not None),
-                              leaky or 0.0, int(tanh), int(w.dtype == torch.bfloat16),
-                              _cuda.stream_handle(x))
+                              leaky or 0.0, int(tanh), int(bf16), CONV_ARMS.index(arm), tile,
+                              steps, _cuda.stream_handle(x))
     _cuda.check(lib, err, "causal_conv")
     causal_conv.launches += 1
     return out

@@ -432,6 +432,29 @@ def vocoder_half(voc, weight_dtype=torch.bfloat16, vq_state=None) -> StreamHalf:
     return StreamHalf(shapes, run, voc.total_upsample, vq_state is not None, fills)
 
 
+def conv_sites(model, frame: int) -> list:
+    """``(site, layer, output rows a frame)`` of every causal_conv launch of
+    one dispatch of a codec generator (the sites of ``mega_encoder`` and
+    ``mega_decoder``) or of a HiFiGAN receiver (those of
+    :func:`vocoder_half`), at ``frame`` input samples a frame."""
+    if isinstance(model, HiFiGANGenerator):
+        t = frame // model.total_upsample
+        out = [("v_in", model.input_conv, t)]
+        for si, (up, blk) in enumerate(zip(model.upsamples, model.blocks)):
+            t *= up.stride
+            if not isinstance(blk, MultiReceptiveField):
+                out.append((f"v{si}f", blk.conv_out, t))
+        return out + [("v_out", model.output_conv, t)]
+    t, enc, dec = frame, model.encoder, model.decoder
+    out = [("enc_in", enc.conv, t)]
+    for bi, blk in enumerate(enc.blocks):
+        t //= blk.conv.stride
+        out.append((f"e{bi}d", blk.conv, t))
+    if model.use_pqc:
+        out += [("prj", model.projector.conv, t), ("dec_in", dec.conv1, t)]
+    return out + [("dec_out", dec.conv2, frame)]
+
+
 def make_stacked_vocoder(voc, chunk: int, batch: int, weight_dtype=torch.bfloat16,
                          vq_state=None):
     """The receiver alone for ``batch`` streams, the counterpart of JAX

@@ -1,0 +1,235 @@
+"""causal_conv's planner, shared-memory formula and arithmetic, on the CPU.
+
+The planner (ops/mega_kernel.py::_conv_plan) and its shared-memory formula
+(conv_smem_bytes, equal to csrc/causal_conv.cu's dse_causal_conv_smem;
+tests/test_torch_port_cuda.py holds the two equal on the card) are plain
+Python, so they are held here at every causal_conv site of the denoiser, the
+codec and the v0, v1 and v2 receivers, at every (streams, frames per
+dispatch) chip_smoke.py dispatches. The GEMM arm's arithmetic is emulated in
+numpy: split-TF32 products (TF32 rounding by bit masking, as cvt.rna
+rounds; each mma an exact 8-product sum rounded to f32 into its step's
+fresh chain), each 64-term chunk's value folded into the f32 running sum in
+chunk order, whatever the blocks of a cluster each took. The emulation
+shows the fold's bits do not depend on the split, and the error of e3d's
+2,560-term sums against f64 well under chip_smoke.py's KERNEL_ATOL_F32
+(1e-4), where a single TF32 pass would not meet it; the Cout = 1 arm's
+224-term serial sums (v_out) likewise.
+"""
+
+import os
+
+import numpy as np
+import pytest
+
+from dl_speech_enhancement_tpu_torch.models import AudioDecGenerator, HiFiGANGenerator
+from dl_speech_enhancement_tpu_torch.ops.mega_kernel import (
+    _CONV_MAX_CLUSTER,
+    _conv_plan,
+    conv_chunks,
+    conv_gemm_plans,
+    conv_smem_bytes,
+    conv_tile_dims,
+)
+from dl_speech_enhancement_tpu_torch.ops.stream_kernel import _MAX_SMEM
+from dl_speech_enhancement_tpu_torch.ops.vocoder_kernel import conv_sites
+from dl_speech_enhancement_tpu_torch.utils.config import load_config
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FRAME = 1200
+KERNEL_ATOL_F32 = 1e-4  # chip_smoke.py's kernel-vs-plain tolerance with f32 weights
+# (streams, frames per dispatch): chip_smoke.py's one-stream sizes, its batch
+# checks and timed shapes, the receivers' fleets, the v2 route and the CLI
+SHAPES = [(b, n) for b in (1, 4, 16, 64) for n in (1, 8, 16, 100, 400)]
+
+
+def _sites(model):
+    """(name, Cin, Cout, taps, stride, output rows a frame) of every
+    causal_conv launch of one dispatch of ``model``."""
+    return [(n, c.in_channels, c.out_channels, c.kernel_size, c.stride, rows)
+            for n, c, rows in conv_sites(model, FRAME)]
+
+
+def _receiver(version):
+    gp = dict(load_config(os.path.join(
+        REPO, "configs", "vocoder", f"AudioDec_{version}_symAD_vctk_48000_hop300_clean.yaml"))
+        ["generator_params"])
+    gp.pop("nonlinear_activation")
+    gp["negative_slope"] = gp.pop("nonlinear_activation_params")["negative_slope"]
+    for key in ("use_weight_norm", "stats"):
+        gp.pop(key)
+    return HiFiGANGenerator(**gp, device="cpu")
+
+
+@pytest.fixture(scope="module")
+def sites():
+    gp = load_config(os.path.join(REPO, "configs", "autoencoder",
+                                  "symAD_vctk_48000_hop300.yaml"))["generator_params"]
+    out = {"denoiser": _sites(AudioDecGenerator(**gp, use_pqc=False, device="cpu")),
+           "codec": _sites(AudioDecGenerator(**gp, use_pqc=True, device="cpu"))}
+    for version in ("v0", "v1", "v2"):
+        out[version] = _sites(_receiver(version))
+    return out
+
+
+def _blocks(plan, batch, rows, cin, cout, taps):
+    arm, tile, q = plan
+    if arm != "gemm":
+        return None
+    bm, bn, _ = conv_tile_dims(tile)
+    return -(-batch * rows // bm) * -(-cout // bn) * -(-len(conv_chunks(taps, cin)) // q)
+
+
+@pytest.mark.parametrize("path", ["denoiser", "codec", "v0", "v1", "v2"])
+def test_every_conv_plan_fits(sites, path):
+    """Every site has a plan at every shape: the arm its widths ask for,
+    shared memory within the card's 227 KB, a cluster of at most 8 blocks."""
+    for name, cin, cout, taps, stride, rows in sites[path]:
+        for batch, n in SHAPES:
+            for bf16 in (False, True):
+                arm, tile, q = plan = _conv_plan(batch, rows * n, cin, cout, taps, stride, 1,
+                                                 bf16)
+                assert arm == ("cin1" if cin == 1 else "cout1" if cout == 1 else "gemm"), name
+                assert conv_smem_bytes(arm, tile, cin, cout, taps, stride, 1, q,
+                                       bf16) <= _MAX_SMEM == 232448
+                if arm == "gemm":
+                    steps = len(conv_chunks(taps, cin))
+                    assert 1 <= q <= steps and -(-steps // q) <= _CONV_MAX_CLUSTER, plan
+                    assert conv_tile_dims(tile)[1] <= max(16, 2 * cout), plan
+                    assert (tile, q) in [p[:2] for p in conv_gemm_plans(
+                        cin, cout, taps, stride, 1, bf16)], plan
+                elif arm == "cout1":
+                    assert 1 <= tile <= 256
+
+
+@pytest.mark.parametrize("site", ["e3d", "prj"])
+def test_deep_sites_spread_over_32_sms_at_one_frame(sites, site):
+    (_, cin, cout, taps, stride, rows), = [s for s in sites["codec"] if s[0] == site]
+    for bf16 in (False, True):
+        plan = _conv_plan(1, rows, cin, cout, taps, stride, 1, bf16)
+        assert plan[2] < len(conv_chunks(taps, cin)), plan  # a cluster splits the steps
+        assert _blocks(plan, 1, rows, cin, cout, taps) >= 32, plan
+
+
+def test_the_chunk_cut_depends_on_the_layer_alone(sites):
+    """The chunks are the layer's taps * Cin terms 64 at a time; a plan only
+    groups consecutive chunks per block, so at every shape the runs of the
+    cluster's blocks cover the chunks in order, each block at least one."""
+    for path in ("codec", "v1"):
+        for name, cin, cout, taps, stride, rows in sites[path]:
+            chunks = conv_chunks(taps, cin)
+            assert chunks[0][0] == 0 and chunks[-1][1] == taps * cin
+            assert all(a[1] == b[0] and 0 < a[1] - a[0] <= 64 for a, b in zip(chunks, chunks[1:]))
+            for batch, n in SHAPES:
+                arm, _, q = _conv_plan(batch, rows * n, cin, cout, taps, stride, 1, True)
+                if arm == "gemm":
+                    runs = [chunks[r * q:(r + 1) * q] for r in range(-(-len(chunks) // q))]
+                    assert [c for run in runs for c in run] == chunks and all(runs)
+
+
+# ---------------------------------------------------------------- arithmetic
+
+
+def _tf32(a):
+    """cvt.rna.tf32.f32: the magnitude rounded to 10 mantissa bits, ties away."""
+    bits = np.ascontiguousarray(a, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _bf16(a):
+    return ((np.ascontiguousarray(a, np.float32).view(np.uint32) + np.uint32(0x8000))
+            & np.uint32(0xFFFF0000)).view(np.float32)
+
+
+def _chunk_values(a, w, passes):
+    """Each 64-term chunk's value as the GEMM arm computes it: a (m, K) rows
+    of terms, w (K, n); per 8-term slice the mma passes (1: single TF32; 2:
+    a_hi*w + a_lo*w, bf16 weights; 3: + a_hi*w_lo, f32 weights) in that
+    order, each an exact 8-product sum rounded to f32 into the chunk's fresh
+    chain. Returns (chunks, m, n) f32."""
+    m, k = a.shape
+    kp = -(-k // 64) * 64  # zeros past K add nothing to a chain
+    ap = np.zeros((m, kp), np.float32)
+    ap[:, :k] = a
+    wp = np.zeros((kp, w.shape[1]), np.float32)
+    wp[:k] = w
+    a_hi = _tf32(ap)
+    a_lo = _tf32(ap - a_hi)
+    w_hi = wp if passes == 2 else _tf32(wp)
+    w_lo = _tf32(wp - w_hi)
+    pairs = [(a_hi, w_hi), (a_lo, w_hi), (a_hi, w_lo)][:passes]
+    out = []
+    for g0 in range(0, k, 64):
+        d = np.zeros((m, w.shape[1]), np.float32)
+        for s in range(g0, min(k, g0 + 64), 8):
+            for x, y in pairs:
+                part = x[:, s:s + 8].astype(np.float64) @ y[s:s + 8].astype(np.float64)
+                d = (d.astype(np.float64) + part).astype(np.float32)
+        out.append(d)
+    return np.stack(out)
+
+
+def _fold(values, q):
+    """The kernel's fold for a cluster whose blocks take ``q`` chunks each:
+    block 0's running sum of its run, then every later chunk's value, in
+    chunk order (f32 adds)."""
+    t = np.zeros(values.shape[1:], np.float32)
+    for v in values[:q]:
+        t = t + v
+    for v in values[q:]:
+        t = t + v
+    return t
+
+
+def _e3d_terms(rng, weight_bf16):
+    """e3d (256 -> 512, k = 10, stride 5) at 16 rows: each output row's
+    2,560 terms [x_ext[5t + j] for j < 10] (N(0, 1) activations) and the
+    (2560, 512) weight at unit gain (bf16-rounded for bf16 weights)."""
+    cin, cout, k, s, rows = 256, 512, 10, 5, 16
+    x_ext = rng.standard_normal((s * (rows - 1) + k, cin)).astype(np.float32)
+    a = np.stack([x_ext[s * t: s * t + k].reshape(-1) for t in range(rows)])
+    w = (rng.standard_normal((k * cin, cout)) / np.sqrt(k * cin)).astype(np.float32)
+    return a, _bf16(w) if weight_bf16 else w
+
+
+@pytest.mark.parametrize("weight_bf16,passes", [(True, 2), (False, 3)])
+def test_split_tf32_e3d_error_is_far_under_the_kernel_tolerance(weight_bf16, passes):
+    a, w = _e3d_terms(np.random.default_rng(3), weight_bf16)
+    assert a.shape[1] == 2560
+    exact = a.astype(np.float64) @ w.astype(np.float64)
+    values = _chunk_values(a, w, passes)
+    got = _fold(values, len(values))
+    err = float(np.abs(got - exact).max())
+    assert err < KERNEL_ATOL_F32 / 20, err
+    # a single TF32 pass would not hold the tolerance
+    single = float(np.abs(_fold(_chunk_values(a, w, 1), len(values)) - exact).max())
+    assert single > KERNEL_ATOL_F32, single
+
+
+def test_the_fold_gives_the_same_bits_for_every_split():
+    """e3d's 40 chunks folded by a cluster of 1-8 blocks (every split the
+    planner may take) give the bits of one block's running sum."""
+    a, w = _e3d_terms(np.random.default_rng(4), True)
+    values = _chunk_values(a[:4], w[:, :64], 2)
+    one = _fold(values, len(values))
+    for n in range(2, _CONV_MAX_CLUSTER + 1):
+        q = -(-len(values) // n)
+        assert np.array_equal(_fold(values, q), one), q
+
+
+def test_cout1_v_out_error_is_far_under_the_kernel_tolerance():
+    """v_out (32 -> 1, k = 7, LeakyReLU(0.01) on load): each output row's 224
+    products summed serially in (tap, channel) order with f32 fused
+    multiply-adds, against f64."""
+    rng = np.random.default_rng(5)
+    cin, k, rows = 32, 7, 1200
+    x_ext = rng.standard_normal((rows + k - 1, cin)).astype(np.float32) * 3
+    x_ext = np.where(x_ext >= 0, x_ext, np.float32(0.01) * x_ext)
+    w = _bf16((rng.standard_normal((k, cin)) / np.sqrt(k * cin)).astype(np.float32))
+    acc = np.zeros(rows, np.float32)
+    for j in range(k):
+        for c in range(cin):  # fmaf: the exact product and sum, rounded once
+            acc = (x_ext[j:j + rows, c].astype(np.float64) * w[j, c] + acc).astype(np.float32)
+    exact = sum(x_ext[j:j + rows].astype(np.float64) @ w[j].astype(np.float64)
+                for j in range(k))
+    err = float(np.abs(acc - exact).max())
+    assert err < KERNEL_ATOL_F32 / 20, err

@@ -67,7 +67,7 @@ from dl_speech_enhancement_tpu_torch.losses import (
 )
 from dl_speech_enhancement_tpu_torch.models.autoencoder import ResidualUnit
 from dl_speech_enhancement_tpu_torch.models.hifigan import HiFiGANGenerator
-from dl_speech_enhancement_tpu_torch.ops import _cuda, mel_kernel
+from dl_speech_enhancement_tpu_torch.ops import _cuda, mega_kernel, mel_kernel
 from dl_speech_enhancement_tpu_torch.ops import vocoder_kernel
 from dl_speech_enhancement_tpu_torch.ops.vocoder_kernel import (
     _unit_plan,
@@ -116,18 +116,28 @@ def test_residual_chain_kernel(card, channels, rows, wd):
     assert float((got - ref).abs().max()) <= ATOL
 
 
-@pytest.mark.parametrize("cin,cout,k,stride,dilation,bias", [
-    (1, 32, 7, 1, 1, False), (32, 64, 6, 3, 1, True), (20, 70, 10, 5, 1, True),
-    (32, 1, 7, 1, 1, False), (16, 16, 7, 1, 9, False),
+@pytest.mark.parametrize("wd", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cin,cout,k,stride,dilation,bias,rows", [
+    (1, 32, 7, 1, 1, False, 77), (32, 64, 6, 3, 1, True, 77), (20, 70, 10, 5, 1, True, 77),
+    (32, 1, 7, 1, 1, False, 77), (16, 16, 7, 1, 9, False, 77), (1, 32, 7, 1, 1, True, 1200),
+    (1, 30, 5, 2, 3, True, 9), (32, 1, 7, 1, 1, True, 1200), (40, 1, 4, 3, 2, True, 300),
+    (256, 512, 10, 5, 1, True, 4), (512, 64, 3, 1, 1, False, 4), (64, 512, 7, 1, 1, True, 4),
+    (128, 256, 10, 5, 1, True, 20), (768, 256, 1, 1, 1, False, 20),
 ])
-def test_causal_conv_kernel(card, cin, cout, k, stride, dilation, bias):
-    cache, x = _randn(card, (k - 1) * dilation, cin), _randn(card, stride * 77, cin)
-    w = _randn(card, k, cin, cout)
+def test_causal_conv_kernel(card, cin, cout, k, stride, dilation, bias, rows, wd):
+    """Every arm (Cin = 1, Cout = 1, the GEMM) at the paths' shapes, the
+    deep sites at one frame's few rows (e3d, prj, v_in at 4 rows, e2d at
+    20, a 1x1 fuse) and odd widths, against the plain version."""
+    cache, x = _randn(card, (k - 1) * dilation, cin), _randn(card, stride * rows, cin)
+    w = _randn(card, k, cin, cout).to(wd)
     b = _randn(card, cout) if bias else None
+    before = causal_conv.launches
     got = causal_conv(cache, x, w, b, stride, dilation)
+    assert causal_conv.launches == before + 1
     ref = causal_conv_plain(cache, x, w, b, stride, dilation)
     torch.cuda.synchronize()
-    assert float((got - ref).abs().max()) <= ATOL
+    limit = ATOL if wd == torch.float32 else 1e-4 * float(ref.abs().max())
+    assert float((got - ref).abs().max()) <= limit
 
 
 @pytest.mark.parametrize("cin,cout,stride", [(64, 32, 3), (100, 36, 4), (512, 256, 5)])
@@ -241,11 +251,95 @@ def test_residual_chain_kernel_batched(card, batch, channels, rows):
 
 
 @pytest.mark.parametrize("batch", [1, 3, 16])
-@pytest.mark.parametrize("cin,cout,k,stride", [(1, 32, 7, 1), (256, 512, 10, 5), (32, 1, 7, 1)])
+@pytest.mark.parametrize("cin,cout,k,stride", [(1, 32, 7, 1), (256, 512, 10, 5), (32, 1, 7, 1),
+                                               (512, 64, 3, 1), (64, 512, 7, 1), (32, 64, 6, 3)])
 def test_causal_conv_kernel_batched(card, batch, cin, cout, k, stride):
     cache, x = _tail_view(card, batch, k - 1, cin), _randn(card, batch, stride * 4, cin)
     w, b = _randn(card, k, cin, cout) / cin ** 0.5, _randn(card, cout)
     _held_per_stream(causal_conv, causal_conv_plain, cache, x, w, b, stride)
+
+
+# (Cin, Cout, taps, stride, output rows a frame): e3d, prj, e2d, e0d, v_in, a
+# v1 fuse, the decoder output conv, the input conv
+CONV_LAYERS = [(256, 512, 10, 5, 4), (512, 64, 3, 1, 4), (128, 256, 10, 5, 20),
+               (32, 64, 6, 3, 400), (64, 512, 7, 1, 4), (384, 128, 1, 1, 100),
+               (32, 1, 7, 1, 1200), (1, 32, 7, 1, 1200)]
+
+
+def _conv_operands(card, batch, cin, cout, k, stride, rows, wd):
+    cache = _tail_view(card, batch, k - 1, cin)
+    x = _randn(card, batch, stride * rows, cin)
+    w = _randn(card, k, cin, cout).to(wd)
+    return cache, x, w, _randn(card, cout)
+
+
+@pytest.mark.parametrize("wd", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cin,cout,k,stride,rows", CONV_LAYERS)
+def test_causal_conv_stream_bits_do_not_depend_on_the_batch(card, cin, cout, k, stride, rows,
+                                                            wd):
+    """A stream's output bits depend on the layer alone: one stream alone,
+    the same stream among 16 (another plan) and its first frame's rows
+    within a 16-frame dispatch (another plan again) are equal bit for bit,
+    and so are two runs."""
+    cache, x, w, b = _conv_operands(card, 16, cin, cout, k, stride, 16 * rows, wd)
+    one = stride * rows
+    fleet = causal_conv(cache, x[:, :one].contiguous(), w, b, stride)
+    again = causal_conv(cache, x[:, :one].contiguous(), w, b, stride)
+    long = causal_conv(cache, x, w, b, stride)
+    torch.cuda.synchronize()
+    assert torch.equal(fleet, again)
+    assert torch.equal(long[:, :rows], fleet)
+    for s in (0, 9, 15):
+        alone = causal_conv(cache[s:s + 1], x[s:s + 1, :one].contiguous(), w, b, stride)
+        torch.cuda.synchronize()
+        assert torch.equal(alone, fleet[s:s + 1])
+
+
+@pytest.mark.parametrize("wd", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cin,cout,k,stride,rows", CONV_LAYERS)
+def test_causal_conv_every_plan_gives_the_same_bits(card, monkeypatch, cin, cout, k, stride,
+                                                    rows, wd):
+    """Every plan the kernel takes for the layer (each GEMM tile with each
+    cluster split of the steps; each Cout = 1 block length) gives the bits
+    of the planner's plan, within ATOL of the plain version, at 3 streams."""
+    cache, x, w, b = _conv_operands(card, 3, cin, cout, k, stride, rows, wd)
+    bf16 = wd == torch.bfloat16
+    planned = causal_conv(cache, x, w, b, stride)
+    ref = causal_conv_plain(cache, x, w, b, stride)
+    limit = ATOL if wd == torch.float32 else 1e-4 * float(ref.abs().max())
+    arm = mega_kernel._conv_plan(3, rows, cin, cout, k, stride, 1, bf16)[0]
+    if arm == "gemm":
+        plans = [("gemm", tile, q)
+                 for tile, q, _ in mega_kernel.conv_gemm_plans(cin, cout, k, stride, 1, bf16)]
+    elif arm == "cout1":
+        plans = [("cout1", r, 1) for r in (1, 7, 32, 100, 256)]
+    else:
+        plans = [("cin1", 0, 1)]
+    assert len(plans) > 1 or arm == "cin1"
+    for plan in plans:
+        monkeypatch.setattr(mega_kernel, "_conv_plan", lambda *a, p=plan: p)
+        got = causal_conv(cache, x, w, b, stride)
+        torch.cuda.synchronize()
+        assert float((got - ref).abs().max()) <= limit, plan
+        assert torch.equal(got, planned), plan
+
+
+def test_causal_conv_smem_formula_matches_the_library(card):
+    """ops/mega_kernel.py::conv_smem_bytes, which the planner asks, equals the
+    library's dse_causal_conv_smem for every arm."""
+    lib = _cuda.load("causal_conv")
+    arms = {name: i for i, name in enumerate(mega_kernel.CONV_ARMS)}
+    for cin, cout, taps, stride, dil in ((1, 32, 7, 1, 1), (32, 1, 7, 1, 1), (40, 1, 4, 3, 2),
+                                         (256, 512, 10, 5, 1), (512, 64, 3, 1, 1),
+                                         (20, 70, 10, 5, 1), (768, 256, 1, 1, 1)):
+        for bf16 in (False, True):
+            cases = [("cin1", 0, 1)] + [("cout1", r, 1) for r in (1, 5, 256)] + [
+                ("gemm", tile, q) for tile in range(len(mega_kernel._CONV_TILES))
+                for q in (1, 3, len(mega_kernel.conv_chunks(taps, cin)))]
+            for arm, tile, q in cases:
+                assert lib.dse_causal_conv_smem(arms[arm], tile, cin, cout, taps, stride, dil,
+                                                q, int(bf16)) == mega_kernel.conv_smem_bytes(
+                    arm, tile, cin, cout, taps, stride, dil, q, bf16)
 
 
 @pytest.mark.parametrize("batch", [1, 3, 16])
@@ -316,7 +410,8 @@ def test_chain_plan_sees_the_whole_grid(card):
 @pytest.mark.parametrize("batch", [1, 3, 16])
 @pytest.mark.parametrize("cin,cout,k,leaky,tanh", [
     (64, 512, 7, None, False), (768, 256, 1, None, False), (32, 1, 7, 0.01, True),
-    (48, 20, 5, 0.1, False),
+    (48, 20, 5, 0.1, False), (16, 1, 7, 0.01, True), (48, 16, 1, None, False),
+    (512, 64, 3, 0.1, True), (1, 8, 3, 0.1, True),
 ])
 def test_causal_conv_kernel_activated(card, batch, cin, cout, k, leaky, tanh):
     cache, x = _tail_view(card, batch, k - 1, cin), _randn(card, batch, 40, cin) * 3
