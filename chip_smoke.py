@@ -162,10 +162,12 @@ from dl_speech_enhancement_tpu_torch.nn.vq import VQState
 from dl_speech_enhancement_tpu_torch.ops import _cuda
 from dl_speech_enhancement_tpu_torch.ops.mega_kernel import (
     _conv_plan,
+    _upsample_plan,
     causal_conv,
     causal_conv_plain,
     causal_conv_transpose,
     causal_conv_transpose_plain,
+    check_codes,
     codebook_lookup,
     codebook_lookup_plain,
     conv_transpose_weight,
@@ -250,8 +252,9 @@ SIZES = (1, DISPATCH, THROUGHPUT_FRAMES)   # frames per dispatch of the kernel c
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 F32_FLOPS = 67e12          # H100 SXM f32 rate outside the tensor cores
 TF32_FLOPS = 495e12        # H100 SXM dense TF32 tensor-core rate
-# hifigan_unit's products, and causal_conv's on its GEMM arm, are split-TF32
-# tensor-core passes: 2 with bf16 weights (exact in TF32), 3 with f32 weights.
+# hifigan_unit's products, causal_conv's on its GEMM arm and
+# causal_conv_transpose's (each phase on that arm) are split-TF32 tensor-core
+# passes: 2 with bf16 weights (exact in TF32), 3 with f32 weights.
 TF32_PASSES = {torch.bfloat16: 2, torch.float32: 3}
 # Tolerances. Kernel vs plain: the same products summed in another order, up
 # to 2816 terms of O(1) values (a HiFiGAN unit at stage 0: 11 taps x 256
@@ -550,7 +553,9 @@ def conv_site(name, layer, rows, stride, bias, wd, rand, batch, leaky=None, tanh
 def upsample_site(name, layer, rows, wd, rand, batch, leaky=None):
     """One causal_conv_transpose launch as a Site (``leaky`` as the
     receiver's upsamples fuse it; the yardstick is the bare transposed
-    conv)."""
+    conv). Its bound counts the operations at the split-TF32 rate (each
+    phase runs on causal_conv's GEMM arm); its plan is the planner's
+    (tile, steps per block)."""
     s, cin, cout = layer.stride, layer.in_channels, layer.out_channels
     cache, x = rand(1, cin, cache=True), rand(rows, cin)
     w, b = conv_transpose_weight(layer, wd), layer.bias.detach().float().contiguous()
@@ -560,7 +565,9 @@ def upsample_site(name, layer, rows, wd, rand, batch, leaky=None):
                 lambda: causal_conv_transpose_plain(cache, x, w, b, s, leaky),
                 lambda: F.conv_transpose1d(x_lib, w_lib, b, s, s),
                 2.0 * batch * rows * s * 2 * cin * cout,
-                nbytes(cache, x, w, b) + 4 * batch * rows * s * cout, (cache, x))
+                nbytes(cache, x, w, b) + 4 * batch * rows * s * cout, (cache, x),
+                TF32_FLOPS / TF32_PASSES[wd],
+                _upsample_plan(batch, rows, cin, cout, s, wd == torch.bfloat16))
 
 
 def sites(gen, n_frames: int, wd, rng: torch.Generator, batch: int | None = None):
@@ -591,17 +598,36 @@ CONV_PLAN_SHAPES = ((1, 1), (1, DISPATCH), (1, THROUGHPUT_FRAMES), (BATCH, 1), (
                     (64, 1), (64, 16))
 
 
+def upsample_layers(model) -> list:
+    """``(site, layer, input rows a frame)`` of every causal_conv_transpose
+    launch of one dispatch of a codec generator or a HiFiGAN receiver."""
+    if isinstance(model, HiFiGANGenerator):
+        prefix, layers, t = "v", list(model.upsamples), FRAME // model.total_upsample
+    else:
+        prefix, layers, t = "d", [blk.conv for blk in model.decoder.blocks], FRAME // model.hop
+    out = []
+    for i, layer in enumerate(layers):
+        out.append((f"{prefix}{i}u", layer, t))
+        t *= layer.stride
+    return out
+
+
 def conv_plans(models: dict) -> dict:
-    """Phase 1: causal_conv's (arm, tile, steps per block) at every site of
-    each path's models, bf16 weights, at one stream of 1, 100 and 400 frames
-    and 16 and 64 streams of 1 and 16; logged at one stream of one frame."""
+    """Phase 1: causal_conv's (arm, tile, steps per block) and
+    causal_conv_transpose's (tile, steps per block) at every site of each
+    path's models, bf16 weights, at one stream of 1, 100 and 400 frames and
+    16 and 64 streams of 1 and 16; logged at one stream of one frame."""
     report = {}
     for path, model in models.items():
-        report[path] = {f"B{b}_N{n}": {site: list(conv_plan(layer, b, rows * n, torch.bfloat16))
-                                        for site, layer, rows in conv_sites(model, FRAME)}
-                        for b, n in CONV_PLAN_SHAPES}
-        log(f"{path} causal_conv plans (arm, tile, steps per block) at one stream, one "
-            f"frame: {report[path]['B1_N1']}")
+        report[path] = {f"B{b}_N{n}": {
+            **{site: list(conv_plan(layer, b, rows * n, torch.bfloat16))
+               for site, layer, rows in conv_sites(model, FRAME)},
+            **{site: list(_upsample_plan(b, rows * n, layer.in_channels, layer.out_channels,
+                                         layer.stride, True))
+               for site, layer, rows in upsample_layers(model)}}
+            for b, n in CONV_PLAN_SHAPES}
+        log(f"{path} conv plans (causal_conv: arm, tile, steps per block; upsamples: tile, "
+            f"steps per block) at one stream, one frame: {report[path]['B1_N1']}")
     return report
 
 
@@ -677,8 +703,11 @@ def check_kernels(gen, rng):
 
 def check_search(what, z, tables, n_frames):
     """rvq_assign on ``z`` up to near ties and codebook_lookup on the plain
-    codes, against their plain versions; a bad code must raise. Returns
-    (near-tie rows, largest distance excess, lookup max |err|)."""
+    codes, against their plain versions. A bad code must not be read (its
+    row is the sum of the other books' codewords) and must raise where the
+    lookup documents it: at ``check_codes`` after a synchronisation, not
+    before the card has run the call. Returns (near-tie rows, largest
+    distance excess, lookup max |err|)."""
     books, sqnorm, books_t = tables
     got, ref = rvq_assign(z, books, sqnorm), rvq_assign_plain(z, books, sqnorm)
     torch.cuda.synchronize()
@@ -692,11 +721,17 @@ def check_search(what, z, tables, n_frames):
     require(err <= LOOKUP_ATOL, f"codebook_lookup {what}: max|err| {err}")
     bad = ref.clone()
     bad[-1, -1] = 0  # the last book's range starts at (L-1)*K
+    check_codes(DEVICE)
+    zq_bad = codebook_lookup(bad, books_t)
+    torch.cuda.synchronize()
     try:
-        codebook_lookup(bad, books_t)
+        check_codes(DEVICE)
         raise Failure("codebook_lookup took a code outside its book")
     except ValueError:
         pass
+    kept = codebook_lookup_plain(ref[-1:, :-1].contiguous(), books_t[:-1].contiguous())
+    require(torch.equal(zq_bad[-1:], kept) and torch.equal(zq_bad[:-1], zq[:-1]),
+            f"codebook_lookup {what}: a bad code's term is not zero")
     log(f"check rvq_assign / codebook_lookup {what} frames={n_frames:<4d} rows={z.shape[0]}: "
         f"near-tie rows {held['ties']}, mismatches 0; lookup max|err|={err:.3e}")
     return held["ties"], held["max_excess"], err
@@ -2580,7 +2615,8 @@ def main() -> int:
                           "vocoder": (voc_ktimes, voc_times["device_n1"], voc_ktimes_b),
                           }[first_path]
         agg1, agg, agg400 = (kt[n][name] for n in SIZES)
-        split_tf32 = name in ("hifigan_unit", "causal_conv")  # kernels on the tensor cores
+        # kernels on the tensor cores
+        split_tf32 = name in ("hifigan_unit", "causal_conv", "causal_conv_transpose")
         keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms") + (
             ("bound_ms_f32_cores",) if split_tf32 else ())
         entry = {

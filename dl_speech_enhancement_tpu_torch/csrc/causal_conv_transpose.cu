@@ -8,90 +8,54 @@
 // (dl_speech_enhancement_tpu/nn/conv.py::ConvTranspose1d). Replaces the four
 // upsamples that the TPU kernel dl_speech_enhancement_tpu/ops/
 // mega_kernel.py::make_mega_stream.dec_kernel evaluates as per-phase matmuls
-// re-interleaved with a replication matmul and an iota mask.
+// re-interleaved with a replication matmul and an iota mask, and those of the
+// HiFiGAN vocoder (ops/vocoder_kernel.py::make_mega_vocoder's add_upsample).
 //
 // B independent streams run in one launch: cache (B, 1, Cin) with stream stride
-// `cache_bs` floats, x (B, T, Cin), out (B, T*s, Cout). The GEMM's M dimension
-// is B * T; row r is (stream r / T, time r % T), and x_ext[t + 1] of a
-// stream's last row is that stream's own x, never the next stream's cache.
-// The division r / T is compiled out for one stream (kStreams = false).
+// `cache_bs` floats, x (B, T, Cin), out (B, T*s, Cout). With `act` = 1 every
+// element of [cache; x] is passed through LeakyReLU(`slope`) as it is staged
+// (the vocoder's LeakyReLU(0.1) before each upsample), so a stage's cache
+// stays the tail of its raw input.
 //
-// Optional fused activation: with `act` = 1 the A loader applies
-// LeakyReLU(`slope`) to every element of [cache; x] it loads (the HiFiGAN
-// vocoder's LeakyReLU(0.1) before each upsample, ops/vocoder_kernel.py::
-// make_mega_vocoder's add_upsample), so a stage's cache stays the tail of its
-// raw input. With act = 0 (the generator's upsamples) the arithmetic is the
-// plain transposed conv's.
-//
-// What bounds it: the operations (2*Cin*Cout multiply-adds per output row).
-// Design: the grid's z axis is the phase p, so each block's two taps are
-// fixed and its GEMM (tile_gemm.cuh) has a shared weight tile; each output
-// row s*r + p is written in place, with no interleave pass.
-#include "tile_gemm.cuh"
+// What bounds it: the operations (2*Cin*Cout multiply-adds per output row) at
+// many rows, latency at few (one frame: 4 input rows a stream at the first
+// upsample, 1,024 terms a sum). Design: phase p is exactly a causal conv of
+// 2 taps, stride 1 and dilation 1 over the one-row cache, whose rows are
+// written at stride s, offset p; so every phase runs on causal_conv's GEMM
+// arm (conv_gemm.cuh: split-TF32 `mma.sync` tiles, the 2*Cin terms cut into
+// fixed 64-term chunks, a thread-block cluster splitting the chunks at few
+// rows and folding them in chunk order through distributed shared memory)
+// with the phases on grid.y, each reading its tap pair in place from Wc and
+// writing its rows in place, with no interleave pass. A stream's bits depend
+// on the layer alone, whatever B, T or the plan. The plan (tile, steps per
+// block) comes from the host's planner (ops/mega_kernel.py::_upsample_plan,
+// pure Python, whose shared-memory formula equals
+// dse_causal_conv_transpose_smem); a plan that does not fit is refused here,
+// never replaced.
+#include "conv_gemm.cuh"
 
-namespace dse {
-
-template <int BN, typename WT, bool kStreams>
-__global__ void __launch_bounds__(kThreads)
-causal_conv_transpose_kernel(const float* __restrict__ cache, const float* __restrict__ x,
-                             const WT* __restrict__ w, const float* __restrict__ bias,
-                             float* __restrict__ out, long long cache_bs, int M, int T_in,
-                             int Cin, int Cout, int stride, int act, float slope) {
-  extern __shared__ __align__(16) float smem[];
-  const int p = blockIdx.z;
-  const int cpad = stride - 1;
-  const WT* w_now = w + (size_t)(cpad - p) * Cin * Cout;
-  const WT* w_next = w + (size_t)(cpad + stride - p) * Cin * Cout;
-  const int m0 = blockIdx.x * Tile<BN>::BM;
-  const int n0 = blockIdx.y * BN;
-  tile_gemm<BN, WT>(
-      m0, min(Tile<BN>::BM, M - m0), n0, min(BN, Cout - n0), 2, Cin, Cout, smem,
-      [&](int r, int j, int c0, int kk) {
-        const int b = kStreams ? r / T_in : 0;
-        const int e = r - b * T_in + j, c = c0 + kk;
-        const float v = e == 0 ? cache[(size_t)b * cache_bs + c]
-                               : x[((size_t)b * T_in + e - 1) * Cin + c];
-        return act ? leaky(v, slope) : v;
-      },
-      [&](int j) { return j == 0 ? w_now : w_next; },
-      [&](int r, int n, float v) {
-        out[((size_t)r * stride + p) * Cout + n] = bias ? v + bias[n] : v;
-      });
+// Shared memory one block of the plan (tile, steps_per_block) takes: the
+// GEMM arm's at 2 taps of Cin channels.
+extern "C" size_t dse_causal_conv_transpose_smem(int tile, int Cin, int Cout,
+                                                 int steps_per_block, int bf16) {
+  return dse::conv_gemm_smem(tile, Cin, Cout, 2, steps_per_block, bf16);
 }
-
-template <int BN, typename WT>
-cudaError_t launch(const float* cache, long long cache_bs, const float* x, const void* w,
-                   const float* bias, float* out, int M, int T_in, int Cin, int Cout, int stride,
-                   int act, float slope, cudaStream_t stream) {
-  const dim3 grid((M + Tile<BN>::BM - 1) / Tile<BN>::BM, (Cout + BN - 1) / BN, stride);
-  auto kernel = M > T_in ? causal_conv_transpose_kernel<BN, WT, true>
-                         : causal_conv_transpose_kernel<BN, WT, false>;
-  kernel<<<grid, kThreads, tile_smem_bytes(BN), stream>>>(
-      cache, x, static_cast<const WT*>(w), bias, out, cache_bs, M, T_in, Cin, Cout, stride, act,
-      slope);
-  return cudaGetLastError();
-}
-
-}  // namespace dse
 
 extern "C" int dse_causal_conv_transpose(const float* cache, long long cache_bs,
                                          const float* x, const void* w, const float* bias,
                                          float* out, int B, int T_in, int Cin, int Cout,
-                                         int stride, int act, float slope, int bf16,
-                                         void* stream) {
+                                         int stride, int act, float slope, int bf16, int tile,
+                                         int steps_per_block, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (B <= 0 || T_in <= 0 || Cin <= 0 || Cout <= 0 || stride <= 0 ||
+  if (B <= 0 || T_in <= 0 || Cin <= 0 || Cout <= 0 || stride <= 0 || stride > 65535 ||
       (long long)B * T_in * stride > 0x7fffffffLL)
     return cudaErrorInvalidValue;
-  const int M = B * T_in;
-  const bool narrow = dse::tile_bn(Cout) == 32;
-  if (bf16)
-    return narrow ? dse::launch<32, __nv_bfloat16>(cache, cache_bs, x, w, bias, out, M, T_in,
-                                                   Cin, Cout, stride, act, slope, s)
-                  : dse::launch<64, __nv_bfloat16>(cache, cache_bs, x, w, bias, out, M, T_in,
-                                                   Cin, Cout, stride, act, slope, s);
-  return narrow ? dse::launch<32, float>(cache, cache_bs, x, w, bias, out, M, T_in, Cin, Cout,
-                                         stride, act, slope, s)
-                : dse::launch<64, float>(cache, cache_bs, x, w, bias, out, M, T_in, Cin, Cout,
-                                         stride, act, slope, s);
+  const size_t smem = dse_causal_conv_transpose_smem(tile, Cin, Cout, steps_per_block, bf16);
+  if (!dse::conv_gemm_plan_ok(tile, steps_per_block, dse::conv_steps(2, Cin)) || smem > 232448)
+    return cudaErrorInvalidValue;
+  // each phase: a 2-tap conv over the one-row cache, stride 1, dilation 1
+  const dse::ConvArgs a{cache, cache_bs, x, w, bias, out, B * T_in, T_in, Cin, Cout, 2, 1, 1,
+                        act, 0, slope, stride};
+  if (bf16) return dse::launch_conv_gemm<__nv_bfloat16, true>(a, tile, steps_per_block, smem, s);
+  return dse::launch_conv_gemm<float, true>(a, tile, steps_per_block, smem, s);
 }

@@ -12,15 +12,18 @@
 // selected ones, not the whole 2 MB of books) and writes D floats, with one
 // addition per codeword element. Design: one thread per output element, so
 // the D threads of a row read each codeword's D contiguous floats together
-// and every row's L codes are read once per warp from L1. A code outside its
-// layer's range [l*K, (l+1)*K) is not read: it sets a flag in device memory,
-// which the entry point reads back once the launch has finished, returning
-// kDseBadCode if it is set.
+// and every row's L codes are read once per warp from L1.
+//
+// A code outside its layer's range [l*K, (l+1)*K) is not read: its term is
+// zero, as the TPU kernel's one-hot product makes it, and the kernel stores
+// the caller's number for this call (`call`, > 0) into `bad`, a word of host
+// memory mapped into the card's address space (dse_mapped_word_alloc). The
+// word is never cleared. The entry point only launches: no copy, no
+// synchronisation; the host reads the word once the call has finished on the
+// card (ops/mega_kernel.py::BadCodeWord).
 #include <cuda_runtime.h>
 
 #include "error.cuh"
-
-constexpr int kDseBadCode = -1;
 
 namespace dse {
 
@@ -28,8 +31,8 @@ constexpr int kThreads = 256;
 
 __global__ void __launch_bounds__(kThreads)
 codebook_lookup_kernel(const int* __restrict__ codes, const float* __restrict__ books_t,
-                       float* __restrict__ out, int* __restrict__ bad, int R, int L, int K,
-                       int D) {
+                       float* __restrict__ out, long long* bad, long long call, int R, int L,
+                       int K, int D) {
   const size_t e = (size_t)blockIdx.x * kThreads + threadIdx.x;
   if (e >= (size_t)R * D) return;
   const int r = (int)(e / D), d = (int)(e % D);
@@ -37,7 +40,7 @@ codebook_lookup_kernel(const int* __restrict__ codes, const float* __restrict__ 
   for (int l = 0; l < L; ++l) {
     const int c = codes[(size_t)r * L + l] - l * K;
     if (c < 0 || c >= K) {
-      *bad = 1;
+      *bad = call;
       continue;
     }
     s = __fadd_rn(s, books_t[((size_t)l * K + c) * D + d]);
@@ -47,21 +50,27 @@ codebook_lookup_kernel(const int* __restrict__ codes, const float* __restrict__ 
 
 }  // namespace dse
 
-extern "C" int dse_codebook_lookup(const int* codes, const float* books_t, float* out, int* bad,
-                                   int R, int L, int K, int D, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (R <= 0 || L <= 0 || K <= 0 || D <= 0 || !bad) return cudaErrorInvalidValue;
-  cudaError_t err = cudaMemsetAsync(bad, 0, sizeof(int), s);
-  if (err != cudaSuccess) return err;
+extern "C" int dse_codebook_lookup(const int* codes, const float* books_t, float* out,
+                                   long long* bad, long long call, int R, int L, int K, int D,
+                                   void* stream) {
+  if (R <= 0 || L <= 0 || K <= 0 || D <= 0 || !bad || call <= 0) return cudaErrorInvalidValue;
   const size_t n = (size_t)R * D;
   const unsigned blocks = (unsigned)((n + dse::kThreads - 1) / dse::kThreads);
-  dse::codebook_lookup_kernel<<<blocks, dse::kThreads, 0, s>>>(codes, books_t, out, bad, R, L,
-                                                               K, D);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  int flag = 0;
-  err = cudaMemcpyAsync(&flag, bad, sizeof(int), cudaMemcpyDeviceToHost, s);
-  if (err == cudaSuccess) err = cudaStreamSynchronize(s);
-  if (err != cudaSuccess) return err;
-  return flag ? kDseBadCode : 0;
+  dse::codebook_lookup_kernel<<<blocks, dse::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      codes, books_t, out, bad, call, R, L, K, D);
+  return cudaGetLastError();
 }
+
+// A zeroed 8-byte word of pinned host memory mapped into every card's address
+// space: `host` for the host's reads, `dev` for the kernel's store.
+extern "C" int dse_mapped_word_alloc(long long** host, long long** dev) {
+  cudaError_t err = cudaHostAlloc(reinterpret_cast<void**>(host), sizeof(long long),
+                                  cudaHostAllocMapped | cudaHostAllocPortable);
+  if (err != cudaSuccess) return err;
+  **host = 0;
+  err = cudaHostGetDevicePointer(reinterpret_cast<void**>(dev), *host, 0);
+  if (err != cudaSuccess) cudaFreeHost(*host);
+  return err;
+}
+
+extern "C" int dse_mapped_word_free(long long* host) { return cudaFreeHost(host); }

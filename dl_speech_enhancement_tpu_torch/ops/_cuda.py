@@ -34,7 +34,9 @@ _P, _I, _L, _Z, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c
 # C entry points: name -> (argtypes, restype). The layer kernels take (cache,
 # cache stream stride, x, ...) and the stream count B; the boundary convs an
 # activation code and slope (and causal_conv a tanh flag) before the weight type,
-# causal_conv its (arm, tile, steps per block) plan after it;
+# causal_conv its (arm, tile, steps per block) plan after it, causal_conv_transpose
+# its (tile, steps per block);
+# codebook_lookup its bad-code word and the call's number;
 # hifigan_unit an optional running sum and an output scale after its biases,
 # and its (tile, cluster) plan;
 # the DFT kernels the padded signal and its frames' geometry (signal stride, hop,
@@ -53,13 +55,16 @@ _ENTRIES = {
     },
     "causal_conv_transpose": {
         "dse_causal_conv_transpose": ([_P, _L, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
-                                       _I, _P], _I),
+                                       _I, _I, _I, _P], _I),
+        "dse_causal_conv_transpose_smem": ([_I, _I, _I, _I, _I], _Z),
     },
     "rvq_assign": {
         "dse_rvq_assign": ([_P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
     },
     "codebook_lookup": {
-        "dse_codebook_lookup": ([_P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
+        "dse_codebook_lookup": ([_P, _P, _P, _P, _L, _I, _I, _I, _I, _P], _I),
+        "dse_mapped_word_alloc": ([_P, _P], _I),
+        "dse_mapped_word_free": ([_P], _I),
     },
     "hifigan_unit": {
         "dse_hifigan_unit": ([_P, _L, _P, _L, _P, _P, _P, _P, _P, _P, _F, _P, _P, _I, _I, _I,
@@ -74,7 +79,6 @@ _ENTRIES = {
         "dse_fold_copy": ([_P, _P, _I, _I, _I, _I, _P], _I),
     },
 }
-BAD_CODE = -1  # codebook_lookup's return for a code outside its layer's range
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 

@@ -36,9 +36,9 @@ over. Instead:
   and the decoder input conv (causal_conv, k=7, code_dim -> 512) start the
   decoder half. The wire codes are the hand-off between the halves and are
   returned beside the audio, as the TPU kernels hand them from ``enc_kernel``
-  to ``dec_kernel``. The lookup reads back its bad-code flag, so the host
-  waits there once per dispatch for the encoder before it enqueues the
-  decoder.
+  to ``dec_kernel``. The lookup records a code outside its book in a word
+  of host memory that the card writes (:class:`BadCodeWord`), so no
+  dispatch waits for the card; the decoder half raises at its next call.
 - Weights are assembled once, at build time, into the kernels' (tap, in,
   out) layout and ``weight_dtype`` (bf16 by default, as in the JAX package;
   activations and sums stay f32). Codebooks, their squared norms and the
@@ -54,12 +54,18 @@ Math (zero caches at stream start), per stream:
   W[j]`` with ``x_ext = [cache((k-1)*d); x]``.
 - causal transposed conv, k = 2s, conv-ready kernel Wc, cpad = s - 1:
   ``y[s*r+p] = b + x_ext[r] @ Wc[cpad-p] + x_ext[r+1] @ Wc[cpad+s-p]`` with
-  ``x_ext = [cache(1); x]``.
+  ``x_ext = [cache(1); x]``. Phase p is a 2-tap conv over the one-row
+  cache whose rows are written at stride s, offset p: the kernel runs the
+  causal conv's GEMM arm on each phase (csrc/conv_gemm.cuh), planned by
+  :func:`_upsample_plan`.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
+import threading
+import weakref
 from typing import Callable, NamedTuple
 
 import torch
@@ -161,9 +167,10 @@ def conv_smem_bytes(arm: str, tile: int, cin: int, cout: int, taps: int, stride:
 
 
 def _gemm_cost(rows: int, cin: int, cout: int, taps: int, tile: int, steps_per_block: int,
-               smem: int) -> tuple[float, int]:
+               smem: int, phases: int = 1) -> tuple[float, int]:
     """The planner's model of one GEMM-arm launch: (us, blocks). The grid
-    runs in waves of the blocks the SMs hold (threads, registers and shared
+    (``phases`` GEMMs of ``rows`` rows: a transposed conv's s phases) runs
+    in waves of the blocks the SMs hold (threads, registers and shared
     memory bound it); a block takes a fixed time, then its steps, each the
     tile's step time scaled by the terms it holds (a part of a step is
     latency, whatever its terms) and by the blocks that share its SM, then
@@ -173,7 +180,7 @@ def _gemm_cost(rows: int, cin: int, cout: int, taps: int, tile: int, steps_per_b
     k8 = -(-min(taps * cin, _CONV_KC) // 8)
     per_sm = max(1, min(2048 // threads, 65536 // (threads * _CONV_TILE_REGS[tile]),
                         (_MAX_SMEM + 1024) // (smem + 1024), 32))
-    blocks = -(-rows // bm) * -(-cout // bn) * cluster
+    blocks = -(-rows // bm) * -(-cout // bn) * cluster * phases
     sharing = min(per_sm, -(-blocks // _N_SM))
     waves = -(-blocks // (_N_SM * per_sm))
     step = _CONV_STEP_US[tile] * (0.25 + 0.75 * k8 / 8) * sharing
@@ -199,17 +206,34 @@ def conv_gemm_plans(cin: int, cout: int, taps: int, stride: int, dilation: int,
     return plans
 
 
+def _gemm_plan(rows: int, cin: int, cout: int, taps: int, bf16: bool,
+               phases: int = 1) -> tuple[int, int] | None:
+    """(tile, steps per block) of the GEMM arm for ``phases`` GEMMs of
+    ``rows`` rows over a (taps, cin, cout) layer, or None where none fits: of
+    :func:`conv_gemm_plans` on tiles no more than twice as wide as ``cout``,
+    the plans within 10 % of the cheapest by :func:`_gemm_cost`, of those
+    the ones whose grid covers 32 SMs if any, and the cheapest of them."""
+    widest = max(16, 1 << (cout - 1).bit_length())  # no tile twice as wide as Cout
+    plans = [(*_gemm_cost(rows, cin, cout, taps, tile, q, smem, phases), tile, q)
+             for tile, q, smem in conv_gemm_plans(cin, cout, taps, 1, 1, bf16)
+             if conv_tile_dims(tile)[1] <= widest]
+    if not plans:
+        return None
+    near = [p for p in plans if p[0] <= 1.1 * min(p[0] for p in plans)]
+    spread = [p for p in near if p[1] >= _CONV_MIN_BLOCKS] or near
+    _, _, tile, q = min(spread)
+    return tile, q
+
+
 @functools.lru_cache(maxsize=1024)
 def _conv_plan(batch: int, t_out: int, cin: int, cout: int, taps: int, stride: int,
                dilation: int, bf16: bool) -> tuple[str, int, int]:
     """(arm, tile, steps per block) for ``batch`` streams of ``t_out`` output
     rows of a (taps, cin, cout) conv: ``cin1`` for one input channel,
     ``cout1`` for one output channel (``tile`` its output rows a block, the
-    most whose window fits), else ``gemm``: of :func:`conv_gemm_plans` on
-    tiles no more than twice as wide as ``cout``, the plans within 10 % of
-    the cheapest by :func:`_gemm_cost`, of those the ones whose grid covers
-    32 SMs if any, and the cheapest of them. Raises ValueError where no plan fits. Pure
-    Python, so the CPU tests hold it."""
+    most whose window fits), else ``gemm`` at :func:`_gemm_plan`'s plan.
+    Raises ValueError where no plan fits. Pure Python, so the CPU tests
+    hold it."""
     if cin == 1:
         if conv_smem_bytes("cin1", 0, cin, cout, taps, stride, dilation, 1, bf16) <= _MAX_SMEM:
             return "cin1", 0, 1
@@ -219,15 +243,9 @@ def _conv_plan(batch: int, t_out: int, cin: int, cout: int, taps: int, stride: i
                     "cout1", rows, cin, cout, taps, stride, dilation, 1, bf16) <= _MAX_SMEM:
                 return "cout1", rows, 1
     else:
-        widest = max(16, 1 << (cout - 1).bit_length())  # no tile twice as wide as Cout
-        plans = [(*_gemm_cost(batch * t_out, cin, cout, taps, tile, q, smem), tile, q)
-                 for tile, q, smem in conv_gemm_plans(cin, cout, taps, stride, dilation, bf16)
-                 if conv_tile_dims(tile)[1] <= widest]
-        if plans:
-            near = [p for p in plans if p[0] <= 1.1 * min(p[0] for p in plans)]
-            spread = [p for p in near if p[1] >= _CONV_MIN_BLOCKS] or near
-            _, _, tile, q = min(spread)
-            return "gemm", tile, q
+        plan = _gemm_plan(batch * t_out, cin, cout, taps, bf16)
+        if plan:
+            return ("gemm", *plan)
     raise ValueError(f"causal_conv: no plan fits {cin} -> {cout} channels at kernel {taps}, "
                      f"stride {stride}, dilation {dilation}")
 
@@ -297,6 +315,24 @@ def causal_conv_transpose_plain(cache, x, w, b=None, stride: int = 1,
     return y if b is None else y + b
 
 
+@functools.lru_cache(maxsize=1024)
+def _upsample_plan(batch: int, t_in: int, cin: int, cout: int, stride: int,
+                   bf16: bool) -> tuple[int, int]:
+    """(tile, steps per block) of causal_conv_transpose for ``batch`` streams
+    of ``t_in`` input rows of a (2 * stride, cin, cout) layer: the GEMM
+    arm's plan for ``stride`` phases of ``batch * t_in`` rows over the
+    2 * cin terms of a tap pair (:func:`_gemm_plan`; a block's shared memory
+    is the GEMM arm's at 2 taps, ``conv_smem_bytes("gemm", tile, cin, cout,
+    2, 1, 1, steps, bf16)``, which equals csrc/causal_conv_transpose.cu::
+    dse_causal_conv_transpose_smem). Raises ValueError where no plan fits.
+    Pure Python, so the CPU tests hold it."""
+    plan = _gemm_plan(batch * t_in, cin, cout, 2, bf16, stride)
+    if plan is None:
+        raise ValueError(f"causal_conv_transpose: no plan fits {cin} -> {cout} channels at "
+                         f"stride {stride}")
+    return plan
+
+
 def causal_conv_transpose(cache: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
                           b: torch.Tensor | None = None, stride: int = 1,
                           leaky: float | None = None) -> torch.Tensor:
@@ -305,7 +341,10 @@ def causal_conv_transpose(cache: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
     Cin) for one stream), w (2s, Cin, Cout) conv-ready tap-flipped, f32 or
     bf16, b (Cout,) f32 or None; ``leaky`` (a slope) applies LeakyReLU to the
     input as it is loaded. Returns (B, T * stride, Cout) f32 (2-D for one
-    stream)."""
+    stream). On the card the plan comes from :func:`_upsample_plan`; each
+    phase's products are split-TF32 tensor-core passes summed in an order
+    fixed by the layer, so a stream's bits do not depend on B, T or the
+    plan."""
     if x.device.type == "cpu":
         return causal_conv_transpose_plain(cache, x, w, b, stride, leaky)
     if x.device.type != "cuda":
@@ -328,12 +367,14 @@ def causal_conv_transpose(cache: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
     out = torch.empty((B, T * stride, cout), device=x.device)
     if B * T == 0:
         return out
+    bf16 = w.dtype == torch.bfloat16
+    tile, steps = _upsample_plan(B, T, cin, cout, stride, bf16)
     lib = _cuda.load("causal_conv_transpose")
-    err = lib.dse_causal_conv_transpose(cache.data_ptr(), cache.stride(0), x.data_ptr(),
-                                        w.data_ptr(), None if b is None else b.data_ptr(),
-                                        out.data_ptr(), B, T, cin, cout, stride,
-                                        int(leaky is not None), leaky or 0.0,
-                                        int(w.dtype == torch.bfloat16),
+    err = lib.dse_causal_conv_transpose(cache.data_ptr(), cache.stride(0) if B > 1 else 0,
+                                        x.data_ptr(), w.data_ptr(),
+                                        None if b is None else b.data_ptr(), out.data_ptr(), B,
+                                        T, cin, cout, stride, int(leaky is not None),
+                                        leaky or 0.0, int(bf16), tile, steps,
                                         _cuda.stream_handle(x))
     _cuda.check(lib, err, "causal_conv_transpose")
     causal_conv_transpose.launches += 1
@@ -409,12 +450,80 @@ def codebook_lookup_plain(codes, books_t):
     return zq
 
 
-def codebook_lookup(codes: torch.Tensor, books_t: torch.Tensor) -> torch.Tensor:
+class BadCodeWord:
+    """Where :func:`codebook_lookup`'s kernel records a code outside its
+    book: 8 bytes of pinned host memory mapped into the card's address space
+    (csrc/codebook_lookup.cu::dse_mapped_word_alloc, made at the first call
+    on the card). Each call on the card is given the next number, and a call
+    that meets such a code stores its number there; nothing clears it. The
+    host reads the word without a synchronisation: :meth:`check` raises
+    ValueError once for each new number it finds, so a bad code is reported
+    by the first check after its call has finished on the card.
+
+    One mechanism for every caller: a stream half's decoder owns one word
+    (:func:`mega_decoder`, ops/vocoder_kernel.py::vocoder_half), a direct
+    call uses its device's (:func:`check_codes`)."""
+
+    def __init__(self):
+        self._word = None  # ctypes view of the host word
+        self.device_ptr = None
+        self.calls = self.seen = 0
+        self._lock = threading.Lock()  # a streamer's threads may share an endpoint
+
+    def next_call(self) -> int:
+        """The number of the next call on the card, allocating the word."""
+        with self._lock:
+            if self._word is None:
+                lib = _cuda.load("codebook_lookup")
+                host, dev = ctypes.c_void_p(), ctypes.c_void_p()
+                _cuda.check(lib, lib.dse_mapped_word_alloc(ctypes.byref(host),
+                                                           ctypes.byref(dev)),
+                            "codebook_lookup: the bad-code word")
+                weakref.finalize(self, lib.dse_mapped_word_free, host.value)
+                self._word = ctypes.c_longlong.from_address(host.value)
+                self.device_ptr = dev.value
+            self.calls += 1
+            return self.calls
+
+    def check(self) -> None:
+        """Raise ValueError if a call has recorded a bad code since the last
+        check that raised. It sees the calls that have finished on the card:
+        after a synchronising read (``.cpu()`` of an output,
+        ``torch.cuda.synchronize()``), every earlier call."""
+        if self._word is not None and self._word.value != self.seen:
+            self.seen = self._word.value
+            raise _bad_codes("codebook_lookup")
+
+
+_DEVICE_WORDS: dict[int, BadCodeWord] = {}  # card index -> the word of direct calls
+
+
+def _device_word(device) -> BadCodeWord:
+    index = torch.device(device).index
+    index = torch.cuda.current_device() if index is None else index
+    return _DEVICE_WORDS.setdefault(index, BadCodeWord())
+
+
+def check_codes(device="cuda") -> None:
+    """Raise ValueError if a direct :func:`codebook_lookup` call on
+    ``device`` (one given no ``word``) met a code outside its book since the
+    last check that raised. Call it after ``torch.cuda.synchronize()`` to
+    cover every call made before."""
+    _device_word(device).check()
+
+
+def codebook_lookup(codes: torch.Tensor, books_t: torch.Tensor,
+                    word: BadCodeWord | None = None) -> torch.Tensor:
     """Codebook lookup of flattened wire codes: codes (R, L) int32, books_t
     (L, K, D) f32. Returns zq (R, D) f32, ``sum_l books_t[l, codes[:, l] -
-    l * K]``. Raises ValueError for a code outside its book's range; on CUDA
-    the kernel reads no such code and flags it, and the call waits for the
-    launch to finish to read the flag."""
+    l * K]``. A code outside its book's range raises ValueError. On the CPU
+    it raises at once. On the card the kernel reads no such code (its term
+    is zero, as the TPU kernel's one-hot product makes it) and records it in
+    ``word`` (the caller's :class:`BadCodeWord`; by default the device's),
+    and the call returns without waiting for the card: the bad code raises
+    at the first check of the word after its call has finished there, that
+    is at the word's next call (which checks first) or at an explicit
+    ``word.check()`` / :func:`check_codes` after a synchronising read."""
     if codes.device.type == "cpu":
         return codebook_lookup_plain(codes, books_t)
     if codes.device.type != "cuda":
@@ -432,12 +541,13 @@ def codebook_lookup(codes: torch.Tensor, books_t: torch.Tensor) -> torch.Tensor:
     out = torch.empty((R, D), device=codes.device)
     if R == 0:
         return out
-    bad = torch.empty((1,), dtype=torch.int32, device=codes.device)
+    word = _device_word(codes.device) if word is None else word
+    word.check()
+    call = word.next_call()
     lib = _cuda.load("codebook_lookup")
     err = lib.dse_codebook_lookup(codes.data_ptr(), books_t.data_ptr(), out.data_ptr(),
-                                  bad.data_ptr(), R, L, K, D, _cuda.stream_handle(codes))
-    if err == _cuda.BAD_CODE:
-        raise _bad_codes("codebook_lookup")
+                                  word.device_ptr, call, R, L, K, D,
+                                  _cuda.stream_handle(codes))
     _cuda.check(lib, err, "codebook_lookup")
     codebook_lookup.launches += 1
     return out
@@ -585,8 +695,9 @@ def mega_decoder(gen, weight_dtype=torch.bfloat16, vq_state=None) -> StreamHalf:
 
     ``run(cache, wire) -> (audio (B, T, 1), new cache entries)`` takes what
     an encoder half sends: int32 wire codes (B, rows, L) with PQC (looked up
-    in ``vq_state``'s books; a code outside its book raises ValueError),
-    features (B, rows, C) without."""
+    in ``vq_state``'s books; a code outside its book raises ValueError, on
+    the card at the half's next ``run`` after its dispatch has finished:
+    the half owns a :class:`BadCodeWord`), features (B, rows, C) without."""
     _check_half(gen, weight_dtype, vq_state)
     dec, wd, halo = gen.decoder, weight_dtype, chain_halo()
     levels = [(conv_transpose_weight(blk.conv, wd), _bias(blk.conv), blk.conv.stride,
@@ -596,6 +707,7 @@ def mega_decoder(gen, weight_dtype=torch.bfloat16, vq_state=None) -> StreamHalf:
     if gen.use_pqc:
         w_dc1 = conv_weight(dec.conv1, wd)
         _, _, books_t = vq_tables(vq_state, gen.device)
+        word = BadCodeWord()
         shapes["dc1"] = (dec.conv1.pad_length, dec.conv1.in_channels)
     for bi, blk in enumerate(dec.blocks):
         shapes[f"d{bi}u"] = (1, blk.conv.in_channels)
@@ -606,7 +718,8 @@ def mega_decoder(gen, weight_dtype=torch.bfloat16, vq_state=None) -> StreamHalf:
         new, h = {}, wire
         if gen.use_pqc:
             b, rows, n_books = wire.shape
-            zq = codebook_lookup(wire.reshape(b * rows, n_books), books_t).reshape(b, rows, -1)
+            zq = codebook_lookup(wire.reshape(b * rows, n_books), books_t,
+                                 word).reshape(b, rows, -1)
             new["dc1"] = tail(cache["dc1"], zq, shapes["dc1"][0])
             h = causal_conv(cache["dc1"], zq, w_dc1)
         for bi, (w_up, b_up, s, (w1, w2)) in enumerate(levels):

@@ -49,6 +49,7 @@ from dl_speech_enhancement_tpu_torch.models.hifigan import (
 )
 from dl_speech_enhancement_tpu_torch.ops import _cuda
 from dl_speech_enhancement_tpu_torch.ops.mega_kernel import (
+    BadCodeWord,
     StreamHalf,
     _bias,
     _check_half_dtype,
@@ -375,7 +376,9 @@ def vocoder_half(voc, weight_dtype=torch.bfloat16, vq_state=None) -> StreamHalf:
 
     ``run(cache, wire) -> (audio (B, rows * total_upsample, 1), new cache
     entries)`` takes int32 wire codes (B, rows, L) (a code outside its book
-    raises ValueError), or features (B, rows, in_channels) without PQC.
+    raises ValueError, on the card at the half's next ``run`` after its
+    dispatch has finished: the half owns a ``BadCodeWord``), or features (B,
+    rows, in_channels) without PQC.
     Cache names start with ``v``, apart from the codec halves' names."""
     reason = vocoder_topology_error(voc, voc.total_upsample)
     if reason:
@@ -387,6 +390,7 @@ def vocoder_half(voc, weight_dtype=torch.bfloat16, vq_state=None) -> StreamHalf:
     w_in, b_in = w_in.to(voc.device), b_in.to(voc.device)
     if vq_state is not None:
         _, _, books_t = vq_tables(vq_state, voc.device)
+        word = BadCodeWord()
         if books_t.shape[2] != ci.in_channels:
             raise ValueError(f"code dim {books_t.shape[2]} does not fit the vocoder's "
                              f"{ci.in_channels} input channels")
@@ -406,8 +410,8 @@ def vocoder_half(voc, weight_dtype=torch.bfloat16, vq_state=None) -> StreamHalf:
         new, h = {}, wire
         if vq_state is not None:
             batch, rows, n_books = wire.shape
-            h = codebook_lookup(wire.reshape(batch * rows, n_books),
-                                books_t).reshape(batch, rows, -1)
+            h = codebook_lookup(wire.reshape(batch * rows, n_books), books_t,
+                                word).reshape(batch, rows, -1)
         # without PQC the wire may be the caller's tensor: keep the cache off it
         new["v_in"] = tail(cache["v_in"], h, shapes["v_in"][0]).clone()
         h = causal_conv(cache["v_in"], h, w_in, b_in)

@@ -313,8 +313,12 @@ class StreamingReceiver:
     stream (ops/mega_kernel.py::mega_decoder, 11 launches a call with PQC,
     9 without; bf16 weights unless given ``weight_dtype``) and raises where
     it cannot run; ``'eager'`` the plain modules. Codes from a transmitter
-    on another device are moved here first; a code outside its book's range
-    raises ValueError. Caches carry across ``decode`` calls."""
+    on another device are moved here first. A code outside its book's range
+    raises ValueError: at once where the codes come from the host (checked
+    there before the upload) or on the eager route; where they are already
+    on the card, at the next ``decode`` after this one has finished there
+    (after a synchronising read, such as ``.cpu()`` of the audio). Caches
+    carry across ``decode`` calls."""
 
     def __init__(self, gen, vq_state: VQState | None, batch: int = 1, backend: str = "auto",
                  weight_dtype=torch.bfloat16, device="cuda"):
@@ -342,15 +346,16 @@ class StreamingReceiver:
 
     @torch.no_grad()
     def decode(self, idx: torch.Tensor) -> torch.Tensor:
+        if self.use_pqc and (idx.device.type == "cpu" or self.backend != "cuda"):
+            _check_wire_codes(self.gen, idx)  # host codes: before the upload, no card wait
         idx = idx.to(self.device)
         if self.backend == "cuda":
-            # codebook_lookup checks the codes' range on the card
+            # codes already on the card: codebook_lookup records a bad one,
+            # which raises at the next decode after this one has finished
             wire = idx.permute(1, 2, 0) if self.use_pqc else idx
             y, new_cache = self._half.run(self.cache, wire.contiguous())
             self.cache.update(new_cache)
             return y
-        if self.use_pqc:
-            _check_wire_codes(self.gen, idx)
         zq = self.gen.lookup(self.flat_cb, idx) if self.use_pqc else idx
         y, new_cache = self.gen.decode_step(self.cache, zq)
         self.cache.update(new_cache)
@@ -433,7 +438,9 @@ class VocoderReceiver:
     call (43 for a MultiReceptiveField receiver), and raises where it cannot
     run; ``'eager'`` the plain modules.
     The cache does not depend on T, so a long priming call and the frames
-    after it share it. A code outside its book's range raises ValueError."""
+    after it share it. A code outside its book's range raises ValueError, as
+    :class:`StreamingReceiver`'s does (codes on the card: at the next
+    ``decode`` after this one has finished there)."""
 
     def __init__(self, codec_gen, vocoder, vq_state, batch: int = 1, backend: str = "auto",
                  weight_dtype=None, device="cuda"):
@@ -464,15 +471,17 @@ class VocoderReceiver:
 
     @torch.no_grad()
     def decode(self, idx: torch.Tensor) -> torch.Tensor:
+        if self.use_pqc and (idx.device.type == "cpu" or self.backend != "cuda"):
+            _check_wire_codes(self.codec_gen, idx)  # host codes: before the upload, no card wait
         idx = idx.to(self.device)
         if self.backend == "cuda":
-            # codebook_lookup checks the codes' range on the card
+            # codes already on the card: codebook_lookup records a bad one,
+            # which raises at the next decode after this one has finished
             wire = idx.permute(1, 2, 0) if self.use_pqc else idx
             y, new_cache = self._half.run(self.cache, wire.contiguous())
             self.cache.update(new_cache)
             return y
         if self.use_pqc:
-            _check_wire_codes(self.codec_gen, idx)
             idx = self.codec_gen.lookup(self.flat_cb, idx)
         y, self.cache = self.vocoder.step(self.cache, idx)
         return y

@@ -1,6 +1,7 @@
-"""Device time of one causal_conv launch at the paths' conv sites, on one
-card, against cuDNN and, optionally, the causal_conv kernel of another
-checkout or of this tree built with other compiler flags.
+"""Device time of one causal_conv or causal_conv_transpose launch at the
+paths' conv and upsample sites, on one card, against cuDNN and, optionally,
+the kernels of another checkout or of this tree built with other compiler
+flags.
 
     python dl_speech_enhancement_tpu_torch/tools/conv_timing.py [--parent DIR]
         [--variant FLAGS] [--sweep] [--out FILE]
@@ -10,32 +11,38 @@ Sites (``ops/vocoder_kernel.py::conv_sites``): every causal_conv launch of
 the codec's dispatch (input conv, the four downsamples, the PQC projector and
 decoder input conv, output conv; the denoiser's are the same less the two PQC
 ones) and of the ``vctk_v1`` receiver's (input conv, the four 1x1 fuses, the
-activated tanh output conv), at one stream of 1, 100 and 400 frames and at 16
-streams of 1 and 16 frames, with bf16 weights. For each it first holds the
-kernel against ``causal_conv_plain`` (1e-4 of the largest output), then
-prints the device time per call (``torch.profiler``, 50 calls after 5
-warm-up calls) of this tree's kernel at its planner's plan, of ``F.conv1d``
-on the same input and f32 weights (TF32 off), with ``--parent`` of the
-kernel built from ``DIR``'s ``dl_speech_enhancement_tpu_torch/csrc/
-causal_conv.cu`` with the entry point before plans (no arm, tile or split
-arguments), and with ``--variant`` of this tree's kernel built with the
-extra nvcc ``FLAGS`` (e.g. ``-DDSE_CONV_MIN_BLOCKS_256=1``) at the same
-plan. It prints ptxas's registers, stack frame and spills of each GEMM-arm
-instantiation it builds.
+activated tanh output conv), and every causal_conv_transpose launch of the
+two (the decoder's four upsamples ``d0u``-``d3u``; the receiver's four
+``v0u``-``v3u``, LeakyReLU(0.1) on load), at one stream of 1, 100 and 400
+frames and at 16 streams of 1 and 16 frames, with bf16 weights. For each it
+first holds the kernel against its plain version (1e-4 of the largest
+output), then prints the device time per call (``torch.profiler``, 50 calls
+after 5 warm-up calls) of this tree's kernel at its planner's plan, of
+``F.conv1d`` / ``F.conv_transpose1d`` on the same input and f32 weights
+(TF32 off), with ``--parent`` of the kernels built from ``DIR``'s
+``dl_speech_enhancement_tpu_torch/csrc/causal_conv.cu`` and
+``causal_conv_transpose.cu``, and with ``--variant`` of this tree's kernels
+built with the extra nvcc ``FLAGS`` (e.g. ``-DDSE_CONV_MIN_BLOCKS_256=1``)
+at the same plan. A parent kernel whose entry point takes this tree's plan
+arguments (causal_conv from the redesigned one on, causal_conv_transpose
+once it runs on the GEMM arm) runs at this tree's plan and must equal this
+tree's output bit for bit; an older one is timed only. It prints ptxas's
+registers, stack frame and spills of each GEMM-arm instantiation it builds.
 
 ``--sweep`` also times every plan the GEMM arm could take at each GEMM site
-(``ops/mega_kernel.py::conv_gemm_plans``; CUDA events around a CUDA graph of
-20 launches) and requires each to equal the planner's plan bit for bit; it
-fails unless a replay of each graph writes the output (the graph holds the
-launches) and the planned plan's graph time is at least half its profiled
-device time. ``--fit FILE`` (no card) reads such a ``--out`` file and fits
-the planner's cost constants (``_CONV_BLOCK_US``, ``_CONV_FOLD_US``,
-``_CONV_FOLD_US_PER_ELEM``, ``_CONV_STEP_US``) by coordinate descent from
-their current values, so that the planner's pick is as close to each case's
-fastest plan as it can be (the sum of the ratios over all cases, then the
-worst), while every case whose pick covers 32 SMs keeps such a pick; it
-prints the constants and, per case, the picked and the fastest plan's
-times.
+and upsample site (``ops/mega_kernel.py::conv_gemm_plans``, at 2 taps for an
+upsample; CUDA events around a CUDA graph of 20 launches) and requires each
+to equal the planner's plan bit for bit; it fails unless a replay of each
+graph writes the output (the graph holds the launches) and the planned
+plan's graph time is at least half its profiled device time. ``--fit FILE``
+(no card) reads such a ``--out`` file and fits the planner's cost constants
+(``_CONV_BLOCK_US``, ``_CONV_FOLD_US``, ``_CONV_FOLD_US_PER_ELEM``,
+``_CONV_STEP_US``) by coordinate descent from their current values, so that
+the planner's pick (``_conv_plan``, ``_upsample_plan``) is as close to each
+case's fastest plan as it can be (the sum of the ratios over all cases,
+then the worst), while every case whose pick covers 32 SMs keeps such a
+pick; it prints the constants and, per case, the picked and the fastest
+plan's times.
 
 The card first runs matmuls for 3 s so that its clocks leave idle; the
 card's name, power limit and SM clock are printed before and after.
@@ -64,9 +71,11 @@ def _card() -> str:
                           timeout=60).stdout.strip()
 
 
-def _sites(root: str) -> list:
-    """(name, Cin, Cout, taps, stride, leaky, tanh, output rows a frame) of
-    the codec's and the v1 receiver's causal_conv sites."""
+def _sites(root: str) -> tuple[list, list]:
+    """The codec's and the v1 receiver's causal_conv sites, as (name, Cin,
+    Cout, taps, stride, leaky, tanh, output rows a frame), and their
+    causal_conv_transpose sites, as (name, Cin, Cout, stride, leaky, input
+    rows a frame)."""
     from dl_speech_enhancement_tpu_torch.models import AudioDecGenerator
     from dl_speech_enhancement_tpu_torch.ops.vocoder_kernel import conv_sites
     from dl_speech_enhancement_tpu_torch.tools.host_latency import _receiver
@@ -74,14 +83,22 @@ def _sites(root: str) -> list:
 
     gp = load_config(os.path.join(root, "configs", "autoencoder",
                                   "symAD_vctk_48000_hop300.yaml"))["generator_params"]
+    codec, voc = AudioDecGenerator(**gp, use_pqc=True, device="cpu"), _receiver(root, load_config)
     sites = []
-    for model in (AudioDecGenerator(**gp, use_pqc=True, device="cpu"),
-                  _receiver(root, load_config)):
+    for model in (codec, voc):
         for name, c, rows in conv_sites(model, FRAME):
             leaky, tanh = (0.01, True) if name == "v_out" else (None, False)  # vocoder_half's
             sites.append((name, c.in_channels, c.out_channels, c.kernel_size, c.stride, leaky,
                           tanh, rows))
-    return sites
+    upsamples, rows = [], FRAME // codec.hop
+    for prefix, layers, leaky in (("d", [blk.conv for blk in codec.decoder.blocks], None),
+                                  ("v", voc.upsamples, voc.negative_slope)):
+        t = rows
+        for i, up in enumerate(layers):
+            upsamples.append((f"{prefix}{i}u", up.in_channels, up.out_channels, up.stride,
+                              leaky, t))
+            t *= up.stride
+    return sites, upsamples
 
 
 def _build_conv(src: str, lib_path: str, flags=(), entries=None):
@@ -102,15 +119,15 @@ def _build_conv(src: str, lib_path: str, flags=(), entries=None):
     return lib, proc.stdout + proc.stderr
 
 
-def _ptxas_gemm(log: str) -> list[str]:
+def _ptxas_gemm(log: str, kernel: str = "causal_conv_kernel_gemm") -> list[str]:
     """``tile dims, weight type: registers; stack frame and spills`` of each
-    GEMM-arm instantiation in ptxas's -v output."""
+    GEMM-arm instantiation (of ``kernel``) in ptxas's -v output."""
     out, name, regs = [], None, {}
     for line in log.splitlines():
         m = re.search(r"Function properties for (\S+)", line)
         if m:
             name = m.group(1)
-        elif name and "causal_conv_kernel_gemm" in name:
+        elif name and kernel in name:
             if "registers" in line:
                 regs[name] = line.split(":", 1)[1].strip()
             elif "stack frame" in line:
@@ -129,21 +146,22 @@ def fit(path: str) -> int:
     from dl_speech_enhancement_tpu_torch.ops import mega_kernel as mk
 
     with open(path) as f:
-        cases = [r for r in json.load(f)["sites"] if "sweep_us" in r]
+        report = json.load(f)
+    cases = [r for r in report["sites"] + report.get("upsample_sites", []) if "sweep_us" in r]
 
     def set_params(p):
         mk._CONV_BLOCK_US, mk._CONV_FOLD_US, mk._CONV_FOLD_US_PER_ELEM = p[:3]
         mk._CONV_STEP_US = tuple(p[3:])
-        mk._conv_plan.cache_clear()
 
     def picks(p):
         set_params(p)
-        for r in cases:
-            _, tile, q = mk._conv_plan(1, r["rows"], *r["layer"], 1, True)
+        for r in cases:  # the GEMM arm's pick, as _conv_plan and _upsample_plan make it
             cin, cout, taps, _ = r["layer"]
+            phases = r.get("phases", 1)
+            tile, q = mk._gemm_plan(r["rows"], cin, cout, taps, True, phases)
             bm, bn, _ = mk.conv_tile_dims(tile)
             blocks = (-(-r["rows"] // bm) * -(-cout // bn)
-                      * -(-len(mk.conv_chunks(taps, cin)) // q))
+                      * -(-len(mk.conv_chunks(taps, cin)) // q) * phases)
             yield r, r["sweep_us"][f"{tile},{q}"], min(r["sweep_us"].values()), blocks
 
     def spread(p):
@@ -214,22 +232,38 @@ def main() -> int:
         return 1
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    sites = _sites(root)
-    src = str(_cuda.CSRC / "causal_conv.cu")
+    sites, upsamples = _sites(root)
     build_dir = str(_cuda.BUILD_DIR)
-    new, log = _build_conv(src, os.path.join(build_dir, "causal_conv_timed.so"))
-    print("ptxas, this tree:", *_ptxas_gemm(log), sep="\n  ", flush=True)
+    conv_src = str(_cuda.CSRC / "causal_conv.cu")
+    up_src = str(_cuda.CSRC / "causal_conv_transpose.cu")
+    up_entries = _cuda._ENTRIES["causal_conv_transpose"]
+    new, log = _build_conv(conv_src, os.path.join(build_dir, "causal_conv_timed.so"))
+    new_up, up_log = _build_conv(up_src, os.path.join(build_dir, "causal_conv_transpose_timed.so"),
+                                 entries=up_entries)
+    print("ptxas, this tree:", *_ptxas_gemm(log),
+          *_ptxas_gemm(up_log, "causal_conv_transpose_kernel"), sep="\n  ", flush=True)
+    libs = {"conv": {"new": new}, "upsample": {"new": new_up}}
+    same_entry = {"conv": True, "upsample": True}  # whether the parent takes this tree's plan
     if args.parent:
-        p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-        parent, _ = _build_conv(
-            os.path.join(args.parent, "dl_speech_enhancement_tpu_torch", "csrc",
-                         "causal_conv.cu"), os.path.join(build_dir, "causal_conv_parent.so"),
-            entries={"dse_causal_conv": ([p, ll, p, p, p, p, i, i, i, i, i, i, i, i, f, i, i, p],
-                                         i)})
+        parent_csrc = os.path.join(args.parent, "dl_speech_enhancement_tpu_torch", "csrc")
+        libs["conv"]["parent"], _ = _build_conv(os.path.join(parent_csrc, "causal_conv.cu"),
+                                                os.path.join(build_dir, "causal_conv_parent.so"))
+        with open(os.path.join(parent_csrc, "causal_conv_transpose.cu")) as f:
+            same_entry["upsample"] = "dse_causal_conv_transpose_smem" in f.read()
+        p, i, ll, f_ = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+        libs["upsample"]["parent"], _ = _build_conv(
+            os.path.join(parent_csrc, "causal_conv_transpose.cu"),
+            os.path.join(build_dir, "causal_conv_transpose_parent.so"),
+            entries=up_entries if same_entry["upsample"] else {
+                "dse_causal_conv_transpose": ([p, ll, p, p, p, p, i, i, i, i, i, i, f_, i, p], i)})
     if args.variant:
-        variant, log = _build_conv(src, os.path.join(build_dir, "causal_conv_variant.so"),
-                                   args.variant.split())
-        print(f"ptxas, {args.variant}:", *_ptxas_gemm(log), sep="\n  ", flush=True)
+        libs["conv"]["variant"], log = _build_conv(
+            conv_src, os.path.join(build_dir, "causal_conv_variant.so"), args.variant.split())
+        libs["upsample"]["variant"], up_log = _build_conv(
+            up_src, os.path.join(build_dir, "causal_conv_transpose_variant.so"),
+            args.variant.split(), up_entries)
+        print(f"ptxas, {args.variant}:", *_ptxas_gemm(log),
+              *_ptxas_gemm(up_log, "causal_conv_transpose_kernel"), sep="\n  ", flush=True)
     card = _card()
     print("idle:", card, flush=True)
     a = torch.randn(8192, 8192, device="cuda")
@@ -276,7 +310,67 @@ def main() -> int:
             times.append(start.elapsed_time(end) * 1e3 / reps)
         return sorted(times)[2]
 
-    report = {"card": card, "variant": args.variant, "sites": []}
+    def measure(kind, name, batch, n_frames, plan, run_plan, got, ref, run_lib, row, gemm_plans):
+        """Holds ``got`` (the wrapper's output) to ``ref`` (the plain
+        version's) and the variant and parent to it, then times the kernel,
+        cuDNN, the variant and the parent, and with --sweep every GEMM plan;
+        returns the report row, or None after printing a failure."""
+        out = row.pop("out")
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        limit = RTOL * float(ref.abs().max())
+        if not err <= limit:
+            print(f"FAIL {name} B={batch} N={n_frames} plan {plan}: max|err| {err} > {limit}",
+                  flush=True)
+            return None
+        row.update(plan=list(plan), max_abs_err=err,
+                   kernel_us=device_us(lambda: run_plan(*plan)), cudnn_us=device_us(run_lib))
+        line = (f"{name:7s} B={batch:<2d} N={n_frames:<3d} plan {plan}: kernel "
+                f"{row['kernel_us']:.1f} us, cudnn {row['cudnn_us']:.1f} us")
+        for other in ("variant", "parent"):
+            if other not in libs[kind]:
+                continue
+            planned = other == "variant" or same_entry[kind]
+            if planned:  # the same plan: the bits must be this tree's
+                run_plan(*plan, lib=libs[kind][other])
+                torch.cuda.synchronize()
+                if not torch.equal(out, got):
+                    print(f"FAIL {name} B={batch} N={n_frames}: the {other}'s bits differ by "
+                          f"{float((out - got).abs().max())}", flush=True)
+                    return None
+                row[f"{other}_us"] = device_us(lambda: run_plan(*plan, lib=libs[kind][other]))
+            else:
+                row[f"{other}_us"] = device_us(lambda: run_plan(lib=libs[kind][other]))
+            line += f", {other} {row[f'{other}_us']:.1f} us" + (" (bit-equal)" if planned else "")
+        if args.sweep and gemm_plans:
+            run_plan(*plan)
+            planned = out.clone()
+            sweep = {}
+            for tile, q in gemm_plans:
+                out.zero_()
+                run_plan(*plan[:-2], tile, q)
+                torch.cuda.synchronize()
+                if not torch.equal(out, planned):
+                    print(f"FAIL {name} B={batch} N={n_frames}: plan {(tile, q)} differs "
+                          f"from the planned {plan} by "
+                          f"{float((out - planned).abs().max())}", flush=True)
+                    return None
+                sweep[f"{tile},{q}"] = graph_us(lambda: run_plan(*plan[:-2], tile, q), out,
+                                                planned)
+            best = min(sweep, key=sweep.get)
+            at_plan = sweep[f"{plan[-2]},{plan[-1]}"]
+            if at_plan < 0.5 * row["kernel_us"]:
+                print(f"FAIL {name} B={batch} N={n_frames}: the planned plan's graph time "
+                      f"{at_plan:.2f} us is under half its device time "
+                      f"{row['kernel_us']:.2f} us", flush=True)
+                return None
+            row["sweep_us"] = sweep
+            line += (f"; sweep: best {best} {sweep[best]:.1f} us, planned {at_plan:.1f} us "
+                     f"(all {len(sweep)} plans equal bit for bit)")
+        print(line, flush=True)
+        return row
+
+    report = {"card": card, "variant": args.variant, "sites": [], "upsample_sites": []}
     for batch, n_frames in SHAPES:
         for name, cin, cout, taps, stride, leaky, tanh, rows in sites:
             t_out = rows * n_frames
@@ -291,77 +385,61 @@ def main() -> int:
                     out.data_ptr(), batch, t_out, cin, cout, taps, stride, 1,
                     int(leaky is not None), leaky or 0.0, int(tanh), 1)
 
-            def run_plan(arm, tile, q, lib=new):
+            def run_conv(*plan, lib=new, head=head, name=name):
+                arm = (mk.CONV_ARMS.index(plan[0]),) if plan else ()
                 _cuda.check(lib, lib.dse_causal_conv(
-                    *head, mk.CONV_ARMS.index(arm), tile, q,
-                    torch.cuda.current_stream().cuda_stream), f"causal_conv {name}")
+                    *head, *arm, *plan[1:], torch.cuda.current_stream().cuda_stream),
+                    f"causal_conv {name}")
 
             got = mk.causal_conv(cache, x, wb, b, stride, 1, leaky, tanh)
             ref = mk.causal_conv_plain(cache, x, wb, b, stride, 1, leaky, tanh)
-            torch.cuda.synchronize()
-            err = float((got - ref).abs().max())
-            limit = RTOL * float(ref.abs().max())
-            if not err <= limit:
-                print(f"FAIL {name} B={batch} N={n_frames} plan {plan}: max|err| {err} > {limit}",
-                      flush=True)
-                return 1
             x_lib = torch.cat([cache, x], dim=1).transpose(1, 2).contiguous()
             w_lib = w.permute(2, 1, 0).contiguous()
             if leaky is not None:
                 x_lib = F.leaky_relu(x_lib, leaky)
-
-            def run_lib():
-                F.conv1d(x_lib, w_lib, b, stride)
-
-            row = {"site": name, "streams": batch, "frames": n_frames, "plan": list(plan),
-                   "layer": [cin, cout, taps, stride], "rows": batch * t_out,
-                   "max_abs_err": err, "kernel_us": device_us(lambda: run_plan(*plan)),
-                   "cudnn_us": device_us(run_lib)}
-            line = (f"{name:7s} B={batch:<2d} N={n_frames:<3d} plan {plan}: kernel "
-                    f"{row['kernel_us']:.1f} us, cudnn {row['cudnn_us']:.1f} us")
-            if args.variant:
-                run_plan(*plan, lib=variant)
-                torch.cuda.synchronize()
-                if not torch.equal(out, got):
-                    print(f"FAIL {name} B={batch} N={n_frames}: the variant's bits differ",
-                          flush=True)
-                    return 1
-                row["variant_us"] = device_us(lambda: run_plan(*plan, lib=variant))
-                line += f", variant {row['variant_us']:.1f} us"
-            if args.parent:
-                def run_parent():
-                    _cuda.check(parent, parent.dse_causal_conv(
-                        *head, torch.cuda.current_stream().cuda_stream), "parent")
-
-                row["parent_us"] = device_us(run_parent)
-                line += f", parent {row['parent_us']:.1f} us"
-            if args.sweep and plan[0] == "gemm":
-                run_plan(*plan)
-                planned = out.clone()
-                sweep = {}
-                for tile, q, _ in mk.conv_gemm_plans(cin, cout, taps, stride, 1, True):
-                    out.zero_()
-                    run_plan("gemm", tile, q)
-                    torch.cuda.synchronize()
-                    if not torch.equal(out, planned):
-                        print(f"FAIL {name} B={batch} N={n_frames}: plan {(tile, q)} differs "
-                              f"from the planned {plan} by "
-                              f"{float((out - planned).abs().max())}", flush=True)
-                        return 1
-                    sweep[f"{tile},{q}"] = graph_us(lambda: run_plan("gemm", tile, q), out,
-                                                    planned)
-                best = min(sweep, key=sweep.get)
-                at_plan = sweep[f"{plan[1]},{plan[2]}"]
-                if at_plan < 0.5 * row["kernel_us"]:
-                    print(f"FAIL {name} B={batch} N={n_frames}: the planned plan's graph time "
-                          f"{at_plan:.2f} us is under half its device time "
-                          f"{row['kernel_us']:.2f} us", flush=True)
-                    return 1
-                row["sweep_us"] = sweep
-                line += (f"; sweep: best {best} {sweep[best]:.1f} us, planned {at_plan:.1f} us "
-                         f"(all {len(sweep)} plans equal bit for bit)")
-            print(line, flush=True)
+            row = measure("conv", name, batch, n_frames, plan, run_conv, got, ref,
+                          lambda: F.conv1d(x_lib, w_lib, b, stride),
+                          {"site": name, "streams": batch, "frames": n_frames,
+                           "layer": [cin, cout, taps, stride], "rows": batch * t_out,
+                           "out": out},
+                          [p[:2] for p in mk.conv_gemm_plans(cin, cout, taps, stride, 1, True)]
+                          if plan[0] == "gemm" else None)
+            if row is None:
+                return 1
             report["sites"].append(row)
+        for name, cin, cout, stride, leaky, rows in upsamples:
+            t_in = rows * n_frames
+            cache = rn(batch, 1 + 5, cin)[:, 5:]
+            x = rn(batch, t_in, cin) * (3 if leaky else 1)
+            w = rn(2 * stride, cin, cout) / (2 * cin) ** 0.5  # conv-ready, tap-flipped
+            wb = w.bfloat16()
+            b = rn(cout)
+            out = torch.empty(batch, t_in * stride, cout, device="cuda")
+            plan = mk._upsample_plan(batch, t_in, cin, cout, stride, True)
+            head = (cache.data_ptr(), cache.stride(0), x.data_ptr(), wb.data_ptr(), b.data_ptr(),
+                    out.data_ptr(), batch, t_in, cin, cout, stride, int(leaky is not None),
+                    leaky or 0.0, 1)
+
+            def run_up(*plan, lib=new_up, head=head, name=name):
+                _cuda.check(lib, lib.dse_causal_conv_transpose(
+                    *head, *plan, torch.cuda.current_stream().cuda_stream),
+                    f"causal_conv_transpose {name}")
+
+            got = mk.causal_conv_transpose(cache, x, wb, b, stride, leaky)
+            ref = mk.causal_conv_transpose_plain(cache, x, wb, b, stride, leaky)
+            x_lib = torch.cat([cache, x], dim=1).transpose(1, 2).contiguous()
+            if leaky is not None:
+                x_lib = F.leaky_relu(x_lib, leaky)
+            w_lib = w.flip(0).permute(1, 2, 0).contiguous()  # (Cin, Cout, k)
+            row = measure("upsample", name, batch, n_frames, plan, run_up, got, ref,
+                          lambda: F.conv_transpose1d(x_lib, w_lib, b, stride, stride),
+                          {"site": name, "streams": batch, "frames": n_frames,
+                           "layer": [cin, cout, 2, 1], "phases": stride,
+                           "rows": batch * t_in, "out": out},
+                          [p[:2] for p in mk.conv_gemm_plans(cin, cout, 2, 1, 1, True)])
+            if row is None:
+                return 1
+            report["upsample_sites"].append(row)
     print("end:", _card())
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

@@ -1,4 +1,5 @@
-"""causal_conv's planner, shared-memory formula and arithmetic, on the CPU.
+"""causal_conv's and causal_conv_transpose's planners, shared-memory
+formulas and arithmetic, on the CPU.
 
 The planner (ops/mega_kernel.py::_conv_plan) and its shared-memory formula
 (conv_smem_bytes, equal to csrc/causal_conv.cu's dse_causal_conv_smem;
@@ -14,17 +15,29 @@ shows the fold's bits do not depend on the split, and the error of e3d's
 2,560-term sums against f64 well under chip_smoke.py's KERNEL_ATOL_F32
 (1e-4), where a single TF32 pass would not meet it; the Cout = 1 arm's
 224-term serial sums (v_out) likewise.
+
+causal_conv_transpose runs each of its s phases on the same GEMM arm, a
+2-tap conv over the one-row cache whose rows land at s*r + p: its planner
+(_upsample_plan, the GEMM arm's cost model with the phases in the grid) and
+formula (the GEMM arm's at 2 taps, equal to dse_causal_conv_transpose_smem) are
+held at every upsample site of the five models at every shape, and the
+phase GEMM is emulated in numpy against causal_conv_transpose_plain at
+d0u's 1,024-term sums (and v0u's, LeakyReLU on load).
 """
 
 import os
 
 import numpy as np
 import pytest
+import torch
 
 from dl_speech_enhancement_tpu_torch.models import AudioDecGenerator, HiFiGANGenerator
 from dl_speech_enhancement_tpu_torch.ops.mega_kernel import (
     _CONV_MAX_CLUSTER,
     _conv_plan,
+    _gemm_cost,
+    _upsample_plan,
+    causal_conv_transpose_plain,
     conv_chunks,
     conv_gemm_plans,
     conv_smem_bytes,
@@ -60,15 +73,40 @@ def _receiver(version):
     return HiFiGANGenerator(**gp, device="cpu")
 
 
+def _upsamples(model):
+    """(name, Cin, Cout, stride, input rows a frame) of every
+    causal_conv_transpose launch of one dispatch of ``model``: a codec
+    generator's decoder upsamples, or a HiFiGAN receiver's."""
+    if isinstance(model, HiFiGANGenerator):
+        prefix, layers, t = "v", list(model.upsamples), FRAME // model.total_upsample
+    else:
+        prefix, layers, t = "d", [blk.conv for blk in model.decoder.blocks], FRAME // model.hop
+    out = []
+    for i, layer in enumerate(layers):
+        out.append((f"{prefix}{i}u", layer.in_channels, layer.out_channels, layer.stride, t))
+        t *= layer.stride
+    return out
+
+
 @pytest.fixture(scope="module")
-def sites():
+def models():
     gp = load_config(os.path.join(REPO, "configs", "autoencoder",
                                   "symAD_vctk_48000_hop300.yaml"))["generator_params"]
-    out = {"denoiser": _sites(AudioDecGenerator(**gp, use_pqc=False, device="cpu")),
-           "codec": _sites(AudioDecGenerator(**gp, use_pqc=True, device="cpu"))}
+    out = {"denoiser": AudioDecGenerator(**gp, use_pqc=False, device="cpu"),
+           "codec": AudioDecGenerator(**gp, use_pqc=True, device="cpu")}
     for version in ("v0", "v1", "v2"):
-        out[version] = _sites(_receiver(version))
+        out[version] = _receiver(version)
     return out
+
+
+@pytest.fixture(scope="module")
+def sites(models):
+    return {path: _sites(model) for path, model in models.items()}
+
+
+@pytest.fixture(scope="module")
+def upsamples(models):
+    return {path: _upsamples(model) for path, model in models.items()}
 
 
 def _blocks(plan, batch, rows, cin, cout, taps):
@@ -233,3 +271,110 @@ def test_cout1_v_out_error_is_far_under_the_kernel_tolerance():
                 for j in range(k))
     err = float(np.abs(acc - exact).max())
     assert err < KERNEL_ATOL_F32 / 20, err
+
+
+# ---------------------------------------------------------------- upsamples
+
+
+@pytest.mark.parametrize("path", ["denoiser", "codec", "v0", "v1", "v2"])
+def test_every_upsample_plan_fits(upsamples, path):
+    """Every upsample site has a GEMM-arm plan at every shape: one of the
+    arm's plans for a 2-tap layer, shared memory within the card's 227 KB
+    (the library's formula), a cluster of at most 8 blocks, no tile twice
+    as wide as Cout, and a grid that covers the s phases."""
+    assert [name for name, *_ in upsamples[path]] == [
+        f"{'d' if path in ('denoiser', 'codec') else 'v'}{i}u" for i in range(4)]
+    for name, cin, cout, stride, rows in upsamples[path]:
+        steps = len(conv_chunks(2, cin))
+        for batch, n in SHAPES:
+            for bf16 in (False, True):
+                tile, q = plan = _upsample_plan(batch, rows * n, cin, cout, stride, bf16)
+                smem = conv_smem_bytes("gemm", tile, cin, cout, 2, 1, 1, q, bf16)
+                assert smem <= _MAX_SMEM == 232448, (name, plan)
+                assert (tile, q, smem) in conv_gemm_plans(cin, cout, 2, 1, 1, bf16), plan
+                assert 1 <= q <= steps and -(-steps // q) <= _CONV_MAX_CLUSTER, plan
+                assert conv_tile_dims(tile)[1] <= max(16, 2 * cout), plan
+                bm, bn, _ = conv_tile_dims(tile)
+                blocks = -(-batch * rows * n // bm) * -(-cout // bn) * -(-steps // q) * stride
+                assert _gemm_cost(batch * rows * n, cin, cout, 2, tile, q, smem,
+                                  stride)[1] == blocks
+
+
+def test_the_upsample_cost_counts_the_phases():
+    """The cost model puts the s phases in the grid: s times the blocks, and
+    at many rows (waves of blocks) about s times the time."""
+    for tile, q, smem in conv_gemm_plans(512, 256, 2, 1, 1, True):
+        one_us, one = _gemm_cost(400, 512, 256, 2, tile, q, smem)
+        five_us, five = _gemm_cost(400, 512, 256, 2, tile, q, smem, 5)
+        assert five == 5 * one and five_us >= one_us
+
+
+@pytest.mark.parametrize("site", ["d0u", "d1u"])
+def test_deep_upsamples_spread_over_32_sms_at_one_frame(upsamples, site):
+    (_, cin, cout, stride, rows), = [u for u in upsamples["codec"] if u[0] == site]
+    for bf16 in (False, True):
+        tile, q = _upsample_plan(1, rows, cin, cout, stride, bf16)
+        bm, bn, _ = conv_tile_dims(tile)
+        steps = len(conv_chunks(2, cin))
+        assert -(-rows // bm) * -(-cout // bn) * -(-steps // q) * stride >= 32, (tile, q)
+
+
+def _upsample_emulated(cache, x, w, b, stride, passes, q, leaky=None):
+    """The kernel's causal_conv_transpose of one stream: x_ext = [cache; x]
+    (LeakyReLU on load), and per phase p the GEMM of the rows' 2 * Cin terms
+    [x_ext[r]; x_ext[r + 1]] against [Wc[s-1-p]; Wc[2s-1-p]] in 64-term
+    chunks of split-TF32 products folded in order by a cluster whose blocks
+    take ``q`` chunks each, plus the bias, written to row s*r + p."""
+    h = np.concatenate([cache, x])
+    if leaky is not None:
+        h = np.where(h >= 0, h, np.float32(leaky) * h)
+    a = np.concatenate([h[:-1], h[1:]], axis=1)
+    y = np.empty((x.shape[0] * stride, w.shape[2]), np.float32)
+    for p in range(stride):
+        wp = np.concatenate([w[stride - 1 - p], w[2 * stride - 1 - p]])
+        y[p::stride] = _fold(_chunk_values(a, wp, passes), q) + b
+    return y
+
+
+@pytest.mark.parametrize("weight_bf16,passes", [(True, 2), (False, 3)])
+@pytest.mark.parametrize("leaky", [None, 0.1])
+def test_split_tf32_upsample_matches_the_plain_version(weight_bf16, passes, leaky):
+    """d0u (v0u with LeakyReLU(0.1) on load): 512 -> 256 at stride 5 over
+    one frame's 4 rows, 1,024-term sums at unit-gain weights, within
+    KERNEL_ATOL_F32 of causal_conv_transpose_plain; a single TF32 pass
+    would not hold it."""
+    rng = np.random.default_rng(9)
+    cin, cout, stride, rows = 512, 256, 5, 4
+    cache = rng.standard_normal((1, cin)).astype(np.float32)
+    x = rng.standard_normal((rows, cin)).astype(np.float32) * (3 if leaky else 1)
+    w = (rng.standard_normal((2 * stride, cin, cout)) / np.sqrt(2 * cin)).astype(np.float32)
+    w = _bf16(w) if weight_bf16 else w
+    b = rng.standard_normal(cout).astype(np.float32)
+    ref = causal_conv_transpose_plain(torch.from_numpy(cache), torch.from_numpy(x),
+                                      torch.from_numpy(w), torch.from_numpy(b), stride,
+                                      leaky).numpy()
+    got = _upsample_emulated(cache, x, w, b, stride, passes, 16, leaky)
+    assert got.shape == ref.shape == (rows * stride, cout)
+    err = float(np.abs(got - ref).max())
+    assert err < KERNEL_ATOL_F32, err
+    single = float(np.abs(_upsample_emulated(cache, x, w, b, stride, 1, 16, leaky)
+                          - ref).max())
+    assert single > err
+
+
+def test_the_upsample_fold_gives_the_same_bits_for_every_split():
+    """d0u's 16 chunks folded by a cluster of 1-8 blocks (every split the
+    planner may take) give the bits of one block's running sum, so a
+    stream's output does not depend on the plan."""
+    rng = np.random.default_rng(10)
+    cin, cout, stride = 512, 64, 5
+    cache = rng.standard_normal((1, cin)).astype(np.float32)
+    x = rng.standard_normal((4, cin)).astype(np.float32)
+    w = _bf16((rng.standard_normal((2 * stride, cin, cout)) / np.sqrt(2 * cin))
+              .astype(np.float32))
+    b = np.zeros(cout, np.float32)
+    one = _upsample_emulated(cache, x, w, b, stride, 2, 16)
+    steps = len(conv_chunks(2, cin))
+    for n in range(2, _CONV_MAX_CLUSTER + 1):
+        q = -(-steps // n)
+        assert np.array_equal(_upsample_emulated(cache, x, w, b, stride, 2, q), one), q

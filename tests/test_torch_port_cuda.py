@@ -32,9 +32,21 @@ checkpoint tree. The unit kernel is also held at every cluster size its
 planner can pick (each equal bit for bit to the planned run), its
 shared-memory formula against the Python one the planner uses, and one
 stream's output alone, among 16 streams (another plan) and across two
-runs, bit for bit. chip_smoke.py makes the same checks at the flagship's
+runs, bit for bit. causal_conv_transpose (each phase on causal_conv's GEMM
+arm) likewise: every plan its planner can pick equal bit for bit, one
+stream's bits independent of the batch, its shared-memory formula the
+library's; causal_conv's outputs at the codec's and the v1 receiver's sites
+hash to the digest of the kernel before the GEMM arm moved into
+csrc/conv_gemm.cuh. codebook_lookup returns while the card is still busy
+(it waits for nothing), and a bad code raises at the documented point: a
+direct call at ``check_codes`` or the next call after a synchronisation, an
+endpoint at once for codes from the host and at its next ``decode`` for
+codes on the card. chip_smoke.py makes the same checks at the flagship's
 shapes.
 """
+
+import hashlib
+import time
 
 import numpy as np
 import pytest
@@ -46,6 +58,7 @@ from dl_speech_enhancement_tpu_torch.ops.mega_kernel import (
     causal_conv_plain,
     causal_conv_transpose,
     causal_conv_transpose_plain,
+    check_codes,
     codebook_lookup,
     codebook_lookup_plain,
     rvq_assign,
@@ -184,17 +197,64 @@ def test_rvq_assign_kernel(card, rows, dim, book_k, n_books):
     assert rvq_near_ties(z, books, sqnorm, got, ref)["mismatches"] == 0
 
 
-def test_codebook_lookup_kernel(card):
-    n_books, book_k, dim = 8, 1024, 64
+def _books_and_codes(card, rows=400, n_books=8, book_k=1024, dim=64):
     books_t = torch.randn(n_books, book_k, dim, generator=card, device="cuda")
-    codes = (torch.randint(0, book_k, (400, n_books), generator=card, device="cuda")
+    codes = (torch.randint(0, book_k, (rows, n_books), generator=card, device="cuda")
              + torch.arange(n_books, device="cuda") * book_k).to(torch.int32)
+    return books_t, codes
+
+
+def test_codebook_lookup_kernel(card):
+    """Against the plain version; a bad code is never read (its term is
+    zero), the call does not raise, and check_codes raises once after a
+    synchronisation (so does the next call instead, when nothing checked)."""
+    books_t, codes = _books_and_codes(card)
     got = codebook_lookup(codes, books_t)
     ref = codebook_lookup_plain(codes, books_t)
     assert float((got - ref).abs().max()) <= 1e-6
-    codes[3, 2] = 1  # book 2's range starts at 2048
+    check_codes()
+    bad = codes.clone()
+    bad[3, 2] = 1  # book 2's range starts at 2048
+    got = codebook_lookup(bad, books_t)
+    torch.cuda.synchronize()
     with pytest.raises(ValueError, match="outside its book"):
-        codebook_lookup(codes, books_t)
+        check_codes()
+    check_codes()  # reported once
+    want = torch.zeros_like(got[3])
+    for book in range(8):  # the kernel's order: f32 adds, book after book
+        if book != 2:
+            want = want + books_t[book, int(codes[3, book]) - book * 1024]
+    assert torch.equal(got[3], want)  # the bad term is zero, the others in order
+    assert torch.equal(got[4:], codebook_lookup(codes, books_t)[4:])
+    codebook_lookup(bad, books_t)
+    torch.cuda.synchronize()
+    with pytest.raises(ValueError, match="outside its book"):
+        codebook_lookup(codes, books_t)  # the next call reports it
+    codebook_lookup(codes, books_t)
+    torch.cuda.synchronize()
+    check_codes()
+
+
+def test_codebook_lookup_does_not_wait_for_the_card(card):
+    """Enqueued behind a ~1 s sleep of the card, the lookup returns to the
+    host while the sleep still runs: no host read, no synchronisation. A bad
+    code behind the sleep is reported only once the card has reached it."""
+    books_t, codes = _books_and_codes(card)
+    codebook_lookup(codes, books_t)
+    torch.cuda.synchronize()
+    bad = codes.clone()
+    bad[0, 0] = 1024
+    torch.cuda._sleep(2_000_000_000)
+    t0 = time.perf_counter()
+    codebook_lookup(bad, books_t)
+    host = time.perf_counter() - t0
+    busy = not torch.cuda.current_stream().query()
+    check_codes()  # the card has not reached the bad code yet
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    assert busy and host < 0.05 * total, (host, total)
+    with pytest.raises(ValueError, match="outside its book"):
+        check_codes()
 
 
 def test_pqc_cuda_route_matches_eager_on_the_card(card):
@@ -349,6 +409,122 @@ def test_causal_conv_transpose_kernel_batched(card, batch, cin, cout, stride):
     w, b = _randn(card, 2 * stride, cin, cout) / cin ** 0.5, _randn(card, cout)
     _held_per_stream(causal_conv_transpose, causal_conv_transpose_plain, cache, x, w, b,
                      stride)
+
+
+# (Cin, Cout, stride, input rows a stream): d0u-d3u (v0u-v3u) at one frame,
+# d0u at 100 frames, and odd widths
+UPSAMPLE_LAYERS = [(512, 256, 5, 4), (256, 128, 5, 20), (128, 64, 4, 100), (64, 32, 3, 400),
+                   (512, 256, 5, 400), (100, 36, 4, 7), (20, 70, 2, 9)]
+
+
+def _upsample_operands(card, batch, cin, cout, stride, rows, wd):
+    cache = _tail_view(card, batch, 1, cin)
+    x = _randn(card, batch, rows, cin)
+    w = (_randn(card, 2 * stride, cin, cout) / (2 * cin) ** 0.5).to(wd)
+    return cache, x, w, _randn(card, cout)
+
+
+@pytest.mark.parametrize("wd", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("batch", [1, 3])
+@pytest.mark.parametrize("cin,cout,stride,rows", UPSAMPLE_LAYERS)
+def test_causal_conv_transpose_every_plan_gives_the_same_bits(card, monkeypatch, batch, cin,
+                                                              cout, stride, rows, wd):
+    """Every plan the GEMM arm can take for the layer's phases (each tile
+    with each cluster split of the 2 * Cin terms' chunks) gives the bits of
+    the planner's plan, within ATOL of the plain version (1e-4 of the
+    largest output with bf16 weights), for one stream and for 3."""
+    cache, x, w, b = _upsample_operands(card, batch, cin, cout, stride, rows, wd)
+    bf16 = wd == torch.bfloat16
+    before = causal_conv_transpose.launches
+    planned = causal_conv_transpose(cache, x, w, b, stride)
+    assert causal_conv_transpose.launches == before + 1
+    ref = causal_conv_transpose_plain(cache, x, w, b, stride)
+    limit = ATOL if wd == torch.float32 else 1e-4 * float(ref.abs().max())
+    plans = [p[:2] for p in mega_kernel.conv_gemm_plans(cin, cout, 2, 1, 1, bf16)]
+    assert mega_kernel._upsample_plan(batch, rows, cin, cout, stride, bf16) in plans
+    assert len(plans) > 1
+    for plan in plans:
+        monkeypatch.setattr(mega_kernel, "_upsample_plan", lambda *a, p=plan: p)
+        got = causal_conv_transpose(cache, x, w, b, stride)
+        torch.cuda.synchronize()
+        assert float((got - ref).abs().max()) <= limit, plan
+        assert torch.equal(got, planned), plan
+
+
+@pytest.mark.parametrize("wd", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cin,cout,stride,rows", UPSAMPLE_LAYERS[:4])
+def test_causal_conv_transpose_stream_bits_do_not_depend_on_the_batch(card, cin, cout, stride,
+                                                                      rows, wd):
+    """One stream alone, the same stream among 16 (another plan), its first
+    frame within a 16-frame dispatch (another plan again) and two runs are
+    equal bit for bit; with the vocoder's LeakyReLU on load too."""
+    cache, x, w, b = _upsample_operands(card, 16, cin, cout, stride, 16 * rows, wd)
+    for leaky in (None, 0.1):
+        fleet = causal_conv_transpose(cache, x[:, :rows].contiguous(), w, b, stride, leaky)
+        again = causal_conv_transpose(cache, x[:, :rows].contiguous(), w, b, stride, leaky)
+        long = causal_conv_transpose(cache, x, w, b, stride, leaky)
+        torch.cuda.synchronize()
+        assert torch.equal(fleet, again)
+        assert torch.equal(long[:, :rows * stride], fleet)
+        for s in (0, 9, 15):
+            alone = causal_conv_transpose(cache[s:s + 1], x[s:s + 1, :rows].contiguous(), w, b,
+                                          stride, leaky)
+            torch.cuda.synchronize()
+            assert torch.equal(alone, fleet[s:s + 1])
+
+
+def test_causal_conv_transpose_smem_formula_matches_the_library(card):
+    """The GEMM arm's shared-memory formula at 2 taps
+    (ops/mega_kernel.py::conv_smem_bytes), which the upsample planner asks,
+    equals the library's dse_causal_conv_transpose_smem."""
+    lib = _cuda.load("causal_conv_transpose")
+    for cin, cout in ((512, 256), (256, 128), (64, 32), (100, 36), (20, 70)):
+        steps = len(mega_kernel.conv_chunks(2, cin))
+        for bf16 in (False, True):
+            for tile in range(len(mega_kernel._CONV_TILES)):
+                for q in sorted({1, 3, steps}):
+                    assert lib.dse_causal_conv_transpose_smem(
+                        tile, cin, cout, q, int(bf16)) == mega_kernel.conv_smem_bytes(
+                        "gemm", tile, cin, cout, 2, 1, 1, q, bf16)
+
+
+# (Cin, Cout, taps, stride, output rows a frame, leaky, tanh): every
+# causal_conv site of the codec and the v1 receiver (conv_sites)
+DIGEST_CONV_SITES = [(1, 32, 7, 1, 1200, None, False), (32, 64, 6, 3, 400, None, False),
+                     (64, 128, 8, 4, 100, None, False), (128, 256, 10, 5, 20, None, False),
+                     (256, 512, 10, 5, 4, None, False), (512, 64, 3, 1, 4, None, False),
+                     (64, 512, 7, 1, 4, None, False), (32, 1, 7, 1, 1200, None, False),
+                     (64, 512, 7, 1, 4, None, False), (768, 256, 1, 1, 20, None, False),
+                     (384, 128, 1, 1, 100, None, False), (192, 64, 1, 1, 400, None, False),
+                     (96, 32, 1, 1, 1200, None, False), (32, 1, 7, 1, 1200, 0.01, True)]
+# SHA-256 of causal_conv's outputs at DIGEST_CONV_SITES (_conv_digest) from
+# the kernel whose GEMM arm was still inside csrc/causal_conv.cu, on an H100
+CONV_DIGEST = "9efd8c7a3d69061095e142f0c6a71c321c9d55964f660a982ee91b36040b1b63"
+
+
+def _conv_digest() -> str:
+    """SHA-256 of causal_conv's outputs at every DIGEST_CONV_SITES site, for
+    one stream of 1 and 100 frames and 16 streams of 1, f32 and bf16
+    weights, on inputs drawn with numpy (seed 8)."""
+    rng = np.random.default_rng(8)
+    digest = hashlib.sha256()
+
+    def draw(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32) * 0.3).cuda()
+
+    for batch, frames in ((1, 1), (1, 100), (16, 1)):
+        for cin, cout, taps, stride, rows, leaky, tanh in DIGEST_CONV_SITES:
+            x = draw(batch, stride * rows * frames, cin)
+            cache = draw(batch, taps - 1, cin) if taps > 1 else x[:, :0]  # as a 1x1 fuse's
+            w, b = draw(taps, cin, cout) / (taps * cin) ** 0.5, draw(cout)
+            for wd in (torch.float32, torch.bfloat16):
+                y = causal_conv(cache, x, w.to(wd), b, stride, 1, leaky, tanh)
+                digest.update(y.cpu().numpy().tobytes())
+    return digest.hexdigest()
+
+
+def test_causal_conv_bits_equal_the_kernel_before_the_shared_gemm_arm(card):
+    assert _conv_digest() == CONV_DIGEST
 
 
 @pytest.mark.parametrize("batch", [4, 16, 64])
@@ -750,7 +926,30 @@ def test_vocoder_receiver_matches_eager_on_the_card(card, batch):
         assert got.shape == want.shape == (batch, chunk.shape[-1] * 12, 1)
         assert float((got - want).abs().max()) <= 2e-5
     with pytest.raises(ValueError, match="outside its book"):
-        rx.decode(codes * 0)
+        rx.decode((codes * 0).cpu())  # from the host: checked before the upload
+
+
+def test_receivers_raise_on_a_bad_code_at_the_documented_point(card):
+    """A StreamingReceiver and a VocoderReceiver on the kernel route: codes
+    from the host raise at once; codes on the card are decoded without a
+    wait, and the next decode after a synchronising read raises, once."""
+    codec, vq, voc = _vocoder_pair()
+    good = (torch.randint(0, 32, (3, 1, 5), generator=card, device="cuda")
+            + torch.arange(3, device="cuda")[:, None, None] * 32).to(torch.int32)
+    bad = good.clone()
+    bad[1, 0, 2] = 0  # book 1's range starts at 32
+    for rx in (StreamingReceiver(codec, vq, 1, weight_dtype=torch.float32),
+               VocoderReceiver(codec, voc, vq, weight_dtype=torch.float32)):
+        assert rx.backend == "cuda"
+        rx.decode(good)
+        with pytest.raises(ValueError, match="outside its book"):
+            rx.decode(bad.cpu())
+        y = rx.decode(bad)
+        assert y.cpu().shape[0] == 1  # a synchronising read
+        with pytest.raises(ValueError, match="outside its book"):
+            rx.decode(good)
+        rx.decode(good).cpu()
+        rx.decode(good).cpu()
 
 
 LOG_MEL_CASES = [  # (B, T, sr, n_fft, hop, win, n_mels, fmax, log_base)

@@ -10,6 +10,7 @@ modules run their plain versions here (CPU tensors); chip_smoke.py holds the
 CUDA kernels to those plain versions on the card.
 """
 
+import ctypes
 import os
 
 import numpy as np
@@ -118,6 +119,26 @@ def test_codebook_lookup_rejects_codes_outside_their_book():
             codebook_lookup(torch.tensor(bad, dtype=torch.int32), books_t)
     got = codebook_lookup(torch.tensor([[0, 4], [3, 7]], dtype=torch.int32), books_t)
     assert got.tolist() == [[2.0] * 3] * 2
+
+
+def test_bad_code_word_reports_each_recorded_call_once():
+    """The host side of the card's bad-code word: nothing to report until a
+    call's number is stored; each new number raises once; the word is never
+    cleared, so a later check finds nothing new until another call stores
+    its number. (On the card the lookup kernel makes the store.)"""
+    word = mega_kernel.BadCodeWord()
+    word.check()  # no call on the card yet: no word to read
+    word._word = ctypes.c_longlong(0)  # the mapped word, as a kernel leaves it
+    word.calls = 3
+    word.check()
+    word._word.value = 2  # call 2 met a code outside its book
+    with pytest.raises(ValueError, match="outside its book"):
+        word.check()
+    word.check()
+    word._word.value = 3
+    with pytest.raises(ValueError, match="outside its book"):
+        word.check()
+    word.check()
 
 
 def test_near_tie_rule_tells_ties_from_mismatches(rng):
