@@ -1,4 +1,5 @@
-// Block-level tap GEMM on the tensor cores, for hifigan_unit.cu.
+// Block-level tap GEMM on the tensor cores, for hifigan_unit.cu and
+// residual_chain.cu.
 //
 //     out[m][n] = sum_{j < taps} sum_{ci < K} A[(m + j * a_step) * lda + ci] * W_j[ci][n]
 //
@@ -43,10 +44,12 @@ constexpr int kKC = 64;     // input channels per ring stage: one barrier per 64
 constexpr int kStages = 4;  // W ring depth: 3 tiles in flight cover the L2 latency
 
 // NF 8-column fragments across the block (1, 2, 4 or 8), WM 16-row
-// fragments per warp (1 or 2).
-template <int NF, int WM>
+// fragments per warp (1 or 2). kRows puts the warps along the rows first
+// (one warp column, two for NF 8), so that each warp splits an A fragment
+// for all of its columns at once rather than its share of them.
+template <int NF, int WM, bool kRows = false>
 struct MmaTile {
-  static constexpr int kWarpsN = NF < 4 ? NF : 4;
+  static constexpr int kWarpsN = kRows ? (NF < 8 ? 1 : 2) : NF < 4 ? NF : 4;
   static constexpr int kWN = NF / kWarpsN;       // fragments per warp along n
   static constexpr int kWarpsM = kWarps / kWarpsN;
   static constexpr int BM = 16 * WM * kWarpsM;   // rows per chunk
@@ -105,13 +108,22 @@ __host__ __device__ constexpr int ring_bytes() {
 // 4). `ring` holds ring_bytes<NF, WT>(). Cp.async groups the caller
 // committed before the call land before the first product, after which
 // `ready()` runs in every thread (the caller's own copies are then visible
-// to it). All threads call it with the same scalars; it ends with a barrier.
-template <int NF, int WM, typename WT, typename Ready, typename Epi>
+// to it). `prologue()`, if given, runs in every thread once the first ring
+// stages are in flight, before anything is read: a caller may fill A there
+// with plain stores, hiding the weights' latency. All threads call it with
+// the same scalars; it ends with a barrier.
+struct NoPrologue {
+  __device__ void operator()() const {}
+};
+
+template <int NF, int WM, typename WT, bool kRows = false, typename Ready, typename Epi,
+          typename Prologue = NoPrologue>
 __device__ __forceinline__ void mma_tap_gemm(int M, int taps, int a_step, int K,
                                              const float* A, int lda, const WT* w,
                                              long long w_tap, int ldw_g, int ncols, WT* ring,
-                                             Ready ready, Epi epi) {
-  using T = MmaTile<NF, WM>;
+                                             Ready ready, Epi epi,
+                                             Prologue prologue = Prologue()) {
+  using T = MmaTile<NF, WM, kRows>;
   constexpr int kVec = 4;                        // weights per cp.async
   constexpr int kChunks = kKC * T::BN / kVec;    // cp.async per ring stage
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
@@ -168,6 +180,7 @@ __device__ __forceinline__ void mma_tap_gemm(int M, int taps, int a_step, int K,
     lj = lc0 = ls = 0;
 #pragma unroll
     for (int s = 0; s < kStages - 1; ++s) load();
+    if (mb == 0) prologue();
     int j = 0, c0 = 0, stage = 0;
     for (int step = 0; step < steps; ++step) {
       cp_async_wait<kStages - 2>();

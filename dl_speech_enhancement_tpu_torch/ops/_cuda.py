@@ -32,7 +32,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _L, _Z, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_size_t,
                       ctypes.c_float)
 # C entry points: name -> (argtypes, restype). The layer kernels take (cache,
-# cache stream stride, x, ...) and the stream count B; the boundary convs an
+# cache stream stride, x, ...) and the stream count B; residual_chain a
+# device scratch after its output, and its (tile, cluster) plan; the boundary convs an
 # activation code and slope (and causal_conv a tanh flag) before the weight type,
 # causal_conv its (arm, tile, steps per block) plan after it, causal_conv_transpose
 # its (tile, steps per block);
@@ -43,10 +44,10 @@ _P, _I, _L, _Z, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c
 # frames per signal, rows, n_fft) before the bases.
 _ENTRIES = {
     "residual_chain": {
-        "dse_residual_chain": ([_P, _L, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-                               _I),
-        "dse_residual_chain_smem": ([_I, _I, _I, _I, _I, _I], _Z),
-        "dse_residual_chain_block_rows": ([_I, _I], _I),
+        "dse_residual_chain": ([_P, _L, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                                _P], _I),
+        "dse_residual_chain_smem": ([_I, _I, _I, _I, _I, _I, _I], _Z),
+        "dse_residual_chain_scratch": ([_I, _I, _I, _I, _I, _I], _Z),
     },
     "causal_conv": {
         "dse_causal_conv": ([_P, _L, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I,

@@ -29,7 +29,6 @@ KERNEL_SIZE = 7
 DILATIONS = (1, 3, 9)
 _MAX_SMEM = 232448  # bytes of shared memory one H100 block may use
 _N_SM = 132
-_BK = 32  # input channels per GEMM step (csrc/tile_gemm.cuh kBK)
 
 
 def _elu(x: torch.Tensor) -> torch.Tensor:
@@ -82,50 +81,192 @@ def _check_operands(what, device, acts, weights, bias=None, cache=None):
         raise ValueError(f"{what}: bias must be a contiguous float32 tensor on {device}")
 
 
+# csrc/residual_chain.cu, as the planner needs it: cluster sizes (blocks
+# splitting a tile's C output channels, at most 64 a block), the W ring
+# (tile_mma.cuh: 4 stages of 64-channel tiles), and the block's warps.
+_CHAIN_CLUSTERS = (1, 2, 4, 8, 16)
+_CHAIN_MAX_COLS = 64
+_CHAIN_STAGES, _CHAIN_KC, _CHAIN_WARPS = 4, 64, 8
+# The planner's model of a block (_chain_block_us), in us: its fixed time
+# (launch, X load, write-back), a GEMM's cluster barrier with its first
+# weight tiles behind it, a (tap, 64-channel) step's fixed time and its time
+# per instruction a warp issues (the SM's four schedulers each issue one a
+# cycle), and the window fill per float4 a thread copies, fitted to an H100
+# sweep of every plan at the paths' chain sites (tools/chain_timing.py
+# --sweep, then --fit on its report); blocks one SM holds at most (the
+# kernel's 178-213 registers a thread, -Xptxas -v).
+_CHAIN_BLOCK_US, _CHAIN_SYNC_US = 1.4, 1.0
+_CHAIN_STEP_US, _CHAIN_INSTR_US = 0.05, 0.001
+_CHAIN_COPY_US = 0.056
+_CHAIN_BLOCKS_PER_SM = 1
+
+
+def _round16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def _chain_nf(nc: int) -> int:
+    """8-column mma fragments across a block computing ``nc`` columns (NF)."""
+    return 1 if nc <= 8 else 2 if nc <= 16 else 4 if nc <= 32 else 8
+
+
+def chain_lda(channels: int) -> int:
+    """Row stride of the kernel's A window: C rounded up to 8, plus 4."""
+    return -(-channels // 8) * 8 + 4
+
+
+def chain_window_rows(tile: int, dilations=DILATIONS) -> int:
+    """Rows of the A window for a tile of ``tile`` output rows: unit u's
+    conv1 reads its output rows rounded up to 16 plus its reach 6 * d_u."""
+    rows, remaining = 0, tile + chain_halo(dilations)
+    for d in dilations:
+        pad = (KERNEL_SIZE - 1) * d
+        rows = max(rows, _round16(remaining - pad) + pad)
+        remaining -= pad
+    return rows
+
+
+def chain_smem_bytes(tile: int, channels: int, cluster: int, dilations=DILATIONS,
+                     bf16: bool = True) -> int:
+    """Shared memory of one residual_chain block (csrc/residual_chain.cu::
+    dse_residual_chain_smem): the W ring (4 stages of 64 weight rows by the
+    block's columns rounded up to 8 fragments' width, plus 8), the block's
+    slices of X (tile + halo rows) and H (the first unit's conv1 rows), and
+    the full-width f32 A window."""
+    nc = channels // cluster
+    halo = chain_halo(dilations)
+    ring = _CHAIN_STAGES * _CHAIN_KC * (8 * _chain_nf(nc) + 8) * (2 if bf16 else 4)
+    slices = (2 * (tile + halo) - (KERNEL_SIZE - 1) * dilations[0]) * nc
+    return ring + 4 * (slices + chain_window_rows(tile, dilations) * chain_lda(channels))
+
+
+def chain_scratch_floats(tile: int, channels: int, dilations=DILATIONS) -> int:
+    """Floats of device scratch one cluster of more than one block takes
+    (csrc/residual_chain.cu::dse_residual_chain_scratch): the E rows of a
+    tile (tile + halo) and its H rows (the first unit's conv1 rows), C
+    floats each, through which the blocks exchange their slices."""
+    halo = chain_halo(dilations)
+    return (2 * (tile + halo) - (KERNEL_SIZE - 1) * dilations[0]) * channels
+
+
+def _chain_clusters(channels: int) -> list[int]:
+    """Cluster sizes the kernel takes for C channels: each block's share a
+    multiple of 4 channels, at most 64."""
+    return [n for n in _CHAIN_CLUSTERS
+            if channels % n == 0 and (channels // n) % 4 == 0
+            and channels // n <= _CHAIN_MAX_COLS]
+
+
+@functools.lru_cache(maxsize=64)
+def chain_fit_error(channels: int, dilations: tuple = DILATIONS) -> str | None:
+    """Why no plan of the residual_chain kernel fits C channels, or None:
+    the planner's own test at its shortest tile, one row, f32 weights."""
+    if not _chain_clusters(channels):
+        return (f"the residual_chain kernel takes a multiple of 4 channels, at most "
+                f"{_CHAIN_MAX_COLS * _CHAIN_CLUSTERS[-1]}, not {channels}")
+    if not any(chain_smem_bytes(1, channels, n, dilations, False) <= _MAX_SMEM
+               for n in _chain_clusters(channels)):
+        return f"{channels} channels do not fit the residual_chain kernel's shared memory"
+    return None
+
+
+def _chain_warps(nf: int) -> tuple[int, int]:
+    """(warps along the columns, 8-column fragments a warp) of a block of
+    ``nf`` fragments: the warps go along the rows first (csrc/tile_mma.cuh
+    MmaTile with kRows)."""
+    warps_n = 1 if nf < 8 else 2
+    return warps_n, nf // warps_n
+
+
+def _chain_warp_rows(m: int, nf: int) -> int:
+    """16-row fragments a warp takes in one GEMM of ``m`` rows (csrc/
+    residual_chain.cu::chain_gemm): as many as cover ``m`` in one pass, of
+    1, 2 or 4, at most 4 fragments a warp in all."""
+    warps_n, wn = _chain_warps(nf)
+    per_warp = -(-(-(-m // 16)) // (_CHAIN_WARPS // warps_n))
+    return 1 if per_warp <= 1 or wn >= 4 else 2 if per_warp <= 2 or wn == 2 else 4
+
+
+def _chain_block_us(tile: int, channels: int, cluster: int, dilations=DILATIONS) -> float:
+    """The planner's model of one block's time: per unit, two GEMMs, each
+    behind a cluster barrier and a window fill (the rows times C floats, a
+    float4 a thread at a time), each walking its (tap, 64-channel) steps over
+    its row passes. A step issues, per 8-channel slice and warp, 24
+    instructions per 16-row fragment (its A operand's loads and split), 4
+    per 8-column fragment (the weights') and 2 mma per pair; the busiest
+    scheduler issues for the live warps it holds."""
+    nc = channels // cluster
+    nf = _chain_nf(nc)
+    warps_n, wn = _chain_warps(nf)
+    warps_m = _CHAIN_WARPS // warps_n
+    slices = -(-channels // _CHAIN_KC)
+    k8 = min(8, -(-channels // 8))
+    remaining = tile + chain_halo(dilations)
+    total = _CHAIN_BLOCK_US
+    for d in dilations:
+        m = remaining - (KERNEL_SIZE - 1) * d
+        wm = _chain_warp_rows(m, nf)
+        passes = -(-m // (16 * wm * warps_m))
+        live = min(warps_m, -(-min(-(-m // 16), wm * warps_m) // wm)) * warps_n
+        instr = (24 * wm + 4 * wn + 2 * wm * wn) * k8
+        step = _CHAIN_STEP_US + _CHAIN_INSTR_US * instr * -(-live // 4)
+        fills = (remaining + m) * channels / 4 / 256
+        total += (2 * _CHAIN_SYNC_US + _CHAIN_COPY_US * fills
+                  + passes * (KERNEL_SIZE + 1) * slices * step)
+        remaining = m
+    return total
+
+
+def _chain_cost(batch: int, rows: int, tile: int, channels: int, cluster: int, smem: int,
+                dilations=DILATIONS) -> tuple[float, int]:
+    """(us, blocks) of one launch at the plan (tile, cluster): the grid of
+    ``batch * ceil(rows / tile) * cluster`` blocks in waves of the blocks the
+    SMs hold, blocks sharing an SM each as slow as their count."""
+    blocks = batch * -(-rows // tile) * cluster
+    per_sm = max(1, min(_CHAIN_BLOCKS_PER_SM, (_MAX_SMEM + 1024) // (smem + 1024)))
+    waves = -(-blocks // (_N_SM * per_sm))
+    sharing = min(per_sm, -(-blocks // _N_SM))
+    return waves * sharing * _chain_block_us(tile, channels, cluster, dilations), blocks
+
+
+def chain_plans(rows: int, channels: int, dilations=DILATIONS,
+                bf16: bool = True) -> list[tuple[int, int, int]]:
+    """Every plan the kernel takes for ``rows`` rows a stream at C channels,
+    as ``(tile, cluster, shared memory)``: tiles of 4 to 1024 rows, those
+    whose first conv1 fills whole 64-row passes (64k - 72 rows), and the
+    whole of ``rows``, no longer than ``rows``; each cluster size of
+    :func:`_chain_clusters`, where the block's shared memory fits."""
+    first = (KERNEL_SIZE - 1) * (sum(dilations) - dilations[0])  # unit 0's rows past the tile
+    tiles = sorted({t for t in (4, 8, 16, 20, 32, 48, 64, 96, 128, 192, 256, 384, 512, 768,
+                                1024, rows, *range(64 - first % 64, 513, 64)) if 0 < t <= rows})
+    return [(tile, cluster, smem) for cluster in _chain_clusters(channels) for tile in tiles
+            if (smem := chain_smem_bytes(tile, channels, cluster, dilations, bf16))
+            <= _MAX_SMEM]
+
+
 @functools.lru_cache(maxsize=256)
-def _chain_plan(batch: int, rows: int, channels: int, dilations: tuple) -> tuple[int, int]:
+def _chain_plan(batch: int, rows: int, channels: int, dilations: tuple = DILATIONS,
+                bf16: bool = True) -> tuple[int, int]:
     """(tile, cluster) for the residual-chain kernel: output rows per time
     tile, and blocks per cluster splitting the channels of one tile, for
     ``batch`` streams of ``rows`` rows each.
 
-    Every tile recomputes its halo, so long tiles waste less work, but fewer
-    tiles use fewer SMs. The model counts, for each candidate, the GEMM steps
-    one block makes (each step is the same work, tile_gemm.cuh) times the
-    blocks one SM runs in turn or side by side, over the whole grid of
-    ``batch * ceil(rows / tile) * cluster`` blocks, and takes the smallest
-    among the candidates whose shared memory fits; ties go to fewer blocks."""
-    lib = _cuda.load("residual_chain")
-    halo = chain_halo(dilations)
-    k_slices = -(-channels // _BK)
-    clusters = [1] + [n for n in (2, 4, 8) if channels % (n * _BK) == 0]
-
-    def cost(tile, cluster):
-        smem = lib.dse_residual_chain_smem(tile, channels, cluster, *dilations)
-        if smem > _MAX_SMEM:
-            return None
-        nc = channels // cluster
-        bm = lib.dse_residual_chain_block_rows(channels, cluster)
-        col_tiles = -(-nc // (32 if nc <= 32 else 64))
-        steps, remaining = 0, tile + halo
-        for d in dilations:
-            remaining -= (KERNEL_SIZE - 1) * d
-            steps += -(-remaining // bm) * col_tiles * (KERNEL_SIZE + 1) * k_slices
-        blocks = batch * -(-rows // tile) * cluster
-        per_sm = max(1, min(8, (_MAX_SMEM + 1024) // (smem + 1024)))
-        waves = -(-blocks // (_N_SM * per_sm))
-        sharing = min(per_sm, -(-blocks // _N_SM))  # blocks an SM runs at once
-        return waves * sharing * steps, blocks
-
-    plans = []
-    for cluster in clusters:
-        for tile in (4, 8, 16, 32, 64, 128, 256, 512, 1024, 2048, rows):
-            if tile <= rows:
-                c = cost(tile, cluster)
-                if c is not None:
-                    plans.append((c, (tile, cluster)))
+    Every tile recomputes its 78-row halo, so long tiles waste less work,
+    but fewer tiles fill fewer SMs, and a long tile's full-width window
+    outgrows shared memory; a wider cluster spreads a tile over more SMs,
+    each with fewer columns, at the price of its window copies. Of the plans
+    :func:`chain_plans` lists, the model (:func:`_chain_cost`) takes the one
+    with the fewest blocks within 5 % of the cheapest. Pure Python, so the
+    CPU tests hold it; no plan changes a stream's bits."""
+    dilations = tuple(dilations)
+    plans = [(*_chain_cost(batch, rows, tile, channels, cluster, smem, dilations),
+              (tile, cluster)) for tile, cluster, smem in chain_plans(rows, channels,
+                                                                      dilations, bf16)]
     if not plans:
-        raise ValueError(f"residual_chain: no tile fits shared memory at C={channels}")
-    return min(plans)[1]
+        raise ValueError(f"residual_chain: no plan fits at C={channels}")
+    cheapest = min(p[0] for p in plans)
+    return min((blocks, cost, plan) for cost, blocks, plan in plans
+               if cost <= 1.05 * cheapest)[2]
 
 
 def residual_chain(cache: torch.Tensor, x: torch.Tensor, w1: torch.Tensor,
@@ -153,15 +294,25 @@ def residual_chain(cache: torch.Tensor, x: torch.Tensor, w1: torch.Tensor,
         raise ValueError(f"residual_chain: weights {tuple(w1.shape)}, {tuple(w2.shape)} "
                          f"do not fit C={C}")
     _check_operands("residual_chain", x.device, {"x": x}, (w1, w2), cache=cache)
+    reason = chain_fit_error(C, dilations)
+    if reason:
+        raise ValueError(f"residual_chain: {reason}")
+    if (w1.data_ptr() | w2.data_ptr()) % 16:
+        raise ValueError("residual_chain: the weights must be 16-byte aligned")
     out = torch.empty_like(x)
     if B * T == 0:
         return out
+    bf16 = w1.dtype == torch.bfloat16
+    tile, cluster = _chain_plan(B, T, C, dilations, bf16)
+    scratch = None
+    if cluster > 1:
+        scratch = torch.empty(B * -(-T // tile) * chain_scratch_floats(tile, C, dilations),
+                              device=x.device)
     lib = _cuda.load("residual_chain")
-    tile, cluster = _chain_plan(B, T, C, dilations)
     err = lib.dse_residual_chain(cache.data_ptr(), cache.stride(0), x.data_ptr(),
-                                 w1.data_ptr(), w2.data_ptr(), out.data_ptr(), B, T, C,
-                                 *dilations, tile, cluster, int(w1.dtype == torch.bfloat16),
-                                 _cuda.stream_handle(x))
+                                 w1.data_ptr(), w2.data_ptr(), out.data_ptr(),
+                                 None if scratch is None else scratch.data_ptr(), B, T, C,
+                                 *dilations, tile, cluster, int(bf16), _cuda.stream_handle(x))
     _cuda.check(lib, err, "residual_chain")
     residual_chain.launches += 1
     return out
@@ -273,6 +424,9 @@ def chain_topology_error(gen) -> str | None:
         dil = tuple(u.conv1.dilation for u in blk.res_units)
         if dil != DILATIONS:
             return f"fused chunk step supports residual dilations {DILATIONS}, got {dil}"
+        reason = chain_fit_error(blk.res_units[0].conv1.in_channels)
+        if reason:
+            return reason
     if gen.encoder.conv.kernel_size != 7 or gen.decoder.conv2.kernel_size != 7:
         return ("fused chunk step supports kernel_size-7 input/output convs, got "
                 f"{gen.encoder.conv.kernel_size}/{gen.decoder.conv2.kernel_size}")

@@ -27,9 +27,10 @@ entry of ``--order`` runs one child process on that tree's package, which:
   AudioDec v0 (MultiReceptiveField) receiver (bf16 weights);
 - digests (SHA-256) each receiver path's audio over those frames from zero
   caches, so two trees whose digests agree computed it bit for bit alike;
-- times the host cost of one ``causal_conv`` / ``causal_conv_transpose``
-  wrapper call (2000 calls on a 4-row, 32-channel input whose kernel takes
-  a few microseconds, so the host sets the pace).
+- times the host cost of one ``causal_conv`` / ``causal_conv_transpose`` /
+  ``residual_chain`` wrapper call (2000 calls on a 4-row, 32-channel input,
+  so that the host sets the pace wherever the call takes longer than its
+  kernel).
 
 The parent process prints one line per child and writes every child's
 numbers, the card's name and power limit and the order to ``--out``, then
@@ -131,6 +132,7 @@ def child(root: str, vocoder: bool) -> dict:
         causal_conv,
         causal_conv_transpose,
     )
+    from dl_speech_enhancement_tpu_torch.ops.stream_kernel import residual_chain
     from dl_speech_enhancement_tpu_torch.stream.runtime import (
         make_scan_stream,
         make_vocoder_scan_stream,
@@ -176,12 +178,18 @@ def child(root: str, vocoder: bool) -> dict:
     report["causal_conv_host_us"] = _wrapper_us(torch, causal_conv, cache, x, w, b, 1, 1)
     report["causal_conv_transpose_host_us"] = _wrapper_us(
         torch, causal_conv_transpose, cache[:, :1], x, wt, b, 2)
+    # a chain whose plan takes a cluster of several blocks (and its scratch)
+    chain_cache = torch.randn(1, 78, 32, device="cuda", generator=g)
+    w1 = torch.randn(3, 7, 32, 32, device="cuda", generator=g).to(torch.bfloat16)
+    w2 = torch.randn(3, 32, 32, device="cuda", generator=g).to(torch.bfloat16)
+    report["residual_chain_host_us"] = _wrapper_us(torch, residual_chain, chain_cache,
+                                                   x[:, :4].contiguous(), w1, w2)
     return report
 
 
 METRICS = (("denoiser", "median_ms"), ("codec", "median_ms"), ("receiver_v1", "median_ms"),
            ("receiver_v0", "median_ms"), ("causal_conv_host_us", None),
-           ("causal_conv_transpose_host_us", None))
+           ("causal_conv_transpose_host_us", None), ("residual_chain_host_us", None))
 
 
 def _quartiles(xs):

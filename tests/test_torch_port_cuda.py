@@ -41,11 +41,17 @@ csrc/conv_gemm.cuh. codebook_lookup returns while the card is still busy
 (it waits for nothing), and a bad code raises at the documented point: a
 direct call at ``check_codes`` or the next call after a synchronisation, an
 endpoint at once for codes from the host and at its next ``decode`` for
-codes on the card. chip_smoke.py makes the same checks at the flagship's
-shapes.
+codes on the card. The residual chain kernel is held at every chain site
+of the paths within CHAIN_ATOL (2e-6: its split-TF32 products, emulated in
+tests/test_torch_port_chain_plan.py), every plan of a site equal bit for
+bit, its shared-memory and scratch formulas against the library's, and its
+SASS for TF32 tensor-core products. chip_smoke.py makes the same checks at
+the flagship's shapes.
 """
 
 import hashlib
+import os
+import subprocess
 import time
 
 import numpy as np
@@ -80,7 +86,7 @@ from dl_speech_enhancement_tpu_torch.losses import (
 )
 from dl_speech_enhancement_tpu_torch.models.autoencoder import ResidualUnit
 from dl_speech_enhancement_tpu_torch.models.hifigan import HiFiGANGenerator
-from dl_speech_enhancement_tpu_torch.ops import _cuda, mega_kernel, mel_kernel
+from dl_speech_enhancement_tpu_torch.ops import _cuda, mega_kernel, mel_kernel, stream_kernel
 from dl_speech_enhancement_tpu_torch.ops import vocoder_kernel
 from dl_speech_enhancement_tpu_torch.ops.vocoder_kernel import (
     _unit_plan,
@@ -127,6 +133,82 @@ def test_residual_chain_kernel(card, channels, rows, wd):
     ref = residual_chain_plain(cache, x, w1, w2)
     torch.cuda.synchronize()
     assert float((got - ref).abs().max()) <= ATOL
+
+
+# (C, rows a frame) of the eight chains of a denoiser / codec dispatch
+# (e0ch-e3ch; d0ch-d3ch mirror them)
+CHAIN_SITES = [(32, 1200), (64, 400), (128, 100), (256, 20)]
+CHAIN_ATOL = 2e-6  # split-TF32 products at O(1) activations (test_torch_port_chain_plan.py)
+
+
+@pytest.mark.parametrize("wd", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("batch,frames", [(1, 1), (1, 16), (16, 1)])
+@pytest.mark.parametrize("channels,rows", CHAIN_SITES)
+def test_residual_chain_kernel_at_every_chain_site(card, channels, rows, batch, frames, wd):
+    """Every chain site of the paths at one stream of 1 and 16 frames and 16
+    streams of one, each cache a strided view: within CHAIN_ATOL of the
+    plain version with f32 and bf16 weights."""
+    cache = _tail_view(card, batch, 78, channels)
+    x = _randn(card, batch, rows * frames, channels)
+    w1 = (_randn(card, 3, 7, channels, channels) / (7 * channels) ** 0.5).to(wd)
+    w2 = (_randn(card, 3, channels, channels) / channels ** 0.5).to(wd)
+    got = residual_chain(cache, x, w1, w2)
+    ref = residual_chain_plain(cache, x, w1, w2)
+    torch.cuda.synchronize()
+    assert float((got - ref).abs().max()) <= CHAIN_ATOL
+
+
+@pytest.mark.parametrize("wd", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("channels,rows", CHAIN_SITES)
+def test_residual_chain_every_plan_gives_the_same_bits(card, monkeypatch, channels, rows, wd):
+    """Every plan the kernel takes at a chain site (each tile with each
+    cluster size, ops/stream_kernel.py::chain_plans) gives the bits of the
+    planner's plan, at 3 streams of one frame."""
+    cache, x = _tail_view(card, 3, 78, channels), _randn(card, 3, rows, channels)
+    w1 = (_randn(card, 3, 7, channels, channels) / (7 * channels) ** 0.5).to(wd)
+    w2 = (_randn(card, 3, channels, channels) / channels ** 0.5).to(wd)
+    planned = residual_chain(cache, x, w1, w2)
+    ref = residual_chain_plain(cache, x, w1, w2)
+    plans = stream_kernel.chain_plans(rows, channels, (1, 3, 9), wd == torch.bfloat16)
+    assert len({cluster for _, cluster, _ in plans}) > 1
+    for tile, cluster, _ in plans:
+        monkeypatch.setattr(stream_kernel, "_chain_plan", lambda *a, p=(tile, cluster): p)
+        got = residual_chain(cache, x, w1, w2)
+        torch.cuda.synchronize()
+        assert float((got - ref).abs().max()) <= CHAIN_ATOL, (tile, cluster)
+        assert torch.equal(got, planned), (tile, cluster)
+
+
+def test_residual_chain_smem_formula_matches_the_library(card):
+    """ops/stream_kernel.py::chain_smem_bytes, which the planner asks, equals
+    the library's dse_residual_chain_smem, and chain_scratch_floats, which
+    sizes the wrapper's scratch, its dse_residual_chain_scratch."""
+    lib = _cuda.load("residual_chain")
+    for tile in (1, 4, 20, 97, 384, 1200):
+        for c, cluster in ((8, 1), (32, 1), (32, 8), (48, 1), (64, 4), (128, 16), (256, 16),
+                           (256, 4)):
+            for dilations in ((1, 3, 9), (1, 2, 4)):
+                for bf16 in (False, True):
+                    assert lib.dse_residual_chain_smem(tile, c, cluster, *dilations,
+                                                       int(bf16)) == stream_kernel.\
+                        chain_smem_bytes(tile, c, cluster, dilations, bf16)
+                assert lib.dse_residual_chain_scratch(tile, c, cluster, *dilations) == (
+                    stream_kernel.chain_scratch_floats(tile, c, dilations) if cluster > 1
+                    else 0)
+
+
+def test_residual_chain_runs_on_the_tensor_cores(card):
+    """The library's SASS: every residual_chain_kernel instantiation issues
+    TF32 tensor-core products (HMMA.1688.F32.TF32)."""
+    lib_path = _cuda._lib_path("residual_chain")
+    _cuda.load("residual_chain")
+    cuobjdump = os.path.join(os.path.dirname(_cuda._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(lib_path)], capture_output=True, text=True,
+                          check=True).stdout
+    functions = [f for f in sass.split("Function : ")[1:]
+                 if "residual_chain_kernel" in f.splitlines()[0]]
+    assert len(functions) == 8  # 1, 2, 4 and 8 fragments a block, f32 and bf16 weights
+    assert all("HMMA.1688.F32.TF32" in f for f in functions)
 
 
 @pytest.mark.parametrize("wd", [torch.float32, torch.bfloat16])
@@ -572,12 +654,23 @@ def test_cuda_route_batched_matches_eager_on_the_card(card, batch, use_pqc):
 
 def test_chain_plan_sees_the_whole_grid(card):
     """On the real-time path's deepest chain (20 rows at C = 256) one stream
-    keeps the plan it had, one 8-block cluster; 16 clusters of 8 fill the
-    card's 132 SMs once; at B = 64 the plan stops spreading each tile over
-    8 blocks. (The plan reads the built library's shared memory sizes.)"""
+    spreads over at least 16 SMs in clusters of more than one block; 16
+    streams take at least 64 SMs; at B = 64 the plan stops spreading each
+    tile over as many blocks as at B = 1. Each holds CHAIN_ATOL. (The planner
+    is pure Python; the kernel takes every plan it gives.)"""
     plans = {b: _chain_plan(b, 20, 256, (1, 3, 9)) for b in (1, 16, 64)}
-    assert plans[1] == (20, 8)
-    assert plans[64][1] < 8
+    tile, cluster = plans[1]
+    assert cluster > 1 and -(-20 // tile) * cluster >= 16
+    assert 16 * -(-20 // plans[16][0]) * plans[16][1] >= 64
+    assert plans[64][1] < plans[1][1]
+    cache, x = _tail_view(card, 64, 78, 256), _randn(card, 64, 20, 256)
+    w1 = (_randn(card, 3, 7, 256, 256) / (7 * 256) ** 0.5).bfloat16()
+    w2 = (_randn(card, 3, 256, 256) / 256 ** 0.5).bfloat16()
+    for b in (1, 16, 64):
+        got = residual_chain(cache[:b], x[:b], w1, w2)
+        torch.cuda.synchronize()
+        assert float((got - residual_chain_plain(cache[:b], x[:b], w1, w2)).abs().max()) \
+            <= CHAIN_ATOL
 
 
 # ---------------------------------------------------------------- vocoder
