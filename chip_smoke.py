@@ -108,8 +108,10 @@ line):
    with the launches of one dispatch counted at every B and the card memory
    the returned cache keeps; the v0 receiver as the v1 one at 16 streams;
 5. training, with TF32 off: the log-mel (K6) and STFT-magnitude (K7) DFT
-   kernels against their plain versions at every call shape of the paths
-   below (forward, the autograd.Function's gradient, two calls and a batch
+   kernels, both arms (the shared-memory real FFT for power-of-two n_fft,
+   the DFT-as-GEMM for any other), against their plain versions at every
+   call shape of the paths below and at an n_fft of 600 (forward, the
+   autograd.Function's gradient, the arm taken, two calls and a batch
    against its examples' calls bit for bit); one course train step with the
    mel loss on the kernel route (``backend='auto'``, which must launch K6),
    its plain version and the FFT, from the same params and batch, the
@@ -121,9 +123,10 @@ line):
    busy share; the vocoder config's metric loss (mel + three STFT
    resolutions) on the receiver's offline forward of the codec's quantized
    codes, forward and backward, kernel route against plain route; the
-   kernels' times against their plain versions, bounds, ``torch.stft().abs()``
-   (K7) and the FFT route's log-mel (K6), and the mel loss's forward and
-   backward on both routes.
+   kernels' times (CUDA events and profiled device time) against their
+   plain versions, bounds, ``torch.stft().abs()`` (K7), the FFT route's
+   log-mel (K6) and the GEMM arm at the same shapes, and the mel loss's
+   forward and backward, each alone, on both routes.
 
 Prints the per-kernel JSON line (times summed over the kernel's sites in one
 100-frame dispatch of the single-stream path that first runs it, the codec's
@@ -181,6 +184,9 @@ from dl_speech_enhancement_tpu_torch.ops.mega_kernel import (
     vq_tables,
 )
 from dl_speech_enhancement_tpu_torch.ops.mel_kernel import (
+    _LOG_KIND,
+    ARMS,
+    _launch,
     log_mel,
     log_mel_plain,
     make_fused_log_mel,
@@ -407,12 +413,21 @@ KERNELS = {
         "source": "dl_speech_enhancement_tpu_torch/csrc/dft_spectrum.cu",
         "replaces": "dl_speech_enhancement_tpu/ops/mel_kernel.py:152 (K6 make_fused_log_mel: "
                     "_kernel :119, call :177)",
+        "design": "FFT arm (power-of-two n_fft 64-4096; the paths' every call): a "
+                  "shared-memory radix-8 Stockham real FFT of each frame, the window "
+                  "applied as the samples load, the magnitude, the sparse mel projection "
+                  "over each band's contiguous bins, clamp and log fused in one launch "
+                  "(fft_log_mel_kernel); GEMM arm (any other n_fft): the DFT as two f32 "
+                  "GEMMs (log_mel_kernel)",
     },
     "stft_magnitude": {
         "fn": stft_magnitude,
         "source": "dl_speech_enhancement_tpu_torch/csrc/dft_spectrum.cu",
         "replaces": "dl_speech_enhancement_tpu/ops/mel_kernel.py:256 (K7 "
                     "make_fused_stft_magnitude: _mag_kernel :247, call :270)",
+        "design": "FFT arm (power-of-two n_fft 64-4096): K6's shared-memory real FFT, "
+                  "the magnitudes stored bin by bin (fft_stft_magnitude_kernel); GEMM arm "
+                  "(any other n_fft): the DFT as two f32 GEMMs (stft_magnitude_kernel)",
     },
 }
 KERNELS["fold_copy"] = {  # T1
@@ -1873,7 +1888,9 @@ def spectrum_builders(case):
 def spectrum_cases(cfg, vcfg):
     """Every K6 / K7 call shape of phase 5's paths (16 signals each): the
     course's mel loss, the vocoder's mel loss and its three STFT
-    resolutions, and a log10 log-mel with a window shorter than its FFT."""
+    resolutions, and a log10 log-mel with a window shorter than its FFT;
+    then a log-mel and an STFT at n_fft 600, which no path runs and the
+    planner sends to the GEMM arm."""
     m, s = cfg["mel_loss_params"], vcfg["stft_loss_params"]
     vm = vcfg["mel_loss_params"]
     course = ("log_mel", m["fs"], m["fft_sizes"][0], m["hop_sizes"][0], m["win_lengths"][0],
@@ -1886,21 +1903,35 @@ def spectrum_cases(cfg, vcfg):
                  ("log_mel", 24000, 512, 120, 240, 40, 12000, 10.0), VOCODER_METRIC_LENGTH)}
     for f, h, w in zip(s["fft_sizes"], s["hop_sizes"], s["win_lengths"]):
         cases[f"stft {f}/{h}/{w}"] = (("stft_magnitude", f, h, w), VOCODER_METRIC_LENGTH)
+    cases["GEMM arm: 24k log10 mel, n_fft 600"] = (
+        ("log_mel", 24000, 600, 150, 600, 40, 12000, 10.0), VOCODER_METRIC_LENGTH)
+    cases["GEMM arm: stft 600/150/600"] = (("stft_magnitude", 600, 150, 600),
+                                           VOCODER_METRIC_LENGTH)
     return cases
+
+
+def arm_launches() -> dict:
+    """Launches of K6 and K7 by arm so far."""
+    return {arm: log_mel.arm_launches[arm] + stft_magnitude.arm_launches[arm] for arm in ARMS}
 
 
 def check_spectrum_kernels(cases, rng):
     """Phase 5a: K6 and K7 against their plain versions at every call shape:
     forward (log-mel atol LOG_MEL_ATOL; magnitudes STFT_RTOL of the largest),
     the autograd.Function's gradient against autograd through the plain
-    version (SPECTRUM_GRAD_RTOL of the largest), two calls bit-equal and a
-    batch bit-equal to its examples' own calls."""
+    version (SPECTRUM_GRAD_RTOL of the largest), the arm the planner picked
+    launched, two calls bit-equal and a batch bit-equal to its examples' own
+    calls."""
     worst, report = {name: 0.0 for name in SPECTRUM_KERNELS}, {}
     x = torch.randn(COURSE_BATCH, COURSE_LENGTH, generator=rng, device=DEVICE) * 0.3
     for what, (case, length) in cases.items():
         fn, plain = spectrum_builders(case)
         xs = x[:, :length]
-        got, ref = fn(xs), plain(xs)
+        before = arm_launches()
+        got = fn(xs)
+        require(arm_launches() == dict(before, **{fn.arm: before[fn.arm] + 1}),
+                f"{what}: one launch of the {fn.arm} arm expected")
+        ref = plain(xs)
         require(got.shape == ref.shape, f"{what}: shape {tuple(got.shape)} vs {tuple(ref.shape)}")
         err = float((got - ref).abs().max())
         limit = LOG_MEL_ATOL if case[0] == "log_mel" else STFT_RTOL * float(ref.abs().max())
@@ -1916,10 +1947,12 @@ def check_spectrum_kernels(cases, rng):
         g_limit = SPECTRUM_GRAD_RTOL * float(xp.grad.abs().max())
         require(err_g <= g_limit, f"{what}: gradient max|err| {err_g} > {g_limit}")
         worst[case[0]] = max(worst[case[0]], err)
-        report[what] = {"rows": got.shape[0] * got.shape[1], "max_abs_err": err, "limit": limit,
-                        "grad_max_abs_err": err_g, "grad_limit": g_limit, "deterministic": True}
-        log(f"{case[0]:14s} {what:34s} rows={report[what]['rows']:<5d} max|err|={err:.3e} "
-            f"(limit {limit:.1e}) grad {err_g:.3e} (limit {g_limit:.1e}); bit-equal per example")
+        report[what] = {"arm": fn.arm, "rows": got.shape[0] * got.shape[1],
+                        "max_abs_err": err, "limit": limit, "grad_max_abs_err": err_g,
+                        "grad_limit": g_limit, "deterministic": True}
+        log(f"{case[0]:14s} {what:34s} {fn.arm} arm rows={report[what]['rows']:<5d} "
+            f"max|err|={err:.3e} (limit {limit:.1e}) grad {err_g:.3e} (limit {g_limit:.1e}); "
+            "bit-equal per example")
     return worst, report
 
 
@@ -2123,13 +2156,17 @@ def spectrum_ops(n_fft: int, win: int, rows: int, mel_nnz: int = 0, n_mels: int 
 
 
 def spectrum_site(case, fn, x):
-    """(kernel call, plain call, library call or None, operations, bytes,
-    GEMM-form operations) of one K6 / K7 case on audio ``x`` (B, T): the
-    wrappers on the frames view and operands of the builder ``fn``. The
-    operations and bytes are what the function needs (spectrum_ops; the
-    audio and, for a log-mel, the filterbank's nonzeros read once, the
-    output written once: the bases are computed, not needed); the GEMM
-    form's are what the kernels do, 4 n_fft a frame and frequency."""
+    """(kernel call, plain call, library call or None, GEMM-arm call,
+    operations, bytes, GEMM-form operations) of one K6 / K7 case on audio
+    ``x`` (B, T): the wrappers on the frames view and operands of the
+    builder ``fn`` (its FFT tables too), and the library's GEMM-arm entry
+    called directly on the same operands (the arm the planner gives every
+    other n_fft, and every n_fft before the FFT arm; a time, not a launch
+    of the path). The operations and bytes are what the function needs
+    (spectrum_ops; the audio and, for a log-mel, the filterbank's nonzeros
+    read once, the output written once: the bases are computed, not
+    needed); the GEMM form's are what that arm does, 4 n_fft a frame and
+    frequency."""
     n_fft, hop, win = case[2:5] if case[0] == "log_mel" else case[1:4]
     win = win or n_fft
     frames = fn.frames_of(x)
@@ -2140,57 +2177,131 @@ def spectrum_site(case, fn, x):
     if case[0] == "log_mel":
         _, _, _, _, _, n_mels, _, base = case
         nnz = int((fn.mel_m != 0).sum())
-        return (lambda: log_mel(frames, cos_b, sin_b, fn.mel_m, 1e-10, base),
+        out = torch.empty(rows, n_mels, device=DEVICE)
+
+        def gemm_arm():
+            _launch("gemm", frames, out, fn.bases, 1e-10, mel=(fn.mel_m, _LOG_KIND[base]))
+            return out
+
+        return (lambda: log_mel(frames, cos_b, sin_b, fn.mel_m, 1e-10, base, fn.fft_tables),
                 lambda: log_mel_plain(frames, cos_b, sin_b, fn.mel_m, 1e-10, base), None,
-                spectrum_ops(n_fft, win, rows, nnz, n_mels),
+                gemm_arm, spectrum_ops(n_fft, win, rows, nnz, n_mels),
                 4 * (x.numel() + nnz + rows * n_mels), gemm + 2.0 * rows * n_freq * n_mels)
     window = torch.hann_window(win, device=DEVICE)
-    return (lambda: stft_magnitude(frames, cos_b, sin_b, n_freq, 1e-7),
+    out = torch.empty(rows, n_freq, device=DEVICE)
+
+    def gemm_arm():
+        _launch("gemm", frames, out, fn.bases, 1e-7)
+        return out
+
+    return (lambda: stft_magnitude(frames, cos_b, sin_b, n_freq, 1e-7, fn.fft_tables),
             lambda: stft_magnitude_plain(frames, cos_b, sin_b, n_freq, 1e-7),
             lambda: torch.stft(x, n_fft, hop, win, window, center=True,
                                return_complex=True).abs(),
-            spectrum_ops(n_fft, win, rows), 4 * (x.numel() + rows * n_freq), gemm)
+            gemm_arm, spectrum_ops(n_fft, win, rows), 4 * (x.numel() + rows * n_freq), gemm)
+
+
+def graph_ms(fn, reps: int = 20, groups: int = 5, stream=None) -> float:
+    """Device ms per call of ``fn``: CUDA events around the replay of a CUDA
+    graph of ``reps`` calls (no host work between the launches), the median
+    over ``groups`` replays, after warm-up calls on the capture stream
+    (``stream``, else a new side stream; a backward must be captured on the
+    stream its forward ran on). Where the calls' host work outlasts their
+    kernels, :func:`gpu_ms` measures the host and the profiler has lost
+    kernel records in this setting (a kernel's time read as 0.6-0.7 of its
+    device-bound event time)."""
+    side = stream or torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    times = []
+    for _ in range(groups):
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return statistics.median(times)
 
 
 def training_times(cfg, cases, rng):
-    """Phase 5e: each K6 / K7 call shape against its plain version, its
-    bound and (K7) ``torch.stft(...).abs()`` on cuFFT, a yardstick the port
-    never calls; K6 has no one-call equivalent, so the FFT route's log-mel
-    (``MelSpectrogram('eager')``) is timed beside it as ``eager_fft_ms``.
-    Then the course's mel loss forward and backward, kernel route against
-    the FFT route."""
+    """Phase 5e: each K6 / K7 call shape, with the arm it takes, against its
+    plain version, its bound, the GEMM arm at the same shape (called
+    directly) and (K7) ``torch.stft(...).abs()`` on cuFFT, a yardstick the
+    port never calls; K6 has no one-call equivalent, so the FFT route's
+    log-mel (``MelSpectrogram('eager')``) is timed beside it as
+    ``eager_fft_ms``. Each as CUDA events around back-to-back calls (``ms``
+    and the like: where a call's host work outlasts its kernels, the host's
+    rate) and as device time (``*device_ms``, :func:`graph_ms`). Then the
+    course's mel loss, forward and backward each alone and together, kernel
+    route against the FFT route, device time by graph_ms for each: the
+    forward without autograd, the backward of one kept graph (its forward
+    run on the capture stream), and the two together."""
     x = torch.randn(COURSE_BATCH, COURSE_LENGTH, generator=rng, device=DEVICE) * 0.3
     sites = {}
     for what, (case, length) in cases.items():
         xs = x[:, :length].contiguous()
-        run, plain, lib, flops, nb, gemm = spectrum_site(case, spectrum_builders(case)[0], xs)
+        fn = spectrum_builders(case)[0]
+        run, plain, lib, gemm_arm, flops, nb, gemm = spectrum_site(case, fn, xs)
         b_ms, b_by = bound_ms(flops, nb)
-        site = {"kernel": case[0], "ms": gpu_ms(run, 10), "plain_ms": gpu_ms(plain, 10),
+        site = {"kernel": case[0], "arm": fn.arm, "ms": gpu_ms(run, 10),
+                "device_ms": graph_ms(run), "plain_ms": gpu_ms(plain, 10),
+                "plain_device_ms": graph_ms(plain),
                 "library_ms": None if lib is None else gpu_ms(lib, 10),
+                "library_device_ms": None if lib is None else graph_ms(lib),
                 "bound_ms": b_ms, "bound_by": b_by, "flops": flops, "bytes": nb,
                 "gemm_form_flops": gemm, "gemm_form_ops_ms": gemm / F32_FLOPS * 1e3}
+        if fn.arm == "fft":
+            site["gemm_arm_ms"] = gpu_ms(gemm_arm, 10)
+            site["gemm_arm_device_ms"] = graph_ms(gemm_arm)
         if case[0] == "log_mel":
             _, sr, n_fft, hop, win, n_mels, fmax, base = case
             eager = MelSpectrogram(fs=sr, fft_size=n_fft, hop_size=hop, win_length=win,
                                    num_mels=n_mels, fmin=0, fmax=fmax, log_base=base,
                                    backend="eager", device=DEVICE)
             site["eager_fft_ms"] = gpu_ms(lambda: eager(xs), 10)
+            site["eager_fft_device_ms"] = graph_ms(lambda: eager(xs))
         sites[what] = site
-        log(f"time {case[0]:14s} {what:34s} kernel={site['ms']:.4f} ms plain="
-            f"{site['plain_ms']:.4f} library={site['library_ms']} eager FFT route="
-            f"{site.get('eager_fft_ms')} bound={b_ms:.5f} ms ({b_by}; the GEMM form's "
-            f"operations alone {site['gemm_form_ops_ms']:.4f} ms)")
+        log(f"time {case[0]:14s} {what:34s} {fn.arm} arm kernel={site['ms']:.4f} ms (device "
+            f"{site['device_ms']}) plain={site['plain_ms']:.4f} library={site['library_ms']} "
+            f"(device {site['library_device_ms']}) eager FFT route={site.get('eager_fft_ms')} "
+            f"(device {site.get('eager_fft_device_ms')}) GEMM arm={site.get('gemm_arm_ms')} "
+            f"(device {site.get('gemm_arm_device_ms')}) bound={b_ms:.5f} ms ({b_by}; the GEMM "
+            f"form's operations alone {site['gemm_form_ops_ms']:.4f} ms)")
     y = (x[..., None] * 0.5).requires_grad_()
     t = x[..., None]
     loss_ms = {}
-    for route in ("auto", "eager"):
+    for route, name in (("auto", "kernel"), ("eager", "eager_fft")):
         loss = MultiMelSpectrogramLoss(**dict(cfg["mel_loss_params"], backend=route),
                                        device=DEVICE)
-        loss_ms[route] = gpu_ms(lambda: loss(y, t).backward(), 10)
-    log(f"course mel loss forward+backward: kernel route {loss_ms['auto']:.4f} ms, "
-        f"FFT route {loss_ms['eager']:.4f} ms")
-    return sites, {"mel_loss_fwd_bwd_ms": {"kernel": loss_ms["auto"],
-                                           "eager_fft": loss_ms["eager"]}}
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            kept = loss(y, t)  # a graph whose backward is timed alone (its saved tensors kept)
+        with torch.no_grad():
+            fwd_device = graph_ms(lambda: loss(y, t))
+        loss_ms[name] = {
+            "forward_ms": gpu_ms(lambda: loss(y, t), 10),
+            "backward_ms": gpu_ms(lambda: kept.backward(retain_graph=True), 10),
+            "fwd_bwd_ms": gpu_ms(lambda: loss(y, t).backward(), 10),
+            "forward_device_ms": fwd_device,
+            "backward_device_ms": graph_ms(lambda: kept.backward(retain_graph=True),
+                                           stream=side),
+            "fwd_bwd_device_ms": graph_ms(lambda: loss(y, t).backward())}
+        del kept
+        torch.cuda.synchronize()
+    log(f"course mel loss (ms): {json.dumps(loss_ms)}")
+    return sites, {"mel_loss_ms": loss_ms,
+                   "mel_loss_fwd_bwd_ms": {k: v["fwd_bwd_ms"] for k, v in loss_ms.items()}}
 
 
 # ---------------------------------------------------------------- times
@@ -2393,9 +2504,10 @@ def multi_stream_times(path, gen, vq):
     return report
 
 
-def spectrum_entries(sites, worst, by_path) -> list:
-    """The ``kernels`` line's K6 and K7 entries: K6 at the course's mel loss,
-    K7 summed over the vocoder config's three STFT resolutions; every timed
+def spectrum_entries(sites, worst, by_path, course) -> list:
+    """The ``kernels`` line's K6 and K7 entries: K6 at the course's mel loss
+    (with the course step's median and its profiled K6 time, ``course``), K7
+    summed over the vocoder config's three STFT resolutions; every timed
     shape under ``sites``."""
     entries = []
     for name in SPECTRUM_KERNELS:
@@ -2407,11 +2519,17 @@ def spectrum_entries(sites, worst, by_path) -> list:
         nb = sum(v["bytes"] for v in main.values())
         entry = {
             "name": name, "route": "cuda", "source": spec["source"],
-            "replaces": spec["replaces"],
+            "replaces": spec["replaces"], "design": spec["design"],
+            "arms": sorted({v["arm"] for v in main.values()}),
             "launches": sum(counts[name] for counts in by_path.values()),
             "launches_by_path": {path: counts[name] for path, counts in by_path.items()},
             "max_abs_err": worst[name],
             "ms": sum(v["ms"] for v in main.values()),
+            "device_ms": sum(v["device_ms"] or 0.0 for v in main.values()) or None,
+            # the GEMM arm at the same calls (a GEMM-arm site's own time)
+            "gemm_arm_ms": sum(v.get("gemm_arm_ms", v["ms"]) for v in main.values()),
+            "gemm_arm_device_ms": sum(v.get("gemm_arm_device_ms", v["device_ms"]) or 0.0
+                                      for v in main.values()) or None,
             "plain_ms": sum(v["plain_ms"] for v in main.values()),
             "bound_ms": sum(v["bound_ms"] for v in main.values()),
             "bound_by": bound_ms(ops, nb)[1],
@@ -2430,9 +2548,15 @@ def spectrum_entries(sites, worst, by_path) -> list:
         }
         if name == "log_mel":
             entry["eager_fft_ms"] = main["course mel"]["eager_fft_ms"]
+            entry["eager_fft_device_ms"] = main["course mel"]["eager_fft_device_ms"]
             entry["library_ms_is"] = ("null: no one PyTorch call computes it; eager_fft_ms "
                                       "times the FFT route's log-mel beside it")
+            entry["course_step_median_ms"] = course["step_median_ms"]
+            entry["course_step_log_mel_kernel_ms"] = (course["profiled_step"] or {}).get(
+                "log_mel_kernel_ms")
         else:
+            entry["library_device_ms"] = sum(v["library_device_ms"] or 0.0
+                                             for v in main.values()) or None
             entry["max_abs_err_is"] = "largest magnitude error (limit 1e-5 of the largest)"
         entries.append(entry)
     return entries
@@ -2694,7 +2818,7 @@ def main() -> int:
             entry[f"codec_sites_streams_{BATCH}"] = {
                 str(n): codec_ktimes_b[n]["causal_conv"]["sites"] for n in BATCH_SIZES}
         entries.append(entry)
-    entries += spectrum_entries(train_sites, spectrum_worst, by_path)
+    entries += spectrum_entries(train_sites, spectrum_worst, by_path, course_report)
     k1f_main = {k: v for k, v in folded_times.items() if k.endswith("frames=1")}
     k1f = {key: sum(v[key] for v in k1f_main.values())
            for key in ("ms", "plain_ms", "bound_ms", "bound_ms_f32_cores")}

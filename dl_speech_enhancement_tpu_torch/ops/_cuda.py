@@ -41,7 +41,8 @@ _P, _I, _L, _Z, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c
 # hifigan_unit an optional running sum and an output scale after its biases,
 # and its (tile, cluster) plan;
 # the DFT kernels the padded signal and its frames' geometry (signal stride, hop,
-# frames per signal, rows, n_fft) before the bases.
+# frames per signal, rows, n_fft) before the bases (GEMM arm) or the window, its
+# nonzero range and the twiddles (FFT arm; K6's then the mel band table).
 _ENTRIES = {
     "residual_chain": {
         "dse_residual_chain": ([_P, _L, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
@@ -75,6 +76,9 @@ _ENTRIES = {
     "dft_spectrum": {
         "dse_log_mel": ([_P, _L, _I, _I, _I, _I, _P, _P, _I, _P, _I, _F, _I, _P, _P], _I),
         "dse_stft_magnitude": ([_P, _L, _I, _I, _I, _I, _P, _P, _I, _I, _F, _P, _P], _I),
+        "dse_log_mel_fft": ([_P, _L, _I, _I, _I, _I, _P, _I, _I, _P, _P, _P, _I, _F, _I, _P,
+                             _P], _I),
+        "dse_stft_magnitude_fft": ([_P, _L, _I, _I, _I, _I, _P, _I, _I, _P, _I, _F, _P, _P], _I),
     },
     "fold_copy": {
         "dse_fold_copy": ([_P, _P, _I, _I, _I, _I, _P], _I),

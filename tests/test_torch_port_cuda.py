@@ -1045,22 +1045,27 @@ def test_receivers_raise_on_a_bad_code_at_the_documented_point(card):
         rx.decode(good).cpu()
 
 
-LOG_MEL_CASES = [  # (B, T, sr, n_fft, hop, win, n_mels, fmax, log_base)
-    (2, 9600, 48000, 2048, 300, None, 80, 24000, None),
-    (3, 4800, 24000, 512, 120, 240, 40, 12000, 10.0),
-    (2, 999, 4800, 256, 60, 200, 20, 2400, 2.0),
-    (1, 3000, 22050, 1024, 256, None, 128, 7600, 10.0),
+LOG_MEL_CASES = [  # (B, T, sr, n_fft, hop, win, n_mels, fmax, log_base, arm)
+    (2, 9600, 48000, 2048, 300, None, 80, 24000, None, "fft"),
+    (3, 4800, 24000, 512, 120, 240, 40, 12000, 10.0, "fft"),
+    (2, 999, 4800, 256, 60, 200, 20, 2400, 2.0, "fft"),
+    (1, 3000, 22050, 1024, 256, None, 128, 7600, 10.0, "fft"),
+    (2, 9600, 48000, 4096, 300, None, 80, 24000, None, "fft"),  # the FFT arm's largest n_fft
+    (2, 4800, 24000, 600, 150, 600, 40, 12000, 10.0, "gemm"),  # not a power of two
 ]
-STFT_CASES = [(1024, 120, 600), (2048, 240, 1200), (512, 50, 240), (256, 64, 100)]
+STFT_CASES = [(1024, 120, 600, "fft"), (2048, 240, 1200, "fft"), (512, 50, 240, "fft"),
+              (256, 64, 100, "fft"), (4096, 1024, 4096, "fft"), (128, 32, 100, "fft"),
+              (64, 16, 64, "fft"), (600, 150, 600, "gemm")]
 
 
-def _kernel_and_plain(card, fn, plain, batch, t):
+def _kernel_and_plain(card, fn, plain, batch, t, arm):
     """Forward of both on the same audio, gradients of both for one upstream
-    gradient, and the kernel's determinism checks."""
+    gradient, the arm the call took, and the kernel's determinism checks."""
     x = _randn(card, batch, t)
-    before = fn_launches()
+    before, arms = fn_launches(), arm_launches()
     got = fn(x)
     assert fn_launches() == before + 1
+    assert fn.arm == arm and arm_launches()[arm] == arms[arm] + 1
     ref = plain(x)
     assert got.shape == ref.shape and got.dtype == torch.float32
     assert torch.equal(fn(x), got)
@@ -1077,24 +1082,44 @@ def fn_launches():
     return mel_kernel.log_mel.launches + mel_kernel.stft_magnitude.launches
 
 
+def arm_launches():
+    return {arm: mel_kernel.log_mel.arm_launches[arm]
+            + mel_kernel.stft_magnitude.arm_launches[arm] for arm in mel_kernel.ARMS}
+
+
 @pytest.mark.parametrize("case", LOG_MEL_CASES, ids=lambda c: f"{c[3]}-{c[4]}-{c[6]}")
 def test_log_mel_kernel(card, case):
-    b, t, sr, n_fft, hop, win, n_mels, fmax, base = case
+    b, t, sr, n_fft, hop, win, n_mels, fmax, base, arm = case
     kw = dict(sr=sr, n_fft=n_fft, hop=hop, win_length=win, n_mels=n_mels, fmin=0,
               fmax=fmax, log_base=base, device="cuda")
     got, ref = _kernel_and_plain(card, mel_kernel.make_fused_log_mel(**kw),
-                                 mel_kernel.make_fused_log_mel(**kw, plain=True), b, t)
+                                 mel_kernel.make_fused_log_mel(**kw, plain=True), b, t, arm)
     assert (got - ref).abs().max() <= 1e-4
 
 
-@pytest.mark.parametrize("case", STFT_CASES, ids=lambda c: "-".join(map(str, c)))
+@pytest.mark.parametrize("case", STFT_CASES, ids=lambda c: "-".join(map(str, c[:3])))
 def test_stft_magnitude_kernel(card, case):
-    n_fft, hop, win = case
+    n_fft, hop, win, arm = case
     got, ref = _kernel_and_plain(
         card, mel_kernel.make_fused_stft_magnitude(n_fft, hop, win, device="cuda"),
         mel_kernel.make_fused_stft_magnitude(n_fft, hop, win, device="cuda", plain=True),
-        3, 4000)
+        3, 4000, arm)
     assert (got - ref).abs().max() <= 1e-5 * ref.abs().max()
+
+
+def test_fft_arm_needs_its_tables(card):
+    """The planner sends a power-of-two n_fft to the FFT arm by shape alone:
+    called without the builder's tables, the wrapper raises rather than take
+    the other arm, and it refuses tables derived with other operands."""
+    fn = mel_kernel.make_fused_stft_magnitude(512, 50, 240, device="cuda")
+    frames = fn.frames_of(_randn(card, 2, 2000))
+    with pytest.raises(ValueError, match="fn.fft_tables"):
+        mel_kernel.stft_magnitude(frames, *fn.bases, 257, 1e-7)
+    mel = mel_kernel.make_fused_log_mel(24000, 512, 120, 240, 40, fmax=12000, device="cuda")
+    with pytest.raises(ValueError, match="derived with other operands"):
+        mel_kernel.log_mel(frames, *mel.bases, mel.mel_m, 1e-10, None, fn.fft_tables)
+    got = mel_kernel.log_mel(frames, *mel.bases, mel.mel_m, 1e-10, None, mel.fft_tables)
+    assert got.shape == (frames.shape[0] * frames.shape[1], 40)
 
 
 def test_spectral_losses_auto_launch_the_kernels(card):
