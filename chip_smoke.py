@@ -100,7 +100,10 @@ line):
    ``F.embedding_bag``, and two grouped ``F.conv1d`` calls for a HiFiGAN
    unit: yardsticks the port never calls), with CUDA events (a unit's and a
    GEMM-arm causal_conv's bound at the split-TF32 rate it runs, the f32-core
-   bound beside it); then the same
+   bound beside it), ``rvq_assign`` and ``codebook_lookup`` (and
+   ``F.embedding_bag``) also as device time, CUDA events around a CUDA graph
+   of the calls, since a wrapper call's host work floors their event time
+   (T1's four shapes and ``torch.clone`` too); then the same
    sites at 16 streams of 1 and 16 frames, and per-stream-frame time and
    busy share of B = 1, 4, 16 and 64 streams (the receiver's fleet: 16 and
    64) at 1 and 16 frames per dispatch, through the kernel route, the
@@ -685,7 +688,7 @@ def codec_sites(gen, tables, z_real, n_frames: int, wd, rng: torch.Generator,
     rand = make_rand(rng, batch)
     return [
         conv_site("prj", gen.projector.conv, rows, 1, False, wd, rand, nb),
-        Site("rvq_assign", "rvq", lambda: rvq_assign(z, books, sqnorm),
+        Site("rvq_assign", "rvq", lambda: rvq_assign(z, books, sqnorm, books_t),
              lambda: rvq_assign_plain(z, books, sqnorm), None,
              nb * rows * n_books * (2.0 * dim * book_k + 3.0 * book_k),
              nbytes(z, books, sqnorm, codes), None),
@@ -734,7 +737,7 @@ def check_search(what, z, tables, n_frames):
     before the card has run the call. Returns (near-tie rows, largest
     distance excess, lookup max |err|)."""
     books, sqnorm, books_t = tables
-    got, ref = rvq_assign(z, books, sqnorm), rvq_assign_plain(z, books, sqnorm)
+    got, ref = rvq_assign(z, books, sqnorm, books_t), rvq_assign_plain(z, books, sqnorm)
     torch.cuda.synchronize()
     require(got.shape == ref.shape and got.dtype == torch.int32,
             f"rvq_assign: codes {tuple(got.shape)} {got.dtype} vs plain {tuple(ref.shape)}")
@@ -1681,8 +1684,9 @@ def probe_phase():
     """T1: the relayout probe's ``main`` (its six shapes through the
     fold_copy kernel, held to numpy's reshape; the two numpy refuses must be
     refused), counted; then each defined shape's kernel output against its
-    plain version (``reshape().clone()``) bit for bit, and times (the library
-    call: ``torch.clone`` of the reshaped view, the whole function)."""
+    plain version (``reshape().clone()``) bit for bit, and times by CUDA
+    events and as device time (:func:`graph_ms`), the library call's too
+    (``torch.clone`` of the reshaped view, the whole function)."""
     rc, launches = counted("T1", 1, 4, ("fold_copy",), reshape_probe.main)
     require(rc == 0, "reshape_probe: a shape disagrees with numpy")
     times = {}
@@ -1701,9 +1705,10 @@ def probe_phase():
         b_ms, b_by = bound_ms(0.0, nb)
         times[f"{mode} {shape} s={s}"] = entry = {
             "ms": gpu_ms(lambda: reshape_probe.fold_copy(x, s, mode), 200),
+            "device_ms": graph_ms(lambda: reshape_probe.fold_copy(x, s, mode)),
             "plain_ms": gpu_ms(lambda: reshape_probe.fold_copy_plain(x, s, mode), 200),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": gpu_ms(view.clone, 200),
-            "ops": 0.0, "bytes": nb}
+            "library_device_ms": graph_ms(view.clone), "ops": 0.0, "bytes": nb}
         log(f"time fold_copy {mode} {shape} s={s}: {json.dumps(entry)}")
     return launches, times
 
@@ -2358,16 +2363,25 @@ def device_profile(run, frames, wall_ms: float, n_reps: int = 50):
             "other_ms_per_dispatch": device_ms - sum(kernels_ms.values())}
 
 
+# kernels whose sites are also timed as device time (graph_ms), beside their
+# CUDA-event time, which a wrapper call's host work floors at few rows
+GRAPHED_KERNELS = ("rvq_assign", "codebook_lookup")
+
+
 def time_kernels(site_fn, names, sizes=None):
     """Phase 4b: each of ``names`` summed over its sites of one dispatch, at
     each (frames per dispatch, repetitions) of ``sizes`` (by default 1, 100
-    and 400 frames); ``site_fn(n_frames, weight_dtype)`` gives the sites."""
+    and 400 frames); ``site_fn(n_frames, weight_dtype)`` gives the sites. The
+    sites of GRAPHED_KERNELS also get ``device_ms`` (and their yardstick
+    ``library_device_ms``) by :func:`graph_ms`."""
     report = {}
     for n_frames, reps in sizes or ((1, 50), (DISPATCH, 20), (THROUGHPUT_FRAMES, 10)):
         per_kernel = {name: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
                              "bound_ms_f32_cores": 0.0, "library_ms": None, "ops": 0.0,
                              "bytes": 0.0, "ops_s": 0.0, "sites": {}}
                       for name in names}
+        for name in set(names) & set(GRAPHED_KERNELS):
+            per_kernel[name].update(device_ms=0.0, library_device_ms=None)
         for st in site_fn(n_frames, torch.bfloat16):
             k_ms, p_ms = gpu_ms(st.run, reps), gpu_ms(st.plain, reps)
             l_ms = None if st.lib is None else gpu_ms(st.lib, reps)
@@ -2385,6 +2399,14 @@ def time_kernels(site_fn, names, sizes=None):
                                      "bound_ms": b_ms, "bound_by": b_by}
             if st.plan:
                 agg["sites"][st.site]["plan"] = list(st.plan)
+            if st.kernel in GRAPHED_KERNELS:
+                site = agg["sites"][st.site]
+                site["device_ms"] = graph_ms(st.run)
+                agg["device_ms"] += site["device_ms"]
+                if st.lib is not None:
+                    site["library_device_ms"] = graph_ms(st.lib)
+                    agg["library_device_ms"] = ((agg["library_device_ms"] or 0.0)
+                                                + site["library_device_ms"])
             # beside it, the bound at the f32 rate outside the tensor cores
             f32_ms = bound_ms(st.flops, st.bytes)[0]
             agg["bound_ms_f32_cores"] += f32_ms
@@ -2392,7 +2414,10 @@ def time_kernels(site_fn, names, sizes=None):
                 agg["sites"][st.site]["bound_ms_f32_cores"] = f32_ms
             log(f"time {st.kernel:22s} {st.site:7s} frames={n_frames:<4d} kernel={k_ms:.4f} ms "
                 f"plain={p_ms:.4f} ms library={l_ms if l_ms is None else round(l_ms, 4)} "
-                f"bound={b_ms:.4f} ms ({b_by})" + (f" plan={st.plan}" if st.plan else ""))
+                f"bound={b_ms:.4f} ms ({b_by})" + (f" plan={st.plan}" if st.plan else "")
+                + "".join(f" {key}={agg['sites'][st.site][key]:.4f} ms"
+                          for key in ("device_ms", "library_device_ms")
+                          if key in agg["sites"][st.site]))
         for agg in per_kernel.values():
             t_ops, t_bytes = agg.pop("ops_s"), agg["bytes"] / HBM_BYTES_PER_S
             agg["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
@@ -2754,7 +2779,8 @@ def main() -> int:
         split_tf32 = name in ("residual_chain", "hifigan_unit", "causal_conv",
                               "causal_conv_transpose")
         keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms") + (
-            ("bound_ms_f32_cores",) if split_tf32 else ())
+            ("bound_ms_f32_cores",) if split_tf32 else ()) + (
+            ("device_ms", "library_device_ms") if name in GRAPHED_KERNELS else ())
         entry = {
             "name": name, "route": "cuda", "source": spec["source"],
             "replaces": spec["replaces"],
@@ -2808,6 +2834,14 @@ def main() -> int:
                 str(n): v0_ktimes_b[n][name]["sites"] for n in BATCH_SIZES}
         if name == "hifigan_unit":
             entry["max_abs_err_v0"] = v0_worst[name]
+        if name in GRAPHED_KERNELS:
+            entry.update({
+                "device_ms": agg["device_ms"], "library_device_ms": agg["library_device_ms"],
+                "device_ms_1frame": agg1["device_ms"],
+                "library_device_ms_1frame": agg1["library_device_ms"],
+                f"device_ms_{THROUGHPUT_FRAMES}frames": agg400["device_ms"],
+                f"library_device_ms_{THROUGHPUT_FRAMES}frames": agg400["library_device_ms"],
+                "device_ms_is": "CUDA events around a CUDA graph of 20 calls (graph_ms)"})
         if name == "rvq_assign":
             entry["max_abs_err_is"] = "largest distance excess of a near-tie pick"
             entry["near_tie_rows"] = codec_ties + batched_ties
@@ -2842,7 +2876,8 @@ def main() -> int:
         "launches_by_path": {path: counts["fold_copy"] for path, counts in by_path.items()},
         "max_abs_err": 0.0,
         **{key: sum(v[key] for v in probe_main)
-           for key in ("ms", "plain_ms", "bound_ms", "library_ms")},
+           for key in ("ms", "device_ms", "plain_ms", "bound_ms", "library_ms",
+                       "library_device_ms")},
         "bound_by": bound_ms(0.0, sum(v["bytes"] for v in probe_main))[1],
         "library_ms_is": "torch.clone of the folded view",
         "per": "sum over the probe's four defined shapes", "sites": probe_times})

@@ -10,66 +10,62 @@
 // the TPU a value is tiled (8 sublanes x 128 lanes), so moving rows into lanes
 // moves data between tiles, and Mosaic lowers it only at some widths. Here a
 // row-major matrix keeps every element at the same linear index through either
-// reshape, so the work is one copy.
+// reshape, so the function is one flat copy of rows * width floats.
 //
 // What bounds it: bytes, one read and one write of every element; no
-// arithmetic. Design: one block per run of whole groups (a group is the s
-// source rows of one folded row, or the one source row of s unfolded rows), at
-// most 8,192 floats a block. The block stages its groups in shared memory by
-// source coordinates and writes them by destination coordinates, so each
-// element's destination row and column are computed, not assumed; both passes
-// walk consecutive addresses with consecutive threads.
+// arithmetic, and at the probe's 40-106 KB the launch itself. Design: each
+// thread of a 256-thread block loads one 16-byte vector and stores it (a
+// warp's accesses coalesce), so a launch spreads over tens of blocks; the
+// last block also copies the tail of fewer than four floats; operands that
+// are not 16-byte aligned take a plain grid-stride copy. A copy by 1-D bulk
+// asynchronous copies (global -> shared on an mbarrier, then shared ->
+// global, one chunk a block) measured slower on the card at every probe
+// shape, its two round trips in series (PERF.md, section 6), so the vector
+// copy is the one kept.
+#include <cstdint>
+
 #include <cuda_runtime.h>
 
 #include "error.cuh"
 
 namespace dse {
 
-constexpr int kCopyThreads = 256;
-constexpr int kCopyFloats = 8192;  // shared memory a block stages: 32 KB
+constexpr int kVectorThreads = 256;
 
-__global__ void __launch_bounds__(kCopyThreads)
-fold_copy_kernel(const float* __restrict__ x, float* __restrict__ y, int rows_src,
-                 int width_src, int s, int unfold, int groups_per_block) {
-  extern __shared__ float tile[];
-  // a group: fold, s source rows of width_src -> 1 row of s * width_src;
-  // unfold, 1 source row of width_src -> s rows of width_src / s
-  const int group = unfold ? width_src : s * width_src;
-  const int n_groups = unfold ? rows_src : rows_src / s;
-  const int g0 = blockIdx.x * groups_per_block;
-  const int n = min(groups_per_block, n_groups - g0);
-  const int floats = n * group;
-  const int src_row0 = unfold ? g0 : g0 * s;
-  for (int e = threadIdx.x; e < floats; e += kCopyThreads) {
-    const int r = src_row0 + e / width_src, col = e % width_src;
-    tile[e] = x[(size_t)r * width_src + col];
-  }
-  __syncthreads();
-  const int width_dst = unfold ? width_src / s : s * width_src;
-  const int dst_row0 = unfold ? g0 * s : g0;
-  for (int e = threadIdx.x; e < floats; e += kCopyThreads) {
-    const int rd = dst_row0 + e / width_dst, q = e % width_dst;
-    // the source element of destination (rd, q), as a local staging index
-    const int local = unfold ? (rd / s - g0) * width_src + (rd % s) * width_dst + q
-                             : ((rd - g0) * s + q / width_src) * width_src + q % width_src;
-    y[(size_t)rd * width_dst + q] = tile[local];
-  }
+// Each thread copies one 16-byte vector (a warp's accesses coalesce); the last
+// block also copies the tail of fewer than four floats.
+__global__ void __launch_bounds__(kVectorThreads)
+fold_copy_kernel(const float* __restrict__ x, float* __restrict__ y, long long n) {
+  const long long n4 = n / 4;
+  const long long v = (long long)blockIdx.x * kVectorThreads + threadIdx.x;
+  if (v < n4) reinterpret_cast<float4*>(y)[v] = reinterpret_cast<const float4*>(x)[v];
+  if (blockIdx.x == gridDim.x - 1)
+    for (long long e = 4 * n4 + threadIdx.x; e < n; e += kVectorThreads) y[e] = x[e];
+}
+
+__global__ void __launch_bounds__(256)
+fold_copy_unaligned_kernel(const float* __restrict__ x, float* __restrict__ y, long long n) {
+  for (long long e = (long long)blockIdx.x * 256 + threadIdx.x; e < n;
+       e += (long long)gridDim.x * 256)
+    y[e] = x[e];
 }
 
 }  // namespace dse
 
 extern "C" int dse_fold_copy(const float* x, float* y, int rows, int width, int s, int unfold,
                              void* stream) {
-  if (rows <= 0 || width <= 0 || s <= 0 || (unfold ? width % s : rows % s) != 0 ||
-      (long long)rows * width > 0x7fffffffLL)
+  if (rows <= 0 || width <= 0 || s <= 0 || (unfold ? width % s : rows % s) != 0)
     return cudaErrorInvalidValue;
-  const int group = unfold ? width : s * width;
-  if (group > dse::kCopyFloats) return cudaErrorInvalidValue;
-  const int per_block = dse::kCopyFloats / group;
-  const int n_groups = unfold ? rows : rows / s;
-  const int blocks = (n_groups + per_block - 1) / per_block;
-  dse::fold_copy_kernel<<<blocks, dse::kCopyThreads, per_block * group * sizeof(float),
-                          static_cast<cudaStream_t>(stream)>>>(x, y, rows, width, s, unfold,
-                                                               per_block);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long long n = (long long)rows * width;
+  if ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(y)) % 16 != 0) {
+    const long long blocks = (n + 255) / 256;
+    dse::fold_copy_unaligned_kernel<<<(unsigned)(blocks < 1024 ? blocks : 1024), 256, 0, st>>>(
+        x, y, n);
+    return cudaGetLastError();
+  }
+  const long long blocks = n / 4 > 0 ? (n / 4 + dse::kVectorThreads - 1) / dse::kVectorThreads : 1;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  dse::fold_copy_kernel<<<(unsigned)blocks, dse::kVectorThreads, 0, st>>>(x, y, n);
   return cudaGetLastError();
 }

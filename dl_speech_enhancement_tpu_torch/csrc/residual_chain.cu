@@ -59,6 +59,7 @@
 // dse_residual_chain_scratch).
 #include <cooperative_groups.h>
 
+#include "async_copy.cuh"
 #include "tile_mma.cuh"
 
 namespace cg = cooperative_groups;
@@ -108,15 +109,6 @@ inline size_t chain_smem(int tile, int C, int cluster, int d0, int d1, int d2, i
 __host__ __device__ inline size_t chain_scratch_floats(int tile, int C, int d0, int d1, int d2) {
   const int halo = (kTaps - 1) * (d0 + d1 + d2);
   return (size_t)(2 * (tile + halo) - (kTaps - 1) * d0) * C;
-}
-
-// The halves of cluster.sync(): arrive after this block's writes that peers
-// read, wait before reading a peer or overwriting what a peer reads.
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
 // Copies 16 bytes from global memory to shared memory through L2 only, so

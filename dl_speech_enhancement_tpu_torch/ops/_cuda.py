@@ -37,6 +37,8 @@ _P, _I, _L, _Z, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c
 # activation code and slope (and causal_conv a tanh flag) before the weight type,
 # causal_conv its (arm, tile, steps per block) plan after it, causal_conv_transpose
 # its (tile, steps per block);
+# rvq_assign the books in both layouts and its (cluster, tile, clusters, stages)
+# plan;
 # codebook_lookup its bad-code word and the call's number;
 # hifigan_unit an optional running sum and an output scale after its biases,
 # and its (tile, cluster) plan;
@@ -61,7 +63,10 @@ _ENTRIES = {
         "dse_causal_conv_transpose_smem": ([_I, _I, _I, _I, _I], _Z),
     },
     "rvq_assign": {
-        "dse_rvq_assign": ([_P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
+        "dse_rvq_assign": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P], _I),
+        "dse_rvq_assign_smem": ([_I, _I, _I, _I, _I], _Z),
+        "dse_rvq_assign_max_clusters": ([_I, _I, _I, _I, _I, _I, _I, _P], _I),
+        "dse_rvq_assign_threads": ([_I, _I, _I], _I),
     },
     "codebook_lookup": {
         "dse_codebook_lookup": ([_P, _P, _P, _P, _L, _I, _I, _I, _I, _P], _I),

@@ -385,6 +385,149 @@ causal_conv_transpose.launches = 0
 
 
 RVQ_MAX_DIM = 1024  # csrc/rvq_assign.cu kMaxDim
+RVQ_CLUSTERS = (16, 8, 4, 2, 1)  # blocks splitting K, the planner's order of preference
+_RVQ_MAX_THREADS = 512  # kMaxThreads, at 8 rows a thread
+_RVQ_MAX_GROUPS = 32  # kMaxGroups: groups of 4 codewords a block
+_RVQ_MIN_TILE = 8  # rows a cluster takes at least, where there are as many
+
+
+class RvqPlan(NamedTuple):
+    """A launch of csrc/rvq_assign.cu: ``cluster`` blocks split K, each
+    cluster carries ``tile`` rows at a time through the L stages, ``clusters``
+    persistent clusters walk the row tiles, and ``stages`` book slots sit in
+    each block's shared memory (L: every book resident; fewer: a ring)."""
+
+    cluster: int
+    tile: int
+    clusters: int
+    stages: int
+
+
+def rvq_groups(book_k: int, cluster: int) -> int:
+    """Groups of 4 codewords each block owns: the least power of two that
+    covers ceil(K / cluster) (csrc/rvq_assign.cu::rvq_groups)."""
+    per, groups = -(-book_k // cluster), 1
+    while 4 * groups < per:
+        groups *= 2
+    return groups
+
+
+def rvq_smem_bytes(tile: int, dim: int, book_k: int, cluster: int, stages: int) -> int:
+    """Shared memory of one block (csrc/rvq_assign.cu::dse_rvq_assign_smem):
+    the mbarriers (``stages`` + 2), ``stages`` slots of S * (D + 1) floats (a
+    book's slice and its norms), the residual tile at row stride round4(D) +
+    4, two words a row (|r|^2, the pick) and two buffers of the cluster's
+    candidates (distance, index: 2 * cluster words a row each)."""
+    slice_k = 4 * rvq_groups(book_k, cluster)
+    round4 = lambda n: -(-n // 4) * 4  # noqa: E731
+    return (-(-8 * (stages + 2) // 16) * 16
+            + 4 * (stages * slice_k * (dim + 1) + tile * (round4(dim) + 4)
+                   + (4 * cluster + 2) * round4(tile)))
+
+
+def _rvq_tile_fit(dim: int, book_k: int, cluster: int, stages: int, cap: int) -> int:
+    """The most rows (at most ``cap``) a tile may have beside ``stages`` book
+    slots, or 0."""
+    tile = cap
+    while tile and rvq_smem_bytes(tile, dim, book_k, cluster, stages) > _MAX_SMEM:
+        tile -= 1
+    return tile
+
+
+def rvq_block_threads(tile: int, book_k: int, cluster: int) -> tuple[int, int, int]:
+    """(threads, codewords a thread, rows a thread) of a block at ``tile``
+    rows (csrc/rvq_assign.cu::dse_rvq_assign_threads): 2 codewords a thread
+    at one row where a row's 2 * S / 4 lanes fit a warp and carry the tile in
+    512 threads, else 4 codewords at the fewest of 1, 2, 4, 8 rows that keep
+    the block within 256 threads (8 rows up to 512)."""
+    groups = rvq_groups(book_k, cluster)
+    cw = 2 if 2 * groups <= 32 and 2 * groups * tile <= _RVQ_MAX_THREADS else 4
+    rt = 1
+    while cw == 4 and rt < 8 and groups * -(-tile // rt) > 256:
+        rt *= 2
+    return -(-(4 * groups // cw) * -(-tile // rt) // 32) * 32, cw, rt
+
+
+def rvq_single_pass(tile: int, dim: int, book_k: int, cluster: int) -> bool:
+    """Whether a stage's merge, update and |r|^2 take csrc/rvq_assign.cu's
+    single pass: rows of D / 4 16-byte chunks (a power of two up to 32) and
+    max(D / 4, cluster) lanes a row of the tile within the block's threads."""
+    chunks = dim // 4 if dim % 4 == 0 and dim <= 128 else 0
+    return (chunks > 0 and chunks & (chunks - 1) == 0
+            and tile * max(chunks, cluster) <= rvq_block_threads(tile, book_k, cluster)[0])
+
+
+# Clusters the H100 runs at once (cudaOccupancyMaxActiveClusters, printed by
+# tools/rvq_timing.py) by (cluster, blocks an SM): the GPCs, not the SMs, cap
+# them, and one more would wait for a whole cluster to finish.
+_RVQ_CLUSTERS_AT_ONCE = {(16, 1): 7, (16, 2): 14, (8, 1): 15, (8, 2): 29}
+_RVQ_RING = 3  # book slots of the plans for many rows: two blocks fit an SM at few rows a tile
+_SM_SMEM = 233472  # bytes of shared memory an SM holds for its blocks, 1 KB each reserved
+
+
+def _rvq_max_clusters(cluster: int, per_sm: int = 1) -> int:
+    return _RVQ_CLUSTERS_AT_ONCE.get((cluster, per_sm), _N_SM * per_sm // cluster)
+
+
+@functools.lru_cache(maxsize=1024)
+def _rvq_plan(rows: int, dim: int, book_k: int, n_books: int) -> RvqPlan:
+    """The launch of :func:`rvq_assign` for ``rows`` rows of a (n_books,
+    dim, book_k) codebook, in three regimes measured on the card
+    (tools/rvq_timing.py --sweep):
+
+    - few rows: the largest cluster whose blocks each own some codewords (at
+      most 128), every book resident, as many clusters as the card runs at
+      once with at least 8 rows each, where the tile takes the single pass
+      (rvq_single_pass);
+    - more: half that cluster with a ring of 3 book slots, so that two blocks
+      share an SM and twice the clusters run at once, again at least 8 rows a
+      cluster and the single pass;
+    - many: half the cluster, 3 slots, the clusters that run at once at one
+      block an SM, in as few passes over tiles as 512 threads and shared
+      memory allow.
+
+    Where none fits, the largest cluster with as many book slots as fit.
+    Raises ValueError where no plan fits. Pure Python, so the CPU tests hold
+    it."""
+    if rows < 1 or not 0 < dim <= RVQ_MAX_DIM or book_k < 1 or n_books < 1:
+        raise ValueError(f"rvq_assign: no plan for {rows} rows of a ({n_books}, {dim}, "
+                         f"{book_k}) codebook")
+    sizes = [c for c in RVQ_CLUSTERS if rvq_groups(book_k, c) <= _RVQ_MAX_GROUPS
+             and (c - 1) * 4 * rvq_groups(book_k, c) < book_k]
+    if not sizes:
+        raise ValueError(f"rvq_assign: no plan fits a ({n_books}, {dim}, {book_k}) codebook "
+                         "(at most 128 codewords a block of 16)")
+    big, small = sizes[0], sizes[min(1, len(sizes) - 1)]
+    ring = min(_RVQ_RING, n_books)
+
+    def fits(tile, cluster, stages, per_sm=1):
+        smem = rvq_smem_bytes(tile, dim, book_k, cluster, stages)
+        return smem <= _MAX_SMEM and per_sm * (smem + 1024) <= _SM_SMEM
+
+    for cluster, stages, per_sm in ((big, n_books, 1), (small, ring, 2)):
+        clusters = min(_rvq_max_clusters(cluster, per_sm), -(-rows // _RVQ_MIN_TILE))
+        tile = -(-rows // clusters)
+        if rvq_single_pass(tile, dim, book_k, cluster) and fits(tile, cluster, stages, per_sm):
+            return RvqPlan(cluster, tile, -(-rows // tile), stages)
+    for cluster, stages in ((small, ring), (big, n_books)):
+        cap = _rvq_tile_fit(dim, book_k, cluster, stages,
+                            8 * (_RVQ_MAX_THREADS // rvq_groups(book_k, cluster)))
+        if not cap:
+            continue
+        most = _rvq_max_clusters(cluster)
+        passes = -(-rows // (most * cap))
+        tile = -(-rows // (most * passes))
+        return RvqPlan(cluster, tile, min(most, -(-rows // tile)), stages)
+    for stages in range(n_books - 1, 1, -1):
+        tile = _rvq_tile_fit(dim, book_k, big, stages, 8 * (_RVQ_MAX_THREADS // rvq_groups(
+            book_k, big)))
+        if tile:
+            most = _rvq_max_clusters(big)
+            tile = min(tile, -(-rows // most))
+            return RvqPlan(big, tile, min(most, -(-rows // tile)), stages)
+    raise ValueError(f"rvq_assign: no plan fits a ({n_books}, {dim}, {book_k}) codebook "
+                     "(at most 128 codewords a block of 16, and two book slots in shared "
+                     "memory)")
 
 
 def rvq_assign_plain(z, books, sqnorm):
@@ -400,11 +543,16 @@ def rvq_assign_plain(z, books, sqnorm):
     return torch.stack(codes, 1).to(torch.int32)
 
 
-def rvq_assign(z: torch.Tensor, books: torch.Tensor, sqnorm: torch.Tensor) -> torch.Tensor:
+def rvq_assign(z: torch.Tensor, books: torch.Tensor, sqnorm: torch.Tensor,
+               books_t: torch.Tensor) -> torch.Tensor:
     """Residual-VQ nearest-codeword search: z (R, D) f32, books (L, D, K) f32,
     sqnorm (L, K) f32 (``(books ** 2).sum(1)``). Returns the flattened wire
     codes (R, L) int32, ``ind + l * K``. Rows are independent: B streams of
-    N frames are B * N * chunk / hop rows of one launch."""
+    N frames are B * N * chunk / hop rows of one launch, at the plan of
+    :func:`_rvq_plan`; a row's codes do not depend on the plan, B or N.
+    ``books_t`` is the same books as (L, K, D), where the kernel reads each
+    stage's winning codeword: pass the one :func:`vq_tables` returns beside
+    ``books`` (it is not checked against them)."""
     if z.device.type == "cpu":
         return rvq_assign_plain(z, books, sqnorm)
     if z.device.type != "cuda":
@@ -417,14 +565,19 @@ def rvq_assign(z: torch.Tensor, books: torch.Tensor, sqnorm: torch.Tensor) -> to
     if D > RVQ_MAX_DIM:
         raise ValueError(f"rvq_assign: code dim {D} above {RVQ_MAX_DIM} (the residuals "
                          "live in shared memory)")
-    _check_operands("rvq_assign", z.device, {"z": z, "books": books, "sqnorm": sqnorm},
-                    (books,))
+    if books_t.shape != (L, K, D):
+        raise ValueError(f"rvq_assign: books_t {tuple(books_t.shape)} is not books "
+                         f"{tuple(books.shape)} as (L, K, D)")
+    _check_operands("rvq_assign", z.device, {"z": z, "books": books, "sqnorm": sqnorm,
+                                             "books_t": books_t}, (books,))
     codes = torch.empty((R, L), dtype=torch.int32, device=z.device)
     if R == 0:
         return codes
+    plan = _rvq_plan(R, D, K, L)
     lib = _cuda.load("rvq_assign")
     err = lib.dse_rvq_assign(z.data_ptr(), books.data_ptr(), sqnorm.data_ptr(),
-                             codes.data_ptr(), R, D, K, L, _cuda.stream_handle(z))
+                             books_t.data_ptr(), codes.data_ptr(), R, D, K, L, plan.cluster,
+                             plan.tile, plan.clusters, plan.stages, _cuda.stream_handle(z))
     _cuda.check(lib, err, "rvq_assign")
     rvq_assign.launches += 1
     return codes
@@ -576,7 +729,7 @@ def _bias(layer):
 def vq_tables(vq_state, device):
     """The kernels' f32 codebook tables from a ``VQState``: books (L, D, K)
     for :func:`rvq_assign`, their squared norms (L, K), and books_t (L, K, D)
-    for :func:`codebook_lookup`."""
+    for :func:`codebook_lookup` and :func:`rvq_assign`'s winning codewords."""
     books = vq_state.embed.detach().to(device, torch.float32).contiguous()
     return books, (books * books).sum(1).contiguous(), books.transpose(1, 2).contiguous()
 
@@ -666,7 +819,7 @@ def mega_encoder(gen, weight_dtype=torch.bfloat16, vq_state=None) -> StreamHalf:
         shapes[f"e{bi}d"] = (blk.conv.pad_length, blk.conv.in_channels)
     if gen.use_pqc:
         w_pr = conv_weight(gen.projector.conv, wd)
-        books, sqnorm, _ = vq_tables(vq_state, gen.device)
+        books, sqnorm, books_t = vq_tables(vq_state, gen.device)
         shapes["prj"] = (gen.projector.conv.pad_length, gen.projector.conv.in_channels)
 
     def run(cache, x):
@@ -683,7 +836,8 @@ def mega_encoder(gen, weight_dtype=torch.bfloat16, vq_state=None) -> StreamHalf:
         new["prj"] = tail(cache["prj"], h, shapes["prj"][0])
         z = causal_conv(cache["prj"], h, w_pr)
         b, rows, dim = z.shape
-        return rvq_assign(z.reshape(b * rows, dim), books, sqnorm).reshape(b, rows, -1), new
+        codes = rvq_assign(z.reshape(b * rows, dim), books, sqnorm, books_t)
+        return codes.reshape(b, rows, -1), new
 
     return StreamHalf(shapes, run, gen.hop, gen.use_pqc)
 

@@ -1,5 +1,5 @@
 """Serving many streams at once. Sharding over several cards is ROADMAP.md
-item 14."""
+§1 "Parallel"."""
 
 from dl_speech_enhancement_tpu_torch.parallel.serve import make_sharded_stream
 

@@ -20,7 +20,7 @@ Receivers (the JAX package's paired presets):
   (ops/vocoder_kernel.py::vocoder_half), which looks the wire codes up in
   the transmitter's books, as the JAX fleet's ``step_paired`` does.
 
-Several cards (a mesh) are ROADMAP.md item 14 and raise
+Several cards (a mesh) are ROADMAP.md §1 "Parallel" and raise
 NotImplementedError. The fleet computes with f32 weights, the JAX fleet's
 arithmetic, so its wire codes equal an f32 peer's.
 """
@@ -68,8 +68,8 @@ def make_sharded_stream(gen, vq_state=None, *, batch: int, device="cuda", rx_gen
     if isinstance(device, (list, tuple)):
         if len(device) != 1:
             raise NotImplementedError(
-                f"a fleet over {len(device)} devices is not ported yet: see ROADMAP.md, "
-                "item 14 'Parallel'")
+                f"a fleet over {len(device)} devices is not ported yet: see ROADMAP.md §1, "
+                "'Parallel'")
         device = device[0]
     device = resolve_device(device)
     batch = int(batch)

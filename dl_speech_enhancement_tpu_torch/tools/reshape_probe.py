@@ -67,9 +67,6 @@ def fold_copy(x: torch.Tensor, s: int, mode: str) -> torch.Tensor:
         raise ValueError(f"fold_copy: unsupported device {x.device}")
     if x.dtype != torch.float32 or not x.is_contiguous():
         raise ValueError("fold_copy: x must be a contiguous float32 tensor")
-    if (s * x.shape[1] if mode == "fold" else x.shape[1]) > 8192:
-        raise ValueError(f"fold_copy: a group of {tuple(x.shape)} by {s} exceeds the "
-                         "kernel's 8,192-float tile")
     out = torch.empty(out_shape, device=x.device)
     lib = _cuda.load("fold_copy")
     err = lib.dse_fold_copy(x.data_ptr(), out.data_ptr(), x.shape[0], x.shape[1], s,

@@ -15,9 +15,9 @@ decay) before the mix, as the JAX loop does.
 
 Waiting for their ROADMAP items, each raising NotImplementedError: the
 discriminator arms (``train_disc``/``eval_disc``, and reaching
-``epoch_to_enable_discriminator``) wait for the discriminators (§1 item 11);
-checkpoints, which the JAX loop writes outside LAPTOP mode, for item 9; data
-parallelism (``parallel.data_devices`` > 1) for item 14.
+``epoch_to_enable_discriminator``) wait for "Discriminators" (ROADMAP §1);
+checkpoints, which the JAX loop writes outside LAPTOP mode, for "The rest of
+training"; data parallelism (``parallel.data_devices`` > 1) for "Parallel".
 """
 
 from __future__ import annotations
@@ -35,7 +35,7 @@ from dl_speech_enhancement_tpu_torch.train.optim import build_optimizer
 logger = logging.getLogger(__name__)
 
 DISC_NOT_PORTED = ("the course's adversarial phase needs the discriminators, which are not "
-                   "ported yet (ROADMAP §1 item 11)")
+                   "ported yet (ROADMAP §1, 'Discriminators')")
 
 
 def _wait_for_discriminators(*_):
@@ -54,7 +54,7 @@ def make_course_steps(gen, disc, config, opt_g, opt_d):
     reads ``.grad``), steps the optimizer and returns ``(g_loss, d_loss,
     frags, stats)`` as tensors. ``eval(x, target)`` returns ``(g_loss,
     d_loss, frags)`` without gradients. The discriminator arms raise."""
-    del disc, opt_d  # the adversarial arms wait for item 11
+    del disc, opt_d  # the adversarial arms wait for the discriminators
     mel_loss = MultiMelSpectrogramLoss(**config["mel_loss_params"], device=gen.device)
     l_mel = config["lambda_mel_loss"]
     l_snr = config.get("lambda_snr_loss", 0.0)
@@ -134,10 +134,11 @@ def train_denoise_course(config: dict, gen, disc, train_loaders, val_loaders, *,
     if environment != "LAPTOP":
         raise NotImplementedError(
             f"environment {environment!r} writes a checkpoint every epoch; the port's "
-            "checkpoints are not ported yet (ROADMAP §1 item 9): run with 'LAPTOP'")
+            "checkpoints are not ported yet (ROADMAP §1, 'The rest of training'): run with "
+            "'LAPTOP'")
     if _data_devices(config, gen.device) > 1:
         raise NotImplementedError("parallel.data_devices > 1: data parallelism is not ported "
-                                  "yet (ROADMAP §1 item 14)")
+                                  "yet (ROADMAP §1, 'Parallel')")
     device = gen.device
     opt_g = build_optimizer(gen.parameters(), "Adam", config["generator_optimizer_params"],
                             grad_norm=config.get("generator_grad_norm", -1))

@@ -263,20 +263,77 @@ def test_cuda_route_matches_eager_on_the_card(card):
 
 
 @pytest.mark.parametrize("rows,dim,book_k,n_books", [
-    (1, 64, 1024, 8), (4, 64, 1024, 8), (400, 64, 1024, 8), (1601, 64, 1024, 8),
-    (37, 16, 32, 3), (9, 20, 1000, 2),
+    (1, 64, 1024, 8), (4, 64, 1024, 8), (256, 64, 1024, 8), (400, 64, 1024, 8),
+    (1601, 64, 1024, 8), (4096, 64, 1024, 8), (37, 16, 32, 3), (9, 20, 1000, 2),
+    (5, 3, 7, 2), (300, 128, 1024, 8), (100, 256, 1024, 8),
 ])
 def test_rvq_assign_kernel(card, rows, dim, book_k, n_books):
     books = torch.randn(n_books, dim, book_k, generator=card, device="cuda")
     sqnorm = (books * books).sum(1)
+    books_t = books.transpose(1, 2).contiguous()
     z = _randn(card, rows, dim) * 4
     before = rvq_assign.launches
-    got = rvq_assign(z, books, sqnorm)
+    got = rvq_assign(z, books, sqnorm, books_t)
     assert rvq_assign.launches == before + 1
     ref = rvq_assign_plain(z, books, sqnorm)
     torch.cuda.synchronize()
     assert got.dtype == torch.int32 and got.shape == ref.shape
     assert rvq_near_ties(z, books, sqnorm, got, ref)["mismatches"] == 0
+
+
+def _rvq_plans(rows, dim, book_k, n_books):
+    """The planner's plan at ``rows`` and others the kernel takes: clusters
+    of 16 with every book resident or a 3-slot ring, clusters of 8 on a ring
+    of 3 or 6, each at the planner's tile and half of it."""
+    plan = mega_kernel._rvq_plan(rows, dim, book_k, n_books)
+    plans = [plan]
+    for cluster, stages in ((16, n_books), (16, 3), (8, 3), (8, 6)):
+        for tile in (plan.tile, -(-plan.tile // 2)):
+            other = mega_kernel.RvqPlan(cluster, tile, min(
+                -(-rows // tile), mega_kernel._rvq_max_clusters(cluster)), stages)
+            if (other not in plans and mega_kernel.rvq_smem_bytes(
+                    tile, dim, book_k, cluster, stages) <= 232448
+                    and mega_kernel.rvq_block_threads(tile, book_k, cluster)[0] <= 512):
+                plans.append(other)
+    return plans
+
+
+@pytest.mark.parametrize("rows", [4, 64, 400, 1024])
+def test_rvq_assign_codes_do_not_depend_on_the_plan(card, monkeypatch, rows):
+    """A row's codes are the same bits whatever the plan, the rows beside it
+    or their number: every plan of _rvq_plans at ``rows`` rows, and each row
+    searched alone and in a batch of 3."""
+    books = torch.randn(8, 64, 1024, generator=card, device="cuda") * 0.3
+    sqnorm = (books * books).sum(1)
+    tables = (books, sqnorm, books.transpose(1, 2).contiguous())
+    z = _randn(card, rows, 64) * 4
+    planned = rvq_assign(z, *tables)
+    for plan in _rvq_plans(rows, 64, 1024, 8):
+        monkeypatch.setattr(mega_kernel, "_rvq_plan", lambda *a, p=plan: p)
+        assert torch.equal(rvq_assign(z, *tables), planned), plan
+    monkeypatch.undo()
+    for i in range(0, rows, max(1, rows // 5)):
+        assert torch.equal(rvq_assign(z[i:i + 1].contiguous(), *tables), planned[i:i + 1])
+        assert torch.equal(rvq_assign(z[i:i + 3].contiguous(), *tables), planned[i:i + 3])
+    torch.cuda.synchronize()
+
+
+def test_rvq_assign_smem_formula_matches_the_library(card):
+    """ops/mega_kernel.py::rvq_smem_bytes and rvq_block_threads, which the
+    planner asks, equal the library's dse_rvq_assign_smem and
+    dse_rvq_assign_threads."""
+    lib = _cuda.load("rvq_assign")
+    for tile in range(1, 257):
+        for book_k, cluster in ((1024, 16), (1024, 8), (32, 8), (1000, 16), (7, 2)):
+            if mega_kernel.rvq_groups(book_k, cluster) <= 32:
+                assert lib.dse_rvq_assign_threads(tile, book_k, cluster) == \
+                    mega_kernel.rvq_block_threads(tile, book_k, cluster)[0]
+    for tile in (1, 4, 37, 100, 128, 256):
+        for dim, book_k in ((64, 1024), (3, 7), (20, 1000), (128, 1024), (1024, 32)):
+            for cluster in (1, 2, 8, 16):
+                for stages in (2, 3, 8):
+                    assert lib.dse_rvq_assign_smem(tile, dim, book_k, cluster, stages) == \
+                        mega_kernel.rvq_smem_bytes(tile, dim, book_k, cluster, stages)
 
 
 def _books_and_codes(card, rows=400, n_books=8, book_k=1024, dim=64):
@@ -897,6 +954,22 @@ def test_fold_copy_kernel(card, shape, s, mode):
     assert res["ok"], res
     launched = reshape_probe.fold_copy.launches - before
     assert launched == (0 if res["result"].startswith("REFUSED") else 1)
+
+
+@pytest.mark.parametrize("shape,s,mode", [((64, 200), 64, "fold"), ((3, 40000), 8, "unfold"),
+                                          ((9, 7), 3, "fold"), ((5, 3), 3, "unfold"),
+                                          ((1, 1), 1, "fold")])
+def test_fold_copy_kernel_any_group_and_tail(card, shape, s, mode):
+    """T1 past the probe's shapes: groups above 8,192 floats (a fold of 64
+    rows of 200, an unfold of rows of 40,000) and sizes whose bytes are not a
+    multiple of 16 (63, 15 and 1 floats), exact and one launch each."""
+    x = _randn(card, *shape)
+    before = reshape_probe.fold_copy.launches
+    got = reshape_probe.fold_copy(x, s, mode)
+    assert reshape_probe.fold_copy.launches == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, x.reshape(reshape_probe.folded_shape(shape, s, mode)))
+    assert np.array_equal(got.cpu().numpy(), x.cpu().numpy().reshape(got.shape))
 
 
 def test_cli_stream_on_the_card(card, tmp_path, monkeypatch):

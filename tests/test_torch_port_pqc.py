@@ -93,8 +93,7 @@ def test_rvq_assign_plain_matches_jax_encode(rng):
     jgen = JaxGenerator(use_pqc=True, **PQC_TOPOLOGY)
     ref = np.asarray(jgen.quantize(jax.tree_util.tree_map(jnp.asarray, vq),
                                    jnp.asarray(z[None])))[:, 0].T
-    books, sqnorm, _ = vq_tables(tvq, "cpu")
-    got = rvq_assign(torch.from_numpy(z), books, sqnorm)
+    got = rvq_assign(torch.from_numpy(z), *vq_tables(tvq, "cpu"))
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), ref)
     assert len(np.unique(ref[:, 0])) >= 10
@@ -165,13 +164,14 @@ def test_near_tie_rule_tells_ties_from_mismatches(rng):
 def test_pqc_wrappers_run_plain_on_cpu_and_raise_elsewhere():
     before = (rvq_assign.launches, codebook_lookup.launches)
     z, books, sqnorm = torch.zeros(5, 4), torch.zeros(2, 4, 6), torch.zeros(2, 6)
-    assert rvq_assign(z, books, sqnorm).tolist() == [[0, 6]] * 5
+    assert rvq_assign(z, books, sqnorm, books.transpose(1, 2)).tolist() == [[0, 6]] * 5
     assert codebook_lookup(torch.zeros(5, 2, dtype=torch.int32) + torch.tensor(
         [0, 6], dtype=torch.int32), books.transpose(1, 2)).shape == (5, 4)
     assert before == (rvq_assign.launches, codebook_lookup.launches)
     meta = {"device": "meta"}
     with pytest.raises(ValueError, match="unsupported device"):
-        rvq_assign(z.to(**meta), books.to(**meta), sqnorm.to(**meta))
+        rvq_assign(z.to(**meta), books.to(**meta), sqnorm.to(**meta),
+                   books.transpose(1, 2).to(**meta))
     with pytest.raises(ValueError, match="unsupported device"):
         codebook_lookup(torch.zeros(5, 2, dtype=torch.int32, **meta),
                         books.transpose(1, 2).to(**meta))
