@@ -164,7 +164,7 @@ from dl_speech_enhancement_tpu_torch.dsp.mel import MelSpectrogram
 from dl_speech_enhancement_tpu_torch.losses import MultiMelSpectrogramLoss
 from dl_speech_enhancement_tpu_torch.models import AudioDecGenerator, HiFiGANGenerator
 from dl_speech_enhancement_tpu_torch.models.hifigan import MultiReceptiveField
-from dl_speech_enhancement_tpu_torch.nn.conv import ConvTranspose1d
+from dl_speech_enhancement_tpu_torch.nn.conv import Conv2d, ConvTranspose1d
 from dl_speech_enhancement_tpu_torch.nn.vq import VQState
 from dl_speech_enhancement_tpu_torch.ops import _cuda
 from dl_speech_enhancement_tpu_torch.ops.mega_kernel import (
@@ -231,12 +231,13 @@ from dl_speech_enhancement_tpu_torch.train.denoise_course import (
     make_course_steps,
     train_denoise_course,
 )
-from dl_speech_enhancement_tpu_torch.train.checkpoint import save_checkpoint
+from dl_speech_enhancement_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
 from dl_speech_enhancement_tpu_torch.train.optim import build_optimizer
 from dl_speech_enhancement_tpu_torch.tools import reshape_probe
 from dl_speech_enhancement_tpu_torch.utils.audiodec import assign_model
 from dl_speech_enhancement_tpu_torch.utils.checks import rvq_near_ties
 from dl_speech_enhancement_tpu_torch.utils.config import load_config
+from dl_speech_enhancement_tpu_torch.utils.model_factory import build_discriminator
 
 DEVICE = "cuda"  # the card; the port's entry points run there by default
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -369,6 +370,22 @@ ROUTE_FRAG_RTOL = 1e-5
 ROUTE_GRAD_RTOL = 1e-4
 EAGER_LOG_MEL_ATOL = 5e-3
 LOG_MAG_GRAD_RTOL = 1e-2
+# Adversarial training (phase 6), TF32 off: the course's discriminator on the
+# card against its CPU twin on DISC_LENGTH samples, every map within DISC_RTOL
+# of its largest |value| (f32 convs summed in other orders, cuDNN against the
+# CPU's); remat against plain, cuDNN's deterministic algorithms on: losses
+# REMAT_LOSS_RTOL, parameters REMAT_PARAM_RTOL (tests/test_train.py's bounds
+# for the JAX package's remat). A step's discriminator work in
+# forward-equivalents of its convs: the generator's update runs D(y) and
+# D(target) forward and D(y)'s input gradient (3), the discriminator's both
+# forwards and both weight and input gradients (6); remat recomputes each
+# sub-discriminator's two forwards in each backward (+4).
+DISC_LENGTH = 24000
+DISC_RTOL = 1e-4
+REMAT_LOSS_RTOL = 1e-6
+REMAT_PARAM_RTOL = 1e-5
+ADV_PASSES = 9
+ADV_PASSES_REMAT = 13
 
 KERNELS = {
     "residual_chain": {
@@ -2309,6 +2326,312 @@ def training_times(cfg, cases, rng):
                    "mel_loss_fwd_bwd_ms": {k: v["fwd_bwd_ms"] for k, v in loss_ms.items()}}
 
 
+# ---------------------------------------------------------------- adversarial training
+
+
+def course_discriminator(cfg):
+    """The course's own discriminator (MSD 3 scales at 128-1024 channels, MPD
+    periods 2/3/5/7/11 at 32-1024) on the card, seeded: every call gives the
+    same weights."""
+    return build_discriminator("symAudioDec", cfg["discriminator_params"], device=DEVICE,
+                               seed=SEED + 70)
+
+
+def _flat_outputs(outs) -> list:
+    return [f for o in outs for f in (o if isinstance(o, (list, tuple)) else [o])]
+
+
+def check_discriminators(cfg):
+    """Phase 6a: the course's HiFiGAN discriminator and the symADuniv
+    config's UnivNet one (MRSD + MPD) on the card against their CPU twins
+    (the same seeded weights) on one seeded clip of DISC_LENGTH samples:
+    every feature map within DISC_RTOL of its largest |value|."""
+    clean, _ = course_clips(1, SEED + 71, DISC_LENGTH)[0]
+    x = torch.from_numpy(np.ascontiguousarray(clean[:1]))
+    models = {"course HiFiGAN (MSD + MPD)": ("symAudioDec", cfg["discriminator_params"]),
+              "symADuniv UnivNet (MRSD + MPD)": (
+                  "symAudioDecUniv", load_config(UNIV_CODEC_CONFIG)["discriminator_params"])}
+    checks = {}
+    for what, (model_type, params) in models.items():
+        card = build_discriminator(model_type, params, device=DEVICE, seed=SEED + 70)
+        twin = build_discriminator(model_type, params, device="cpu", seed=SEED + 70)
+        with torch.no_grad():
+            got = _flat_outputs(card(x.to(DEVICE)))
+            want = _flat_outputs(twin(x))
+        require(len(got) == len(want), f"{what}: {len(got)} maps against {len(want)}")
+        errs = []
+        for g, w in zip(got, want):
+            require(tuple(g.shape) == tuple(w.shape), f"{what}: {tuple(g.shape)} vs {tuple(w.shape)}")
+            errs.append(float((g.cpu() - w).abs().max()) / max(float(w.abs().max()), 1e-30))
+        worst = max(errs)
+        n_params = sum(p.numel() for p in card.parameters())
+        log(f"{what}: {n_params} params, {len(got)} maps, worst err {worst:.3e} of the map's "
+            f"largest |value| (limit {DISC_RTOL})")
+        require(worst <= DISC_RTOL, f"{what}: a map differs from the CPU's by {worst}")
+        checks[what] = {"params": n_params, "maps": len(got), "worst_rel_err": worst}
+        del card, twin
+    return checks
+
+
+def adversarial_step(cfg, x, t, route: str, remat: bool = False, count: bool = False):
+    """One ``train_disc`` step of the course's generator and discriminator
+    from their seeded weights, the mel loss on ``route``: (losses,
+    {name: gradient}, {name: parameter before}, {name: parameter after},
+    peak bytes above what was resident, launches or None)."""
+    rcfg = dict(cfg, mel_loss_params=dict(cfg["mel_loss_params"], backend=route),
+                discriminator_remat=remat)
+    gen, disc = course_generator(cfg), course_discriminator(cfg)
+    nets = {"generator": gen, "discriminator": disc}
+    opt_g = build_optimizer(gen.parameters(), "Adam", cfg["generator_optimizer_params"],
+                            grad_norm=cfg.get("generator_grad_norm", -1))
+    opt_d = build_optimizer(disc.parameters(), "Adam", cfg["discriminator_optimizer_params"],
+                            grad_norm=cfg.get("discriminator_grad_norm", -1))
+    step = make_course_steps(gen, disc, rcfg, opt_g, opt_d)["train_disc"]
+    before = {f"{k}.{n}": p.detach().clone() for k, m in nets.items()
+              for n, p in m.named_parameters()}
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    launches = None
+    if count:
+        (g, d, frags, _), launches = counted("adversarial course step, kernel route", 2, 1,
+                                             ("log_mel",), lambda: step(x, t))
+    else:
+        g, d, frags, _ = step(x, t)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - resident
+    losses = {"g_loss": float(g), "d_loss": float(d),
+              **{k: float(v) for k, v in frags.items()}}
+    require(all(np.isfinite(v) for v in losses.values()), f"{route}: losses {losses}")
+    grads = {f"{k}.{n}": p.grad.detach().clone() for k, m in nets.items()
+             for n, p in m.named_parameters()}
+    after = {f"{k}.{n}": p.detach().clone() for k, m in nets.items()
+             for n, p in m.named_parameters()}
+    return losses, grads, before, after, peak, launches
+
+
+def adversarial_routes(cfg, pair):
+    """Phases 6b and 6c, cuDNN's deterministic algorithms on: one
+    ``train_disc`` step from the same weights and batch with the mel loss on
+    the kernel route ('auto', 2 K6 launches) and on its plain version, held
+    as phase 5b holds the generator step (fragments ROUTE_FRAG_RTOL, every
+    gradient of both networks ROUTE_GRAD_RTOL of its tensor's largest), the
+    adversarial and discriminator losses finite and every parameter of both
+    networks moved; then the kernel route with ``discriminator_remat``:
+    losses within REMAT_LOSS_RTOL, parameters within REMAT_PARAM_RTOL (atol
+    1e-7) wherever the plain step's gradient is above 1e-4 of its tensor's
+    largest and within 2 lr elsewhere (Adam's first step is about lr times
+    the gradient's sign), the entries outside REMAT_PARAM_RTOL counted. Peak
+    memory of each."""
+    x, t = course_batch(pair)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        auto = adversarial_step(cfg, x, t, "auto", count=True)
+        plain = adversarial_step(cfg, x, t, "plain")
+        remat = adversarial_step(cfg, x, t, "auto", remat=True)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    frags = lambda run: {k: v for k, v in run[0].items() if k != "g_loss"}  # noqa: E731
+    checks = {"kernel_vs_plain": held_routes("adversarial step, kernel vs plain route",
+                                             (frags(plain), plain[1]), (frags(auto), auto[1]),
+                                             ROUTE_FRAG_RTOL, ROUTE_GRAD_RTOL)}
+    for k in ("adv_loss", "feat_loss", "d_loss"):
+        require(k in auto[0], f"the adversarial step reports no {k}")
+    unmoved = [n for n in auto[2] if torch.equal(auto[2][n], auto[3][n])]
+    require(not unmoved, f"parameters the step left as they were: {unmoved[:8]}")
+    loss_err = {k: abs(remat[0][k] - v) / max(abs(v), 1e-30) for k, v in auto[0].items()}
+    lr = {"generator": cfg["generator_optimizer_params"]["lr"],
+          "discriminator": cfg["discriminator_optimizer_params"]["lr"]}
+    strict_misses, worst_big, bit_equal = 0, 0.0, 0
+    for n, p in auto[3].items():
+        q, g = remat[3][n], auto[1][n].abs()
+        diff = (q - p).abs()
+        bit_equal += int(torch.equal(p, q))
+        strict_misses += int((diff > 1e-7 + REMAT_PARAM_RTOL * p.abs()).sum())
+        require(float(diff.max()) <= 2 * lr[n.split(".")[0]], f"remat: {n} moved apart")
+        big = g > 1e-4 * g.max()
+        if bool(big.any()):
+            excess = diff[big] - (1e-7 + REMAT_PARAM_RTOL * p.abs()[big])
+            worst_big = max(worst_big, float(excess.max()))
+    log(f"adversarial step, remat vs plain (kernel route): loss rel err {json.dumps(loss_err)}; "
+        f"{bit_equal} of {len(auto[3])} parameter tensors equal bit for bit, "
+        f"{strict_misses} entries outside rtol {REMAT_PARAM_RTOL}")
+    require(max(loss_err.values()) <= REMAT_LOSS_RTOL, f"remat losses differ: {loss_err}")
+    require(worst_big <= 0.0, f"remat parameters differ beyond rtol {REMAT_PARAM_RTOL}")
+    checks["remat_vs_plain"] = {"loss_rel_err": loss_err, "bit_equal_tensors": bit_equal,
+                                "tensors": len(auto[3]), "entries_outside_rtol": strict_misses}
+    checks["losses"] = {"kernel": auto[0], "plain": plain[0], "remat": remat[0]}
+    checks["peak_bytes_above_resident"] = {"plain": auto[4], "remat": remat[4]}
+    log(f"adversarial step losses {json.dumps(auto[0])}; peak above resident "
+        f"{auto[4] / 2**30:.2f} GiB, remat {remat[4] / 2**30:.2f} GiB")
+    return auto[5], checks
+
+
+def adversarial_loop(cfg, clips):
+    """Phase 6d: ``train_denoise_course`` for two LAPTOP epochs with the
+    discriminator enabled at epoch 1 (3 train and 3 validation batches an
+    epoch), then one epoch outside LAPTOP mode (2 train batches, 1
+    validation, adversarial from the start) into a temporary ``job_dir``,
+    whose ``denoisecheckpoint-<steps>/state.pt`` must load back to the
+    generator's state dict."""
+    gen, disc = course_generator(cfg), course_discriminator(cfg)
+    train = ([c for c, _ in clips[:3]], [n for _, n in clips[:3]])
+    val = ([c for c, _ in clips[3:6]], [n for _, n in clips[3:6]])
+    lcfg = dict(cfg, epochs=2, epoch_to_enable_discriminator=1)
+    (state, history), loop_launches = counted(
+        "adversarial course loop (LAPTOP)", 2, 12, ("log_mel",),
+        lambda: train_denoise_course(lcfg, gen, disc, train, val, environment="LAPTOP"))
+    require(state["steps"] == 6 and len(history) == 2, f"loop: {state['steps']} steps")
+    h0, h1 = history
+    require(h0["train_dis"] == 0.0 and np.isfinite(h1["train_dis"]) and h1["train_dis"] != 0.0,
+            f"epoch 1's train_dis {h1['train_dis']}")
+    require(all(np.isfinite(v) for h in history
+                for v in (h["train_gen"], h["val_gen"], h["val_dis"], *h["frags"].values())),
+            f"loop history not finite: {history}")
+    log(f"adversarial loop: epoch 0 {json.dumps(h0)}; epoch 1 {json.dumps(h1)}")
+    hcfg = dict(cfg, epochs=1, epoch_to_enable_discriminator=0)
+    with tempfile.TemporaryDirectory() as job_dir:
+        (state2, _), ckpt_launches = counted(
+            "adversarial course epoch with checkpoint", 2, 3, ("log_mel",),
+            lambda: train_denoise_course(hcfg, gen, disc, ([train[0][0], train[0][1]],
+                                                           [train[1][0], train[1][1]]),
+                                         ([val[0][0]], [val[1][0]]), environment="HPC",
+                                         job_dir=job_dir))
+        path = os.path.join(job_dir, f"denoisecheckpoint-{state2['steps']}")
+        restored = load_checkpoint(path, {"params_generator": gen.state_dict()})
+        same = all(torch.equal(restored["params_generator"][n], v)
+                   for n, v in gen.state_dict().items())
+        files = sorted(os.listdir(job_dir))
+    require(same, f"{path}: the checkpoint does not load back to the generator's state")
+    log(f"checkpoint {os.path.basename(path)}: state.pt loads back to the generator's "
+        f"state dict; job_dir holds {files}")
+    return ({"adversarial loop": loop_launches, "adversarial checkpoint epoch": ckpt_launches},
+            {"history": history, "checkpoint": os.path.basename(path), "job_dir": files})
+
+
+def device_breakdown(prof, n_top: int = 8):
+    """From a ``torch.profiler`` trace: the device kernels' times summed
+    (ms), the union of their intervals (ms: what the card was busy for,
+    where kernels of several streams overlap) and the ``n_top`` kernels by
+    summed time, their names cut to 80 characters (kernels whose names
+    agree that far summed together)."""
+    cuda = torch.autograd.DeviceType.CUDA
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == cuda)
+    busy, end = 0.0, -math.inf
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    by_name = {}
+    for e in prof.key_averages():
+        if e.device_type == cuda:
+            name = e.key[:80]
+            by_name[name] = by_name.get(name, 0.0) + e.self_device_time_total / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:n_top]
+    return sum(by_name.values()), busy / 1e3, dict(top)
+
+
+def discriminator_flops(disc, x) -> float:
+    """Forward FLOPs of the course discriminator's convolutions on ``x`` (2 a
+    multiply-add), from each conv's output shape: the MSD's from its feature
+    maps (one a layer), the MPD's Conv2d layers through forward hooks."""
+    total = 0.0
+
+    def hook(mod, _, out):
+        nonlocal total
+        total += 2.0 * out.numel() * mod.in_channels * math.prod(mod.kernel_size)
+
+    hooks = [m.register_forward_hook(hook) for m in disc.mpd.modules() if isinstance(m, Conv2d)]
+    with torch.no_grad():
+        outs = disc(x)
+    for h in hooks:
+        h.remove()
+    for scale, feats in zip(disc.msd.discriminators, outs):
+        for layer, f in zip(scale.layers, feats):
+            total += 2.0 * f.numel() * layer.in_channels // layer.groups * layer.kernel_size
+    return total
+
+
+def adversarial_times(cfg, clips):
+    """Phase 6e: FIXED_STEPS synchronised adversarial steps on one fixed
+    batch on the kernel route (wall time of each; the median), one more for
+    the peak memory and one under the profiler (device time, busy share),
+    without and with ``discriminator_remat``; the step's discriminator-conv
+    FLOPs from the shapes (ADV_PASSES forward-equivalents, remat
+    ADV_PASSES_REMAT) and the rate they reach against F32_FLOPS."""
+    x, t = course_batch(clips[0])
+    report, launches = {}, {}
+    for remat in (False, True):
+        gen, disc = course_generator(cfg), course_discriminator(cfg)
+        opt_g = build_optimizer(gen.parameters(), "Adam", cfg["generator_optimizer_params"],
+                                grad_norm=cfg.get("generator_grad_norm", -1))
+        opt_d = build_optimizer(disc.parameters(), "Adam",
+                                cfg["discriminator_optimizer_params"],
+                                grad_norm=cfg.get("discriminator_grad_norm", -1))
+        step = make_course_steps(gen, disc, dict(cfg, discriminator_remat=remat), opt_g,
+                                 opt_d)["train_disc"]
+        name = "remat" if remat else "plain"
+
+        def fixed():
+            losses, walls = [], []
+            for _ in range(FIXED_STEPS):
+                t0 = time.perf_counter()
+                g, d = step(x, t)[:2]
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+                losses.append((float(g), float(d)))
+            return losses, walls
+
+        (losses, walls), launches[f"adversarial fixed steps ({name})"] = counted(
+            f"adversarial fixed-batch steps ({name})", 2, FIXED_STEPS, ("log_mel",), fixed)
+        require(all(np.isfinite(v) for pair in losses for v in pair), f"{name}: {losses}")
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        step(x, t)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            step(x, t)
+            torch.cuda.synchronize()
+        device_ms, busy_ms, top = device_breakdown(prof)
+        step_ms = statistics.median(walls)
+        passes = ADV_PASSES_REMAT if remat else ADV_PASSES
+        if not remat:
+            fwd_flops = discriminator_flops(disc, x)
+        flops = passes * fwd_flops
+        report[name] = {
+            "losses": losses, "step_walls_ms": walls, "step_median_ms": step_ms,
+            "step_peak_bytes": peak, "step_peak_above_resident_bytes": peak - resident,
+            "profiled_step": ({"device_ms": device_ms, "busy_ms": busy_ms,
+                               "busy_share": busy_ms / step_ms, "top_kernels_ms": top}
+                              if device_ms > 0 else None),
+            "discriminator_conv_flops": flops,
+            "discriminator_forward_flops": fwd_flops, "forward_equivalents": passes,
+            "tflops_per_s_wall": flops / step_ms / 1e9,
+            "tflops_per_s_busy": flops / busy_ms / 1e9 if device_ms > 0 else None,
+            "f32_peak_share_busy": (flops / (busy_ms / 1e3) / F32_FLOPS
+                                    if device_ms > 0 else None),
+        }
+        log(f"adversarial step ({name}): median {step_ms:.2f} ms over {FIXED_STEPS} (min "
+            f"{min(walls):.2f}); peak memory {peak / 2**30:.2f} GiB "
+            f"({(peak - resident) / 2**30:.2f} above resident); "
+            + (f"device {device_ms:.2f} ms (kernel times summed), busy {busy_ms:.2f} ms "
+               f"(their union), busy share {busy_ms / step_ms:.3f}; "
+               if device_ms > 0 else "device time not measured; ")
+            + f"discriminator convs {flops / 1e12:.3f} TFLOP ({passes} forward-equivalents), "
+            f"{flops / step_ms / 1e9:.1f} TFLOP/s on the wall clock"
+            + (f", {flops / busy_ms / 1e9:.1f} on the busy time, "
+               f"{flops / (busy_ms / 1e3) / F32_FLOPS:.3f} of the f32 peak; top kernels "
+               f"{json.dumps(top)}" if device_ms > 0 else ""))
+        del gen, disc, opt_g, opt_d, step
+        torch.cuda.empty_cache()
+    return launches, report
+
+
 # ---------------------------------------------------------------- times
 
 
@@ -2764,6 +3087,17 @@ def main() -> int:
     stamp("phase 5, training")
     by_path.update(train_launches)
 
+    log("phase 6: adversarial training (the course's discriminators, step, loop and times)")
+    disc_checks = check_discriminators(cfg)
+    adv_launches = {}
+    adv_launches["adversarial step"], adv_checks = adversarial_routes(cfg, clips[0])
+    runs, adv_loop = adversarial_loop(cfg, clips)
+    adv_launches.update(runs)
+    runs, adv_times = adversarial_times(cfg, clips)
+    adv_launches.update(runs)
+    stamp("phase 6, adversarial training")
+    by_path.update(adv_launches)
+
     name_power = card()
     entries = []
     for name in SERVING_KERNELS:
@@ -2895,7 +3229,10 @@ def main() -> int:
               "training": {"spectrum_kernel_checks": spectrum_checks,
                            "course_step_routes": course_checks, "course": course_report,
                            "vocoder_metric_loss_routes": voc_metric_checks,
-                           "times": train_times, "spectrum_sites": train_sites},
+                           "times": train_times, "spectrum_sites": train_sites,
+                           "adversarial": {"discriminators_vs_cpu": disc_checks,
+                                           "step_routes": adv_checks, "loop": adv_loop,
+                                           "times": adv_times}},
               "kernel_sites": {str(n): {k: v["sites"] for k, v in agg.items()}
                                for n, agg in ktimes.items()},
               "codec_kernel_sites": {str(n): {k: v["sites"] for k, v in agg.items()}

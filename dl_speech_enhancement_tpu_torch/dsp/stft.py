@@ -6,7 +6,8 @@ at the hop, apply a periodic Hann window of ``win_length`` zero-padded
 symmetrically to ``n_fft``, one-sided real FFT. Frames keep the JAX layout,
 ``(..., n_frames, n_freq)``. The FFT is ``torch.fft.rfft``, as the JAX
 package leaves it to XLA; the DFT kernels of the training losses are in
-``ops/mel_kernel.py``.
+``ops/mel_kernel.py``. :func:`spectrogram` is the UnivNet discriminators'
+front end.
 """
 
 from __future__ import annotations
@@ -64,3 +65,20 @@ def stft_magnitude(x: torch.Tensor, window: torch.Tensor, *, n_fft: int, hop: in
     z = stft(x, window, n_fft=n_fft, hop=hop, win_length=win_length, center=center)
     power = z.real * z.real + z.imag * z.imag
     return torch.sqrt(torch.clamp(power, min=eps))
+
+
+def spectrogram(x: torch.Tensor, window: torch.Tensor, *, n_fft: int, hop: int,
+                win_length: int, pad: int = 0, power: float = 1.0,
+                eps: float = 1e-9) -> torch.Tensor:
+    """torchaudio-style spectrogram of ``x (..., T)`` -> ``(..., n_frames,
+    n_freq)``: zero-pad by ``pad`` on both sides, then a centred (reflect)
+    STFT. ``eps`` floors the power before the square root: the zero-padded
+    frames have exactly zero power, where sqrt's gradient is infinite, and
+    adversarial training through this front end would NaN."""
+    if pad > 0:
+        x = F.pad(x, (pad, pad))
+    z = stft(x, window, n_fft=n_fft, hop=hop, win_length=win_length, center=True)
+    mag = torch.sqrt(torch.clamp(z.real * z.real + z.imag * z.imag, min=eps))
+    if power == 1.0:
+        return mag
+    return mag ** power

@@ -13,7 +13,8 @@ one resblock kernel size and ``groups > 1``, else a ``MultiReceptiveField``
 Streaming: every module exposes ``init_cache(batch)`` and ``step(cache, x)
 -> (y, new cache)`` with the JAX package's cache structure and convention
 (each conv caches its own activated input rows). Activations are ``(B, T,
-C)``. The discriminators belong to the training slice and are not here.
+C)``. :class:`HiFiGANDiscriminator` pairs the MSD and the MPD of
+models/discriminator.py for adversarial training.
 """
 
 from __future__ import annotations
@@ -23,6 +24,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from dl_speech_enhancement_tpu_torch.models.discriminator import (
+    HiFiGANMultiPeriodDiscriminator,
+    HiFiGANMultiScaleDiscriminator,
+    fold_channels,
+)
 from dl_speech_enhancement_tpu_torch.nn.conv import (
     CausalConv1d,
     CausalConvTranspose1d,
@@ -233,3 +239,48 @@ class HiFiGANGenerator(nn.Module):
         c, oc = self.output_conv.step(cache["output_conv"], F.leaky_relu(c, 0.01))
         return torch.tanh(c), {"input_conv": ic, "upsamples": new_up, "blocks": new_blocks,
                                "output_conv": oc}
+
+
+class HiFiGANDiscriminator(nn.Module):
+    """MSD + MPD (reference HiFiGAN.py:308-395): the two discriminators'
+    feature lists concatenated, MSD scales first. Weights are drawn from
+    ``generator`` (a fresh one seeded with ``seed`` if not given), MSD then
+    MPD, on the CPU and moved to ``device``."""
+
+    def __init__(self, scales=3, scale_downsample_pooling="AvgPool1d",
+                 scale_downsample_pooling_params=None, scale_discriminator_params=None,
+                 follow_official_norm=True, periods=(2, 3, 5, 7, 11),
+                 period_discriminator_params=None, *, seed: int = 0,
+                 generator: torch.Generator | None = None, device="cuda"):
+        super().__init__()
+        device = resolve_device(device)
+        if generator is None:
+            generator = torch.Generator().manual_seed(seed)
+        self.msd = HiFiGANMultiScaleDiscriminator(
+            scales, scale_downsample_pooling, scale_downsample_pooling_params,
+            scale_discriminator_params, follow_official_norm, generator=generator)
+        self.mpd = HiFiGANMultiPeriodDiscriminator(periods, period_discriminator_params,
+                                                   generator=generator)
+        self.to(device)
+
+    @property
+    def device(self) -> torch.device:
+        return next(self.parameters()).device
+
+    def forward(self, x):
+        """x: (B, T, C) waveform -> one feature list per sub-discriminator."""
+        x = fold_channels(x)
+        return self.msd(x) + self.mpd(x)
+
+    @property
+    def num_subs(self) -> int:
+        return len(self.msd.discriminators) + len(self.mpd.discriminators)
+
+    def apply_sub(self, i: int, x):
+        """Feature list of sub-discriminator ``i`` alone, equal to
+        ``forward(x)[i]``: MSD scales first, then MPD periods."""
+        x = fold_channels(x)
+        n_msd = len(self.msd.discriminators)
+        if i < n_msd:
+            return self.msd.apply_sub(i, x)
+        return self.mpd.apply_sub(i - n_msd, x)

@@ -3,6 +3,7 @@ from dl_speech_enhancement_tpu_torch.nn.conv import (
     CausalConvTranspose1d,
     Conv1d,
     Conv1d1x1,
+    Conv2d,
     ConvTranspose1d,
 )
 from dl_speech_enhancement_tpu_torch.nn.vq import (
@@ -12,6 +13,6 @@ from dl_speech_enhancement_tpu_torch.nn.vq import (
     VQState,
 )
 
-__all__ = ["Conv1d", "Conv1d1x1", "CausalConv1d", "ConvTranspose1d",
+__all__ = ["Conv1d", "Conv1d1x1", "Conv2d", "CausalConv1d", "ConvTranspose1d",
            "CausalConvTranspose1d", "VQState", "VectorQuantizeEMA", "ResidualVQ",
            "Quantizer"]

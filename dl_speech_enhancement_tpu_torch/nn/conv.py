@@ -25,6 +25,18 @@ streaming generator uses:
   over dims (1, 2) of the PyTorch layout: per output channel for a conv
   (out, in/groups, k), per input channel for a transposed conv (in, out, k),
   which are the JAX package's axes; ``g`` is (out, 1, 1) or (in, 1, 1).
+  ``Conv2d`` takes the norm over every dim but 0 of ``(out, in, kh, kw)``,
+  so ``g`` is (out, 1, 1, 1).
+- **Spectral norm** (``spectral_norm=True``, ``Conv1d`` and ``Conv2d``,
+  exclusive with weight norm): ``layer.weight`` is ``w / sigma``, sigma the
+  largest singular value of ``w`` as an (out, fan_in) matrix, estimated on
+  every call by the JAX package's stateless power iteration
+  (``_spectral_norm_weight``): 100 steps from a fixed unit vector, ``u`` and
+  ``v`` constants for the gradient. The start vector comes from a
+  ``torch.Generator`` seeded 0, not JAX's ``PRNGKey(0)``, so the two agree
+  at the converged sigma, not bit for bit. No ``u`` buffer is kept (unlike
+  ``torch.nn.utils.spectral_norm``): the parameters are ``weight`` and
+  ``bias`` with the flag on or off.
 - **Groups**: ``Conv1d`` and its subclasses take ``groups``; group g's
   outputs read input channels [g * in/groups, (g + 1) * in/groups), as in
   ``F.conv1d``. Transposed convs stay at ``groups == 1``, as in the JAX
@@ -50,17 +62,55 @@ def _uniform(shape, fan_in: int, generator) -> torch.Tensor:
     return torch.empty(shape).uniform_(-bound, bound, generator=generator)
 
 
+def _cast(t: torch.Tensor | None, dtype) -> torch.Tensor | None:
+    return None if t is None else t.to(dtype)
+
+
+def _norm_dims(v: torch.Tensor) -> tuple:
+    return tuple(range(1, v.ndim))
+
+
 def _norm_weight(v: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    """Weight norm: ``v * g / max(||v||, 1e-12)``, the norm over dims (1, 2)."""
-    norm = torch.sqrt((v * v).sum(dim=(1, 2), keepdim=True))
+    """Weight norm: ``v * g / max(||v||, 1e-12)``, the norm over every dim
+    but 0."""
+    norm = torch.sqrt((v * v).sum(dim=_norm_dims(v), keepdim=True))
     return v * (g / torch.clamp(norm, min=1e-12))
 
 
-class _Weighted(nn.Module):
-    """A layer whose ``weight`` is a parameter, or with weight norm the
-    effective weight of its ``v`` and ``g`` parameters."""
+SPECTRAL_NORM_ITERS = 100
 
-    def _init_weight(self, shape, fan_in, weight_norm, w_init, generator, device):
+
+def _start_vector(n: int, dtype, device) -> torch.Tensor:
+    u = torch.randn(n, generator=torch.Generator().manual_seed(0), dtype=torch.float32)
+    return (u / torch.linalg.vector_norm(u)).to(dtype=dtype, device=device)
+
+
+def _spectral_norm_weight(w: torch.Tensor, n_iters: int = SPECTRAL_NORM_ITERS,
+                          eps: float = 1e-12) -> torch.Tensor:
+    """``w / sigma``, sigma the largest singular value of ``w`` as an (out,
+    fan_in) matrix (dim 0 is out), by ``n_iters`` power-iteration steps from
+    a fixed unit vector; the gradient flows through ``sigma = u W v`` with
+    ``u`` and ``v`` held constant."""
+    wm = w.reshape(w.shape[0], -1)
+    with torch.no_grad():
+        u = _start_vector(wm.shape[0], w.dtype, w.device)
+        for _ in range(n_iters):
+            v = wm.T @ u
+            v = v / torch.clamp(torch.linalg.vector_norm(v), min=eps)
+            u = wm @ v
+            u = u / torch.clamp(torch.linalg.vector_norm(u), min=eps)
+    return w / (u @ (wm @ v))
+
+
+class _Weighted(nn.Module):
+    """A layer whose ``weight`` is a parameter (divided by its spectral norm
+    with ``spectral_norm``), or with weight norm the effective weight of its
+    ``v`` and ``g`` parameters."""
+
+    def _init_weight(self, shape, fan_in, weight_norm, w_init, generator, device,
+                     spectral_norm=False):
+        if weight_norm and spectral_norm:
+            raise ValueError("weight_norm and spectral_norm are mutually exclusive")
         if w_init == "normal":
             w = torch.empty(shape).normal_(0.0, NORMAL_INIT_STD, generator=generator)
         elif w_init == "torch":
@@ -68,9 +118,11 @@ class _Weighted(nn.Module):
         else:
             raise ValueError(f"unknown w_init {w_init!r}; expected 'torch' or 'normal'")
         self.weight_norm = weight_norm
+        self.spectral_norm = spectral_norm
         if weight_norm:
             self.v = nn.Parameter(w.to(device))
-            self.g = nn.Parameter(torch.sqrt((w * w).sum(dim=(1, 2), keepdim=True)).to(device))
+            self.g = nn.Parameter(torch.sqrt((w * w).sum(dim=_norm_dims(w), keepdim=True))
+                                  .to(device))
         else:
             self.weight = nn.Parameter(w.to(device))
 
@@ -80,13 +132,15 @@ class _Weighted(nn.Module):
         if "v" in params:
             return _norm_weight(params["v"], params["g"])
         if "weight" in params:
+            if self.spectral_norm:
+                return _spectral_norm_weight(params["weight"])
             return params["weight"]
         raise AttributeError("weight")
 
 
 class Conv1d(_Weighted):
-    """Plain 1-D convolution over (B, T, C), grouped and weight-normed if
-    asked.
+    """Plain 1-D convolution over (B, T, C), grouped and weight- or
+    spectral-normed if asked.
 
     ``padding < 0`` selects "same" padding ``(k - 1) // 2 * dilation``
     (reference NonCausalConv1d)."""
@@ -94,7 +148,7 @@ class Conv1d(_Weighted):
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  stride: int = 1, padding: int = -1, dilation: int = 1,
                  groups: int = 1, bias: bool = True, weight_norm: bool = False,
-                 w_init: str = "torch", *,
+                 w_init: str = "torch", *, spectral_norm: bool = False,
                  generator: torch.Generator | None = None, device="cuda"):
         super().__init__()
         if groups < 1 or in_channels % groups or out_channels % groups:
@@ -111,7 +165,7 @@ class Conv1d(_Weighted):
         self.groups = groups
         fan_in = kernel_size * in_channels // groups
         self._init_weight((out_channels, in_channels // groups, kernel_size), fan_in,
-                          weight_norm, w_init, generator, device)
+                          weight_norm, w_init, generator, device, spectral_norm)
         self.bias = (nn.Parameter(_uniform((out_channels,), fan_in, generator).to(device))
                      if bias else None)
 
@@ -124,6 +178,12 @@ class Conv1d(_Weighted):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self._conv(x, self.padding, self.padding)
+
+    def forward_channels_first(self, x: torch.Tensor) -> torch.Tensor:
+        """The same convolution over ``(B, C, T)``, F.conv1d's own layout; the
+        weight and bias are cast to ``x``'s dtype, as the JAX layers cast them."""
+        return F.conv1d(x, self.weight.to(x.dtype), _cast(self.bias, x.dtype), self.stride,
+                        self.padding, self.dilation, self.groups)
 
 
 class Conv1d1x1(Conv1d):
@@ -232,3 +292,33 @@ class CausalConvTranspose1d(ConvTranspose1d):
         new_cache = x[:, x.shape[1] - self.pad_length:, :]
         x = torch.cat([cache, x], dim=1)
         return self._deconv(x, self.stride, 0), new_cache
+
+
+class Conv2d(_Weighted):
+    """2-D convolution over ``(B, C, H, W)`` (PyTorch's NCHW; the JAX package
+    works in NHWC), weight- or spectral-normed if asked: the MPD's and
+    MRSD's layer. Weight ``(out, in, kh, kw)``; JAX holds HWIO ``(kh, kw,
+    in, out)``."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: tuple[int, int],
+                 stride: tuple[int, int] = (1, 1), padding: tuple[int, int] = (0, 0),
+                 bias: bool = True, weight_norm: bool = False, spectral_norm: bool = False,
+                 *, generator: torch.Generator | None = None, device="cuda"):
+        super().__init__()
+        device = resolve_device(device)
+        self.in_channels = in_channels
+        self.out_channels = out_channels
+        self.kernel_size = tuple(kernel_size)
+        self.stride = tuple(stride)
+        self.padding = tuple(padding)
+        kh, kw = self.kernel_size
+        fan_in = kh * kw * in_channels
+        self._init_weight((out_channels, in_channels, kh, kw), fan_in, weight_norm, "torch",
+                          generator, device, spectral_norm)
+        self.bias = (nn.Parameter(_uniform((out_channels,), fan_in, generator).to(device))
+                     if bias else None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` (B, C, H, W); the weight and bias are cast to its dtype."""
+        return F.conv2d(x, self.weight.to(x.dtype), _cast(self.bias, x.dtype), self.stride,
+                        self.padding)

@@ -14,7 +14,10 @@ Weight-normed convs (the vocoder's) carry ``{v, g[, b]}``: ``v`` maps as
 (transposed conv) to the port's ``(out, 1, 1)`` or ``(in, 1, 1)``. A grouped
 conv's JAX weight is ``(k, in / groups, out)``, with group g owning output
 columns ``[g * out / groups, (g + 1) * out / groups)``, which maps onto
-PyTorch's grouped ``(out, in / groups, k)`` as it is.
+PyTorch's grouped ``(out, in / groups, k)`` as it is. A 2-D conv's JAX
+weight is HWIO ``(kh, kw, in, out)``, PyTorch's ``(out, in, kh, kw)``
+(:func:`discriminator_from_jax_params`); its weight-norm ``g`` goes from
+``(1, 1, 1, out)`` to ``(out, 1, 1, 1)``.
 """
 
 from __future__ import annotations
@@ -22,7 +25,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from dl_speech_enhancement_tpu_torch.models.hifigan import MultiGroupConv1d
+from dl_speech_enhancement_tpu_torch.models.hifigan import HiFiGANDiscriminator, MultiGroupConv1d
+from dl_speech_enhancement_tpu_torch.nn.conv import Conv2d
 from dl_speech_enhancement_tpu_torch.nn.vq import VQState
 
 
@@ -44,20 +48,26 @@ def _copy(param, value, what) -> None:
         param.copy_(torch.from_numpy(value.copy()))
 
 
+def _w2d_out(w) -> np.ndarray:
+    """JAX HWIO (kh, kw, in, out) -> torch Conv2d (out, in, kh, kw)."""
+    return np.asarray(w).transpose(3, 2, 0, 1)
+
+
 def load_conv(layer, p: dict, transposed: bool = False) -> None:
     """Copy one JAX conv param dict, ``{w[, b]}`` or with weight norm ``{v,
-    g[, b]}``, into a port conv layer."""
+    g[, b]}``, into a port conv layer (1-D, transposed 1-D or 2-D)."""
     if ("v" in p) != layer.weight_norm:
         raise ValueError(f"params {sorted(p)} do not fit a layer with "
                          f"weight_norm={layer.weight_norm}")
     if ("b" in p) != (layer.bias is not None):
         raise ValueError("bias presence differs between the params and the layer")
-    w_map = _dw_out if transposed else _w_out
+    w_map = _dw_out if transposed else _w2d_out if isinstance(layer, Conv2d) else _w_out
     if layer.weight_norm:
         _copy(layer.v, w_map(p["v"]), "weight")
-        _copy(layer.g, np.asarray(p["g"]).reshape(-1, 1, 1), "weight norm g")
-    else:
-        _copy(layer.weight, w_map(p["w"]), "weight")
+        _copy(layer.g, np.asarray(p["g"]).reshape(-1, *(1,) * (layer.v.ndim - 1)),
+              "weight norm g")
+    else:  # the parameter, not the spectral-normed ``layer.weight``
+        _copy(layer._parameters["weight"], w_map(p["w"]), "weight")
     if layer.bias is not None:
         _copy(layer.bias, p["b"], "bias")
 
@@ -118,6 +128,33 @@ def vocoder_from_jax_params(voc, params: dict):
                 _load_resblock(sub, sp)
     load_conv(voc.output_conv, params["output_conv"])
     return voc
+
+
+def _load_subs(subs, ps, layers: str) -> None:
+    for d, dp in zip(subs, ps["discriminators"], strict=True):
+        for layer, lp in zip(getattr(d, layers), dp[layers], strict=True):
+            load_conv(layer, lp)
+
+
+def _load_mpd(mpd, p) -> None:
+    for d, dp in zip(mpd.discriminators, p["discriminators"], strict=True):
+        for conv, cp in zip(d.convs, dp["convs"], strict=True):
+            load_conv(conv, cp)
+        load_conv(d.output_conv, dp["output_conv"])
+
+
+def discriminator_from_jax_params(disc, params: dict):
+    """Copy ``params`` (the JAX discriminator's ``init(key)``, numpy leaves)
+    into the port's ``HiFiGANDiscriminator`` (``{msd, mpd}``) or
+    ``UnivNetDiscriminator`` (``{mrsd, mpd}``) ``disc``; returns ``disc``.
+    Raises ValueError where a shape, a norm's parameters or a bias do not
+    fit."""
+    if isinstance(disc, HiFiGANDiscriminator):
+        _load_subs(disc.msd.discriminators, params["msd"], "layers")
+    else:
+        _load_subs(disc.mrsd.discriminators, params["mrsd"], "layers")
+    _load_mpd(disc.mpd, params["mpd"])
+    return disc
 
 
 def vq_state_from_jax(vq_state, gen=None) -> VQState:

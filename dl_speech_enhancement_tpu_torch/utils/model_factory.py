@@ -1,15 +1,20 @@
 """Model construction by config ``model_type`` (the reference's dispatch).
 
-Counterpart of dl_speech_enhancement_tpu/utils/model_factory.py's
-``build_generator``: symAudioDec / symAudioDecUniv (codec), HiFiGAN /
-UnivNet (vocoder). The discriminators belong to a later slice of the port.
+Counterpart of dl_speech_enhancement_tpu/utils/model_factory.py:
+symAudioDec / symAudioDecUniv (codec), HiFiGAN / UnivNet (vocoder), and
+their discriminators (HiFiGAN's MSD + MPD, UnivNet's MRSD + MPD).
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from dl_speech_enhancement_tpu_torch.models import AudioDecGenerator, HiFiGANGenerator
+from dl_speech_enhancement_tpu_torch.models import (
+    AudioDecGenerator,
+    HiFiGANDiscriminator,
+    HiFiGANGenerator,
+    UnivNetDiscriminator,
+)
 
 
 def _gen_stats(params: dict):
@@ -40,4 +45,14 @@ def build_generator(model_type: str, params: dict, use_pqc: bool = True, device=
         return AudioDecGenerator(**params, use_pqc=use_pqc, device=device)
     if model_type in ("HiFiGAN", "UnivNet"):
         return HiFiGANGenerator(**_hifigan_gen_params(params), device=device)
+    raise NotImplementedError(f"Model type: {model_type} is not supported!")
+
+
+def build_discriminator(model_type: str, params: dict, device="cuda", seed: int = 0):
+    """The discriminator of a config's ``model_type`` with its
+    ``discriminator_params``, seeded weights, on ``device``."""
+    if model_type in ("symAudioDec", "HiFiGAN"):
+        return HiFiGANDiscriminator(**params, seed=seed, device=device)
+    if model_type in ("symAudioDecUniv", "UnivNet"):
+        return UnivNetDiscriminator(**params, seed=seed, device=device)
     raise NotImplementedError(f"Model type: {model_type} is not supported!")

@@ -45,7 +45,11 @@ codes on the card. The residual chain kernel is held at every chain site
 of the paths within CHAIN_ATOL (2e-6: its split-TF32 products, emulated in
 tests/test_torch_port_chain_plan.py), every plan of a site equal bit for
 bit, its shared-memory and scratch formulas against the library's, and its
-SASS for TF32 tensor-core products. chip_smoke.py makes the same checks at
+SASS for TF32 tensor-core products. The course's and the symADuniv config's
+discriminators at their widths equal their CPU twins (every map within 1e-4
+of its largest), and one adversarial course step on the kernel route (K6)
+equals its plain route (fragments rtol 1e-5, every gradient of both
+networks 1e-4 of its largest). chip_smoke.py makes the same checks at
 the flagship's shapes.
 """
 
@@ -102,7 +106,11 @@ from dl_speech_enhancement_tpu_torch.stream.runtime import (
     make_vocoder_scan_stream,
 )
 from dl_speech_enhancement_tpu_torch.tools import reshape_probe
+from dl_speech_enhancement_tpu_torch.train.denoise_course import make_course_steps
+from dl_speech_enhancement_tpu_torch.train.optim import build_optimizer
 from dl_speech_enhancement_tpu_torch.utils.checks import rvq_near_ties
+from dl_speech_enhancement_tpu_torch.utils.config import load_config
+from dl_speech_enhancement_tpu_torch.utils.model_factory import build_discriminator
 
 pytestmark = pytest.mark.cuda
 ATOL = 1e-4
@@ -1209,3 +1217,72 @@ def test_spectral_losses_auto_launch_the_kernels(card):
     before = mel_kernel.stft_magnitude.launches
     stft(x, y)
     assert mel_kernel.stft_magnitude.launches == before + 6
+
+
+# ---------------------------------------------------------------- discriminators
+
+DISC_RTOL = 1e-4  # chip_smoke.py's: f32 convs summed in other orders, cuDNN vs the CPU
+COURSE_CONFIG = "configs/denoise/symAD_48MelWaveL1.yaml"
+UNIV_CONFIG = "configs/autoencoder/symADuniv_vctk_48000_hop300.yaml"
+
+
+def _flat_maps(outs):
+    return [f for o in outs for f in (o if isinstance(o, (list, tuple)) else [o])]
+
+
+@pytest.mark.parametrize("config", [COURSE_CONFIG, UNIV_CONFIG], ids=["course", "symADuniv"])
+def test_discriminator_matches_its_cpu_twin(card, config):
+    """A config's discriminator at its widths on the card against the same
+    seeded weights on the CPU, one clip of 24000 samples: every map within
+    DISC_RTOL of its largest |value|."""
+    cfg = load_config(config)
+    kind = cfg.get("model_type", "symAudioDec")
+    x = _randn(card, 1, 24000, 1)
+    on_card = build_discriminator(kind, cfg["discriminator_params"], device="cuda", seed=3)
+    twin = build_discriminator(kind, cfg["discriminator_params"], device="cpu", seed=3)
+    with torch.no_grad():
+        got, want = _flat_maps(on_card(x)), _flat_maps(twin(x.cpu()))
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.cpu(), w, rtol=0, atol=DISC_RTOL * float(w.abs().max()))
+
+
+def test_adversarial_step_kernel_route_matches_plain(card):
+    """One ``train_disc`` step of the course's generator and discriminator at
+    their widths (2 x 24000 samples) with the mel loss on the kernel route
+    (K6 launched) and on its plain version, from the same weights:
+    fragments rtol 1e-5, every gradient of both networks 1e-4 of its
+    tensor's largest, every parameter moved."""
+    cfg = load_config(COURSE_CONFIG)
+    x, t = _randn(card, 2, 24000, 1), _randn(card, 2, 24000, 1)
+    runs = {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for route in ("auto", "plain"):
+            gen = AudioDecGenerator(**cfg["generator_params"], use_pqc=False, seed=1,
+                                    device="cuda")
+            disc = build_discriminator("symAudioDec", cfg["discriminator_params"],
+                                       device="cuda", seed=2)
+            nets = (gen, disc)
+            before = [p.detach().clone() for m in nets for p in m.parameters()]
+            opt_g = build_optimizer(gen.parameters(), "Adam", cfg["generator_optimizer_params"])
+            opt_d = build_optimizer(disc.parameters(), "Adam",
+                                    cfg["discriminator_optimizer_params"])
+            rcfg = dict(cfg, mel_loss_params=dict(cfg["mel_loss_params"], backend=route))
+            launched = mel_kernel.log_mel.launches
+            _, d_loss, frags, _ = make_course_steps(gen, disc, rcfg, opt_g, opt_d)["train_disc"](
+                x, t)
+            assert (mel_kernel.log_mel.launches > launched) == (route == "auto")
+            assert all(not torch.equal(a, p) for a, p in
+                       zip(before, (p for m in nets for p in m.parameters())))
+            runs[route] = ({"d_loss": float(d_loss), **{k: float(v) for k, v in frags.items()}},
+                           [p.grad.detach().clone() for m in nets for p in m.parameters()])
+    finally:
+        torch.backends.cudnn.deterministic = False
+    (fa, ga), (fp, gp) = runs["auto"], runs["plain"]
+    assert sorted(fa) == sorted(fp) and {"adv_loss", "feat_loss"} <= set(fa)
+    for k, v in fp.items():
+        assert np.isfinite(fa[k])
+        np.testing.assert_allclose(fa[k], v, rtol=1e-5, err_msg=k)
+    for a, p in zip(ga, gp):
+        torch.testing.assert_close(a, p, rtol=0, atol=1e-4 * float(p.abs().max()))

@@ -31,7 +31,7 @@ def test_port_has_the_slice_modules():
                 "train.criterion", "train.denoise_course", "data.mixing", "utils.audiodec",
                 "utils.audiodec_without_pqc", "utils.model_factory", "train.checkpoint",
                 "data.audio_io", "cli.stream", "tools.reshape_probe", "tools.conv_timing",
-                "tools.rvq_timing"):
+                "tools.rvq_timing", "models.discriminator", "models.univnet"):
         assert f"dl_speech_enhancement_tpu_torch.{mod}" in names
 
 
