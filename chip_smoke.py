@@ -24,9 +24,10 @@ and through the normal entry point, ``cli/stream.py --model vctk_v0`` and
 temporary exp/ tree. The AudioDec v2 receiver (MultiGroupConv1d at 256
 channels) runs its kernel route once. Then the training stack: the course
 denoise trainer's generator phase (configs/denoise/symAD_48MelWaveL1.yaml,
-16 x 48000 samples a batch) and the vocoder config's metric loss on the
-``vctk_v1`` receiver. Phases (any failure exits non-zero before the result
-line):
+16 x 48000 samples a batch), the vocoder config's metric loss on the
+``vctk_v1`` receiver, the course's adversarial phase, and the AudioDec
+recipe (codec, statistics, vocoder, denoise) through its CLIs. Phases (any
+failure exits non-zero before the result line):
 
 1. build the eight CUDA kernel sources from
    ``dl_speech_enhancement_tpu_torch/csrc`` (one ``nvcc`` each, all at once)
@@ -131,6 +132,42 @@ line):
    log-mel (K6) and the GEMM arm at the same shapes, and the mel loss's
    forward and backward, each alone, on both routes.
 
+6. adversarial training at the course config's widths: the course's HiFiGAN
+   and the symADuniv UnivNet discriminators on the card against their CPU
+   twins; one ``train_disc`` step at 16 x 48000 on the kernel route against
+   the plain route and with ``discriminator_remat``; two LAPTOP epochs into
+   the discriminator epoch and an HPC epoch writing its checkpoint; timed
+   steps with and without remat;
+7. the AudioDec recipe through its own CLIs, at each config's full widths
+   and batch on a seeded wav corpus written into a temporary directory
+   under the configs' subset names (no corpus is in the repository; only
+   step counts, intervals and paths cut, ``RECIPE_CUTS``), each run counted
+   (K6 / K7 launches a step, ``RecipeProbe``):
+   - 7a ``cli.train`` on the codec config: 3 stage-1 steps at 16 x 96000,
+     the adversarial phase 2 at 16 x 9600 to step 6, one eval pass, the
+     checkpoint; over stage 2 the encoder, the projector and the codebooks
+     must stay bit for bit and the decoder and the discriminator move; a
+     bare ``--resume`` must load ``checkpoint-6steps`` at step 6;
+   - 7b ``cli.statistic`` on 7a's checkpoint: a finite (2, 64) array, every
+     scale above 0 (audio-seconds a second logged);
+   - 7c ``cli.train`` on the v1 vocoder config over 7a's analyzer with 7b's
+     statistics, 16 x 9600, 5 steps: the analyzer bit for bit, the
+     generator's first update (K6 and K7 launched) at step 2;
+   - 7d ``cli.train`` on the denoise config from 7a's checkpoint, 16 x
+     96000, 3 steps: the decoder and the codebooks bit for bit, the encoder
+     moved;
+   - 7e ``cli.train_denoise -e LAPTOP`` on a seeded clean / noise tree;
+   - 7f one step of each workload (codec stage 1, stage 2 then its
+     discriminator, the vocoder's generator then its discriminator, denoise)
+     on the kernel route against the plain route from the same state and
+     batch: fragments ROUTE_FRAG_RTOL, gradients ROUTE_GRAD_RTOL (the
+     vocoder generator's without its log-STFT-magnitude term too; that
+     term's gradient alone LOG_MAG_GRAD_RTOL);
+   - 7g ``prefetch_to_device`` at the recipe's pair batches with the stream
+     busy: every device batch bit for bit its host arrays;
+   per workload the median step time, the busy share of one profiled step,
+   peak memory and the loader's share of the loop's wall time.
+
 Prints the per-kernel JSON line (times summed over the kernel's sites in one
 100-frame dispatch of the single-stream path that first runs it, the codec's
 and the receiver's causal conv sites beside them, and at 16 streams of 1
@@ -156,12 +193,18 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+import yaml
 
+from dl_speech_enhancement_tpu_torch.cli import statistic as stat_cli
 from dl_speech_enhancement_tpu_torch.cli import stream as stream_cli
+from dl_speech_enhancement_tpu_torch.cli import train as train_cli
+from dl_speech_enhancement_tpu_torch.cli import train_denoise as course_cli
 from dl_speech_enhancement_tpu_torch.data import read_wav, write_wav
+from dl_speech_enhancement_tpu_torch.data.loader import prefetch_to_device
 from dl_speech_enhancement_tpu_torch.data.mixing import add_noise
 from dl_speech_enhancement_tpu_torch.dsp.mel import MelSpectrogram
 from dl_speech_enhancement_tpu_torch.losses import MultiMelSpectrogramLoss
+from dl_speech_enhancement_tpu_torch.losses.mel_loss import _flat as flat_waves
 from dl_speech_enhancement_tpu_torch.models import AudioDecGenerator, HiFiGANGenerator
 from dl_speech_enhancement_tpu_torch.models.hifigan import MultiReceptiveField
 from dl_speech_enhancement_tpu_torch.nn.conv import Conv2d, ConvTranspose1d
@@ -232,7 +275,11 @@ from dl_speech_enhancement_tpu_torch.train.denoise_course import (
     train_denoise_course,
 )
 from dl_speech_enhancement_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
-from dl_speech_enhancement_tpu_torch.train.optim import build_optimizer
+from dl_speech_enhancement_tpu_torch.train.gan_trainer import TrainerGAN
+from dl_speech_enhancement_tpu_torch.train.optim import build_optimizer, build_optimizer_from_config
+from dl_speech_enhancement_tpu_torch.train.workloads import autoencoder as ae_workload
+from dl_speech_enhancement_tpu_torch.train.workloads import denoise as dn_workload
+from dl_speech_enhancement_tpu_torch.train.workloads import vocoder as voc_workload
 from dl_speech_enhancement_tpu_torch.tools import reshape_probe
 from dl_speech_enhancement_tpu_torch.utils.audiodec import assign_model
 from dl_speech_enhancement_tpu_torch.utils.checks import rvq_near_ties
@@ -386,6 +433,30 @@ REMAT_LOSS_RTOL = 1e-6
 REMAT_PARAM_RTOL = 1e-5
 ADV_PASSES = 9
 ADV_PASSES_REMAT = 13
+# The AudioDec recipe (phase 7) through its CLIs, on a seeded corpus written
+# into a temporary directory under the configs' subset names (no wav corpus
+# is in the repository): every config at its full widths and batch, only its
+# step counts, intervals and paths cut (RECIPE_CUTS).
+STATISTIC_CONFIG = os.path.join(REPO, "configs", "statistic",
+                                "symAD_vctk_48000_hop300_clean.yaml")
+RECIPE_CLIPS = {"train": 32, "valid": 16}  # 16 valid clips: one full batch for the eval pass
+RECIPE_SECONDS = (2.5, 4.0)
+RECIPE_LENGTH = 96000  # the codec's and the denoise fine-tune's batch_length
+RECIPE_CUTS = [
+    "corpus: 32 seeded clips of 2.5-4 s per train subset and 16 per valid subset (tones over "
+    "a noise floor; noisy = clean + white noise), written under the configs' subset names",
+    "codec: start_steps.discriminator 200000 -> 3, train_max_steps 200000 -> 3, "
+    "adv_train_max_steps 500000 -> 6, eval_interval_steps 1000 -> 6, log_interval_steps "
+    "100 -> 3; data.path and the expdir in a temporary directory",
+    "statistic: analyzer -> the codec's checkpoint-6steps, stats -> a temporary path",
+    "vocoder: analyzer and generator_params.stats -> the two above, train_max_steps 500000 "
+    "-> 5, eval_interval_steps 1000 -> 5, log_interval_steps 100 -> 5",
+    "denoise: initial -> the codec's checkpoint-6steps, train_max_steps 200000 -> 3, "
+    "adv_train_max_steps 500000 -> 3 (the config keeps the codec's phase 2, which cli.train "
+    "runs for any mode, as the JAX package's does), eval_interval_steps 1000 -> 3, "
+    "log_interval_steps 100 -> 3",
+    "course CLI: epochs 500 -> 1 (LAPTOP: 3 batches of 4 an epoch, as the CLI sets it)",
+]
 
 KERNELS = {
     "residual_chain": {
@@ -1908,9 +1979,11 @@ def spectrum_builders(case):
 
 
 def spectrum_cases(cfg, vcfg):
-    """Every K6 / K7 call shape of phase 5's paths (16 signals each): the
-    course's mel loss, the vocoder's mel loss and its three STFT
-    resolutions, and a log10 log-mel with a window shorter than its FFT;
+    """Every K6 / K7 call shape of phase 5's and phase 7's paths (16 signals
+    each): the course's mel loss, the vocoder's mel loss and its three STFT
+    resolutions (also the codec's stage 2 and the recipe's vocoder, 16 x
+    9600), a log10 log-mel with a window shorter than its FFT, and the
+    recipe's mel loss at the codec's and the denoise fine-tune's 16 x 96000;
     then a log-mel and an STFT at n_fft 600, which no path runs and the
     planner sends to the GEMM arm."""
     m, s = cfg["mel_loss_params"], vcfg["stft_loss_params"]
@@ -1925,6 +1998,10 @@ def spectrum_cases(cfg, vcfg):
                  ("log_mel", 24000, 512, 120, 240, 40, 12000, 10.0), VOCODER_METRIC_LENGTH)}
     for f, h, w in zip(s["fft_sizes"], s["hop_sizes"], s["win_lengths"]):
         cases[f"stft {f}/{h}/{w}"] = (("stft_magnitude", f, h, w), VOCODER_METRIC_LENGTH)
+    cm = load_config(CODEC_CONFIG)["mel_loss_params"]
+    cases["recipe mel (codec stage 1, denoise), 16 x 96000"] = (
+        ("log_mel", cm["fs"], cm["fft_sizes"][0], cm["hop_sizes"][0], cm["win_lengths"][0],
+         cm["num_mels"], cm["fmax"], cm["log_base"]), RECIPE_LENGTH)
     cases["GEMM arm: 24k log10 mel, n_fft 600"] = (
         ("log_mel", 24000, 600, 150, 600, 40, 12000, 10.0), VOCODER_METRIC_LENGTH)
     cases["GEMM arm: stft 600/150/600"] = (("stft_magnitude", 600, 150, 600),
@@ -1945,7 +2022,8 @@ def check_spectrum_kernels(cases, rng):
     launched, two calls bit-equal and a batch bit-equal to its examples' own
     calls."""
     worst, report = {name: 0.0 for name in SPECTRUM_KERNELS}, {}
-    x = torch.randn(COURSE_BATCH, COURSE_LENGTH, generator=rng, device=DEVICE) * 0.3
+    longest = max(length for _, length in cases.values())
+    x = torch.randn(COURSE_BATCH, longest, generator=rng, device=DEVICE) * 0.3
     for what, (case, length) in cases.items():
         fn, plain = spectrum_builders(case)
         xs = x[:, :length]
@@ -1978,19 +2056,26 @@ def check_spectrum_kernels(cases, rng):
     return worst, report
 
 
+def grad_rel_errs(got: dict, ref: dict) -> dict:
+    """Each gradient's largest difference over its ``ref``'s largest."""
+    return {n: float((got[n] - g).abs().max()) / max(float(g.abs().max()), 1e-30)
+            for n, g in ref.items()}
+
+
 def held_routes(what, ref, got, frag_rtol, grad_rtol):
     """Loss fragments within ``frag_rtol`` and each parameter's gradient
     within ``grad_rtol`` of its largest, ``got`` against ``ref``; both
     (fragments, {name: grad})."""
     frag_err = {k: abs(float(got[0][k]) - float(v)) / abs(float(v)) for k, v in ref[0].items()}
-    grad_err = max(float((got[1][n] - g).abs().max()) / max(float(g.abs().max()), 1e-30)
-                   for n, g in ref[1].items())
+    errs = grad_rel_errs(got[1], ref[1])
+    worst = max(errs, key=errs.get)
+    grad_err = errs[worst]
     log(f"{what}: fragment rel err {json.dumps(frag_err)}; worst gradient err "
-        f"{grad_err:.3e} of its tensor's max")
+        f"{grad_err:.3e} of its tensor's max ({worst})")
     require(sorted(got[0]) == sorted(ref[0]), f"{what}: fragments {sorted(got[0])}")
     require(max(frag_err.values()) <= frag_rtol, f"{what}: fragments differ beyond {frag_rtol}")
     require(grad_err <= grad_rtol, f"{what}: gradients differ beyond {grad_rtol}")
-    return {"fragment_rel_err": frag_err, "grad_rel_err": grad_err}
+    return {"fragment_rel_err": frag_err, "grad_rel_err": grad_err, "grad_worst": worst}
 
 
 def course_routes(cfg, pair):
@@ -2142,9 +2227,7 @@ def vocoder_metric_routes(codec, vq, voc, vcfg):
                          dict(zip(names, g_rest)), dict(zip(names, g_mag)))
 
     def grad_err(route, part):
-        return max(float((routes[route][part][n] - g).abs().max())
-                   / max(float(g.abs().max()), 1e-30)
-                   for n, g in routes["plain"][part].items())
+        return max(grad_rel_errs(routes[route][part], routes["plain"][part]).values())
 
     checks = held_routes("vocoder metric loss (mel + spectral convergence), kernel vs plain "
                          "route", routes["plain"][:2], routes["auto"][:2], ROUTE_FRAG_RTOL,
@@ -2268,7 +2351,8 @@ def training_times(cfg, cases, rng):
     route against the FFT route, device time by graph_ms for each: the
     forward without autograd, the backward of one kept graph (its forward
     run on the capture stream), and the two together."""
-    x = torch.randn(COURSE_BATCH, COURSE_LENGTH, generator=rng, device=DEVICE) * 0.3
+    longest = max(length for _, length in cases.values())
+    x = torch.randn(COURSE_BATCH, longest, generator=rng, device=DEVICE) * 0.3
     sites = {}
     for what, (case, length) in cases.items():
         xs = x[:, :length].contiguous()
@@ -2299,8 +2383,8 @@ def training_times(cfg, cases, rng):
             f"(device {site.get('eager_fft_device_ms')}) GEMM arm={site.get('gemm_arm_ms')} "
             f"(device {site.get('gemm_arm_device_ms')}) bound={b_ms:.5f} ms ({b_by}; the GEMM "
             f"form's operations alone {site['gemm_form_ops_ms']:.4f} ms)")
-    y = (x[..., None] * 0.5).requires_grad_()
-    t = x[..., None]
+    y = (x[:, :COURSE_LENGTH, None] * 0.5).requires_grad_()
+    t = x[:, :COURSE_LENGTH, None]
     loss_ms = {}
     for route, name in (("auto", "kernel"), ("eager", "eager_fft")):
         loss = MultiMelSpectrogramLoss(**dict(cfg["mel_loss_params"], backend=route),
@@ -2630,6 +2714,612 @@ def adversarial_times(cfg, clips):
         del gen, disc, opt_g, opt_d, step
         torch.cuda.empty_cache()
     return launches, report
+
+
+# ---------------------------------------------------------------- the AudioDec recipe (phase 7)
+
+
+def recipe_clip(rng, seconds: float) -> np.ndarray:
+    """One clip of ``seconds`` at 48 kHz: four harmonics of a gliding pitch
+    under a slow envelope over a noise floor, as course_clips draws them."""
+    t = np.arange(int(seconds * SAMPLE_RATE)) / SAMPLE_RATE
+    f0 = rng.uniform(100.0, 250.0) * (1.0 + 0.1 * np.sin(np.pi * t))
+    phase = 2.0 * np.pi * np.cumsum(f0) / SAMPLE_RATE
+    clean = sum(0.3 / h * np.sin(h * phase) for h in (1, 2, 3, 4))
+    clean *= 0.2 + np.sin(2.0 * np.pi * rng.uniform(1.0, 4.0) * t) ** 2
+    return (clean + 3e-4 * rng.standard_normal(t.shape)).astype(np.float32)
+
+
+def write_recipe_corpus(root) -> dict:
+    """The configs' subsets under ``root/corpus``: RECIPE_CLIPS clips of
+    2.5-4 s per train and valid subset, each noisy clip its clean one plus
+    seeded white noise; and the course CLI's tree, ``root/course/clean``
+    (the clean train clips) and ``root/course/noise`` (seeded noise clips).
+    Returns the audio seconds of each subset."""
+    subsets = load_config(CODEC_CONFIG)["data"]["subset"]
+    rng = np.random.default_rng(SEED + 80)
+    seconds = {}
+    for split in ("train", "valid"):
+        clean_dir = os.path.join(root, "corpus", subsets[f"clean_{split}"])
+        noisy_dir = os.path.join(root, "corpus", subsets[f"noisy_{split}"])
+        for d in (clean_dir, noisy_dir):
+            os.makedirs(d)
+        seconds[split] = 0.0
+        for i in range(RECIPE_CLIPS[split]):
+            clean = recipe_clip(rng, rng.uniform(*RECIPE_SECONDS))
+            noisy = clean + (0.05 * rng.standard_normal(clean.shape)).astype(np.float32)
+            write_wav(os.path.join(clean_dir, f"utt{i:03d}.wav"), clean, SAMPLE_RATE)
+            write_wav(os.path.join(noisy_dir, f"utt{i:03d}.wav"), noisy, SAMPLE_RATE)
+            seconds[split] += len(clean) / SAMPLE_RATE
+    os.makedirs(os.path.join(root, "course", "noise"))
+    os.symlink(os.path.join(root, "corpus", subsets["clean_train"]),
+               os.path.join(root, "course", "clean"))
+    for i in range(RECIPE_CLIPS["train"]):
+        noise = 0.3 * rng.standard_normal(int(rng.uniform(*RECIPE_SECONDS) * SAMPLE_RATE))
+        write_wav(os.path.join(root, "course", "noise", f"noise{i:03d}.wav"),
+                  noise.astype(np.float32), SAMPLE_RATE)
+    return seconds
+
+
+def recipe_config(root, path, **overrides) -> str:
+    """``path``'s config with the corpus under ``root`` and ``overrides``
+    (step counts, intervals and paths only; each is listed as a cut),
+    written under ``root/configs``; returns the copy's path."""
+    cfg = load_config(path)
+    if "data" in cfg:
+        cfg["data"] = dict(cfg["data"], path=os.path.join(root, "corpus"))
+    cfg.update(overrides)
+    out = os.path.join(root, "configs", os.path.basename(os.path.dirname(path)),
+                       os.path.basename(path))
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    with open(out, "w") as f:
+        yaml.safe_dump(cfg, f)
+    return out
+
+
+class RecipeProbe:
+    """Instruments the GAN trainers for one CLI run: each training step's
+    wall time (synchronised) and its K6 / K7 launches, the state of the
+    networks before the step at ``snapshot_at``, the seconds in ``run()``,
+    the scalars logged and the steps after each checkpoint load."""
+
+    TRAINERS = (ae_workload.Trainer, voc_workload.Trainer, dn_workload.Trainer)
+
+    def __init__(self, snapshot_at=None):
+        self.snapshot_at = snapshot_at
+        self.steps, self.logged, self.loads = [], [], []
+        self.run_s, self.snapshot, self.waited = 0.0, None, 0.0
+
+    def __enter__(self):
+        probe = self
+        self.saved = [(cls, "_train_step", cls.__dict__["_train_step"]) for cls in self.TRAINERS]
+        self.saved += [(TrainerGAN, name, TrainerGAN.__dict__[name])
+                       for name in ("run", "load_checkpoint", "_write_to_tensorboard")]
+
+        def step(original):
+            def timed(trainer, batch):
+                at = trainer.steps
+                if at == probe.snapshot_at:
+                    probe.snapshot = {k: {n: v.detach().clone() for n, v in
+                                          m.state_dict().items()}
+                                      for k, m in trainer.modules.items()}
+                    probe.snapshot["vq_state"] = [t.clone() for t in trainer.vq_state]
+                torch.cuda.synchronize()
+                k6, k7 = log_mel.launches, stft_magnitude.launches
+                t0 = time.perf_counter()
+                original(trainer, batch)
+                torch.cuda.synchronize()
+                probe.steps.append({"step": at, "ms": (time.perf_counter() - t0) * 1e3,
+                                    "loader_wait_ms": (trainer.loader_wait - probe.waited) * 1e3,
+                                    "log_mel": log_mel.launches - k6,
+                                    "stft_magnitude": stft_magnitude.launches - k7})
+                probe.waited = trainer.loader_wait
+            return timed
+
+        for cls, _, original in self.saved[:len(self.TRAINERS)]:
+            cls._train_step = step(original)
+        run, load = TrainerGAN.run, TrainerGAN.load_checkpoint
+
+        def timed_run(trainer):
+            t0 = time.perf_counter()
+            try:
+                run(trainer)
+            finally:
+                probe.run_s += time.perf_counter() - t0
+
+        def spied_load(trainer, path, *args, **kwargs):
+            load(trainer, path, *args, **kwargs)
+            probe.loads.append((os.path.basename(path), trainer.steps))
+
+        TrainerGAN.run, TrainerGAN.load_checkpoint = timed_run, spied_load
+        TrainerGAN._write_to_tensorboard = (
+            lambda trainer, losses: probe.logged.append((trainer.steps, dict(losses))))
+        return self
+
+    def __exit__(self, *exc):
+        for cls, name, original in self.saved:
+            setattr(cls, name, original)
+
+    def report(self, trainer, peak_bytes: int, stages: dict) -> dict:
+        """For each stage (name -> (its step counts, the busy time of one
+        more step of it, profiled after the run)): its first step's wall ms
+        (cuDNN plans the stage's convolutions there), the median of the
+        others, and the busy share (the union of the profiled step's kernel
+        intervals over that median); the peak memory; the loader's share of
+        the loop's wall time, and of it the part spent on each stage's first
+        batch (the loader's thread starts with the loop)."""
+        out = {"steps": self.steps, "peak_bytes": peak_bytes, "run_seconds": self.run_s,
+               "loader_wait_seconds": trainer.loader_wait,
+               "loader_wait_share": trainer.loader_wait / self.run_s}
+        for name, (at, (device_ms, busy_ms, top)) in stages.items():
+            mine = [s for s in self.steps if s["step"] in at]
+            median = statistics.median(s["ms"] for s in mine[1:])
+            out[name] = {"first_step_ms": mine[0]["ms"], "step_median_ms": median,
+                         "first_batch_wait_ms": mine[0]["loader_wait_ms"],
+                         "profiled_step": (
+                {"device_ms": device_ms, "busy_ms": busy_ms, "busy_share": busy_ms / median,
+                 "top_kernels_ms": top} if device_ms > 0 else None)}
+        return out
+
+
+def profiled_step(trainer, at: int, batch):
+    """One more training step of ``trainer`` as at step ``at`` (the step
+    function that count selects) on ``batch``, under the profiler after the
+    run; its steps counter is put back. Returns device_breakdown's (summed
+    ms, busy ms, top kernels)."""
+    steps = trainer.steps
+    trainer.steps = at
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        trainer._train_step(batch)
+        torch.cuda.synchronize()
+    trainer.steps = steps
+    return device_breakdown(prof)
+
+
+def first_batch(trainer, mode: str, batch_length: int):
+    return next(iter(train_cli.build_data_loaders(trainer.config, mode,
+                                                  batch_length)["train"]))
+
+
+def recipe_run(what, cli_main, argv, per_step, n_steps, kernels, probe):
+    """``cli_main(argv)`` under ``probe`` and counted(): ``per_step`` K6 + K7
+    launches in each of ``n_steps`` metric-loss calls (training steps and
+    eval batches). Returns (result, launches, peak bytes)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with probe:
+        result, launches = counted(what, per_step, n_steps, kernels, lambda: cli_main(argv))
+    torch.cuda.synchronize()
+    return result, launches, torch.cuda.max_memory_allocated()
+
+
+def logged_finite(what, probe, want_eval: bool):
+    values = {f"{step}:{k}": v for step, losses in probe.logged for k, v in losses.items()}
+    require(values and all(np.isfinite(v) for v in values.values()),
+            f"{what}: a logged loss is not finite: {values}")
+    require(any(k.split(":")[1].startswith("eval/") for k in values) == want_eval,
+            f"{what}: eval losses logged {sorted(values)}")
+    return values
+
+
+def same_tensors(a: dict, b: dict, prefix: str = "") -> bool:
+    return all(torch.equal(a[k].cpu(), b[k].cpu()) for k in a if k.startswith(prefix))
+
+
+def recipe_phase(root, seconds) -> tuple[dict, dict]:
+    """Phases 7a-7e: the AudioDec recipe through its CLIs on the corpus under
+    ``root``. Returns (launches by run, report)."""
+    exp = os.path.join(root, "exp")
+    launches, report = {}, {"cuts": RECIPE_CUTS, "corpus_seconds": seconds}
+
+    # 7a: the codec, stage 1 at 16 x 96000, stage 2 at 16 x 9600, one eval pass
+    ae_cfg = recipe_config(root, CODEC_CONFIG, start_steps={"generator": 0, "discriminator": 3},
+                           train_max_steps=3, adv_train_max_steps=6, eval_interval_steps=6,
+                           log_interval_steps=3)
+    argv = ["-c", ae_cfg, "--exp-root", exp, "--tag", "symAD"]
+    probe = RecipeProbe(snapshot_at=3)
+    trainer, launches["recipe 7a codec"], peak = recipe_run(
+        "recipe 7a (codec)", train_cli.main, argv, 2, 7, ("log_mel",), probe)
+    ckpt = os.path.join(exp, "autoencoder", "symAD", "checkpoint-6steps")
+    require(trainer.steps == 6 and os.path.isdir(ckpt), f"7a: {trainer.steps} steps")
+    require([s["log_mel"] for s in probe.steps] == [2] * 6, f"7a: K6 by step {probe.steps}")
+    before, after = probe.snapshot, trainer.state
+    gen_before, gen_after = before["params_generator"], after["params_generator"]
+    require(all(same_tensors(gen_before, gen_after, p) for p in ("encoder.", "projector.")),
+            "7a: stage 2 moved the encoder or the projector")
+    require(all(torch.equal(a, b) for a, b in zip(before["vq_state"], trainer.vq_state)),
+            "7a: stage 2 moved the codebooks")
+    require(not same_tensors(gen_before, gen_after, "decoder."), "7a: the decoder did not move")
+    require(not same_tensors(before["params_discriminator"], after["params_discriminator"]),
+            "7a: the discriminator did not move")
+    stages = {"stage 1, 16 x 96000": (range(3), profiled_step(
+                  trainer, 0, first_batch(trainer, "autoencoder", RECIPE_LENGTH))),
+              "stage 2, 16 x 9600": (range(3, 6), profiled_step(
+                  trainer, 5, first_batch(trainer, "autoencoder", VOCODER_METRIC_LENGTH)))}
+    report["7a_codec"] = dict(probe.report(trainer, peak, stages),
+                              logged=logged_finite("7a", probe, want_eval=True))
+    log(f"7a codec: {json.dumps({k: v for k, v in report['7a_codec'].items() if k != 'logged'})}")
+    del trainer, before, after
+
+    probe = RecipeProbe()
+    trainer, launches["recipe 7a resume"], _ = recipe_run(
+        "recipe 7a (--resume)", train_cli.main, argv + ["--resume"], 2, 1, ("log_mel",), probe)
+    require(probe.loads == [("checkpoint-6steps", 6)], f"7a --resume loaded {probe.loads}")
+    report["7a_resume"] = {"loads": probe.loads, "steps_after": trainer.steps}
+    log(f"7a --resume: loaded {probe.loads}, then {trainer.steps} steps")
+    del trainer
+
+    # 7b: the analyzer's statistics
+    stats_path = os.path.join(root, "stats", "symAD_vctk_48000_hop300_clean.npy")
+    stat_cfg = recipe_config(root, STATISTIC_CONFIG, analyzer=ckpt, stats=stats_path)
+    compute, compute_s = stat_cli.compute_statistics, []
+
+    def timed_compute(*args, **kwargs):
+        t1 = time.perf_counter()
+        out = compute(*args, **kwargs)  # ends in a read from the card
+        compute_s.append(time.perf_counter() - t1)
+        return out
+
+    stat_cli.compute_statistics = timed_compute
+    t0 = time.perf_counter()
+    try:
+        stats = stat_cli.main(["-c", stat_cfg])
+    finally:
+        stat_cli.compute_statistics = compute
+    stat_s = time.perf_counter() - t0
+    require(stats.shape == (2, 64) and np.all(np.isfinite(stats)) and np.all(stats[1] > 0),
+            f"7b: statistics {stats.shape}, min scale {stats[1].min()}")
+    report["7b_statistic"] = {"cli_seconds": stat_s, "compute_seconds": compute_s[0],
+                              "audio_seconds": seconds["train"],
+                              "audio_seconds_per_second": seconds["train"] / compute_s[0],
+                              "scale_min": float(stats[1].min())}
+    log(f"7b statistic: {json.dumps(report['7b_statistic'])}")
+
+    # 7c: the v1 vocoder on the frozen analyzer, 16 x 9600
+    vcfg = load_config(VOCODER_CONFIG)
+    voc_cfg = recipe_config(root, VOCODER_CONFIG, analyzer=ckpt, train_max_steps=5,
+                            eval_interval_steps=5, log_interval_steps=5,
+                            generator_params=dict(vcfg["generator_params"], stats=stats_path))
+    probe = RecipeProbe()
+    trainer, launches["recipe 7c vocoder"], peak = recipe_run(
+        "recipe 7c (vocoder)", train_cli.main, ["-c", voc_cfg, "--exp-root", exp], 8, 4,
+        SPECTRUM_KERNELS, probe)
+    by_step = [(s["step"], s["log_mel"], s["stft_magnitude"]) for s in probe.steps]
+    require(by_step == [(0, 0, 0), (1, 0, 0), (2, 2, 6), (3, 2, 6), (4, 2, 6)],
+            f"7c: (step, K6, K7) {by_step}: the generator's first update must be at step 2")
+    require(same_tensors(load_checkpoint(ckpt)["params_generator"],
+                         trainer.analyzer.state_dict()), "7c: the analyzer moved")
+    stages = {"generator and discriminator, 16 x 9600": (range(2, 5), profiled_step(
+        trainer, 4, first_batch(trainer, "vocoder", VOCODER_METRIC_LENGTH)))}
+    report["7c_vocoder"] = dict(probe.report(trainer, peak, stages),
+                                logged=logged_finite("7c", probe, want_eval=True))
+    log(f"7c vocoder: {json.dumps({k: v for k, v in report['7c_vocoder'].items() if k != 'logged'})}")
+    del trainer
+
+    # 7d: denoise from the codec, 16 x 96000
+    dn_cfg = recipe_config(root, CONFIG, initial=ckpt, train_max_steps=3,
+                           adv_train_max_steps=3, eval_interval_steps=3, log_interval_steps=3)
+    probe = RecipeProbe()
+    trainer, launches["recipe 7d denoise"], peak = recipe_run(
+        "recipe 7d (denoise)", train_cli.main, ["-c", dn_cfg, "--exp-root", exp], 2, 4,
+        ("log_mel",), probe)
+    initial = load_checkpoint(ckpt)
+    state = trainer.state
+    require(same_tensors(initial["params_generator"], state["params_generator"], "decoder."),
+            "7d: the decoder moved")
+    require(all(torch.equal(initial["vq_state"][f], getattr(trainer.vq_state, f).cpu())
+                for f in VQState._fields), "7d: the codebooks moved")
+    require(not same_tensors(initial["params_generator"], state["params_generator"],
+                             "encoder."), "7d: the encoder did not move")
+    stages = {"16 x 96000": (range(3), profiled_step(
+        trainer, 2, first_batch(trainer, "denoise", RECIPE_LENGTH)))}
+    report["7d_denoise"] = dict(probe.report(trainer, peak, stages),
+                                logged=logged_finite("7d", probe, want_eval=True))
+    log(f"7d denoise: {json.dumps({k: v for k, v in report['7d_denoise'].items() if k != 'logged'})}")
+    del trainer, state, initial
+
+    # 7e: the course CLI on AudioDataset / get_dataloaders, one LAPTOP epoch
+    course_dir = os.path.dirname(recipe_config(root, COURSE_CONFIG, epochs=1))
+    argv = ["-e", "LAPTOP", "-c", os.path.basename(COURSE_CONFIG), "--config-dir", course_dir,
+            "--clean-path", os.path.join(root, "course", "clean"),
+            "--noise-path", os.path.join(root, "course", "noise"),
+            "--job-dir", os.path.join(root, "job_out")]
+    t0 = time.perf_counter()
+    (state, history), launches["recipe 7e course CLI"] = counted(
+        "recipe 7e (course CLI, LAPTOP)", 2, 4, ("log_mel",), lambda: course_cli.main(argv))
+    h = history[0]
+    require(state["steps"] == 3 and len(history) == 1
+            and all(np.isfinite(v) for v in (h["train_gen"], h["val_gen"])),
+            f"7e: {state['steps']} steps, history {history}")
+    report["7e_course_cli"] = {"seconds": time.perf_counter() - t0, "history": history}
+    log(f"7e course CLI: {json.dumps(report['7e_course_cli'])}")
+    return launches, report
+
+
+def prefetch_check(n_batches: int = 6) -> dict:
+    """Phase 7g: ``prefetch_to_device`` at the recipe's pair batches (16 x
+    96000 x 1, two arrays) and the trainer's depth, with a long kernel
+    ahead of every copy on the stream and the source refilling one host
+    buffer in place: each device batch must equal its host arrays bit for
+    bit, those handed on before the generator is closed early too, and the
+    stream must still be busy when the first batch is handed on (the
+    copies wait for nothing). Returns the batches held."""
+    rng = np.random.default_rng(SEED + 95)
+    want = [rng.standard_normal((COURSE_BATCH, RECIPE_LENGTH, 1)).astype(np.float32)
+            for _ in range(n_batches)]
+    buf = np.empty_like(want[0])
+
+    def source():
+        for a in want:
+            torch.cuda._sleep(20_000_000)
+            buf[...] = a
+            yield buf, 2.0 * buf
+
+    def held(got):
+        torch.cuda.synchronize()
+        for (u, v), a in zip(got, want):
+            require(torch.equal(u.cpu(), torch.from_numpy(a))
+                    and torch.equal(v.cpu(), torch.from_numpy(2.0 * a)),
+                    "7g: a device batch differs from its host arrays")
+        return len(got)
+
+    it = prefetch_to_device(source(), device=DEVICE)
+    got = [next(it)]
+    busy = not torch.cuda.current_stream().query()
+    got += list(it)
+    require(busy and len(got) == n_batches, f"7g: busy {busy}, {len(got)} batches")
+    out = {"batches_held": held(got), "stream_busy_at_first_batch": busy}
+    it = prefetch_to_device(source(), device=DEVICE)
+    got = [next(it), next(it)]
+    it.close()
+    out["batches_held_after_close"] = held(got)
+    return out
+
+
+class MelSigns:
+    """Within it every MultiMelSpectrogramLoss computes its L1 as mean(s *
+    d), d = log mel y^ - log mel y per resolution and s = sign(d) detached:
+    the value and the gradient of mean(|d|) bit for bit (|d| = sign(d) d
+    exactly, and abs's derivative is sign). It records each s in
+    ``signs``; with ``fixed`` (a list of them) it uses those signs instead,
+    so two routes can take the same signs."""
+
+    def __init__(self, fixed=None):
+        self.fixed, self.signs = fixed, []
+
+    def __enter__(self):
+        probe, self.saved = self, MultiMelSpectrogramLoss.__call__
+
+        def call(loss, y_hat, y):
+            total = 0.0
+            for mel in loss.mels:
+                d = mel(flat_waves(y_hat)) - mel(flat_waves(y))
+                sign = torch.sign(d.detach())
+                if probe.fixed is not None:
+                    sign = probe.fixed[len(probe.signs)]
+                probe.signs.append(torch.sign(d.detach()))
+                total = total + torch.mean(sign * d)
+            return total / len(loss.mels)
+
+        MultiMelSpectrogramLoss.__call__ = call
+        return self
+
+    def __exit__(self, *exc):
+        MultiMelSpectrogramLoss.__call__ = self.saved
+
+
+def mel_sign_flips(codec, vq, clean):
+    """Phase 7f's cause check on the tone-only signals (``clean``, no white
+    noise): one codec stage-1 step (target: its input) and one denoise step
+    (input: ``clean`` plus seeded white noise; target: ``clean``) on each
+    route from the same state. For each: the bins where the routes'
+    sign(log mel y^ - log mel y) differ, the gradient gap with each route's
+    own signs, and the gap with the plain route's signs on both routes,
+    which must be within ROUTE_GRAD_RTOL (the mel L1's signs being then the
+    only difference). Returns the readings."""
+    ccfg, dcfg = load_config(CODEC_CONFIG), load_config(CONFIG)
+    rng = np.random.default_rng(SEED + 96)
+    x = torch.from_numpy(clean).to(DEVICE)
+    noisy = x + torch.from_numpy((0.05 * rng.standard_normal(clean.shape))
+                                 .astype(np.float32)).to(DEVICE)
+    out = {}
+    for case in ("stage 1", "denoise"):
+        def step(route, fixed=None):
+            gen = copy.deepcopy(codec)
+            cfg = routed(ccfg if case == "stage 1" else dcfg, route)
+            opt_g = build_optimizer_from_config(cfg, "generator", gen.parameters())
+            with MelSigns(fixed) as signs:
+                if case == "stage 1":
+                    ae_workload.make_autoencoder_steps(gen, None, cfg, opt_g, None)[
+                        "gen_stage1"](vq, x)
+                else:
+                    dn_workload.make_denoise_steps(gen, cfg, opt_g)["train"](vq, noisy, x)
+            g = grads({"generator": gen})
+            del gen, opt_g
+            return signs.signs, g
+
+        s_plain, g_plain = step("plain")
+        s_auto, g_auto = step("auto")
+        _, g_plain_fixed = step("plain", s_plain)
+        _, g_auto_fixed = step("auto", s_plain)
+        out[case] = {
+            "bins": sum(t.numel() for t in s_plain),
+            "sign_flips": sum(int((a != p).sum()) for a, p in zip(s_auto, s_plain)),
+            "grad_rel_err_own_signs": max(grad_rel_errs(g_auto, g_plain).values()),
+            "grad_rel_err_plain_signs": max(grad_rel_errs(g_auto_fixed,
+                                                          g_plain_fixed).values()),
+            "plain_route_unchanged_by_fixing": same_tensors(g_plain_fixed, g_plain)}
+        log(f"7f tone-only {case}: {json.dumps(out[case])}")
+        require(out[case]["grad_rel_err_plain_signs"] <= ROUTE_GRAD_RTOL,
+                f"7f tone-only {case}: with the plain route's mel signs on both routes the "
+                f"gradients still differ beyond {ROUTE_GRAD_RTOL}")
+        torch.cuda.empty_cache()
+    return out
+
+
+def with_log_mag_grad(voc, step):
+    """``step()`` (one vocoder generator step) with the gradient of its
+    loss's log-STFT-magnitude term alone taken into ``voc``'s parameters
+    where the step's metric loss returns (the graph kept for the step's own
+    backward). Returns (step's result, {"generator.<name>": gradient})."""
+    named = list(voc.named_parameters())
+    got = []
+
+    def spied(crit, config, y, x):
+        total, frags = metric_loss(crit, config, y, x)
+        got.append(torch.autograd.grad(frags["log_stft_magnitude_loss"],
+                                       [p for _, p in named], retain_graph=True))
+        return total, frags
+
+    voc_workload.metric_loss = spied
+    try:
+        out = step()
+    finally:
+        voc_workload.metric_loss = metric_loss
+    return out, {f"generator.{n}": g for (n, _), g in zip(named, got[0])}
+
+
+def route_step(route, what, per_step, kernels, fn):
+    """``fn()``; on the kernel route counted (``per_step`` launches)."""
+    if route != "auto":
+        return fn(), None
+    return counted(f"7f {what}, kernel route", per_step, 1, kernels, fn)
+
+
+def grads(nets: dict) -> dict:
+    return {f"{k}.{n}": p.grad.detach().clone() for k, m in nets.items()
+            for n, p in m.named_parameters() if p.grad is not None}
+
+
+def scalars(frags: dict) -> dict:
+    return {k: float(v) for k, v in frags.items()}
+
+
+def routed(cfg, route):
+    return dict(cfg, mel_loss_params=dict(cfg["mel_loss_params"], backend=route),
+                stft_loss_params=dict(cfg["stft_loss_params"], backend=route))
+
+
+def recipe_routes(codec, vq):
+    """Phase 7f, cuDNN's deterministic algorithms on: one step of each
+    workload on the kernel route ('auto') and the plain route from the same
+    state and batch (the served codec's weights and codebooks, copied; the
+    vocoder's and the discriminators' seeded; tones with white noise, the
+    denoise target another noise draw), held as phase 5b holds the
+    course step: fragments ROUTE_FRAG_RTOL, every gradient ROUTE_GRAD_RTOL
+    of its tensor's largest; the vocoder generator's split as phase 5d
+    splits it, the rest of its loss (mel, spectral convergence,
+    adversarial) at ROUTE_GRAD_RTOL and its log-STFT-magnitude term's at
+    LOG_MAG_GRAD_RTOL. A discriminator step follows
+    its generator step from the kernel route's updated generator on both
+    routes. Returns (launches by step, checks)."""
+    ccfg, vcfg, dcfg = (load_config(c) for c in (CODEC_CONFIG, VOCODER_CONFIG, CONFIG))
+    rng = np.random.default_rng(SEED + 90)
+    clean = np.stack([recipe_clip(rng, RECIPE_LENGTH / SAMPLE_RATE)
+                      for _ in range(COURSE_BATCH)])[..., None]
+    # each signal a loss reads carries white noise (at -26 dB of the tones):
+    # against a tone target, the mel loss's sign(log mel y - log mel x)
+    # flips between routes where the two nearly coincide, and the gradients
+    # part by ~1e-3 of the largest while every fragment stays bit-equal
+    # (mel_sign_flips shows it on these tones)
+    x_n, x_t = (torch.from_numpy(clean + (0.05 * rng.standard_normal(clean.shape))
+                                 .astype(np.float32)).to(DEVICE) for _ in range(2))
+    x_short = x_n[:, :VOCODER_METRIC_LENGTH].contiguous()
+    disc0 = build_discriminator("symAudioDec", ccfg["discriminator_params"], device=DEVICE,
+                                seed=SEED + 91)
+    voc0 = build_vocoder(VOCODER_CONFIG)
+    vdisc0 = build_discriminator("HiFiGAN", vcfg["discriminator_params"], device=DEVICE,
+                                 seed=SEED + 92)
+    launches, checks, runs = {}, {}, {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for route in ("auto", "plain"):
+            r = runs[route] = {}
+            gen, disc = copy.deepcopy(codec), copy.deepcopy(disc0)
+            opt_g = build_optimizer_from_config(ccfg, "generator", gen.parameters())
+            opt_d = build_optimizer_from_config(ccfg, "discriminator", disc.parameters())
+            steps = ae_workload.make_autoencoder_steps(gen, disc, routed(ccfg, route), opt_g,
+                                                       opt_d)
+            (new_vq, frags, _), launches[f"7f codec stage 1 ({route})"] = route_step(
+                route, "codec stage 1", 2, ("log_mel",), lambda: steps["gen_stage1"](vq, x_n))
+            r["stage 1"] = (scalars(frags), grads({"generator": gen}))
+            r["stage 1 codebooks"] = new_vq
+            r["stage 1 generator"] = copy.deepcopy(gen.state_dict())
+            if route == "plain":  # stage 2 from the kernel route's stage-1 generator
+                gen.load_state_dict(runs["auto"]["stage 1 generator"])
+            (_, frags, _), launches[f"7f codec stage 2 ({route})"] = route_step(
+                route, "codec stage 2", 2, ("log_mel",),
+                lambda: steps["gen_stage2"](vq, x_short))
+            r["stage 2"] = (scalars(frags), grads({"generator": gen}))
+            r["stage 2 generator"] = copy.deepcopy(gen.state_dict())
+            if route == "plain":  # the discriminator step from the same generator
+                gen.load_state_dict(runs["auto"]["stage 2 generator"])
+            frags, launches[f"7f codec discriminator ({route})"] = route_step(
+                route, "codec discriminator", 0, (), lambda: steps["dis"](vq, x_short))
+            r["stage 2 discriminator"] = (scalars(frags), grads({"discriminator": disc}))
+            del gen, disc, opt_g, opt_d, steps
+
+            voc, vdisc = copy.deepcopy(voc0), copy.deepcopy(vdisc0)
+            opt_g = build_optimizer_from_config(vcfg, "generator", voc.parameters())
+            opt_d = build_optimizer_from_config(vcfg, "discriminator", vdisc.parameters())
+            steps = voc_workload.make_vocoder_steps(codec, vq, voc, vdisc, routed(vcfg, route),
+                                                    opt_g, opt_d)
+            (frags, g_mag), launches[f"7f vocoder generator ({route})"] = route_step(
+                route, "vocoder generator", 8, SPECTRUM_KERNELS,
+                lambda: with_log_mag_grad(voc, lambda: steps["gen_adv"](x_short)))
+            whole = grads({"generator": voc})
+            # the step's gradient without its log-STFT-magnitude term (mel,
+            # spectral convergence, adversarial), and that term's alone
+            r["vocoder generator"] = (scalars(frags),
+                                      {k: g - g_mag[k] for k, g in whole.items()})
+            r["vocoder log-magnitude"] = (
+                {"log_stft_magnitude_loss": float(frags["log_stft_magnitude_loss"])}, g_mag)
+            r["vocoder state"] = copy.deepcopy(voc.state_dict())
+            if route == "plain":
+                voc.load_state_dict(runs["auto"]["vocoder state"])
+            frags, launches[f"7f vocoder discriminator ({route})"] = route_step(
+                route, "vocoder discriminator", 0, (), lambda: steps["dis"](x_short))
+            r["vocoder discriminator"] = (scalars(frags), grads({"discriminator": vdisc}))
+            del voc, vdisc, opt_g, opt_d, steps
+
+            gen = copy.deepcopy(codec)
+            opt_g = build_optimizer_from_config(dcfg, "generator", gen.parameters())
+            steps = dn_workload.make_denoise_steps(gen, routed(dcfg, route), opt_g)
+            (frags, _), launches[f"7f denoise ({route})"] = route_step(
+                route, "denoise", 2, ("log_mel",), lambda: steps["train"](vq, x_n, x_t))
+            r["denoise"] = (scalars(frags), grads({"generator": gen}))
+            del gen, opt_g, steps
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    failed = []
+    for what in ("stage 1", "stage 2", "stage 2 discriminator", "vocoder generator",
+                 "vocoder log-magnitude", "vocoder discriminator", "denoise"):
+        rtol = LOG_MAG_GRAD_RTOL if what == "vocoder log-magnitude" else ROUTE_GRAD_RTOL
+        require(all(np.isfinite(v) for v in runs["auto"][what][0].values()),
+                f"7f {what}: {runs['auto'][what][0]}")
+        try:  # every workload held and logged before a failure ends the run
+            checks[what] = held_routes(f"7f {what}, kernel vs plain route",
+                                       runs["plain"][what], runs["auto"][what],
+                                       ROUTE_FRAG_RTOL, rtol)
+        except Failure as e:
+            failed.append(str(e))
+    require(not failed, "; ".join(failed))
+    require(all(torch.equal(a, b) for a, b in zip(runs["auto"]["stage 1 codebooks"],
+                                                   runs["plain"]["stage 1 codebooks"])),
+            "7f: the routes' stage-1 codebooks differ")
+    require("vocoder generator" in checks and "log_stft_magnitude_loss" in
+            runs["auto"]["vocoder generator"][0], "7f: the vocoder's loss has no STFT term")
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        checks["tone-only sign flips"] = mel_sign_flips(codec, vq, clean)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    return {k: v for k, v in launches.items() if v is not None}, checks
 
 
 # ---------------------------------------------------------------- times
@@ -3098,6 +3788,18 @@ def main() -> int:
     stamp("phase 6, adversarial training")
     by_path.update(adv_launches)
 
+    log("phase 7: the AudioDec recipe through its CLIs (codec, statistic, vocoder, denoise, "
+        "course) and each workload's step on the kernel and the plain route")
+    with tempfile.TemporaryDirectory() as root:
+        corpus_seconds = write_recipe_corpus(root)
+        recipe_launches, recipe_report = recipe_phase(root, corpus_seconds)
+    runs, recipe_report["routes"] = recipe_routes(codec, vq)
+    recipe_launches.update(runs)
+    recipe_report["prefetch_to_device"] = prefetch_check()
+    log(f"7g prefetch_to_device: {json.dumps(recipe_report['prefetch_to_device'])}")
+    stamp("phase 7, the AudioDec recipe")
+    by_path.update(recipe_launches)
+
     name_power = card()
     entries = []
     for name in SERVING_KERNELS:
@@ -3232,7 +3934,8 @@ def main() -> int:
                            "times": train_times, "spectrum_sites": train_sites,
                            "adversarial": {"discriminators_vs_cpu": disc_checks,
                                            "step_routes": adv_checks, "loop": adv_loop,
-                                           "times": adv_times}},
+                                           "times": adv_times},
+                           "recipe": recipe_report},
               "kernel_sites": {str(n): {k: v["sites"] for k, v in agg.items()}
                                for n, agg in ktimes.items()},
               "codec_kernel_sites": {str(n): {k: v["sites"] for k, v in agg.items()}

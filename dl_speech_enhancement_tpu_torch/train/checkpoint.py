@@ -49,7 +49,10 @@ def save_checkpoint(path: str, state: dict, config: dict | None = None):
         save_config(os.path.join(os.path.dirname(path), "config.yml"), config)
 
 
-def _restore(like, stored, where: str):
+def restore(like, stored, where: str = "state"):
+    """``stored`` (a loaded state) cut to the structure of ``like``: each
+    tensor checked against its shape and moved to its dtype and device, a
+    ``VQState`` rebuilt as one."""
     if isinstance(like, torch.Tensor):
         if not isinstance(stored, torch.Tensor) or stored.shape != like.shape:
             got = tuple(stored.shape) if isinstance(stored, torch.Tensor) else type(stored)
@@ -60,13 +63,13 @@ def _restore(like, stored, where: str):
         keys = like._fields if hasattr(like, "_fields") else list(like)
         if not isinstance(stored, dict) or not set(keys) <= set(stored):
             raise ValueError(f"checkpoint entry {where}: stored keys do not hold {keys}")
-        parts = {k: _restore(like[k] if isinstance(like, dict) else getattr(like, k),
+        parts = {k: restore(like[k] if isinstance(like, dict) else getattr(like, k),
                              stored[k], f"{where}.{k}") for k in keys}
         return type(like)(**parts) if hasattr(like, "_fields") else parts
     if isinstance(like, (list, tuple)):
         if not isinstance(stored, list) or len(stored) != len(like):
             raise ValueError(f"checkpoint entry {where}: not a list of {len(like)}")
-        return type(like)(_restore(a, b, f"{where}[{i}]")
+        return type(like)(restore(a, b, f"{where}[{i}]")
                           for i, (a, b) in enumerate(zip(like, stored)))
     return stored
 
@@ -81,7 +84,7 @@ def load_checkpoint(path: str, like: dict | None = None) -> dict:
                         weights_only=True)
     if like is None:
         return stored
-    return _restore(like, stored, "state")
+    return restore(like, stored, "state")
 
 
 def latest_checkpoint(outdir: str, pattern: str = r"checkpoint-(\d+)steps") -> str | None:

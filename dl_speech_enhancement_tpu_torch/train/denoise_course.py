@@ -43,7 +43,8 @@ from dl_speech_enhancement_tpu_torch.losses import (
     signal_noise_ratio,
 )
 from dl_speech_enhancement_tpu_torch.train.checkpoint import save_checkpoint
-from dl_speech_enhancement_tpu_torch.train.optim import build_optimizer
+from dl_speech_enhancement_tpu_torch.train.optim import build_optimizer, frozen
+from dl_speech_enhancement_tpu_torch.utils.device import refuse_data_parallel
 
 logger = logging.getLogger(__name__)
 
@@ -189,19 +190,13 @@ def make_course_steps(gen, disc, config, opt_g, opt_d):
         opt_g.zero_grad()
         g_loss, frags = 0.0, {}
         # the generator's gradient only: D's weights are constants here
-        held = [p for p in disc.parameters() if p.requires_grad] if use_disc else []
-        for p in held:
-            p.requires_grad_(False)
-        try:
+        with frozen(disc.parameters() if use_disc else ()):
             for xm, tm in microbatches(x, target):
                 loss, fr = gen_loss(xm, tm, use_disc)
                 (loss / grad_accum).backward()
                 g_loss = g_loss + loss.detach() / grad_accum
                 for k, v in fr.items():
                     frags[k] = frags.get(k, 0.0) + v.detach() / grad_accum
-        finally:
-            for p in held:
-                p.requires_grad_(True)
         stats = grad_stats()
         opt_g.step()
         return g_loss, frags, stats
@@ -248,18 +243,13 @@ def make_course_steps(gen, disc, config, opt_g, opt_d):
             "eval_disc": evaluate_disc}
 
 
-def _data_devices(config: dict, device: torch.device) -> int:
-    n = int((config.get("parallel") or {}).get("data_devices", 1) or 1)
-    if n < 0:
-        n = torch.cuda.device_count() if device.type == "cuda" else 1
-    return n
-
-
 def train_denoise_course(config: dict, gen, disc, train_loaders, val_loaders, *,
                          environment: str = "HPC", job_dir: str = "job_out",
-                         task_name: str = "denoise", report=None):
+                         task_name: str = "denoise", report=None, initial_params=None):
     """Run the course loop on ``gen`` and ``disc`` (None: no adversarial
-    phase) in place. ``train_loaders`` / ``val_loaders`` are (clean, noise)
+    phase) in place, ``gen`` first loaded with ``initial_params`` (a state
+    dict of its own) where given: the warm start of the reference's
+    ``initial_model``. ``train_loaders`` / ``val_loaders`` are (clean, noise)
     pairs of iterables of numpy (B, T, 1) batches; LAPTOP mode takes three
     of each an epoch, any other ``environment`` all of them and writes
     ``{job_dir}/{task_name}checkpoint-{steps}`` (``state.pt`` holding
@@ -268,9 +258,9 @@ def train_denoise_course(config: dict, gen, disc, train_loaders, val_loaders, *,
     iteration)`` is the scalar sink. Returns ``({"generator",
     "discriminator", "opt_generator", "opt_discriminator", "steps"},
     history)``, one history entry per epoch as the JAX loop keeps it."""
-    if _data_devices(config, gen.device) > 1:
-        raise NotImplementedError("parallel.data_devices > 1: data parallelism is not ported "
-                                  "yet (ROADMAP §1, 'Parallel')")
+    refuse_data_parallel(config, gen.device)
+    if initial_params is not None:
+        gen.load_state_dict(initial_params)
     device = gen.device
     laptop = environment == "LAPTOP"
     opt_g = build_optimizer(gen.parameters(), "Adam", config["generator_optimizer_params"],

@@ -11,11 +11,20 @@ norm`` once ``norm >= max_norm``; not ``clip_grad_norm_``'s ``max_norm /
 same coupled L2 (added to the clipped gradient before the moments), then one
 scheduler step: ``StepLR`` / ``MultiStepLR`` give, at update count k, the
 optax schedule's value at count k.
+
+A freeze (:func:`frozen`) takes parameters out of autograd for a step, as
+the reference's ``requires_grad=False`` does (trainer/autoencoder.py:66-75):
+they take no gradient, so the clip measures the trainable ones' norm alone
+and Adam skips them. The JAX package zeroes their gradients and restores
+them after the update: the parameters end the same, but optax's moments of
+the frozen leaves decay and the port's do not move.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+import collections
+import contextlib
+from typing import Iterable, Sequence
 
 import torch
 
@@ -81,6 +90,20 @@ class Optimizer:
         if self.scheduler is not None:
             self.scheduler.step()
 
+    def state_dict(self) -> dict:
+        """Adam's moments and counts, and the schedule's position."""
+        return {"adam": self.adam.state_dict(),
+                "scheduler": self.scheduler.state_dict() if self.scheduler else None}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.adam.load_state_dict(state["adam"])
+        if self.scheduler is not None:
+            self.scheduler.load_state_dict(state["scheduler"])
+            if isinstance(self.scheduler, torch.optim.lr_scheduler.MultiStepLR):
+                # a checkpoint stores the milestones' Counter as a plain dict,
+                # and MultiStepLR looks up every step in it
+                self.scheduler.milestones = collections.Counter(self.scheduler.milestones)
+
 
 def build_optimizer(params, optimizer_type: str, optimizer_params: dict,
                     scheduler_type: str | None = None, scheduler_params: dict | None = None,
@@ -105,27 +128,25 @@ def build_optimizer_from_config(config: dict, role: str, params) -> Optimizer:
     )
 
 
-def _frozen_params(module: torch.nn.Module, frozen: Sequence[str]):
+def frozen_params(module: torch.nn.Module, frozen: Sequence[str]):
+    """The parameters of ``module``'s top-level submodules named in ``frozen``."""
     for name in frozen:
         sub = getattr(module, name, None)
         if sub is not None:
             yield from sub.parameters()
 
 
-def zero_frozen_grads(module: torch.nn.Module, frozen: Sequence[str]) -> None:
-    """Drop the gradients of the top-level submodules named in ``frozen``
-    before the optimizer runs, so that the clip measures only the trainable
-    parameters' norm and Adam leaves the frozen ones as they are."""
-    for p in _frozen_params(module, frozen):
-        p.grad = None
-
-
-def apply_updates_with_freeze(optimizer: Optimizer, module: torch.nn.Module,
-                              frozen: Sequence[str]) -> None:
-    """``optimizer.step()``, then restore the top-level submodules named in
-    ``frozen`` to their values before it: they take no step."""
-    kept = [(p, p.detach().clone()) for p in _frozen_params(module, frozen)]
-    optimizer.step()
-    with torch.no_grad():
-        for p, value in kept:
-            p.copy_(value)
+@contextlib.contextmanager
+def frozen(params: Iterable[torch.nn.Parameter]):
+    """Within the block, ``params`` take no gradient (``requires_grad``
+    off, restored after): autograd neither computes nor stores their
+    gradients, though gradients still flow through the layers they weight,
+    and the optimizer leaves them as they are (their ``grad`` stays None)."""
+    held = [p for p in params if p.requires_grad]
+    for p in held:
+        p.requires_grad_(False)
+    try:
+        yield
+    finally:
+        for p in held:
+            p.requires_grad_(True)

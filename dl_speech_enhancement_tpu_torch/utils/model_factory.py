@@ -38,13 +38,14 @@ def _hifigan_gen_params(params: dict) -> dict:
     return p
 
 
-def build_generator(model_type: str, params: dict, use_pqc: bool = True, device="cuda"):
+def build_generator(model_type: str, params: dict, use_pqc: bool = True, device="cuda",
+                    seed: int = 0):
     """The generator of a config's ``model_type`` with its
     ``generator_params``, seeded weights, on ``device``."""
     if model_type in ("symAudioDec", "symAudioDecUniv"):
-        return AudioDecGenerator(**params, use_pqc=use_pqc, device=device)
+        return AudioDecGenerator(**params, use_pqc=use_pqc, seed=seed, device=device)
     if model_type in ("HiFiGAN", "UnivNet"):
-        return HiFiGANGenerator(**_hifigan_gen_params(params), device=device)
+        return HiFiGANGenerator(**_hifigan_gen_params(params), seed=seed, device=device)
     raise NotImplementedError(f"Model type: {model_type} is not supported!")
 
 

@@ -1286,3 +1286,140 @@ def test_adversarial_step_kernel_route_matches_plain(card):
         np.testing.assert_allclose(fa[k], v, rtol=1e-5, err_msg=k)
     for a, p in zip(ga, gp):
         torch.testing.assert_close(a, p, rtol=0, atol=1e-4 * float(p.abs().max()))
+
+
+# ---------------------------------------------------------------- AudioDec workloads
+
+CODEC_CONFIG = "configs/autoencoder/symAD_vctk_48000_hop300.yaml"
+VOCODER_CONFIG = "configs/vocoder/AudioDec_v1_symAD_vctk_48000_hop300_clean.yaml"
+LOG_MAG_GRAD_RTOL = 1e-2  # chip_smoke.py's: the log-STFT-magnitude term's f32 limit (ROADMAP §3)
+
+
+def _unit_gains(voc):
+    """Each weight-norm gain of ``voc`` at about its conv's unit gain, as
+    chip_smoke.py's build_vocoder sets them: at the official N(0, 0.01) init
+    the output is almost all bias, and the log-magnitude's gradient has no
+    signal to hold."""
+    from dl_speech_enhancement_tpu_torch.nn.conv import ConvTranspose1d
+
+    rng = np.random.default_rng(4)
+    with torch.no_grad():
+        for m in voc.modules():
+            if getattr(m, "weight_norm", False):
+                gain = 0.5 if m is voc.output_conv else 1.0
+                if isinstance(m, ConvTranspose1d):
+                    gain = (m.kernel_size * m.out_channels / (2.0 * m.in_channels)) ** 0.5
+                m.g.copy_(torch.from_numpy(gain * rng.uniform(0.8, 1.25, tuple(m.g.shape))))
+
+
+def _workload_step(route, workload, x):
+    """One step of ``workload`` at the configs' widths from seeded weights
+    with the spectral losses on ``route``: (fragments, generator gradients
+    without the log-STFT-magnitude term's, that term's gradients (empty for
+    the codec, whose loss has none), K6 and K7 launches)."""
+    from dl_speech_enhancement_tpu_torch.train.criterion import metric_loss
+    from dl_speech_enhancement_tpu_torch.train.workloads import autoencoder, vocoder
+    from dl_speech_enhancement_tpu_torch.utils.model_factory import build_generator
+
+    codec_cfg = load_config(CODEC_CONFIG)
+    codec = AudioDecGenerator(**codec_cfg["generator_params"], seed=1, device="cuda")
+    vq = codec.quantizer.init(seed=2, device="cuda")
+    cfg = load_config(CODEC_CONFIG if workload == "autoencoder" else VOCODER_CONFIG)
+    cfg = dict(cfg, mel_loss_params=dict(cfg["mel_loss_params"], backend=route),
+               stft_loss_params=dict(cfg["stft_loss_params"], backend=route))
+    launched = (mel_kernel.log_mel.launches, mel_kernel.stft_magnitude.launches)
+    g_mag = []
+    if workload == "autoencoder":
+        opt = build_optimizer(codec.parameters(), "Adam", cfg["generator_optimizer_params"])
+        steps = autoencoder.make_autoencoder_steps(codec, None, cfg, opt, None)
+        _, frags, _ = steps["gen_stage1"](vq, x)
+        gen = codec
+    else:
+        params = {k: v for k, v in cfg["generator_params"].items() if k != "stats"}
+        gen = build_generator("HiFiGAN", params, device="cuda", seed=3)
+        _unit_gains(gen)
+        opt = build_optimizer(gen.parameters(), "Adam", cfg["generator_optimizer_params"])
+
+        def spied(crit, config, y, target):  # the log-magnitude term's gradient alone
+            total, fr = metric_loss(crit, config, y, target)
+            g_mag.extend(torch.autograd.grad(fr["log_stft_magnitude_loss"],
+                                             list(gen.parameters()), retain_graph=True))
+            return total, fr
+
+        vocoder.metric_loss = spied
+        try:
+            frags = vocoder.make_vocoder_steps(codec, vq, gen, None, cfg, opt, None)["gen"](x)
+        finally:
+            vocoder.metric_loss = metric_loss
+    counts = (mel_kernel.log_mel.launches - launched[0],
+              mel_kernel.stft_magnitude.launches - launched[1])
+    if g_mag:
+        rest = [p.grad.detach() - m for p, m in zip(gen.parameters(), g_mag)]
+    else:
+        rest = [p.grad.detach().clone() for p in gen.parameters() if p.grad is not None]
+    return {k: float(v) for k, v in frags.items()}, rest, g_mag, counts
+
+
+@pytest.mark.parametrize("workload,launches", [("autoencoder", (2, 0)), ("vocoder", (2, 6))])
+def test_workload_step_kernel_route_matches_plain(card, workload, launches):
+    """The codec's stage-1 generator step (mel loss: K6) and the v1
+    vocoder's generator step (mel and three STFT resolutions: K6 and K7) at
+    the configs' widths, 2 x 9600 samples, on the kernel route against the
+    plain one from the same weights: the kernels launched as counted,
+    fragments rtol 1e-5, every gradient without the log-STFT-magnitude
+    term's within 1e-4 of its tensor's largest, and that term's gradient
+    alone within LOG_MAG_GRAD_RTOL (its f32 limit)."""
+    x = _randn(card, 2, 9600, 1)
+    fa, ga, ma, na = _workload_step("auto", workload, x)
+    fp, gp, mp, n_plain = _workload_step("plain", workload, x)
+    assert na == launches and n_plain == (0, 0)
+    assert sorted(fa) == sorted(fp)
+    for k, v in fp.items():
+        assert np.isfinite(fa[k])
+        np.testing.assert_allclose(fa[k], v, rtol=1e-5, err_msg=k)
+    assert len(ga) == len(gp) > 0 and len(ma) == len(mp) == (len(gp) if launches[1] else 0)
+    for got, ref, rtol in ((ga, gp, 1e-4), (ma, mp, LOG_MAG_GRAD_RTOL)):
+        for a, p in zip(got, ref):
+            torch.testing.assert_close(a, p, rtol=0, atol=rtol * float(p.abs().max()))
+
+
+# ---------------------------------------------------------------- the upload to the card
+
+
+@pytest.mark.parametrize("size", [1, 2, 3])
+def test_prefetch_to_device_keeps_each_batch_while_the_card_is_busy(card, size):
+    """``prefetch_to_device`` with a long kernel ahead of every copy on the
+    stream, the source refilling one host buffer in place for each batch:
+    the copies do not wait for the card (the stream is still busy when a
+    batch is handed on), and every device batch, single arrays and
+    (input, target) pairs, equals its host array bit for bit, also those
+    handed on before the generator is closed early."""
+    from dl_speech_enhancement_tpu_torch.data.loader import prefetch_to_device
+
+    rng = np.random.default_rng(size)
+    want = [rng.standard_normal((16, 9600, 1)).astype(np.float32) for _ in range(6)]
+    buf = np.empty_like(want[0])
+
+    def source(pair):
+        for a in want:
+            torch.cuda._sleep(20_000_000)
+            buf[...] = a
+            yield (buf, 2.0 * buf) if pair else buf
+
+    def held(got, pair):
+        torch.cuda.synchronize()
+        for g, a in zip(got, want):
+            for t, v in zip(g if pair else (g,), (a, 2.0 * a) if pair else (a,)):
+                assert t.device.type == "cuda" and torch.equal(t.cpu(), torch.from_numpy(v))
+
+    for pair in (False, True):
+        it = prefetch_to_device(source(pair), size=size, device="cuda")
+        got = [next(it)]
+        assert not torch.cuda.current_stream().query()
+        got += list(it)
+        assert len(got) == len(want)
+        held(got, pair)
+        it = prefetch_to_device(source(pair), size=size, device="cuda")
+        got = [next(it), next(it)]
+        it.close()
+        held(got, pair)

@@ -31,7 +31,11 @@ def test_port_has_the_slice_modules():
                 "train.criterion", "train.denoise_course", "data.mixing", "utils.audiodec",
                 "utils.audiodec_without_pqc", "utils.model_factory", "train.checkpoint",
                 "data.audio_io", "cli.stream", "tools.reshape_probe", "tools.conv_timing",
-                "tools.rvq_timing", "models.discriminator", "models.univnet"):
+                "tools.rvq_timing", "models.discriminator", "models.univnet", "data",
+                "data.dataset", "data.collate", "data.loader", "train.gan_trainer",
+                "train.workloads", "train.workloads.autoencoder", "train.workloads.denoise",
+                "train.workloads.vocoder", "train.workloads.statistic", "cli.train",
+                "cli.statistic", "cli.train_denoise"):
         assert f"dl_speech_enhancement_tpu_torch.{mod}" in names
 
 
