@@ -167,6 +167,36 @@ failure exits non-zero before the result line):
      busy: every device batch bit for bit its host arrays;
    per workload the median step time, the busy share of one profiled step,
    peak memory and the loader's share of the loop's wall time.
+8. evaluation and the reference's checkpoints, through their CLIs on the
+   card, each held against its CPU run (phase 7's corpus written anew into a
+   temporary directory; the eval path launches none of the port's kernels,
+   as the JAX package's runs none of its Pallas kernels: cuDNN convs and the
+   FFT route, each run counted to show it):
+   - 8a the full-width codec (phase 1's warm-up codebooks, a seeded
+     discriminator) out through ``cli.export_checkpoint`` in the reference's
+     framework format and the v1 vocoder with its statistics in the course
+     format, both back through ``cli.import_checkpoint``: each state bit for
+     bit; CLI_SECONDS through ``cli.stream --checkpoint`` (the kernel route,
+     22 launches a frame) from the original and from the imported codec,
+     and through ``make_scan_stream(...).run_with_codes``: audio and codes bit
+     for bit;
+   - 8b ``cli.test`` on the imported codec over TEST_CLIPS clips: the
+     projector output within EVAL_ATOL of the CPU's, the codes up to near
+     ties, the audio within EVAL_ATOL of the largest sample where the codes
+     agree; the RTF per clip and the mean;
+   - 8c ``cli.testing_denoise -e LAPTOP`` with a seeded full-width flagship
+     (configs/denoise/symAD_custom.yaml, without PQC) and the ``AD``
+     composite of 8a's imported codec and vocoder: every wav within
+     EVAL_ATOL of its CPU twin's largest sample; the wall time per clip;
+   - 8d ``cli.analyze --eval-wavs`` on 8c's output: the battery within the
+     metric tolerances of the CPU's (METRIC_EXACT, METRIC_DB,
+     METRIC_MEL_RTOL);
+   - 8e ``cli.dnsmos`` on 8c's output with two seeded stand-in graphs at the
+     real graphs' interfaces (``dnsmos_standins``; the real ones are not in
+     the repository): every score within DNSMOS_ATOL of the CPU's;
+   - 8f the native library (``data/native.py``, built with ``g++`` at first
+     use) must load; phase 7d's denoise loader's read and crop per batch
+     through it and through the plain versions, and 7d's loader wait share.
 
 Prints the per-kernel JSON line (times summed over the kernel's sites in one
 100-frame dispatch of the single-stream path that first runs it, the codec's
@@ -195,11 +225,17 @@ import torch
 import torch.nn.functional as F
 import yaml
 
+from dl_speech_enhancement_tpu_torch.cli import analyze as analyze_cli
+from dl_speech_enhancement_tpu_torch.cli import dnsmos as dnsmos_cli
+from dl_speech_enhancement_tpu_torch.cli import export_checkpoint as export_cli
+from dl_speech_enhancement_tpu_torch.cli import import_checkpoint as import_cli
 from dl_speech_enhancement_tpu_torch.cli import statistic as stat_cli
 from dl_speech_enhancement_tpu_torch.cli import stream as stream_cli
+from dl_speech_enhancement_tpu_torch.cli import test as codec_test_cli
+from dl_speech_enhancement_tpu_torch.cli import testing_denoise as testing_cli
 from dl_speech_enhancement_tpu_torch.cli import train as train_cli
 from dl_speech_enhancement_tpu_torch.cli import train_denoise as course_cli
-from dl_speech_enhancement_tpu_torch.data import read_wav, write_wav
+from dl_speech_enhancement_tpu_torch.data import native, read_wav, write_wav
 from dl_speech_enhancement_tpu_torch.data.loader import prefetch_to_device
 from dl_speech_enhancement_tpu_torch.data.mixing import add_noise
 from dl_speech_enhancement_tpu_torch.dsp.mel import MelSpectrogram
@@ -281,7 +317,10 @@ from dl_speech_enhancement_tpu_torch.train.workloads import autoencoder as ae_wo
 from dl_speech_enhancement_tpu_torch.train.workloads import denoise as dn_workload
 from dl_speech_enhancement_tpu_torch.train.workloads import vocoder as voc_workload
 from dl_speech_enhancement_tpu_torch.tools import reshape_probe
-from dl_speech_enhancement_tpu_torch.utils.audiodec import assign_model
+from dl_speech_enhancement_tpu_torch.utils.audiodec import (
+    assign_model,
+    load_generator_from_checkpoint,
+)
 from dl_speech_enhancement_tpu_torch.utils.checks import rvq_near_ties
 from dl_speech_enhancement_tpu_torch.utils.config import load_config
 from dl_speech_enhancement_tpu_torch.utils.model_factory import build_discriminator
@@ -457,6 +496,15 @@ RECIPE_CUTS = [
     "log_interval_steps 100 -> 3",
     "course CLI: epochs 500 -> 1 (LAPTOP: 3 batches of 4 an epoch, as the CLI sets it)",
 ]
+# phase 8: evaluation and the reference's checkpoints
+FLAGSHIP_CONFIG = os.path.join(REPO, "configs", "denoise", "symAD_custom.yaml")
+TEST_CLIPS = 4  # cli.test's clips
+EVAL_ATOL = 2e-4  # 8b / 8c: card against CPU, of the largest sample (plus one PCM16 step)
+METRIC_EXACT = 1e-10  # STOI, ESTOI, SDR: the same float64 numpy on both
+METRIC_DB = 1e-4  # SNR, SI-SDR (f32)
+METRIC_MEL_RTOL = 1e-5
+DNSMOS_ATOL = 1e-4
+LOADER_BATCHES = 2  # 8f: the denoise loader's batches timed per reader and pass
 
 KERNELS = {
     "residual_chain": {
@@ -3322,6 +3370,454 @@ def recipe_routes(codec, vq):
     return {k: v for k, v in launches.items() if v is not None}, checks
 
 
+# ------------------------------------ evaluation and the reference's checkpoints
+
+
+def onnx_writer():
+    """tests/onnx_writer.py (numpy only; no part of the JAX package), the
+    ONNX encoder the interpreter's checks build their graphs with."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "onnx_writer", os.path.join(REPO, "tests", "onnx_writer.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def dnsmos_standins(root: str, seed: int = SEED) -> tuple[str, str]:
+    """Two seeded stand-ins for the DNSMOS graphs, which are not in the
+    repository, at the real graphs' interfaces, written as ``root/DNSMOS/
+    sig_bak_ovr.onnx`` and ``root/DNSMOS/model_v8.onnx`` (the layout
+    ``eval/dnsmos.py::default_model_paths`` reads):
+
+    - primary: (N, 144160) -> (N, 3): the audio as (N, 1, 901, 160), a
+      strided 3 x 3 conv to 4 channels, ReLU, 2 x 2 max pool, global
+      average pool, a dense layer, 1 + 4 sigmoid;
+    - P.808: (N, 900, 120) -> (N, 1) (the mel front end's frames of a
+      segment): unsqueezed to NCHW, a padded conv,
+      ReLU, a max pool with asymmetric pads, a max over time and mels, a
+      dense layer, 1 + 4 sigmoid.
+
+    Returns the two paths."""
+    ow = onnx_writer()
+    rng = np.random.default_rng(seed)
+
+    def w(*shape, scale=0.3):
+        return (scale * rng.standard_normal(shape)).astype(np.float32)
+
+    def head(x, dense, bias, out):
+        return [ow.node("MatMul", [x, dense], ["hd"]), ow.node("Add", ["hd", bias], ["ha"]),
+                ow.node("Sigmoid", ["ha"], ["hs"]), ow.node("Mul", ["hs", "four"], ["hm"]),
+                ow.node("Add", ["hm", "one"], [out])]
+
+    consts = {"four": np.full((1,), 4.0, np.float32), "one": np.ones((1,), np.float32)}
+    d = os.path.join(root, "DNSMOS")
+    os.makedirs(d, exist_ok=True)
+    primary = ow.write_model(
+        os.path.join(d, "sig_bak_ovr.onnx"),
+        [ow.node("Reshape", ["input_1", "shape"], ["x4"]),
+         ow.node("Conv", ["x4", "w1", "b1"], ["c1"], strides=[2, 2], auto_pad=b"VALID"),
+         ow.node("Relu", ["c1"], ["r1"]),
+         ow.node("MaxPool", ["r1"], ["p1"], kernel_shape=[2, 2], strides=[2, 2]),
+         ow.node("GlobalAveragePool", ["p1"], ["g"]),
+         ow.node("Flatten", ["g"], ["f"], axis=1), *head("f", "wd", "bd", "Identity_0")],
+        {"shape": np.asarray([-1, 1, 901, 160], np.int64), "w1": w(4, 1, 3, 3, scale=1.0),
+         "b1": w(4, scale=0.1), "wd": w(4, 3, scale=1.0), "bd": w(3, scale=0.1), **consts},
+        ["input_1"], ["Identity_0"])
+    p808 = ow.write_model(
+        os.path.join(d, "model_v8.onnx"),
+        [ow.node("Unsqueeze", ["input_1"], ["x4"], axes=[1]),
+         ow.node("Conv", ["x4", "w1", "b1"], ["c1"], pads=[1, 1, 1, 1]),
+         ow.node("Relu", ["c1"], ["r1"]),
+         ow.node("MaxPool", ["r1"], ["p1"], kernel_shape=[3, 3], strides=[2, 2],
+                 pads=[0, 0, 1, 1]),
+         ow.node("ReduceMax", ["p1"], ["m"], axes=[2, 3], keepdims=0),
+         *head("m", "wd", "bd", "Identity_0")],
+        {"w1": w(4, 1, 3, 3), "b1": w(4, scale=0.1), "wd": w(4, 1, scale=2.0),
+         "bd": w(1, scale=0.1), **consts},
+        ["input_1"], ["Identity_0"])
+    return primary, p808
+
+
+def state_equal(a, b) -> bool:
+    """Two loaded checkpoint states equal: the same keys, tensors bit for bit."""
+    if isinstance(a, dict):
+        return isinstance(b, dict) and a.keys() == b.keys() and all(
+            state_equal(a[k], b[k]) for k in a)
+    if isinstance(a, torch.Tensor):
+        return isinstance(b, torch.Tensor) and a.dtype == b.dtype and torch.equal(a, b)
+    return a == b
+
+
+def write_config(path: str, cfg: dict) -> str:
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    return path
+
+
+def reference_checkpoints(root, codec, vq, voc):
+    """8a: the full-width codec (with the warm-up codebooks and a seeded
+    discriminator, framework format) and the v1 vocoder (with its
+    statistics, course format) out through ``cli.export_checkpoint`` and
+    back through ``cli.import_checkpoint`` on the card: each imported state
+    bit for bit the exported one. Then CLI_SECONDS of audio streamed through
+    ``cli.stream --checkpoint`` (the fused streamer, the kernel route) from
+    the original and from the imported codec checkpoint, and through
+    ``make_scan_stream(...).run_with_codes`` with each's modules: the audio
+    and the wire codes bit for bit. Returns (launches by run, report,
+    paths)."""
+    report, launches, paths = {}, {}, {}
+    cfg = load_config(CODEC_CONFIG)
+    disc = build_discriminator(cfg["model_type"], cfg["discriminator_params"], device=DEVICE,
+                               seed=SEED + 90)
+    ckpt = os.path.join(root, "port", "codec", "checkpoint-1000steps")
+    save_checkpoint(ckpt, {"params_generator": codec.state_dict(), "vq_state": vq,
+                           "params_discriminator": disc.state_dict(), "steps": 1000,
+                           "epochs": 3}, cfg)
+    del disc
+    vcfg = load_config(VOCODER_CONFIG)
+    stats_path = os.path.join(root, "stats", "v1.npy")
+    os.makedirs(os.path.dirname(stats_path))
+    np.save(stats_path, torch.stack([voc.mean, voc.scale]).cpu().numpy())
+    vckpt = os.path.join(root, "port", "vocoder", "checkpoint-500000steps")
+    save_checkpoint(vckpt, {"params_generator": voc.state_dict()},
+                    dict(vcfg, generator_params=dict(vcfg["generator_params"],
+                                                     stats=stats_path)))
+    imported = {"codec": os.path.join(root, "imported", "codec", "checkpoint-1000steps"),
+                "vocoder": os.path.join(root, "imported", "vocoder", "checkpoint-500000steps")}
+    imported_stats = os.path.join(os.path.dirname(imported["vocoder"]), "stats_imported.npy")
+    configs = {"codec": CODEC_CONFIG, "vocoder": write_config(
+        os.path.join(root, "configs", "v1.yaml"),
+        dict(vcfg, generator_params=dict(vcfg["generator_params"], stats=imported_stats)))}
+    for name, src, fmt in (("codec", ckpt, "framework"), ("vocoder", vckpt, "course")):
+        pkl = os.path.join(root, "reference", f"{name}.pkl")
+        t0 = time.perf_counter()
+        export_cli.main(["--checkpoint", src, "--out", pkl, "--format", fmt])
+        t1 = time.perf_counter()
+        import_cli.main(["--checkpoint", pkl, "--config", configs[name], "--out",
+                         imported[name]])
+        t2 = time.perf_counter()
+        saved = torch.load(pkl, map_location="cpu", weights_only=True)
+        want, got = load_checkpoint(src), load_checkpoint(imported[name])
+        require(state_equal(want, got), f"8a {name}: the imported state is not the exported "
+                f"one (keys {sorted(want)} / {sorted(got)})")
+        report[name] = {
+            "format": fmt, "export_s": t1 - t0, "import_s": t2 - t1,
+            "pickle_bytes": os.path.getsize(pkl),
+            "generator_tensors": len(saved["model"]["generator"] if fmt == "framework"
+                                     else saved),
+            "state_keys": sorted(got)}
+        log(f"8a {name}: {json.dumps(report[name])}")
+    require(np.array_equal(np.load(imported_stats), np.load(stats_path)),
+            "8a: the vocoder's imported statistics differ")
+
+    n = CLI_SECONDS * SAMPLE_RATE // FRAME
+    audio = frames_for(n, SEED + 81)[:, 0, :, 0]
+    wav_in = os.path.join(root, "stream_in.wav")
+    write_wav(wav_in, audio.reshape(-1).cpu().numpy(), SAMPLE_RATE)
+    frames = torch.from_numpy(read_wav(wav_in)[0][:, 0]).to(DEVICE).reshape(n, 1, FRAME, 1)
+    outs, streams = {}, {}
+    for name, path in (("original", ckpt), ("imported", imported["codec"])):
+        out = os.path.join(root, f"stream_{name}.wav")
+        stats, launches[f"8a cli --checkpoint ({name})"] = counted(
+            f"8a cli --checkpoint ({name})", LAUNCHES_PER_DISPATCH["codec"], n + 2,
+            CODEC_KERNELS,
+            lambda: stream_cli.main(["--checkpoint", path, "-i", wav_in, "-o", out,
+                                     "--max-latency", str(CLI_MAX_LATENCY)]))
+        require(stats["frames"] == n and stats["frame_drops"] == 0,
+                f"8a cli --checkpoint ({name}): {stats}")
+        outs[name] = produced(read_wav(out)[0][:, 0], n)
+        gen, gen_vq, _ = load_generator_from_checkpoint(path, device=DEVICE)
+        streams[name] = stream_codes(make_scan_stream(gen, gen_vq, frame_size=FRAME), frames,
+                                     MAIN_FRAMES if sum(MAIN_FRAMES) == n else (n,))
+        report[f"stream_{name}"] = {"fused_ms_mean": stats["fused_ms_mean"]}
+        del gen, gen_vq
+    require(np.array_equal(outs["original"], outs["imported"]),
+            "8a: cli.stream of the imported codec differs from the original's")
+    require(all(torch.equal(a, b) for a, b in zip(streams["original"], streams["imported"])),
+            "8a: the imported codec's stream (audio or codes) differs from the original's")
+    report["stream"] = {"frames": n, "cli_audio_bit_equal": True,
+                        "scan_stream_audio_and_codes_bit_equal": True}
+    log(f"8a streams: {n} frames, the imported codec's audio and codes bit for bit the "
+        "original's")
+    paths.update(codec=imported["codec"], vocoder=imported["vocoder"])
+    return launches, report, paths
+
+
+def offline_codes(gen, vq, x):
+    """The analyzer's projector output (B, T, D) and flat codes (T, B, L)
+    of ``x`` (B, T_audio, 1), as held_codes takes them; cli.test's and the
+    composite's encode, project and quantize."""
+    with torch.no_grad():
+        z = gen.projector(gen.encoder(x))
+        codes = gen.quantizer.inference(vq, z)[1]
+    k = vq.embed.shape[2]
+    flat = codes.permute(2, 1, 0) + torch.arange(codes.shape[0], device=codes.device) * k
+    return z, flat.to(torch.int32)
+
+
+def held_audio(what, got, ref, agree_samples=None) -> dict:
+    """``got`` within EVAL_ATOL of ``ref``'s largest sample plus one PCM16
+    step, over the first ``agree_samples`` (where the codes agree)."""
+    got, ref = np.asarray(got)[:agree_samples], np.asarray(ref)[:agree_samples]
+    require(got.shape == ref.shape, f"{what}: shapes {got.shape} / {ref.shape}")
+    scale = float(np.abs(ref).max())
+    err = float(np.abs(got - ref).max())
+    require(err <= EVAL_ATOL * scale + PCM16_STEP, f"{what}: max|err| {err:.3e} against "
+            f"{EVAL_ATOL} x {scale:.3e} + one PCM16 step")
+    return {"max_abs_err": err, "max_abs_ref": scale, "samples": int(got.shape[0])}
+
+
+def codec_test_phase(root, codec_ckpt, clip_dir):
+    """8b: ``cli.test`` on the imported codec over TEST_CLIPS clips, on the
+    card and on the CPU: the projector's output within EVAL_ATOL, the codes
+    up to near ties (CODE_RTOL), the wavs within EVAL_ATOL of the largest
+    sample where the codes agree; the RTF per clip and the mean."""
+    outs = {d: os.path.join(root, f"codec_test_{d}") for d in ("cuda", "cpu")}
+    runs = {}
+    for d in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        runs[d], _ = counted(f"8b cli.test ({d})", 0, 0, (), lambda: codec_test_cli.main(
+            ["--encoder", codec_ckpt, "--input", clip_dir, "--output", outs[d],
+             "--subset-num", str(TEST_CLIPS), "--device", d]))
+        runs[d]["wall_s"] = time.perf_counter() - t0
+    require(sorted(runs["cuda"]["rtf"]) == sorted(runs["cpu"]["rtf"])
+            and len(runs["cuda"]["rtf"]) == TEST_CLIPS, f"8b: clips {runs}")
+    models = {d: load_generator_from_checkpoint(codec_ckpt, device=d)[:2]
+              for d in ("cuda", "cpu")}
+    tables = vq_tables(models["cuda"][1], DEVICE)
+    checks = {}
+    for utt in sorted(runs["cuda"]["rtf"]):
+        audio = read_wav(os.path.join(clip_dir, f"{utt}.wav"))[0]
+        hop = models["cpu"][0].hop
+        t = (audio.shape[0] // hop) * hop
+        x = torch.from_numpy(audio[None, :t, :1].copy())
+        z, codes = offline_codes(*models["cuda"], x.to(DEVICE))
+        z_cpu, codes_cpu = offline_codes(*models["cpu"], x)
+        z_err = float((z.cpu() - z_cpu).abs().max())
+        require(z_err <= EVAL_ATOL, f"8b {utt}: projector output max|err| {z_err:.3e}")
+        held, agree = held_codes(f"8b {utt} codes", z.transpose(0, 1), tables, codes,
+                                 codes_cpu.to(DEVICE))
+        wav = f"{utt}_output.wav"
+        checks[utt] = {
+            "projector_max_abs_err": z_err, "max_abs_z": float(z_cpu.abs().max()),
+            "near_tie_rows": held["ties"], "frames": int(codes.shape[0]),
+            "audio": held_audio(f"8b {utt} audio", read_wav(os.path.join(outs["cuda"], wav))[0],
+                                read_wav(os.path.join(outs["cpu"], wav))[0],
+                                agree * hop),
+            "rtf_cuda": runs["cuda"]["rtf"][utt], "rtf_cpu": runs["cpu"]["rtf"][utt]}
+    report = {"clips": checks, "mean_rtf_cuda": runs["cuda"]["mean_rtf"],
+              "mean_rtf_cpu": runs["cpu"]["mean_rtf"],
+              "wall_s": {d: runs[d]["wall_s"] for d in runs}}
+    log(f"8b cli.test: {json.dumps(report)}")
+    return report
+
+
+def denoise_test_phase(root, codec_ckpt, voc_ckpt):
+    """8c: ``cli.testing_denoise -e LAPTOP`` with a seeded full-width flagship
+    (FLAGSHIP_CONFIG, without PQC) and the ``AD`` composite of 8a's imported
+    codec and vocoder, on the card and on the CPU: every wav within
+    EVAL_ATOL of its CPU twin's largest sample (the composite's where its
+    codes agree, up to near ties); the wall time per clip."""
+    cfg = load_config(FLAGSHIP_CONFIG)
+    flagship = AudioDecGenerator(**cfg["generator_params"], use_pqc=False, seed=SEED + 91,
+                                 device=DEVICE)
+    flag_ckpt = os.path.join(root, "port", "flagship", "checkpoint-1")
+    save_checkpoint(flag_ckpt, {"params_generator": flagship.state_dict()}, cfg)
+    del flagship
+    course = os.path.join(root, "course")
+    codes, original = {"cuda": [], "cpu": []}, testing_cli.ad_model
+    run_on = []  # the device of the run in progress
+
+    def recording(analyzer, vq, vocoder):
+        """The composite, its codes (and projector output) kept per batch."""
+        infer, hop = original(analyzer, vq, vocoder)
+
+        def run(x):
+            xs = torch.as_tensor(np.asarray(x, np.float32), device=analyzer.device)
+            codes[run_on[-1]].append(offline_codes(analyzer, vq, xs))
+            return infer(x)
+        return run, hop
+
+    outs, counts, wall = {}, {}, {}
+    testing_cli.ad_model = recording
+    try:
+        for d in ("cuda", "cpu"):
+            run_on.append(d)
+            outs[d] = os.path.join(root, f"test_out_{d}")
+            t0 = time.perf_counter()
+            counts[d], _ = counted(f"8c cli.testing_denoise ({d})", 0, 0, (),
+                                   lambda: testing_cli.main([
+                "-e", "LAPTOP", "-c", os.path.basename(FLAGSHIP_CONFIG),
+                "--config-dir", os.path.dirname(FLAGSHIP_CONFIG),
+                "--clean-path", os.path.join(course, "clean"),
+                "--noise-path", os.path.join(course, "noise"),
+                "--flagship", f"flagship={flag_ckpt}", "--vocoder", f"{voc_ckpt}:{codec_ckpt}",
+                "--out-dir", outs[d], "--device", d]))
+            wall[d] = time.perf_counter() - t0
+    finally:
+        testing_cli.ad_model = original
+    require(counts["cuda"] == counts["cpu"] and min(counts["cuda"].values()) > 0,
+            f"8c: wavs written {counts}")
+    analyzer, vq, _ = load_generator_from_checkpoint(codec_ckpt, device=DEVICE)
+    tables, hop = vq_tables(vq, DEVICE), analyzer.hop
+    del analyzer
+    agree, ties = {}, 0
+    for b, ((z, c), (_, c_cpu)) in enumerate(zip(codes["cuda"], codes["cpu"])):
+        held, frames = held_codes(f"8c AD batch {b} codes", z.transpose(0, 1), tables, c,
+                                  c_cpu.to(DEVICE))
+        ties += held["ties"]
+        per_clip = (c != c_cpu.to(DEVICE)).any(2)  # (T, B)
+        for i in range(c.shape[1]):
+            differ = per_clip[:, i].nonzero()
+            agree[b * c.shape[1] + i] = int(differ[0, 0]) if differ.numel() else None
+    checks = {}
+    for name in sorted(os.listdir(outs["cuda"])):
+        for wav in sorted(os.listdir(os.path.join(outs["cuda"], name))):
+            n = int(wav.split("-")[1].split(".")[0])
+            first = agree.get(n) if name == "AD" else None
+            checks[f"{name}/{wav}"] = held_audio(
+                f"8c {name}/{wav}", read_wav(os.path.join(outs["cuda"], name, wav))[0],
+                read_wav(os.path.join(outs["cpu"], name, wav))[0],
+                None if first is None else first * hop)
+    n_clips = sum(counts["cuda"].values())
+    report = {"written": counts["cuda"], "wavs": checks, "ad_near_tie_rows": ties,
+              "wall_s": wall, "wall_s_per_clip": {d: wall[d] / n_clips for d in wall}}
+    log(f"8c cli.testing_denoise: {json.dumps(report)}")
+    return report, outs["cuda"]
+
+
+def analyze_phase(test_out):
+    """8d: ``cli.analyze --eval-wavs`` on 8c's card output, each model's clip
+    against its clean one, on the card and on the CPU: STOI / ESTOI / SDR
+    within METRIC_EXACT, SNR / SI-SDR within METRIC_DB, Mel-L1 within
+    METRIC_MEL_RTOL."""
+    clips = sorted(os.listdir(os.path.join(test_out, "clean")))
+    printed = analyze_cli.main(["--clean", os.path.join(test_out, "clean", clips[0]),
+                                "--eval-wavs", os.path.join(test_out, "flagship", clips[0])])
+    require(all(np.isfinite(v) for b in printed.values() for v in b.values()),
+            f"8d: {printed}")
+    worst = {"exact": 0.0, "db": 0.0, "mel_rel": 0.0}
+    batteries, secs = {}, {"cuda": 0.0, "cpu": 0.0}
+    for clip in clips:
+        wavs = [os.path.join(test_out, m, clip) for m in ("flagship", "AD", "noisy")]
+        got = {}
+        for d in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            got[d] = analyze_cli.eval_wavs(os.path.join(test_out, "clean", clip), wavs,
+                                           device=d)
+            secs[d] += time.perf_counter() - t0
+        for path in wavs:
+            a, b = got["cuda"][path], got["cpu"][path]
+            worst["exact"] = max(worst["exact"], *(abs(a[k] - b[k])
+                                                   for k in ("STOI", "ESTOI", "SDR")))
+            worst["db"] = max(worst["db"], *(abs(a[k] - b[k]) for k in ("SI-SDR", "SNR")))
+            worst["mel_rel"] = max(worst["mel_rel"], abs(a["Mel-L1"] - b["Mel-L1"])
+                                   / abs(b["Mel-L1"]))
+            batteries[os.path.relpath(path, test_out)] = a
+    require(worst["exact"] <= METRIC_EXACT and worst["db"] <= METRIC_DB
+            and worst["mel_rel"] <= METRIC_MEL_RTOL, f"8d: card against CPU {worst}")
+    report = {"worst_card_vs_cpu": worst, "batteries": batteries,
+              "seconds_per_wav": {d: secs[d] / len(batteries) for d in secs}}
+    log(f"8d cli.analyze --eval-wavs: {json.dumps(report)}")
+    return report
+
+
+def dnsmos_phase(root, test_out):
+    """8e: ``cli.dnsmos`` on 8c's output with the two stand-in graphs at the
+    real interfaces, on the card and on the CPU: every score within
+    DNSMOS_ATOL; the time per clip."""
+    dnsmos_standins(root)
+    rows, secs = {}, {}
+    for d in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        rows[d], _ = counted(f"8e cli.dnsmos ({d})", 0, 0, (), lambda: dnsmos_cli.main(
+            ["-t", test_out, "-o", os.path.join(root, f"dnsmos_{d}.csv"), "--model-dir", root,
+             "--device", d]))
+        secs[d] = time.perf_counter() - t0
+    n = len(rows["cuda"])
+    require(n == len(rows["cpu"]) and n > 0, f"8e: {n} / {len(rows['cpu'])} clips scored")
+    keys = ("OVRL", "SIG", "BAK", "P808_MOS", "OVRL_raw", "SIG_raw", "BAK_raw")
+    worst = max(abs(a[k] - b[k]) for a, b in zip(rows["cuda"], rows["cpu"]) for k in keys)
+    require(all(a["filename"] == b["filename"] for a, b in zip(rows["cuda"], rows["cpu"])),
+            "8e: the clips differ")
+    require(worst <= DNSMOS_ATOL, f"8e: card against CPU max|err| {worst:.3e}")
+    report = {"clips": n, "max_abs_err_card_vs_cpu": worst,
+              "seconds_per_clip": {d: secs[d] / n for d in secs},
+              "model_means": dnsmos_cli.model_means(rows["cuda"])}
+    log(f"8e cli.dnsmos: {json.dumps(report)}")
+    return report
+
+
+def loader_costs(loader, n_batches: int) -> dict:
+    """ms a batch of ``loader``'s reads (its dataset's items) and of its
+    collater's crop, on this thread, for its first ``n_batches`` batches in
+    order."""
+    bs, reads, crops = loader.batch_size, 0.0, 0.0
+    for b in range(n_batches):
+        t0 = time.perf_counter()
+        items = [loader.dataset[i] for i in range(b * bs, (b + 1) * bs)]
+        t1 = time.perf_counter()
+        loader.collate_fn(items)
+        crops += time.perf_counter() - t1
+        reads += t1 - t0
+    return {"read_ms_per_batch": reads / n_batches * 1e3,
+            "crop_ms_per_batch": crops / n_batches * 1e3}
+
+
+def native_phase(root, recipe_report):
+    """8f: the native library (data/native.py) is built and loaded; phase
+    7d's denoise loader (16 pairs of 96000-sample crops a batch, each a
+    clean and a noisy wav read) timed per batch through the native reader
+    and crop and through the plain versions (the Python reader and numpy),
+    two passes each in turn, over files just written (warm in the file
+    cache); and the 7d run's loader wait share, read through the native
+    library."""
+    require(native.available(), "8f: the native library did not build or load")
+    cfg = load_config(recipe_config(root, CONFIG))
+    costs = {"native": [], "plain": []}
+    saved = (native._LIB, native._TRIED)
+    for _ in range(2):
+        for reader in ("native", "plain"):
+            if reader == "plain":
+                native._LIB, native._TRIED = None, True
+            try:
+                loader = train_cli.build_data_loaders(cfg, "denoise", RECIPE_LENGTH)["train"]
+                costs[reader].append(loader_costs(loader, LOADER_BATCHES))
+            finally:
+                native._LIB, native._TRIED = saved
+    report = {"available": True, "library": str(native.library_path().name),
+              "reader_in_phase_7": "native" if saved[0] is not None else "plain",
+              "loader_costs": costs,
+              "phase_7d_loader_wait_share": recipe_report["7d_denoise"]["loader_wait_share"],
+              "phase_7d_step_median_ms": recipe_report["7d_denoise"]["16 x 96000"][
+                  "step_median_ms"]}
+    log(f"8f native: {json.dumps(report)}")
+    return report
+
+
+def evaluation_phase(codec, vq, voc, recipe_report):
+    """Phase 8, 8a-8f, in a temporary directory: the corpus of phase 7
+    written anew (write_recipe_corpus). Returns (launches by run, report)."""
+    with tempfile.TemporaryDirectory() as root:
+        write_recipe_corpus(root)
+        launches, report = {}, {}
+        runs, report["8a_reference_checkpoints"], paths = reference_checkpoints(
+            root, codec, vq, voc)
+        launches.update(runs)
+        clip_dir = os.path.join(root, "corpus",
+                                load_config(CODEC_CONFIG)["data"]["subset"]["clean_valid"])
+        report["8b_cli_test"] = codec_test_phase(root, paths["codec"], clip_dir)
+        report["8c_cli_testing_denoise"], test_out = denoise_test_phase(
+            root, paths["codec"], paths["vocoder"])
+        report["8d_cli_analyze"] = analyze_phase(test_out)
+        report["8e_cli_dnsmos"] = dnsmos_phase(root, test_out)
+        report["8f_native"] = native_phase(root, recipe_report)
+    return launches, report
+
+
 # ---------------------------------------------------------------- times
 
 
@@ -3800,6 +4296,12 @@ def main() -> int:
     stamp("phase 7, the AudioDec recipe")
     by_path.update(recipe_launches)
 
+    log("phase 8: evaluation and the reference's checkpoints (export / import, cli.test, "
+        "cli.testing_denoise, cli.analyze, cli.dnsmos, the native library)")
+    eval_launches, eval_report = evaluation_phase(codec, vq, voc, recipe_report)
+    stamp("phase 8, evaluation and the reference's checkpoints")
+    by_path.update(eval_launches)
+
     name_power = card()
     entries = []
     for name in SERVING_KERNELS:
@@ -3936,6 +4438,7 @@ def main() -> int:
                                            "step_routes": adv_checks, "loop": adv_loop,
                                            "times": adv_times},
                            "recipe": recipe_report},
+              "evaluation": eval_report,
               "kernel_sites": {str(n): {k: v["sites"] for k, v in agg.items()}
                                for n, agg in ktimes.items()},
               "codec_kernel_sites": {str(n): {k: v["sites"] for k, v in agg.items()}

@@ -1,11 +1,10 @@
 """Host-side audio file I/O and resampling (no libsndfile available).
 
-The port's own copy of dl_speech_enhancement_tpu/data/audio_io.py: a
-pure-Python RIFF parser, stdlib ``wave`` for writing and scipy polyphase
-resampling. The JAX package's native C++ decoder (data/native.py, bound to
-the pre-port native/libdlse_native.so) is not carried over; its files are
-the same. Covers PCM16/PCM24/PCM32/float32 WAV; output is float32 in
-[-1, 1], shaped (T, C).
+The port's own copy of dl_speech_enhancement_tpu/data/audio_io.py: wav
+read and write through the native library (data/native.py) where it is
+built, else a pure-Python RIFF parser and stdlib ``wave`` (the plain
+versions, the same bits); scipy polyphase resampling. Covers
+PCM16/PCM24/PCM32/float32 WAV; output is float32 in [-1, 1], shaped (T, C).
 """
 
 from __future__ import annotations
@@ -17,13 +16,21 @@ import wave
 import numpy as np
 from scipy.signal import resample_poly
 
+from dl_speech_enhancement_tpu_torch.data import native
+
 
 def read_wav(path: str) -> tuple[np.ndarray, int]:
     """Returns (audio (T, C) float32, sample_rate).
 
-    A self-contained Python RIFF parser: PCM (format 1), IEEE float (format
-    3), and WAVE_FORMAT_EXTENSIBLE (0xFFFE); stdlib ``wave`` rejects float
-    wavs, which the DNS noise corpus uses."""
+    The native decoder where it is built, else :func:`read_wav_plain`."""
+    result = native.read_wav(path)
+    return read_wav_plain(path) if result is None else result
+
+
+def read_wav_plain(path: str) -> tuple[np.ndarray, int]:
+    """A self-contained Python RIFF parser: PCM (format 1), IEEE float
+    (format 3), and WAVE_FORMAT_EXTENSIBLE (0xFFFE); stdlib ``wave`` rejects
+    float wavs, which the DNS noise corpus uses."""
     with open(path, "rb") as f:
         header = f.read(12)
         if header[:4] != b"RIFF" or header[8:12] != b"WAVE":
@@ -84,13 +91,20 @@ def read_wav(path: str) -> tuple[np.ndarray, int]:
 
 def write_wav(path: str, audio: np.ndarray, sample_rate: int, subtype: str = "PCM_16"):
     """Write float32 (T,) or (T, C) audio as PCM WAV (default PCM_16, matching
-    the reference's sf.write(..., subtype='PCM_16'), bin/test.py:103)."""
+    the reference's sf.write(..., subtype='PCM_16'), bin/test.py:103): the
+    native encoder where it is built, else :func:`write_wav_plain`."""
     if subtype != "PCM_16":
         raise NotImplementedError(subtype)
+    if not native.write_wav(path, audio, sample_rate):
+        write_wav_plain(path, audio, sample_rate)
+
+
+def write_wav_plain(path: str, audio: np.ndarray, sample_rate: int):
+    """PCM16 through stdlib ``wave``, rounding half to even as the native
+    encoder does."""
     a = np.asarray(audio, np.float32)
     if a.ndim == 1:
         a = a[:, None]
-    # round half to even, as the JAX package's native encoder does
     pcm = np.clip(np.round(a * 32768.0), -32768, 32767).astype("<i2")
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with wave.open(path, "wb") as f:

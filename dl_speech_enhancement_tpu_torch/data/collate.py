@@ -4,8 +4,8 @@ The port's own copy of dl_speech_enhancement_tpu/data/collate.py (reference
 dataloader/collater.py:18-87): clips no longer than ``batch_length`` are
 left out and the others cropped at a random offset to exactly
 ``batch_length`` samples; the pair variant crops both signals at the same
-offsets. The crop is numpy slicing: the same bits as the JAX package's
-native batched crop, whose port is still to come (ROADMAP).
+offsets. The crop is the native library's batched copy (data/native.py)
+where it is built, else numpy slicing (its plain version, the same bits).
 
 Layout: batches are (B, T, C), channels last, as the port's generators and
 discriminators take them (the reference emits (B, C, T)).
@@ -14,6 +14,8 @@ discriminators take them (the reference emits (B, C, T)).
 from __future__ import annotations
 
 import numpy as np
+
+from dl_speech_enhancement_tpu_torch.data import native
 
 
 class CollaterAudio:
@@ -29,6 +31,10 @@ class CollaterAudio:
         return self._cut(xs, starts)
 
     def _cut(self, xs, starts) -> np.ndarray:
+        out = native.crop_batch(xs, np.asarray(starts, np.int64), self.batch_length)
+        return self._cut_plain(xs, starts) if out is None else out
+
+    def _cut_plain(self, xs, starts) -> np.ndarray:
         return np.stack([x[s:s + self.batch_length] for x, s in zip(xs, starts)]).astype(
             np.float32, copy=False)
 

@@ -49,6 +49,7 @@ from dl_speech_enhancement_tpu_torch.train.checkpoint import (
 from dl_speech_enhancement_tpu_torch.utils import audiodec
 from test_torch_port_hifigan import MRF
 from test_torch_port_vocoder import CODEC_SMALL, VOC_PAIRED, _codecs, _jnp, _vocoders
+from torch_port_threads import one_thread  # noqa: F401
 
 ATOL = 2e-5
 PCM16_STEP = 1.0 / 32768

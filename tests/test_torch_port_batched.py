@@ -54,6 +54,7 @@ from dl_speech_enhancement_tpu_torch.utils.jax_params import (
     from_jax_params,
     vq_state_from_jax,
 )
+from torch_port_threads import one_thread  # noqa: F401
 
 PQC_TOPOLOGY = dict(SMALL_TOPOLOGY, codebook_num=3)
 REPO = os.path.join(os.path.dirname(__file__), "..")

@@ -25,6 +25,7 @@ from dl_speech_enhancement_tpu_torch.models import AudioDecGenerator
 from dl_speech_enhancement_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
 from dl_speech_enhancement_tpu_torch.train.denoise_course import train_denoise_course
 from test_cli import MEL_TINY, SR, TINY_DISC, TINY_GEN, _base_config
+from torch_port_threads import one_thread  # noqa: F401
 
 CPU = ["--device", "cpu"]
 VOC_GEN = {"in_channels": 16, "out_channels": 1, "channels": 32, "kernel_size": 7,
@@ -44,17 +45,6 @@ COURSE = {"sample_rate": SR, "initial_model": "", "step": 0, "experiment_name": 
           "generator_optimizer_params": {"lr": 1e-3, "betas": [0.5, 0.9]},
           "discriminator_optimizer_params": {"lr": 1e-3, "betas": [0.5, 0.9]},
           "generator_grad_norm": -1, "discriminator_grad_norm": -1, "batch_size": 2}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """Tiny models' ops on one thread: under several test workers on a few
-    cores, torch's spinning thread pool slows each op by an order of
-    magnitude."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def write_corpus(root, n=6, seconds=1.2):

@@ -1423,3 +1423,60 @@ def test_prefetch_to_device_keeps_each_batch_while_the_card_is_busy(card, size):
         got = [next(it), next(it)]
         it.close()
         held(got, pair)
+
+
+# ---------------------------------------------------------------- evaluation
+
+
+def test_onnx_interpreter_on_the_card_matches_the_cpu(card, tmp_path):
+    """The DNSMOS stand-ins and the DNSMOS scorer on the card against the
+    CPU: the interpreter's outputs within 1e-5, the scores within 1e-4."""
+    from chip_smoke import dnsmos_standins
+    from dl_speech_enhancement_tpu_torch.eval.dnsmos import ComputeScore
+    from dl_speech_enhancement_tpu_torch.eval.onnx_torch import OnnxModel
+
+    rng = np.random.default_rng(0)
+    primary, p808 = dnsmos_standins(str(tmp_path))
+    for path, x in ((primary, 0.1 * rng.standard_normal((3, 144160))),
+                    (p808, rng.uniform(-1.0, 1.0, (3, 900, 120)))):
+        x = x.astype(np.float32)
+        on_card = OnnxModel(path, device="cuda")(x)[0]
+        assert on_card.device.type == "cuda"
+        want = OnnxModel(path, device="cpu")(x)[0]
+        torch.testing.assert_close(on_card.cpu(), want, rtol=0, atol=1e-5)
+    audio = (0.2 * rng.standard_normal(16000 * 11)).astype(np.float32)
+    got = ComputeScore(primary, p808, device="cuda")(audio)
+    want = ComputeScore(primary, p808, device="cpu")(audio)
+    for k in ("OVRL", "SIG", "BAK", "P808_MOS"):
+        assert abs(got[k] - want[k]) <= 1e-4, k
+
+
+def test_native_loader_under_prefetch_to_device(card, tmp_path):
+    """The native reader and crop (data/native.py, built at first use)
+    behind the loader thread and ``prefetch_to_device``: every device batch
+    equals, bit for bit, the plain versions' batch of the same seed."""
+    from dl_speech_enhancement_tpu_torch.data import (
+        AudioDataset,
+        get_dataloaders,
+        native,
+        write_wav,
+    )
+    from dl_speech_enhancement_tpu_torch.data.loader import prefetch_to_device
+
+    assert native.available()
+    rng = np.random.default_rng(1)
+    for i in range(24):
+        write_wav(str(tmp_path / "c" / f"u{i:02d}.wav"),
+                  (0.3 * rng.standard_normal(int(48000 * rng.uniform(2.5, 4.0))))
+                  .astype(np.float32), 48000)
+    ds = AudioDataset(str(tmp_path / "c"), "c", 48000)
+    loader = get_dataloaders(ds, [0.7, 0.15, 0.15], 4, 96000, 0)[0]
+    got = [t.cpu() for t in prefetch_to_device(iter(loader), size=2, device="cuda")]
+    saved = (native._LIB, native._TRIED)
+    native._LIB, native._TRIED = None, True
+    try:
+        want = list(get_dataloaders(ds, [0.7, 0.15, 0.15], 4, 96000, 0)[0])
+    finally:
+        native._LIB, native._TRIED = saved
+    assert len(got) == len(want) == 4
+    assert all(torch.equal(g, torch.from_numpy(w)) for g, w in zip(got, want))

@@ -2,8 +2,8 @@
 seeded wav tree (written with the port's ``write_wav``) and seeds through
 both packages' ``AudioDataset`` / ``SingleDataset`` / ``MultiDataset``,
 collaters, ``DataLoader`` and ``get_dataloaders`` give bit-equal batches in
-the same order (the JAX collaters crop through the native library where it
-is built, the port with numpy); ``random_split`` has the same membership;
+the same order (both packages' collaters crop through the native library
+where it is built); ``random_split`` has the same membership;
 an exception in the dataset reaches the consumer; ``prefetch_to_device`` on
 the CPU hands the batches on unchanged."""
 

@@ -53,6 +53,7 @@ from dl_speech_enhancement_tpu_torch.utils.jax_params import (
 from dl_speech_enhancement_tpu_torch.utils.model_factory import build_discriminator
 from test_torch_port_hifigan import seeded_init
 from test_torch_port_train import TINY_DISC
+from torch_port_threads import one_thread  # noqa: F401
 
 FEAT_RTOL = 1e-5
 SPECTRAL_RTOL = 1e-4

@@ -15,6 +15,7 @@ import jax.numpy as jnp
 import torch
 
 from dl_speech_enhancement_tpu_torch.dsp import mel, stft
+from torch_port_threads import one_thread  # noqa: F401
 
 # the JAX package's dsp/__init__.py exports functions named like its modules
 jmel = importlib.import_module("dl_speech_enhancement_tpu.dsp.mel")

@@ -30,6 +30,7 @@ from dl_speech_enhancement_tpu_torch.ops.stream_kernel import (
 )
 from dl_speech_enhancement_tpu_torch.tools import reshape_probe
 from dl_speech_enhancement_tpu_torch.utils.jax_params import load_conv
+from torch_port_threads import one_thread  # noqa: F401
 
 ATOL = 2e-5
 HALO = 78  # sum of (7 - 1) * d over dilations 1, 3, 9

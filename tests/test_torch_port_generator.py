@@ -21,6 +21,7 @@ from dl_speech_enhancement_tpu.utils.config import load_config as jax_load_confi
 from dl_speech_enhancement_tpu_torch.models import AudioDecGenerator
 from dl_speech_enhancement_tpu_torch.utils.config import load_config
 from dl_speech_enhancement_tpu_torch.utils.jax_params import from_jax_params
+from torch_port_threads import one_thread  # noqa: F401
 
 FLAGSHIP_CONFIG = os.path.join(os.path.dirname(__file__), "..", "configs", "denoise",
                                "symAD_vctk_48000_hop300.yaml")

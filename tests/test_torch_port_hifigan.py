@@ -36,6 +36,7 @@ from dl_speech_enhancement_tpu_torch.utils.jax_params import (
     load_conv,
     vocoder_from_jax_params,
 )
+from torch_port_threads import one_thread  # noqa: F401
 
 ATOL = 2e-5
 SMALL = dict(in_channels=8, out_channels=1, channels=16, kernel_size=7,

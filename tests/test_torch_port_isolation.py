@@ -35,7 +35,10 @@ def test_port_has_the_slice_modules():
                 "data.dataset", "data.collate", "data.loader", "train.gan_trainer",
                 "train.workloads", "train.workloads.autoencoder", "train.workloads.denoise",
                 "train.workloads.vocoder", "train.workloads.statistic", "cli.train",
-                "cli.statistic", "cli.train_denoise"):
+                "cli.statistic", "cli.train_denoise", "utils.torch_import",
+                "utils.torch_export", "cli.import_checkpoint", "cli.export_checkpoint", "eval",
+                "eval.metrics", "eval.onnx_graph", "eval.onnx_torch", "eval.dnsmos",
+                "cli.testing_denoise", "cli.test", "cli.analyze", "cli.dnsmos", "data.native"):
         assert f"dl_speech_enhancement_tpu_torch.{mod}" in names
 
 

@@ -23,6 +23,7 @@ from dl_speech_enhancement_tpu.train import criterion as jcrit
 from dl_speech_enhancement_tpu_torch import losses as tl
 from dl_speech_enhancement_tpu_torch.losses.stft_loss import STFTLoss
 from dl_speech_enhancement_tpu_torch.train import criterion as tcrit
+from torch_port_threads import one_thread  # noqa: F401
 
 RTOL = 1e-5
 GRAD_RTOL = 1e-5

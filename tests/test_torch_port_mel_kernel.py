@@ -23,6 +23,7 @@ from dl_speech_enhancement_tpu.ops.mel_kernel import (
     make_fused_stft_magnitude as jax_stft_magnitude,
 )
 from dl_speech_enhancement_tpu_torch.ops import mel_kernel
+from torch_port_threads import one_thread  # noqa: F401
 
 FWD_ATOL = 1e-4
 VJP_RTOL = 1e-5

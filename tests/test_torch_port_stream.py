@@ -26,6 +26,7 @@ from dl_speech_enhancement_tpu_torch.stream.runtime import (
     resolve_scan_backend,
 )
 from dl_speech_enhancement_tpu_torch.utils.jax_params import from_jax_params
+from torch_port_threads import one_thread  # noqa: F401
 
 ATOL = 2e-5
 

@@ -38,6 +38,7 @@ from dl_speech_enhancement_tpu_torch.train.denoise_course import (
     train_denoise_course,
 )
 from dl_speech_enhancement_tpu_torch.utils.jax_params import from_jax_params
+from torch_port_threads import one_thread  # noqa: F401
 
 SMALL = dict(encode_channels=8, decode_channels=8, code_dim=16, codebook_num=2,
              codebook_size=32, enc_ratios=(2, 4), dec_ratios=(4, 2),

@@ -51,6 +51,7 @@ from test_torch_port_train import (
     _port,
     _sine_batch,
 )
+from torch_port_threads import one_thread  # noqa: F401
 
 FRAG_RTOL = 1e-5
 PARAM_ATOL = 1e-6

@@ -49,6 +49,7 @@ from dl_speech_enhancement_tpu_torch.utils.jax_params import (
     vq_state_from_jax,
 )
 from test_torch_port_hifigan import MGC, MRF, rescaled, seeded_init
+from torch_port_threads import one_thread  # noqa: F401
 
 ATOL_SMALL = 2e-5
 ATOL_STACKED = 3e-5

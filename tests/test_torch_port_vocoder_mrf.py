@@ -62,6 +62,7 @@ from test_torch_port_vocoder import (
     _vocoders,
 )
 from test_torch_port_vocoder_v1 import _jax_codes
+from torch_port_threads import one_thread  # noqa: F401
 
 REPO = os.path.join(os.path.dirname(__file__), "..")
 ATOL_SMALL = 2e-5

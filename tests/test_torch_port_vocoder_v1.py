@@ -28,6 +28,7 @@ from dl_speech_enhancement_tpu_torch.stream.runtime import (
 )
 from dl_speech_enhancement_tpu_torch.utils.config import load_config
 from test_torch_port_vocoder import _codecs, _jnp, _seeded_stats, _vocoders
+from torch_port_threads import one_thread  # noqa: F401
 
 REPO = os.path.join(os.path.dirname(__file__), "..")
 ATOL_FLAGSHIP = 2e-4

@@ -59,6 +59,7 @@ from dl_speech_enhancement_tpu_torch.utils.jax_params import (
 from test_cli import MEL_TINY, TINY_DISC, TINY_GEN
 from test_torch_port_discriminator import TINY_UNIV, disc_params
 from test_torch_port_hifigan import rescaled, seeded_init
+from torch_port_threads import one_thread  # noqa: F401
 
 LR = 1e-3
 FRAG_RTOL = 1e-5
@@ -90,17 +91,6 @@ VOC_CONFIG = dict(CONFIG, use_stft_loss=True, lambda_stft_loss=45.0,
                   generator_train_start_steps=1, discriminator_train_start_steps=0)
 DN_CONFIG = dict(CONFIG, use_stft_loss=True, lambda_stft_loss=45.0,
                  stft_loss_params=VOC_CONFIG["stft_loss_params"])
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """Tiny models' ops on one thread: under several test workers on a few
-    cores, torch's spinning thread pool slows each op by an order of
-    magnitude."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _codebooks(gen, params, vq, x):
