@@ -197,6 +197,36 @@ failure exits non-zero before the result line):
    - 8f the native library (``data/native.py``, built with ``g++`` at first
      use) must load; phase 7d's denoise loader's read and crop per batch
      through it and through the plain versions, and 7d's loader wait share.
+9. slice 10: K3b's and K5's bf16 launch boundaries, the fleets, long audio
+   and the streamer's device split:
+   - 9a-9b four paths at bf16 weights, each with f32 and with bf16
+     boundaries, counted and every launch recorded (``Recorder``): the
+     denoiser and the codec through ``make_mega_stream_stacked`` at
+     BOUNDARY_BATCH streams of BOUNDARY_FRAMES frames, the v1 and v0
+     receivers through ``make_stacked_vocoder`` at BOUNDARY_VOC_BATCH
+     streams of the codec's wire codes. At bf16 boundaries every launch
+     must store bf16 (the audio f32, the codes int32), every cache stay f32,
+     and each call equal the f32 arm on its widened inputs rounded, bit for
+     bit, and its plain version within the f32 arm's tolerance plus one bf16
+     step of the value (codes up to near ties); the audio within
+     BOUNDARY_RTOL of the f32 run's largest sample (the codec's codes up to
+     near ties of the rounded z); each dispatch's device time (CUDA events
+     around a CUDA graph) and its activations' bytes between launches. The
+     kernels line gets each arm as ``<kernel>.bf16``: launches in the
+     bf16-boundary runs, times summed over its calls in one dispatch of the
+     first path that runs it;
+   - 9c ``cli.serve`` on seeded checkpoints (the denoiser's with
+     ``--without-pqc``, and ``--model vctk_v1``) at ``--streams
+     FLEET_CLI_STREAMS --devices 1``: its stats, 18 / 34 launches a block,
+     stream 0 the one-device fleet's to one PCM16 step;
+   - 9d ``make_sharded_stream`` of the codec over [cuda:0, cuda:0] bit for
+     bit the one-device fleet;
+   - 9e ``parallel_denoise`` on LONG_SECONDS of audio in LONG_CHUNKS chunks
+     against one long ``gen.forward`` within MAIN_ATOL_F32, both timed;
+   - 9f ``AudioCodecStreamer`` with the transmitter on the card and the
+     receiver on the CPU: its codes the all-card streamer's, up to near ties
+     the all-CPU one's, its audio within MAIN_ATOL_F32 of the all-CPU
+     one's; the fused streamer's ``calibrate_split`` stats.
 
 Prints the per-kernel JSON line (times summed over the kernel's sites in one
 100-frame dispatch of the single-stream path that first runs it, the codec's
@@ -229,6 +259,7 @@ from dl_speech_enhancement_tpu_torch.cli import analyze as analyze_cli
 from dl_speech_enhancement_tpu_torch.cli import dnsmos as dnsmos_cli
 from dl_speech_enhancement_tpu_torch.cli import export_checkpoint as export_cli
 from dl_speech_enhancement_tpu_torch.cli import import_checkpoint as import_cli
+from dl_speech_enhancement_tpu_torch.cli import serve as serve_cli
 from dl_speech_enhancement_tpu_torch.cli import statistic as stat_cli
 from dl_speech_enhancement_tpu_torch.cli import stream as stream_cli
 from dl_speech_enhancement_tpu_torch.cli import test as codec_test_cli
@@ -245,7 +276,7 @@ from dl_speech_enhancement_tpu_torch.models import AudioDecGenerator, HiFiGANGen
 from dl_speech_enhancement_tpu_torch.models.hifigan import MultiReceptiveField
 from dl_speech_enhancement_tpu_torch.nn.conv import Conv2d, ConvTranspose1d
 from dl_speech_enhancement_tpu_torch.nn.vq import VQState
-from dl_speech_enhancement_tpu_torch.ops import _cuda
+from dl_speech_enhancement_tpu_torch.ops import _cuda, mega_kernel, vocoder_kernel
 from dl_speech_enhancement_tpu_torch.ops.mega_kernel import (
     _conv_plan,
     _upsample_plan,
@@ -265,6 +296,7 @@ from dl_speech_enhancement_tpu_torch.ops.mega_kernel import (
     rvq_assign_plain,
     vq_tables,
 )
+from dl_speech_enhancement_tpu_torch.ops.mega_stacked import make_mega_stream_stacked
 from dl_speech_enhancement_tpu_torch.ops.mel_kernel import (
     _LOG_KIND,
     ARMS,
@@ -297,8 +329,9 @@ from dl_speech_enhancement_tpu_torch.ops.vocoder_kernel import (
     vocoder_half,
     vocoder_topology_error,
 )
-from dl_speech_enhancement_tpu_torch.parallel import make_sharded_stream
+from dl_speech_enhancement_tpu_torch.parallel import make_sharded_stream, parallel_denoise
 from dl_speech_enhancement_tpu_torch.stream.runtime import (
+    AudioCodecStreamer,
     StreamingReceiver,
     StreamingTransmitter,
     VocoderReceiver,
@@ -321,7 +354,7 @@ from dl_speech_enhancement_tpu_torch.utils.audiodec import (
     assign_model,
     load_generator_from_checkpoint,
 )
-from dl_speech_enhancement_tpu_torch.utils.checks import rvq_near_ties
+from dl_speech_enhancement_tpu_torch.utils.checks import moved_near_ties, rvq_near_ties
 from dl_speech_enhancement_tpu_torch.utils.config import load_config
 from dl_speech_enhancement_tpu_torch.utils.model_factory import build_discriminator
 
@@ -349,9 +382,12 @@ SIZES = (1, DISPATCH, THROUGHPUT_FRAMES)   # frames per dispatch of the kernel c
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 F32_FLOPS = 67e12          # H100 SXM f32 rate outside the tensor cores
 TF32_FLOPS = 495e12        # H100 SXM dense TF32 tensor-core rate
+BF16_FLOPS = 989e12        # H100 SXM dense bf16 tensor-core rate
 # hifigan_unit's products, causal_conv's on its GEMM arm and
 # causal_conv_transpose's (each phase on that arm) are split-TF32 tensor-core
-# passes: 2 with bf16 weights (exact in TF32), 3 with f32 weights.
+# passes: 2 with bf16 weights (exact in TF32), 3 with f32 weights. A conv
+# whose x and weights are both bf16 and that applies no activation as x loads
+# multiplies bf16 by bf16: its bound is at the dense bf16 rate (conv_rate).
 TF32_PASSES = {torch.bfloat16: 2, torch.float32: 3}
 # Tolerances. Kernel vs plain: the same products summed in another order, up
 # to 2816 terms of O(1) values (a HiFiGAN unit at stage 0: 11 taps x 256
@@ -505,6 +541,20 @@ METRIC_DB = 1e-4  # SNR, SI-SDR (f32)
 METRIC_MEL_RTOL = 1e-5
 DNSMOS_ATOL = 1e-4
 LOADER_BATCHES = 2  # 8f: the denoise loader's batches timed per reader and pass
+# phase 9: K3b's and K5's bf16 launch boundaries (9a-9b), the fleet CLI (9c),
+# the fleet split (9d), long audio (9e), the streamer's device split (9f).
+# bf16 arms against plain: the f32 arm's tolerance plus one bf16 step of the
+# value (2^-7 of it: the two sides' f32 sums differ in their last bits, so a
+# value at a rounding boundary may round either way); against the f32 arm
+# on the widened inputs, rounded: bit for bit. bf16 boundaries against f32:
+# the JAX package's 5e-2 of the largest sample (tests/test_mega_stacked.py:163).
+BOUNDARY_BATCH, BOUNDARY_FRAMES = 64, 16  # make_mega_stream_stacked's streams and frames
+BOUNDARY_VOC_BATCH = 16  # make_stacked_vocoder's streams (the v1 and v0 receivers)
+BOUNDARY_RTOL = 5e-2
+BF16_STEP = 2.0 ** -7
+FLEET_CLI_STREAMS, FLEET_CLI_SECONDS, FLEET_CLI_BLOCK = 64, 4, 16
+LONG_SECONDS, LONG_CHUNKS = 60, 16
+SPLIT_FRAMES = 80  # the streamer split's frames (2 s)
 
 KERNELS = {
     "residual_chain": {
@@ -3818,6 +3868,568 @@ def evaluation_phase(codec, vq, voc, recipe_report):
     return launches, report
 
 
+# ---------------------------------------------------------------- slice 10 (phase 9)
+
+
+class Recorded:
+    """A kernel wrapper that keeps each call's arguments and result in
+    ``calls``; its ``launches`` is the wrapper's own count (the wrappers
+    count through their module's name, which this object stands in for)."""
+
+    def __init__(self, name, fn, calls):
+        self.name, self.fn, self.calls = name, fn, calls
+
+    def __call__(self, *args, **kwargs):
+        out = self.fn(*args, **kwargs)
+        self.calls.append((self.name, args, kwargs, out))
+        return out
+
+    @property
+    def launches(self):
+        return self.fn.launches
+
+    @launches.setter
+    def launches(self, value):
+        self.fn.launches = value
+
+
+class Recorder:
+    """Within a ``with`` block, every call the stream halves make to a
+    layer kernel (ops/mega_kernel.py and ops/vocoder_kernel.py call them by
+    their module names) is kept with its arguments and result, so that each
+    bf16 arm is held to its plain version at exactly the shapes a path
+    launched. The kernels count their launches as ever."""
+
+    SITES = {mega_kernel: ("residual_chain", "causal_conv", "causal_conv_transpose",
+                           "rvq_assign", "codebook_lookup"),
+             vocoder_kernel: ("hifigan_unit", "causal_conv", "causal_conv_transpose",
+                              "codebook_lookup")}
+
+    def __enter__(self):
+        self.calls, self.saved = [], []
+        for mod, names in self.SITES.items():
+            for name in names:
+                fn = getattr(mod, name)
+                self.saved.append((mod, name, fn))
+                setattr(mod, name, Recorded(name, fn, self.calls))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+
+# a call's plain version, from the arguments the stream halves pass
+PLAIN_OF = {
+    "residual_chain": lambda a, k: residual_chain_plain(*a[:4]),
+    "causal_conv": lambda a, k: causal_conv_plain(*a, **k),
+    "causal_conv_transpose": lambda a, k: causal_conv_transpose_plain(*a, **k),
+    "rvq_assign": lambda a, k: rvq_assign_plain(*a[:3]),
+    "codebook_lookup": lambda a, k: codebook_lookup_plain(a[0], a[1], a[3]),
+    "hifigan_unit": lambda a, k: hifigan_unit_plain(*a, **k),
+}
+ACT_INDEX = {"residual_chain": 1, "causal_conv": 1, "causal_conv_transpose": 1,
+             "rvq_assign": 0, "hifigan_unit": 2}  # where the activation input lies
+
+
+def f32_arm(name, args, kwargs):
+    """The call on the f32 arm: its bf16 activations (and running sum)
+    widened, its output f32."""
+    a, k = list(args), dict(kwargs)
+    if name in ACT_INDEX:
+        a[ACT_INDEX[name]] = a[ACT_INDEX[name]].float()
+    if name == "hifigan_unit" and len(a) > 10 and a[10] is not None:
+        a[10] = a[10].float()
+    if name == "causal_conv":
+        k["out_dtype"] = torch.float32
+    if name == "codebook_lookup":
+        a[3] = torch.float32
+    return KERNELS[name]["fn"](*a, **k)
+
+
+def conv_rate(x, w, leaky) -> float:
+    """The peak rate of a tensor-core conv's products: the dense bf16 rate
+    where x and the weights are both bf16 and no activation is applied as x
+    loads (the cache rows are widened bf16 rows then), else the split-TF32
+    passes' rate of its weights."""
+    if x.dtype == w.dtype == torch.bfloat16 and leaky is None:
+        return BF16_FLOPS
+    return TF32_FLOPS / TF32_PASSES[w.dtype]
+
+
+def call_work(name, args, kwargs, out) -> tuple[float, float, float]:
+    """(operations, bytes, operation rate) one recorded call needs: each
+    tensor argument read once (a cache at its rows), each output written
+    once, at the rate of the arithmetic the kernel runs."""
+    outs = out if isinstance(out, tuple) else (out,)
+    seen, moved = set(), 0
+    for t in [*args, *kwargs.values(), *outs]:
+        if torch.is_tensor(t) and t.data_ptr() not in seen:
+            seen.add(t.data_ptr())
+            moved += t.numel() * t.element_size()
+    if name == "residual_chain":
+        x, w = args[1], args[2]
+        return x.shape[0] * chain_flops(x.shape[2], x.shape[1]), moved, \
+            TF32_FLOPS / TF32_PASSES[w.dtype]
+    if name == "causal_conv":
+        x, w = args[1], args[2]
+        taps, cin, cout = w.shape
+        stride = args[4] if len(args) > 4 else kwargs.get("stride", 1)
+        dil = args[5] if len(args) > 5 else kwargs.get("dilation", 1)
+        b, t_out = out.shape[0], out.shape[1]
+        leaky = args[6] if len(args) > 6 else kwargs.get("leaky")
+        arm = _conv_plan(b, t_out, cin, cout, taps, stride, dil, w.dtype == torch.bfloat16)[0]
+        return 2.0 * b * t_out * taps * cin * cout, moved, (
+            conv_rate(x, w, leaky) if arm == "gemm" else F32_FLOPS)
+    if name == "causal_conv_transpose":
+        x, w = args[1], args[2]
+        leaky = args[5] if len(args) > 5 else kwargs.get("leaky")
+        return 2.0 * out.shape[0] * out.shape[1] * 2 * w.shape[1] * w.shape[2], moved, \
+            conv_rate(x, w, leaky)
+    if name == "rvq_assign":
+        z, books = args[0], args[1]
+        n_books, dim, book_k = books.shape
+        return z.shape[0] * n_books * (2.0 * dim * book_k + 3.0 * book_k), moved, F32_FLOPS
+    if name == "codebook_lookup":
+        codes, books_t = args[0], args[1]
+        used = int(torch.unique(codes).numel())
+        read = codes.numel() * 4 + used * books_t.shape[2] * 4
+        return float(codes.numel() * books_t.shape[2]), read + out.numel() * out.element_size(), \
+            F32_FLOPS
+    w1, x = args[3], args[2]  # hifigan_unit
+    taps, c, gc = w1.shape
+    return 2 * 2.0 * x.shape[0] * x.shape[1] * taps * c * gc, moved, \
+        TF32_FLOPS / TF32_PASSES[w1.dtype]
+
+
+def call_library(name, args, kwargs):
+    """One PyTorch call computing a recorded conv's function in bf16
+    (cuDNN), or the lookup's (``F.embedding_bag``), on its inputs; None for
+    the kernels that have none."""
+    bf16 = torch.bfloat16
+    if name == "causal_conv":
+        cache, x, w = args[:3]
+        b = args[3] if len(args) > 3 else kwargs.get("b")
+        stride = args[4] if len(args) > 4 else kwargs.get("stride", 1)
+        inp = lib_input(cache, x.float()).to(bf16)
+        wt = w.permute(2, 1, 0).to(bf16).contiguous()
+        bias = None if b is None else b.to(bf16)
+        return lambda: F.conv1d(inp, wt, bias, stride)
+    if name == "causal_conv_transpose":
+        cache, x, w, b = args[:4]
+        stride = args[4] if len(args) > 4 else kwargs["stride"]
+        inp = lib_input(cache, x.float()).to(bf16)
+        wt = w.flip(0).permute(1, 2, 0).to(bf16).contiguous()
+        return lambda: F.conv_transpose1d(inp, wt, b.to(bf16), stride, stride)
+    if name == "codebook_lookup":
+        codes, books_t = args[:2]
+        flat, idx = books_t.reshape(-1, books_t.shape[2]), codes.long()
+        return lambda: F.embedding_bag(idx, flat, mode="sum")
+    return None
+
+
+def hold_calls(path, calls, tables, report, timed: set):
+    """Each recorded bf16-boundary call against its plain version (within
+    the f32 arm's tolerance plus one bf16 step of the value where the
+    output is bf16; codes up to near ties) and against the f32 arm on its
+    widened inputs (equal bit for bit, rounded as the arm stores). The
+    kernels in ``timed`` also get each call's times (kernel, plain,
+    library) and bound, summed into ``report[kernel]``."""
+    books, sqnorm, _ = tables
+    for name, args, kwargs, out in calls:
+        entry = report.setdefault(name, {"calls": 0, "max_abs_err": 0.0, "worst_share": 0.0,
+                                         "shapes": set()})
+        entry["calls"] += 1
+        got = out[0] if name == "hifigan_unit" else out
+        entry["shapes"].add(tuple(args[ACT_INDEX.get(name, 0)].shape))
+        twin = f32_arm(name, args, kwargs)
+        if name == "hifigan_unit":
+            require(torch.equal(out[1], twin[1]), f"{path} hifigan_unit: the conv2 cache "
+                    "differs from the f32 arm's")
+            twin = twin[0]
+        require(torch.equal(got, twin if got.dtype == twin.dtype else twin.to(got.dtype)),
+                f"{path} {name} {tuple(got.shape)}: the bf16 arm is not the f32 arm rounded")
+        ref = PLAIN_OF[name](args, kwargs)
+        ref = ref[0] if name == "hifigan_unit" else ref
+        torch.cuda.synchronize()
+        if name == "rvq_assign":
+            held = rvq_near_ties(args[0].float(), books, sqnorm, got, ref, CODE_RTOL)
+            require(held["mismatches"] == 0, f"{path} rvq_assign on bf16 z: {held}")
+            entry["near_tie_rows"] = entry.get("near_tie_rows", 0) + held["ties"]
+            entry["max_abs_err"] = max(entry["max_abs_err"], held["max_excess"])
+        else:
+            require(got.dtype == ref.dtype and got.shape == ref.shape,
+                    f"{path} {name}: {got.dtype} {tuple(got.shape)} against the plain "
+                    f"version's {ref.dtype} {tuple(ref.shape)}")
+            err = (got.float() - ref.float()).abs()
+            scale = float(ref.float().abs().max())
+            wd = None if name == "codebook_lookup" else args[3 if name == "hifigan_unit" else 2]
+            limit = (LOOKUP_ATOL if wd is None else KERNEL_ATOL_F32 if wd.dtype == torch.float32
+                     else KERNEL_RTOL_BF16 * scale)
+            if name == "residual_chain":
+                limit = min(limit, CHAIN_ATOL)
+            bound = limit + (BF16_STEP * ref.float().abs() if got.dtype == torch.bfloat16 else 0.0)
+            share = float((err / bound).max())
+            require(share <= 1.0, f"{path} {name} {tuple(got.shape)} {got.dtype}: max|err| "
+                    f"{float(err.max()):.3e} beyond its bound (share {share:.3f})")
+            entry["max_abs_err"] = max(entry["max_abs_err"], float(err.max()))
+            entry["worst_share"] = max(entry["worst_share"], share)
+        if name not in timed:
+            continue
+        fn, plain = KERNELS[name]["fn"], PLAIN_OF[name]
+        k_ms = gpu_ms(lambda: fn(*args, **kwargs), 5, groups=3)
+        p_ms = gpu_ms(lambda: plain(args, kwargs), 3, groups=3)
+        lib = call_library(name, args, kwargs)
+        l_ms = None if lib is None else gpu_ms(lib, 5, groups=3)
+        flops, moved, rate = call_work(name, args, kwargs, out)
+        b_ms, b_by = bound_ms(flops, moved, rate)
+        t = entry.setdefault("times", {"ms": 0.0, "plain_ms": 0.0, "library_ms": None,
+                                       "bound_ms": 0.0, "ops_s": 0.0, "bytes": 0.0,
+                                       "path": path})
+        t["ms"] += k_ms
+        t["plain_ms"] += p_ms
+        t["bound_ms"] += b_ms
+        t["ops_s"] += flops / rate
+        t["bytes"] += moved
+        if l_ms is not None:
+            t["library_ms"] = (t["library_ms"] or 0.0) + l_ms
+        log(f"bf16 arm {name:22s} {path:10s} {tuple(got.shape)} kernel={k_ms:.4f} ms "
+            f"plain={p_ms:.4f} ms library={l_ms if l_ms is None else round(l_ms, 4)} "
+            f"bound={b_ms:.4f} ms ({b_by})")
+
+
+def stores_bf16(calls) -> bool:
+    """Whether every activation a bf16-boundary path's launches write is
+    bf16, but the audio out (its last launch's) and the int32 codes."""
+    for i, (name, _, _, out) in enumerate(calls):
+        y = out[0] if name == "hifigan_unit" else out
+        want = (torch.int32 if name == "rvq_assign" else
+                torch.float32 if i == len(calls) - 1 else torch.bfloat16)
+        if y.dtype != want:
+            return False
+    return True
+
+
+def code_rows(codes):
+    """Wire codes (N, B, rows, L) as the search's rows: stream by stream,
+    then time (the order of the z it was given)."""
+    return codes.transpose(0, 1).reshape(-1, codes.shape[-1])
+
+
+def activation_bytes(calls) -> int:
+    """Bytes of the dense activations the recorded launches read and write
+    (each call's input, running sum and output; no cache, weight or code)."""
+    total = 0
+    for name, args, kwargs, out in calls:
+        ts = [out[0] if name == "hifigan_unit" else out]
+        if name != "codebook_lookup":
+            ts.append(args[ACT_INDEX[name]])
+        if name == "hifigan_unit" and len(args) > 10 and args[10] is not None:
+            ts.append(args[10])
+        total += sum(t.numel() * t.element_size() for t in ts if t.dtype != torch.int32)
+    return total
+
+
+def boundary_phase(gen, codec, vq, tables, voc, v0):
+    """Phase 9a-9b: K3b's and K5's bf16 launch boundaries. Four paths at
+    bf16 weights, each once with f32 and once with bf16 boundaries, counted
+    and recorded: the denoiser and the codec through
+    ``make_mega_stream_stacked`` at BOUNDARY_BATCH streams of
+    BOUNDARY_FRAMES frames, the v1 and v0 receivers through
+    ``make_stacked_vocoder`` at BOUNDARY_VOC_BATCH streams of the codec's
+    f32-boundary wire codes. Every bf16-boundary call is held to its plain
+    version and to the f32 arm (:func:`hold_calls`); the audio at bf16
+    boundaries within BOUNDARY_RTOL of the f32 run's largest sample (the
+    codec's codes up to near ties of the rounded z instead,
+    ``utils/checks.py::moved_near_ties``); each dispatch's
+    device time (CUDA events around a CUDA graph) and the bytes of its
+    activations between launches. Returns (launches by path, report, the
+    bf16 arms' entries of the kernels line)."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    frames = frames_for_streams(BOUNDARY_FRAMES, BOUNDARY_BATCH, SEED + 90)[..., 0]
+    paths = [
+        ("denoiser", LAUNCHES_PER_DISPATCH["denoiser"], DENOISER_KERNELS,
+         lambda bd: make_mega_stream_stacked(gen, FRAME, BOUNDARY_BATCH, bf16, None, bd)),
+        ("codec", LAUNCHES_PER_DISPATCH["codec"], CODEC_KERNELS,
+         lambda bd: make_mega_stream_stacked(codec, FRAME, BOUNDARY_BATCH, bf16, vq, bd)),
+        ("vocoder", LAUNCHES_PER_DISPATCH["vocoder"] - 11, RECEIVER_KERNELS,
+         lambda bd: make_stacked_vocoder(voc, FRAME, BOUNDARY_VOC_BATCH, bf16, vq, bd)),
+        ("vocoder_v0", LAUNCHES_PER_DISPATCH["vocoder_v0"] - 11, RECEIVER_KERNELS,
+         lambda bd: make_stacked_vocoder(v0, FRAME, BOUNDARY_VOC_BATCH, bf16, vq, bd)),
+    ]
+    timed = {"denoiser": {"residual_chain", "causal_conv", "causal_conv_transpose"},
+             "codec": {"rvq_assign", "codebook_lookup"}, "vocoder": {"hifigan_unit"},
+             "vocoder_v0": set()}
+    by_path, report, arms, wire = {}, {}, {}, None
+    for path, per_dispatch, kernels, build in paths:
+        inputs = frames if wire is None or not path.startswith("vocoder") else wire
+        runs = {}
+        for bd in (f32, bf16):
+            init, run = build(bd)
+            with Recorder() as rec:
+                result, launches = counted(
+                    f"bf16 boundaries: {path} x{inputs.shape[1]} at {str(bd)[6:]} boundaries",
+                    per_dispatch, 1, kernels, lambda: run(init(), inputs))
+            out, cache, *codes = result
+            require(out.dtype == f32 and all(t.dtype == f32 for t in cache.values())
+                    and all(c.dtype == torch.int32 for c in codes),
+                    f"{path} at {bd} boundaries: the audio, the caches and the codes keep "
+                    "their dtypes")
+            by_path[f"{path} {str(bd)[6:]} boundaries x{inputs.shape[1]}"] = launches
+            z = [c[1][0] for c in rec.calls if c[0] == "rvq_assign"]
+            runs[bd] = {"out": out, "codes": codes[0] if codes else None,
+                        "z": z[0] if z else None,
+                        "activation_bytes": activation_bytes(rec.calls), "graph": (init, run)}
+            if bd == bf16:
+                require(stores_bf16(rec.calls), f"{path}: an activation between launches is "
+                        "not bf16")
+                hold_calls(path, rec.calls, tables, arms, timed[path])
+            del rec
+        if path == "codec":
+            wire = runs[f32]["codes"][:, :BOUNDARY_VOC_BATCH].contiguous()
+        y32, y16 = runs[f32]["out"], runs[bf16]["out"]
+        scale = float(y32.abs().max())
+        err = float((y16 - y32).abs().max())
+        entry = {"streams": inputs.shape[1], "frames": BOUNDARY_FRAMES,
+                 "max_abs_diff_bf16_vs_f32": err, "max_abs_f32": scale}
+        if path == "codec":
+            held = moved_near_ties(runs[f32]["z"], runs[bf16]["z"], tables[0],
+                                   code_rows(runs[bf16]["codes"]),
+                                   code_rows(runs[f32]["codes"]), CODE_RTOL)
+            require(held["beyond"] == 0, f"bf16 boundaries: {held['beyond']} code rows moved "
+                    "beyond a near tie of the rounded z")
+            entry["code_rows_moved_at_near_ties"] = held["moved"]
+            entry["code_rows"] = code_rows(runs[f32]["codes"]).shape[0]
+        else:
+            require(err <= BOUNDARY_RTOL * scale, f"{path}: bf16 boundaries {err:.3e} from the "
+                    f"f32 run, beyond {BOUNDARY_RTOL} of its largest sample {scale:.3e}")
+        for bd in (f32, bf16):
+            init, run = runs[bd]["graph"]
+            cache = init()
+            dev = graph_ms(lambda: run(cache, inputs), reps=3, groups=3)
+            nbytes_ = runs[bd]["activation_bytes"]
+            entry[str(bd)[6:]] = {
+                "device_ms": dev,
+                "us_per_stream_frame": dev * 1e3 / (inputs.shape[1] * BOUNDARY_FRAMES),
+                "activation_bytes": nbytes_,
+                "activation_bound_ms": nbytes_ / HBM_BYTES_PER_S * 1e3}
+        log(f"9b {path}: {json.dumps(entry)}")
+        report[path] = entry
+        del runs
+    entries = []
+    for name in SERVING_KERNELS:
+        arm = arms[name]
+        t = arm.pop("times")
+        t_bytes = t.pop("bytes") / HBM_BYTES_PER_S
+        entries.append({
+            "name": f"{name}.bf16", "route": "cuda", "source": KERNELS[name]["source"],
+            "replaces": ("dl_speech_enhancement_tpu/ops/vocoder_stacked.py:120 (K5's "
+                         "boundary_dtype, to _assemble :434)" if name == "hifigan_unit" else
+                         "dl_speech_enhancement_tpu/ops/mega_stacked.py:173 (K3b _assemble's "
+                         "boundary_dtype, :173-180, applied :226; make_mega_stream_stacked "
+                         ":335)"),
+            "launches": sum(counts[name] for path, counts in by_path.items()
+                            if path.split()[1] == "bfloat16"),
+            "max_abs_err": arm["max_abs_err"],
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": "operations" if t.pop("ops_s") >= t_bytes else "bytes",
+            "library_ms": t["library_ms"],
+            "per": f"sum over the arm's calls in one dispatch of the {t['path']} path at bf16 "
+                   "boundaries, bf16 weights"
+                   + (", library: cuDNN in bf16" if name.startswith("causal_conv") else ""),
+            "calls_held": arm["calls"], "worst_share_of_bound": arm["worst_share"],
+            "shapes": sorted(arm["shapes"]),
+            **({"near_tie_rows": arm["near_tie_rows"]} if "near_tie_rows" in arm else {})})
+    return by_path, report, entries
+
+
+def fleet_cli_phase(gen, codec, vq, voc):
+    """Phase 9c, the fleet CLI: seeded checkpoints under a temporary exp/
+    tree (the denoiser's without PQC, and the ``vctk_v1`` pairing), a seeded
+    wav of FLEET_CLI_SECONDS, and ``cli.serve.main`` on the card from that
+    directory at ``--streams FLEET_CLI_STREAMS --devices 1`` in blocks of
+    FLEET_CLI_BLOCK frames: the stats dict, 18 (34) launches a block, and
+    stream 0's wav the one-device fleet's on the same audio, to one PCM16
+    step."""
+    n = FLEET_CLI_SECONDS * SAMPLE_RATE // FRAME
+    cwd, report, by_path = os.getcwd(), {}, {}
+    with tempfile.TemporaryDirectory() as root:
+        write_exp_tree(root, codec, vq, {"vctk_v1": (CODEC_CONFIG, VOCODER_CONFIG, voc)})
+        ckpt = os.path.join(root, "exp", "denoise", "seeded", "checkpoint-1steps")
+        save_checkpoint(ckpt, {"params_generator": gen.state_dict()}, load_config(CONFIG))
+        audio = frames_for(n, SEED + 91)[:, 0, :, 0].reshape(-1).cpu().numpy()
+        write_wav(os.path.join(root, "in.wav"), audio, SAMPLE_RATE)
+        pcm = torch.from_numpy(read_wav(os.path.join(root, "in.wav"))[0][:, 0]).to(DEVICE)
+        os.chdir(root)
+        try:
+            for name, args, per_block, kernels in (
+                    ("checkpoint --without-pqc", ["--checkpoint", ckpt, "--without-pqc"],
+                     LAUNCHES_PER_DISPATCH["denoiser"], DENOISER_KERNELS),
+                    ("vctk_v1", ["--model", "vctk_v1"], LAUNCHES_PER_DISPATCH["vocoder"],
+                     VOCODER_KERNELS)):
+                out = f"{name.split()[0]}.wav"
+                stats, launches = counted(
+                    f"cli.serve {name} x{FLEET_CLI_STREAMS}", per_block, n // FLEET_CLI_BLOCK,
+                    kernels,
+                    lambda: serve_cli.main([*args, "--streams", str(FLEET_CLI_STREAMS),
+                                            "--devices", "1", "--device", DEVICE,
+                                            "-i", "in.wav", "-o", out,
+                                            "--block-frames", str(FLEET_CLI_BLOCK),
+                                            "--max-outputs", "1"]))
+                log(f"9c cli.serve {name}: {json.dumps(stats)}")
+                require(stats["streams"] == FLEET_CLI_STREAMS and stats["devices"] == 1
+                        and stats["frames"] == n, f"cli.serve {name}: {stats}")
+                report[name] = {"stats": stats}
+                by_path[f"cli.serve {name} x{FLEET_CLI_STREAMS}"] = launches
+            denoiser, _, _ = load_generator_from_checkpoint(ckpt, use_pqc=False, device=DEVICE)
+            run = make_sharded_stream(denoiser, batch=FLEET_CLI_STREAMS, device=DEVICE)
+            frames = pcm.reshape(1, n, FRAME, 1).expand(FLEET_CLI_STREAMS, -1, -1, -1)
+            ref = stream(run, frames.transpose(0, 1), [FLEET_CLI_BLOCK] * (n // FLEET_CLI_BLOCK))
+            got = read_wav("checkpoint-0.wav")[0][:, 0]
+            err = float(np.abs(got - ref[:, 0, :, 0].reshape(-1).cpu().numpy()).max())
+            require(err <= PCM16_STEP, f"cli.serve's stream 0 is {err:.3e} from the fleet's")
+            report["checkpoint --without-pqc"]["stream0_max_abs_err_vs_fleet"] = err
+        finally:
+            os.chdir(cwd)
+    return by_path, report
+
+
+def fleet_split_phase(codec, vq):
+    """Phase 9d: ``make_sharded_stream`` of the codec over [cuda:0, cuda:0]
+    (two slices of 8 streams on the one card, each with its own copy of the
+    weights) against the one-device fleet of 16, two dispatches of 8 frames:
+    bit for bit; each fleet's median dispatch wall time."""
+    batch = BATCH
+    frames = frames_for_streams(sum(MULTI_FRAMES), batch, SEED + 92)
+    one = make_sharded_stream(codec, vq, batch=batch, device=DEVICE)
+    split = make_sharded_stream(codec, vq, batch=batch, device=[DEVICE, DEVICE])
+    want = stream(one, frames, MULTI_FRAMES)
+    got, launches = counted(f"fleet split x{batch} over [cuda:0, cuda:0]",
+                            LAUNCHES_PER_DISPATCH["codec"], 2 * len(MULTI_FRAMES),
+                            CODEC_KERNELS, lambda: stream(split, frames, MULTI_FRAMES))
+    require(torch.equal(got, want), "the split fleet is not the one-device fleet bit for bit")
+    n = MULTI_FRAMES[0]
+    report = {"streams": batch, "slices": 2, "bit_for_bit": True,
+              "one_device_dispatch_ms": dispatch_ms(one, frames[:n], 20),
+              "split_dispatch_ms": dispatch_ms(split, frames[:n], 20), "frames": n}
+    log(f"9d fleet split: {json.dumps(report)}")
+    return {f"fleet split x{batch} over [cuda:0, cuda:0]": launches}, report
+
+
+def long_audio_phase(gen):
+    """Phase 9e: ``parallel_denoise`` of the denoiser on LONG_SECONDS of
+    seeded 48 kHz audio in LONG_CHUNKS chunks (the chunks as the batch axis
+    of the offline ``gen.forward``, cuDNN, TF32 off; the default context,
+    the whole model's receptive field ``gen.model_receptive_length``)
+    against one long ``gen.forward``: every sample out within
+    MAIN_ATOL_F32. Each wall time (host clock, synchronised; the host copies
+    of the chunks in and the audio out included) of a second call."""
+    n = LONG_SECONDS * SAMPLE_RATE // FRAME
+    audio = frames_for(n, SEED + 93).reshape(-1, 1).cpu().numpy()
+    context = gen.model_receptive_length
+    x = torch.from_numpy(audio[None]).to(DEVICE)
+    times = {}
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            serial = gen(x, None, train=False)[0]
+        torch.cuda.synchronize()
+        times["forward_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        got = parallel_denoise(gen, None, audio, n_chunks=LONG_CHUNKS, device=DEVICE)
+        times["parallel_denoise_s"] = time.perf_counter() - t0
+    serial = serial[0].cpu().numpy()
+    err = float(np.abs(got - serial[:len(got)]).max())
+    report = {"seconds": LONG_SECONDS, "chunks": LONG_CHUNKS, "context": context,
+              "samples_out": len(got), "samples_in": len(audio), "max_abs_err": err,
+              "max_abs_ref": float(np.abs(serial).max()), **times}
+    log(f"9e long audio: {json.dumps(report)}")
+    require(err <= MAIN_ATOL_F32, f"parallel_denoise {err:.3e} from the long forward")
+    return report
+
+
+def recorded_codes(endpoint, into: list):
+    """Keep each code tensor ``endpoint.encode`` returns (on the host)."""
+    encode = endpoint.encode
+
+    def call(chunk):
+        codes = encode(chunk)
+        into.append(codes.cpu())
+        return codes
+    endpoint.encode = call
+
+
+def streamer_split_phase(codec, vq, tables):
+    """Phase 9f, the streamer's device split: ``AudioCodecStreamer`` with
+    the transmitter on the card and the receiver on the CPU (the codes cross
+    on the host), on SPLIT_FRAMES frames: its codes equal to those of the
+    same two-stage streamer all on the card (the same kernels on the same
+    frames), and up to near ties to an all-CPU streamer's (plain modules);
+    its audio within MAIN_ATOL_F32 of the all-CPU streamer's over the frames
+    before the first differing code. Then the fused streamer with
+    ``calibrate_split``: the encoder's share of the frame time."""
+    n = SPLIT_FRAMES
+    audio = frames_for(n, SEED + 94)[:, 0].reshape(1, -1, 1).cpu().numpy()
+    kw = dict(frame_size=FRAME, sample_rate=SAMPLE_RATE, max_latency=CLI_MAX_LATENCY)
+    report, codes, outs, zs = {}, {}, {}, []
+    streamers = {"split": AudioCodecStreamer(codec, vq, fused=False, tx_device=DEVICE,
+                                             rx_device="cpu", **kw),
+                 "card": AudioCodecStreamer(codec, vq, fused=False, device=DEVICE, **kw),
+                 "cpu": AudioCodecStreamer(codec, vq, fused=False, device="cpu", **kw)}
+    split = streamers["split"]
+    require(not split.fused and split.tx_encoder.device.type == torch.device(DEVICE).type
+            and split.rx_encoder.device.type == "cpu", "the split streamer's endpoints")
+    cpu_gen = streamers["cpu"].tx_encoder.gen
+
+    def recording_quantize(vq_state, z):  # the all-CPU transmitter's z, for the near ties
+        zs.append(z.cpu())
+        return type(cpu_gen).quantize(cpu_gen, vq_state, z)
+    by_path = {}
+    for name, streamer in streamers.items():
+        codes[name] = []
+        recorded_codes(streamer.tx_encoder, codes[name])
+
+        def drive(s=streamer):
+            s.load()
+            return s.run_array(audio)
+        if name == "split":
+            y, by_path["streamer split: tx cuda, rx cpu"] = counted(
+                "streamer split: tx cuda, rx cpu", 11, n + 2,
+                ("residual_chain", "causal_conv", "rvq_assign"), drive)
+        elif name == "cpu":
+            cpu_gen.quantize = recording_quantize
+            try:
+                y = drive()
+            finally:
+                del cpu_gen.quantize
+        else:
+            y = drive()
+        outs[name] = produced(y[0, :, 0], n)
+        report[name] = streamer.stats()
+        log(f"9f streamer {name}: {json.dumps(report[name])}")
+    # the recorded calls: the priming chunk, the warm-up frame, then the n frames
+    got = {name: torch.stack(c[2:]) for name, c in codes.items()}  # (n, L, 1, rows)
+    require(torch.equal(got["split"], got["card"]), "the split streamer's codes are not the "
+            "all-card streamer's")
+    z = torch.stack(zs[2:])  # (n, 1, rows, D)
+    as_rows = (lambda c: c.permute(0, 2, 3, 1).reshape(n, -1, c.shape[1]).to(DEVICE))
+    held, agree = held_codes("streamer split vs the all-CPU streamer", z.to(DEVICE), tables,
+                             as_rows(got["split"]), as_rows(got["cpu"]))
+    err = float(np.abs(outs["split"][:agree] - outs["cpu"][:agree]).max())
+    require(err <= MAIN_ATOL_F32, f"the split streamer's audio {err:.3e} from the all-CPU one's")
+    report["split_vs_cpu"] = {"near_tie_rows": held["ties"], "frames_compared": agree,
+                              "max_abs_err": err}
+    calibrated = AudioCodecStreamer(codec, vq, calibrate_split=True, device=DEVICE, **kw)
+    calibrated.load()
+    produced(calibrated.run_array(audio[:, :n // 2 * FRAME])[0, :, 0], n // 2)
+    report["fused_calibrated"] = calibrated.stats()
+    require(report["fused_calibrated"]["timing_mode"] == "fused-calibrated-split",
+            "the calibrated streamer's timing mode")
+    log(f"9f fused, calibrate_split: {json.dumps(report['fused_calibrated'])}")
+    return by_path, report
+
+
 # ---------------------------------------------------------------- times
 
 
@@ -4302,6 +4914,21 @@ def main() -> int:
     stamp("phase 8, evaluation and the reference's checkpoints")
     by_path.update(eval_launches)
 
+    log("phase 9: bf16 launch boundaries (K3b, K5), the fleet CLI, the fleet split, long "
+        "audio and the streamer's device split")
+    slice10 = {}
+    runs, slice10["boundaries"], arm_entries = boundary_phase(gen, codec, vq, tables, voc, v0)
+    by_path.update(runs)
+    stamp("phase 9a-9b, bf16 launch boundaries")
+    runs, slice10["fleet_cli"] = fleet_cli_phase(gen, codec, vq, voc)
+    by_path.update(runs)
+    runs, slice10["fleet_split"] = fleet_split_phase(codec, vq)
+    by_path.update(runs)
+    slice10["long_audio"] = long_audio_phase(gen)
+    runs, slice10["streamer_split"] = streamer_split_phase(codec, vq, tables)
+    by_path.update(runs)
+    stamp("phase 9c-9f, fleets, long audio, the streamer split")
+
     name_power = card()
     entries = []
     for name in SERVING_KERNELS:
@@ -4419,6 +5046,7 @@ def main() -> int:
         "bound_by": bound_ms(0.0, sum(v["bytes"] for v in probe_main))[1],
         "library_ms_is": "torch.clone of the folded view",
         "per": "sum over the probe's four defined shapes", "sites": probe_times})
+    entries += arm_entries
     report = {"card": name_power, "seconds": time.perf_counter() - started,
               "elapsed_seconds_by_step": elapsed,
               "main_path_errors": main_errs, "codec_path_checks": codec_errs,
@@ -4438,7 +5066,7 @@ def main() -> int:
                                            "step_routes": adv_checks, "loop": adv_loop,
                                            "times": adv_times},
                            "recipe": recipe_report},
-              "evaluation": eval_report,
+              "evaluation": eval_report, "slice10": slice10,
               "kernel_sites": {str(n): {k: v["sites"] for k, v in agg.items()}
                                for n, agg in ktimes.items()},
               "codec_kernel_sites": {str(n): {k: v["sites"] for k, v in agg.items()}

@@ -22,7 +22,12 @@
 // B independent streams run in one launch: cache (B, (k-1)*d, Cin) with stream
 // stride `cache_bs` floats (rows contiguous), x (B, T, Cin), out (B, T/s, Cout).
 // The cache and the new input are read through two pointers, so the caller
-// never concatenates them.
+// never concatenates them. x and out are each f32 or bf16 (the streams'
+// boundary dtype, ops/mega_stacked.py; the cache stays f32): every arm widens
+// what it loads to f32 and rounds what it stores, so its sums are the f32
+// arm's on the same values. The GEMM arm takes f32 or bf16 x into an output
+// of its own type, or f32 x into bf16 (a half's first launch); the Cin = 1
+// and Cout = 1 arms take every pair (the audio in, the audio out).
 //
 // Three arms; the host's planner (ops/mega_kernel.py::_conv_plan, pure
 // Python, whose shared-memory formula conv_smem_bytes equals
@@ -51,16 +56,19 @@ namespace {
 
 constexpr int kDirectThreads = 256;
 
+template <typename XT>
 __device__ __forceinline__ float conv_in(const ConvArgs& a, int b, int e, int c) {
   const int P = (a.taps - 1) * a.dil;
-  const float v = e < P ? a.cache[(size_t)b * a.cache_bs + (size_t)e * a.Cin + c]
-                        : a.x[((size_t)b * a.T_out * a.stride + e - P) * a.Cin + c];
+  const float v =
+      e < P ? a.cache[(size_t)b * a.cache_bs + (size_t)e * a.Cin + c]
+            : to_f(static_cast<const XT*>(a.x)[((size_t)b * a.T_out * a.stride + e - P) * a.Cin +
+                                               c]);
   return a.act ? leaky(v, a.slope) : v;
 }
 
 // ---------------------------------------------------------------- Cin = 1
 
-template <typename WT>
+template <typename WT, typename XT, typename YT>
 __global__ void __launch_bounds__(kDirectThreads)
 causal_conv_kernel_cin1(ConvArgs a) {
   extern __shared__ __align__(16) float ws[];  // W (taps, Cout) widened to f32
@@ -74,19 +82,19 @@ causal_conv_kernel_cin1(ConvArgs a) {
   const int b = m / a.T_out, t = m - b * a.T_out;
   float y[4] = {0.f, 0.f, 0.f, 0.f};
   for (int j = 0; j < a.taps; ++j) {
-    const float v = conv_in(a, b, t * a.stride + j * a.dil, 0);
+    const float v = conv_in<XT>(a, b, t * a.stride + j * a.dil, 0);
 #pragma unroll
     for (int u = 0; u < 4; ++u)
       if (n + u < a.Cout) y[u] = fmaf(v, ws[j * a.Cout + n + u], y[u]);
   }
-  float* o = a.out + (size_t)m * a.Cout + n;
+  YT* o = static_cast<YT*>(a.out) + (size_t)m * a.Cout + n;
   if (a.Cout % 4 == 0) {
-    *reinterpret_cast<float4*>(o) = make_float4(conv_out(a, n, y[0]), conv_out(a, n + 1, y[1]),
-                                                conv_out(a, n + 2, y[2]), conv_out(a, n + 3, y[3]));
+    store4(o, make_float4(conv_out(a, n, y[0]), conv_out(a, n + 1, y[1]),
+                          conv_out(a, n + 2, y[2]), conv_out(a, n + 3, y[3])));
   } else {
 #pragma unroll
     for (int u = 0; u < 4; ++u)
-      if (n + u < a.Cout) o[u] = conv_out(a, n + u, y[u]);
+      if (n + u < a.Cout) o[u] = from_f<YT>(conv_out(a, n + u, y[u]));
   }
 }
 
@@ -96,7 +104,7 @@ __host__ __device__ inline int cout1_window_rows(int rows, int stride, int taps,
   return (rows - 1) * stride + (taps - 1) * dil + 1;
 }
 
-template <typename WT>
+template <typename WT, typename XT, typename YT>
 __global__ void __launch_bounds__(kDirectThreads)
 causal_conv_kernel_cout1(ConvArgs a, int rows) {
   extern __shared__ __align__(16) float smem_c1[];
@@ -111,7 +119,7 @@ causal_conv_kernel_cout1(ConvArgs a, int rows) {
   for (int i = threadIdx.x; i < a.taps * a.Cin; i += kDirectThreads) ws[i] = to_f(w[i]);
   for (int q = threadIdx.x; q < wrows * a.Cin; q += kDirectThreads) {
     const int r = q / a.Cin, c = q - r * a.Cin;
-    win[r * ld + c] = conv_in(a, b, t0 * a.stride + r, c);
+    win[r * ld + c] = conv_in<XT>(a, b, t0 * a.stride + r, c);
   }
   __syncthreads();
   for (int i = threadIdx.x; i < count; i += kDirectThreads) {
@@ -123,7 +131,8 @@ causal_conv_kernel_cout1(ConvArgs a, int rows) {
 #pragma unroll 4
       for (int c = 0; c < a.Cin; ++c) acc = fmaf(xr[c], wr[c], acc);
     }
-    a.out[(size_t)b * a.T_out + t0 + i] = conv_out(a, 0, acc);
+    static_cast<YT*>(a.out)[(size_t)b * a.T_out + t0 + i] =
+        from_f<YT>(conv_out(a, 0, acc));
   }
 }
 
@@ -136,26 +145,43 @@ cudaError_t launch_direct(Kernel kernel, size_t* configured, dim3 grid, size_t s
   return cudaGetLastError();
 }
 
-template <typename WT>
+template <typename WT, typename XT, typename YT>
 cudaError_t launch_conv(const ConvArgs& a, int arm, int tile, int steps_per_block, size_t smem,
                         cudaStream_t s) {
   if (arm == 0) {
-    static size_t configured = 0;
+    static size_t configured[kMaxDevices] = {};
     const long long threads = (long long)a.M * ((a.Cout + 3) / 4);
-    return launch_direct(causal_conv_kernel_cin1<WT>, &configured,
+    return launch_direct(causal_conv_kernel_cin1<WT, XT, YT>, configured,
                          dim3((unsigned)((threads + kDirectThreads - 1) / kDirectThreads)), smem,
                          s, a);
   }
   if (arm == 1) {
-    static size_t configured = 0;
-    auto kernel = causal_conv_kernel_cout1<WT>;
-    cudaError_t err = allow_smem(kernel, smem, &configured);
+    static size_t configured[kMaxDevices] = {};
+    auto kernel = causal_conv_kernel_cout1<WT, XT, YT>;
+    cudaError_t err = allow_smem(kernel, smem, configured);
     if (err != cudaSuccess) return err;
     const int B = a.M / a.T_out;
     kernel<<<B * ((a.T_out + tile - 1) / tile), kDirectThreads, smem, s>>>(a, tile);
     return cudaGetLastError();
   }
-  return launch_conv_gemm<WT, false>(a, tile, steps_per_block, smem, s);
+  // the GEMM arm's pairs: f32 -> f32, bf16 -> bf16, f32 -> bf16
+  if constexpr (sizeof(XT) == 2 && sizeof(YT) == 4) return cudaErrorInvalidValue;
+  else return launch_conv_gemm<WT, XT, YT, false>(a, tile, steps_per_block, smem, s);
+}
+
+template <typename WT>
+cudaError_t launch_types(int types, const ConvArgs& a, int arm, int tile, int steps_per_block,
+                         size_t smem, cudaStream_t s) {
+  switch (types >> 1) {
+    case 0: return launch_conv<WT, float, float>(a, arm, tile, steps_per_block, smem, s);
+    case 1:
+      return launch_conv<WT, __nv_bfloat16, float>(a, arm, tile, steps_per_block, smem, s);
+    case 2:
+      return launch_conv<WT, float, __nv_bfloat16>(a, arm, tile, steps_per_block, smem, s);
+    default:
+      return launch_conv<WT, __nv_bfloat16, __nv_bfloat16>(a, arm, tile, steps_per_block, smem,
+                                                           s);
+  }
 }
 
 }  // namespace
@@ -175,12 +201,15 @@ extern "C" size_t dse_causal_conv_smem(int arm, int tile, int Cin, int Cout, int
   return dse::conv_gemm_smem(tile, Cin, Cout, taps, steps_per_block, bf16);
 }
 
-extern "C" int dse_causal_conv(const float* cache, long long cache_bs, const float* x,
-                               const void* w, const float* bias, float* out, int B, int T_out,
+// `types`: bit 0 bf16 weights (else f32), bit 1 bf16 x, bit 2 bf16 out.
+extern "C" int dse_causal_conv(const float* cache, long long cache_bs, const void* x,
+                               const void* w, const float* bias, void* out, int B, int T_out,
                                int Cin, int Cout, int taps, int stride, int dil, int act,
-                               float slope, int tanh_out, int bf16, int arm, int tile,
+                               float slope, int tanh_out, int types, int arm, int tile,
                                int steps_per_block, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int bf16 = types & 1;
+  if (types & ~7) return cudaErrorInvalidValue;
   if (B <= 0 || T_out <= 0 || Cin <= 0 || Cout <= 0 || taps <= 0 || stride <= 0 || dil <= 0 ||
       (long long)B * T_out * stride > 0x7fffffffLL ||
       (long long)B * T_out * (Cout + 3) > 0x7fffffffLL)
@@ -194,6 +223,6 @@ extern "C" int dse_causal_conv(const float* cache, long long cache_bs, const flo
   if (!ok || smem > 232448) return cudaErrorInvalidValue;
   const dse::ConvArgs a{cache, cache_bs, x, w, bias, out, B * T_out, T_out, Cin, Cout,
                         taps, stride, dil, act, tanh_out, slope};
-  if (bf16) return dse::launch_conv<__nv_bfloat16>(a, arm, tile, steps_per_block, smem, s);
-  return dse::launch_conv<float>(a, arm, tile, steps_per_block, smem, s);
+  if (bf16) return dse::launch_types<__nv_bfloat16>(types, a, arm, tile, steps_per_block, smem, s);
+  return dse::launch_types<float>(types, a, arm, tile, steps_per_block, smem, s);
 }

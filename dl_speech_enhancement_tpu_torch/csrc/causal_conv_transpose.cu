@@ -12,7 +12,9 @@
 // HiFiGAN vocoder (ops/vocoder_kernel.py::make_mega_vocoder's add_upsample).
 //
 // B independent streams run in one launch: cache (B, 1, Cin) with stream stride
-// `cache_bs` floats, x (B, T, Cin), out (B, T*s, Cout). With `act` = 1 every
+// `cache_bs` floats, x (B, T, Cin), out (B, T*s, Cout); x and out both f32 or
+// both bf16 (the streams' boundary dtype, widened as staged and rounded as
+// stored: conv_gemm.cuh), the cache f32. With `act` = 1 every
 // element of [cache; x] is passed through LeakyReLU(`slope`) as it is staged
 // (the vocoder's LeakyReLU(0.1) before each upsample), so a stage's cache
 // stays the tail of its raw input.
@@ -41,12 +43,15 @@ extern "C" size_t dse_causal_conv_transpose_smem(int tile, int Cin, int Cout,
   return dse::conv_gemm_smem(tile, Cin, Cout, 2, steps_per_block, bf16);
 }
 
+// `types`: bit 0 bf16 weights (else f32), bit 1 bf16 x and out (else f32).
 extern "C" int dse_causal_conv_transpose(const float* cache, long long cache_bs,
-                                         const float* x, const void* w, const float* bias,
-                                         float* out, int B, int T_in, int Cin, int Cout,
-                                         int stride, int act, float slope, int bf16, int tile,
+                                         const void* x, const void* w, const float* bias,
+                                         void* out, int B, int T_in, int Cin, int Cout,
+                                         int stride, int act, float slope, int types, int tile,
                                          int steps_per_block, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int bf16 = types & 1;
+  if (types & ~3) return cudaErrorInvalidValue;
   if (B <= 0 || T_in <= 0 || Cin <= 0 || Cout <= 0 || stride <= 0 || stride > 65535 ||
       (long long)B * T_in * stride > 0x7fffffffLL)
     return cudaErrorInvalidValue;
@@ -56,6 +61,13 @@ extern "C" int dse_causal_conv_transpose(const float* cache, long long cache_bs,
   // each phase: a 2-tap conv over the one-row cache, stride 1, dilation 1
   const dse::ConvArgs a{cache, cache_bs, x, w, bias, out, B * T_in, T_in, Cin, Cout, 2, 1, 1,
                         act, 0, slope, stride};
-  if (bf16) return dse::launch_conv_gemm<__nv_bfloat16, true>(a, tile, steps_per_block, smem, s);
-  return dse::launch_conv_gemm<float, true>(a, tile, steps_per_block, smem, s);
+  using bf = __nv_bfloat16;
+  switch (types) {
+    case 0: return dse::launch_conv_gemm<float, float, float, true>(a, tile, steps_per_block,
+                                                                   smem, s);
+    case 1: return dse::launch_conv_gemm<bf, float, float, true>(a, tile, steps_per_block, smem,
+                                                                s);
+    case 2: return dse::launch_conv_gemm<float, bf, bf, true>(a, tile, steps_per_block, smem, s);
+    default: return dse::launch_conv_gemm<bf, bf, bf, true>(a, tile, steps_per_block, smem, s);
+  }
 }

@@ -8,6 +8,9 @@
 // mega_kernel.py::make_mega_stream.dec_kernel (:552-560), which computes it
 // as L one-hot matrix products.
 //
+// zq is stored f32, or bf16 where the streams' boundary dtype is bf16
+// (ops/mega_stacked.py): the sum is f32 either way, rounded once as stored.
+//
 // What bounds it: bytes. It reads L codewords of D floats per row (the
 // selected ones, not the whole 2 MB of books) and writes D floats, with one
 // addition per codeword element. Design: one thread per output element, so
@@ -21,6 +24,7 @@
 // word is never cleared. The entry point only launches: no copy, no
 // synchronisation; the host reads the word once the call has finished on the
 // card (ops/mega_kernel.py::BadCodeWord).
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "error.cuh"
@@ -29,9 +33,13 @@ namespace dse {
 
 constexpr int kThreads = 256;
 
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
+
+template <typename OT>
 __global__ void __launch_bounds__(kThreads)
 codebook_lookup_kernel(const int* __restrict__ codes, const float* __restrict__ books_t,
-                       float* __restrict__ out, long long* bad, long long call, int R, int L,
+                       OT* __restrict__ out, long long* bad, long long call, int R, int L,
                        int K, int D) {
   const size_t e = (size_t)blockIdx.x * kThreads + threadIdx.x;
   if (e >= (size_t)R * D) return;
@@ -45,19 +53,27 @@ codebook_lookup_kernel(const int* __restrict__ codes, const float* __restrict__ 
     }
     s = __fadd_rn(s, books_t[((size_t)l * K + c) * D + d]);
   }
-  out[e] = s;
+  store(out + e, s);
 }
 
 }  // namespace dse
 
-extern "C" int dse_codebook_lookup(const int* codes, const float* books_t, float* out,
+// `types` holds the activations' bits of ops/stream_kernel.py::act_types:
+// bit 1 for a bf16 out (the books are f32, so bit 0 stays clear).
+extern "C" int dse_codebook_lookup(const int* codes, const float* books_t, void* out,
                                    long long* bad, long long call, int R, int L, int K, int D,
-                                   void* stream) {
-  if (R <= 0 || L <= 0 || K <= 0 || D <= 0 || !bad || call <= 0) return cudaErrorInvalidValue;
+                                   int types, void* stream) {
+  if (R <= 0 || L <= 0 || K <= 0 || D <= 0 || !bad || call <= 0 || (types & ~2))
+    return cudaErrorInvalidValue;
   const size_t n = (size_t)R * D;
   const unsigned blocks = (unsigned)((n + dse::kThreads - 1) / dse::kThreads);
-  dse::codebook_lookup_kernel<<<blocks, dse::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      codes, books_t, out, bad, call, R, L, K, D);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (types)
+    dse::codebook_lookup_kernel<<<blocks, dse::kThreads, 0, s>>>(
+        codes, books_t, static_cast<__nv_bfloat16*>(out), bad, call, R, L, K, D);
+  else
+    dse::codebook_lookup_kernel<<<blocks, dse::kThreads, 0, s>>>(
+        codes, books_t, static_cast<float*>(out), bad, call, R, L, K, D);
   return cudaGetLastError();
 }
 

@@ -33,6 +33,12 @@
 // With `act` = 1 every staged element of [cache; x] is passed through
 // LeakyReLU(`slope`), so a layer's cache stays the tail of its raw input;
 // with `tanh_out` the epilogue writes tanh(y).
+//
+// x is f32 or bf16 (XT) and out f32 or bf16 (YT): the streams' boundary
+// dtype (ops/mega_stacked.py). The cache stays f32. bf16 rows of x are widened
+// to f32 by the threads' own 8-byte loads as they are staged (cp.async copies
+// bytes and cannot widen), so the A tile and every sum are the f32 arm's on
+// the same values; the epilogue rounds what it stores.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -52,14 +58,16 @@ namespace {
 constexpr int kConvStages = 3;   // (A, W) ring depth of the GEMM arm
 constexpr int kConvLda = kKC + 4;  // A row stride: 8 fragment rows hit 8 bank quads
 constexpr int kMaxConvCluster = 8;
+// The source of the A tile's zero fill (cp.async of 0 bytes reads nothing).
+__device__ __align__(16) float kConvZeros[4];
 
 struct ConvArgs {
   const float* cache;
   long long cache_bs;
-  const float* x;
+  const void* x;    // XT
   const void* w;
   const float* bias;
-  float* out;
+  void* out;        // YT
   int M, T_out, Cin, Cout, taps, stride, dil, act, tanh_out;
   float slope;
   int phases = 1;  // a transposed conv's stride: its phases, on grid.y
@@ -138,7 +146,8 @@ inline size_t conv_gemm_smem(int tile, int Cin, int Cout, int taps, int steps_pe
 
 // The kernels' body; each .cu file's kernel below carries the name that the
 // profiler's time is summed under (<wrapper>_kernel).
-template <int WMW, int WNW, int FM, int FN, typename WT, bool kPhased>
+template <int WMW, int WNW, int FM, int FN, typename WT, typename XT, typename YT,
+          bool kPhased>
 __device__ __forceinline__ void conv_gemm_body(ConvArgs a, int steps_per_block, int a_vec,
                                                int w_vec) {
   using T = ConvTile<WMW, WNW, FM, FN>;
@@ -188,14 +197,22 @@ __device__ __forceinline__ void conv_gemm_body(ConvArgs a, int steps_per_block, 
     a_b[i] = q < kAChunks && m < a.M ? b : -1;
     a_e0[i] = (m - b * a.T_out) * a.stride;
   }
-  auto a_src = [&](int i, int j, int c) {  // x_ext[s*t + j*d][c] of A chunk i's row
-    const int e = a_e0[i] + j * a.dil, b = max(a_b[i], 0);
+  const XT* x = static_cast<const XT*>(a.x);
+  // x_ext[s*t + j*d][c] of A chunk i's row: in the cache (f32) where e < P,
+  // else in x (XT); only f32 rows are copied by cp.async
+  auto a_e = [&](int i, int j) { return a_e0[i] + j * a.dil; };
+  auto a_src = [&](int i, int j, int c) {
+    const int e = a_e(i, j), b = max(a_b[i], 0);
     return (e < P ? a.cache + (size_t)b * a.cache_bs + (size_t)e * a.Cin
-                  : a.x + ((size_t)b * T_in + e - P) * a.Cin) + c;
+                  : reinterpret_cast<const float*>(x) + ((size_t)b * T_in + e - P) * a.Cin) + c;
   };
+  auto x_src = [&](int i, int j, int c) {
+    return x + ((size_t)max(a_b[i], 0) * T_in + a_e(i, j) - P) * a.Cin + c;
+  };
+  constexpr bool kWiden = sizeof(XT) == 2;
   auto store = [&](int m, int n, float v) {
     const size_t row = kPhased ? (size_t)m * a.phases + p : (size_t)m;
-    a.out[row * a.Cout + n] = conv_out(a, n, v);
+    static_cast<YT*>(a.out)[row * a.Cout + n] = from_f<YT>(conv_out(a, n, v));
   };
 
   // Stages step `step`'s A (BM rows x its terms, zeros past them up to a
@@ -213,13 +230,19 @@ __device__ __forceinline__ void conv_gemm_body(ConvArgs a, int steps_per_block, 
           float* dst = ad + (q / (kKC / 4)) * kConvLda + cc;
           if (a_vec) {  // Cin % 4 == 0: the 4 terms are 4 channels of one tap
             const bool ok = a_b[i] >= 0 && cc < kn;
-            cp_async<16>(dst, ok ? a_src(i, j, c) : a.x, ok ? 16 : 0);
+            if (kWiden && ok && a_e(i, j) >= P)
+              *reinterpret_cast<float4*>(dst) = load4(x_src(i, j, c));
+            else
+              cp_async<16>(dst, ok ? a_src(i, j, c) : kConvZeros, ok ? 16 : 0);
           } else {
 #pragma unroll
             for (int u = 0; u < 4; ++u) {
-              const int ju = (g + u) / a.Cin;
+              const int ju = (g + u) / a.Cin, cu = g + u - ju * a.Cin;
               const bool ok = a_b[i] >= 0 && cc + u < kn;
-              cp_async<4>(dst + u, ok ? a_src(i, ju, g + u - ju * a.Cin) : a.x, ok ? 4 : 0);
+              if (kWiden && ok && a_e(i, ju) >= P)
+                dst[u] = to_f(*x_src(i, ju, cu));
+              else
+                cp_async<4>(dst + u, ok ? a_src(i, ju, cu) : kConvZeros, ok ? 4 : 0);
             }
           }
         }
@@ -381,29 +404,30 @@ __device__ __forceinline__ void conv_gemm_body(ConvArgs a, int steps_per_block, 
   cluster.sync();  // no block leaves while a peer reads its shared memory
 }
 
-template <int WMW, int WNW, int FM, int FN, typename WT>
+template <int WMW, int WNW, int FM, int FN, typename WT, typename XT, typename YT>
 __global__ void __launch_bounds__(32 * WMW * WNW, ConvTile<WMW, WNW, FM, FN>::kMinBlocks)
 causal_conv_kernel_gemm(ConvArgs a, int steps_per_block, int a_vec, int w_vec) {
-  conv_gemm_body<WMW, WNW, FM, FN, WT, false>(a, steps_per_block, a_vec, w_vec);
+  conv_gemm_body<WMW, WNW, FM, FN, WT, XT, YT, false>(a, steps_per_block, a_vec, w_vec);
 }
 
-template <int WMW, int WNW, int FM, int FN, typename WT>
+template <int WMW, int WNW, int FM, int FN, typename WT, typename XT, typename YT>
 __global__ void __launch_bounds__(32 * WMW * WNW, ConvTile<WMW, WNW, FM, FN>::kMinBlocks)
 causal_conv_transpose_kernel(ConvArgs a, int steps_per_block, int a_vec, int w_vec) {
-  conv_gemm_body<WMW, WNW, FM, FN, WT, true>(a, steps_per_block, a_vec, w_vec);
+  conv_gemm_body<WMW, WNW, FM, FN, WT, XT, YT, true>(a, steps_per_block, a_vec, w_vec);
 }
 
-template <int WMW, int WNW, int FM, int FN, typename WT, bool kPhased>
+template <int WMW, int WNW, int FM, int FN, typename WT, typename XT, typename YT,
+          bool kPhased>
 cudaError_t launch_gemm(const ConvArgs& a, int steps_per_block, int a_vec, int w_vec,
                         size_t smem, cudaStream_t stream) {
   using T = ConvTile<WMW, WNW, FM, FN>;
-  static size_t configured = 0;
+  static size_t configured[kMaxDevices] = {};
   void (*kernel)(ConvArgs, int, int, int);
   if constexpr (kPhased)
-    kernel = causal_conv_transpose_kernel<WMW, WNW, FM, FN, WT>;
+    kernel = causal_conv_transpose_kernel<WMW, WNW, FM, FN, WT, XT, YT>;
   else
-    kernel = causal_conv_kernel_gemm<WMW, WNW, FM, FN, WT>;
-  cudaError_t err = allow_smem(kernel, smem, &configured);
+    kernel = causal_conv_kernel_gemm<WMW, WNW, FM, FN, WT, XT, YT>;
+  cudaError_t err = allow_smem(kernel, smem, configured);
   if (err != cudaSuccess) return err;
   const int S = conv_steps(a.taps, a.Cin);
   const int cluster = (S + steps_per_block - 1) / steps_per_block;
@@ -427,17 +451,17 @@ cudaError_t launch_gemm(const ConvArgs& a, int steps_per_block, int a_vec, int w
 
 // Launches the GEMM arm at the plan (tile, steps_per_block), which the caller
 // has checked (conv_gemm_plan_ok) and whose shared memory is `smem`.
-template <typename WT, bool kPhased>
+template <typename WT, typename XT, typename YT, bool kPhased>
 cudaError_t launch_conv_gemm(const ConvArgs& a, int tile, int steps_per_block, size_t smem,
                              cudaStream_t s) {
   const int a_vec = a.Cin % 4 == 0 && a.cache_bs % 4 == 0 &&
-                    (reinterpret_cast<uintptr_t>(a.cache) | reinterpret_cast<uintptr_t>(a.x)) %
-                            16 == 0;
+                    reinterpret_cast<uintptr_t>(a.cache) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(a.x) % (4 * sizeof(XT)) == 0;
   const int w_vec = a.Cout % 4 == 0 && reinterpret_cast<uintptr_t>(a.w) % (4 * sizeof(WT)) == 0;
 #define DSE_LAUNCH(i, wm, wn, fm, fn)                                                        \
   if (tile == i)                                                                             \
-    return launch_gemm<wm, wn, fm, fn, WT, kPhased>(a, steps_per_block, a_vec, w_vec, smem, \
-                                                    s);
+    return launch_gemm<wm, wn, fm, fn, WT, XT, YT, kPhased>(a, steps_per_block, a_vec, w_vec, \
+                                                            smem, s);
   DSE_CONV_TILES(DSE_LAUNCH)
 #undef DSE_LAUNCH
   return cudaErrorInvalidValue;

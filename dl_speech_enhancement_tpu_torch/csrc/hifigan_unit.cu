@@ -29,8 +29,14 @@
 // reading x the same way). Weights are (k, c, groups*c), the JAX package's
 // grouped layout, so group g's columns are a column tile of the tap GEMM.
 //
+// x, acc and out are all f32 or all bf16 (AT, the streams' boundary dtype,
+// ops/mega_stacked.py): x is widened to f32 as it is staged (by the threads'
+// own loads where bf16: cp.async cannot widen), every sum is f32, and the
+// epilogue rounds what it stores. Both caches stay f32.
+//
 // Caches: cache1 (B, (k-1)*d, Cin) is the tail of the raw unit input (leaky is
-// applied on load), so the caller's next cache1 is a view of x. cache2 (B,
+// applied on load), so the caller's next cache1 is a view of x (widened to f32
+// by the caller where x is bf16). cache2 (B,
 // k-1, groups*c) holds conv2's window rows of h as the reference caches them
 // (activated, and zeros at stream start). The kernel writes the next cache2,
 // the last k-1 rows of h_ext, into `new_cache2`.
@@ -83,14 +89,14 @@ inline int unit_wm(int tile, int taps, int nf) {
   return round16(tile + taps - 1) > 16 * (kWarps / (nf < 4 ? nf : 4)) ? 2 : 1;
 }
 
-template <int NF, int WM, typename WT>
+template <int NF, int WM, typename WT, typename AT>
 __global__ void __launch_bounds__(kThreads, 1)
 hifigan_unit_kernel(const float* __restrict__ cache1, long long c1_bs,
                     const float* __restrict__ cache2, long long c2_bs,
-                    const float* __restrict__ x, const WT* __restrict__ w1,
+                    const AT* __restrict__ x, const WT* __restrict__ w1,
                     const float* __restrict__ b1, const WT* __restrict__ w2,
-                    const float* __restrict__ b2, const float* __restrict__ acc,
-                    float out_scale, float* __restrict__ out,
+                    const float* __restrict__ b2, const AT* __restrict__ acc,
+                    float out_scale, AT* __restrict__ out,
                     float* __restrict__ new_cache2, int T, int c, int groups, int in_gstride,
                     int Cin, int taps, int dil, int tile, float slope) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -125,14 +131,24 @@ hifigan_unit_kernel(const float* __restrict__ cache1, long long c1_bs,
   // The input window: row i is x_ext1 row hs + i (zeros outside the stream
   // and in the channel padding), all c channels of the group.
   const int x_elems = (round16(M1) + P1) * kp;
-  const bool x_vec = ((reinterpret_cast<uintptr_t>(cache1) | reinterpret_cast<uintptr_t>(x)) %
-                          16 == 0 && c1_bs % 4 == 0 && Cin % 4 == 0 && ch0 % 4 == 0);
+  const bool x_vec = reinterpret_cast<uintptr_t>(cache1) % 16 == 0 &&
+                     reinterpret_cast<uintptr_t>(x) % (4 * sizeof(AT)) == 0 && c1_bs % 4 == 0 &&
+                     Cin % 4 == 0 && ch0 % 4 == 0;
   for (int q = threadIdx.x * (x_vec ? 4 : 1); q < x_elems; q += kThreads * (x_vec ? 4 : 1)) {
     const int i = q / kp, ch = q - i * kp, e = hs + i;
     const bool ok = ch < c && e >= 0 && e < P1 + T;
-    const float* src = !ok ? x
+    if (sizeof(AT) == 2 && ok && e >= P1) {  // bf16 rows of x: widened by this thread
+      const AT* xs = x + (size_t)(e - P1) * Cin + ch0 + ch;
+      if (x_vec)
+        *reinterpret_cast<float4*>(X + i * lda + ch) = load4(xs);
+      else
+        X[i * lda + ch] = to_f(*xs);
+      continue;
+    }
+    const float* src = !ok ? cache1
                        : e < P1 ? cache1 + (size_t)e * Cin + ch0 + ch
-                                : x + (size_t)(e - P1) * Cin + ch0 + ch;
+                                : reinterpret_cast<const float*>(x) + (size_t)(e - P1) * Cin +
+                                      ch0 + ch;
     if (x_vec)  // 4 channels at once: c is a multiple of 4
       cp_async<16>(X + i * lda + ch, src, ok ? 16 : 0);
     else
@@ -180,22 +196,22 @@ hifigan_unit_kernel(const float* __restrict__ cache1, long long c1_bs,
       count, taps, 1, c, H, lda, w2 + n0, (long long)c * gc, gc, nc, ring, [] {},
       [&](int m, int n, float v) {
         const int t = t0 + m;
-        const float y = x[(size_t)t * Cin + ch0 + col0 + n] + (b2 ? v + b2[n0 + n] : v);
+        const float y = to_f(x[(size_t)t * Cin + ch0 + col0 + n]) + (b2 ? v + b2[n0 + n] : v);
         const size_t o = (size_t)t * gc + n0 + n;
-        out[o] = (acc ? acc[o] + y : y) * out_scale;
+        out[o] = from_f<AT>((acc ? to_f(acc[o]) + y : y) * out_scale);
       });
 }
 
-template <int NF, int WM, typename WT>
+template <int NF, int WM, typename WT, typename AT>
 cudaError_t launch(const float* cache1, long long c1_bs, const float* cache2, long long c2_bs,
-                   const float* x, const void* w1, const float* b1, const void* w2,
-                   const float* b2, const float* acc, float out_scale, float* out,
+                   const void* x, const void* w1, const float* b1, const void* w2,
+                   const float* b2, const void* acc, float out_scale, void* out,
                    float* new_cache2, int B, int T, int c, int groups, int in_gstride, int Cin,
                    int taps, int dil, int tile, int cluster, float slope, size_t smem,
                    cudaStream_t stream) {
-  static size_t configured = 0;
-  auto kernel = hifigan_unit_kernel<NF, WM, WT>;
-  cudaError_t err = allow_smem(kernel, smem, &configured);
+  static size_t configured[kMaxDevices] = {};
+  auto kernel = hifigan_unit_kernel<NF, WM, WT, AT>;
+  cudaError_t err = allow_smem(kernel, smem, configured);
   if (err != cudaSuccess) return err;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -209,19 +225,20 @@ cudaError_t launch(const float* cache1, long long c1_bs, const float* cache2, lo
   cfg.stream = stream;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, kernel, cache1, c1_bs, cache2, c2_bs, x,
-                           static_cast<const WT*>(w1), b1, static_cast<const WT*>(w2), b2, acc,
-                           out_scale, out, new_cache2, T, c, groups, in_gstride, Cin, taps, dil,
-                           tile, slope);
+  err = cudaLaunchKernelEx(&cfg, kernel, cache1, c1_bs, cache2, c2_bs,
+                           static_cast<const AT*>(x), static_cast<const WT*>(w1), b1,
+                           static_cast<const WT*>(w2), b2, static_cast<const AT*>(acc),
+                           out_scale, static_cast<AT*>(out), new_cache2, T, c, groups,
+                           in_gstride, Cin, taps, dil, tile, slope);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
-template <typename WT>
+template <typename WT, typename AT>
 cudaError_t launch_plan(int nf, int wm, const float* cache1, long long c1_bs, const float* cache2,
-                        long long c2_bs, const float* x, const void* w1, const float* b1,
-                        const void* w2, const float* b2, const float* acc, float out_scale,
-                        float* out, float* new_cache2, int B, int T, int c, int groups,
+                        long long c2_bs, const void* x, const void* w1, const float* b1,
+                        const void* w2, const float* b2, const void* acc, float out_scale,
+                        void* out, float* new_cache2, int B, int T, int c, int groups,
                         int in_gstride, int Cin, int taps, int dil, int tile, int cluster,
                         float slope, size_t smem, cudaStream_t s) {
   auto go = [&](auto kernel_launch) {
@@ -230,14 +247,14 @@ cudaError_t launch_plan(int nf, int wm, const float* cache1, long long c1_bs, co
                          slope, smem, s);
   };
   switch (nf * 2 + wm - 1) {
-    case 2: return go(launch<1, 1, WT>);
-    case 3: return go(launch<1, 2, WT>);
-    case 4: return go(launch<2, 1, WT>);
-    case 5: return go(launch<2, 2, WT>);
-    case 8: return go(launch<4, 1, WT>);
-    case 9: return go(launch<4, 2, WT>);
-    case 16: return go(launch<8, 1, WT>);
-    default: return go(launch<8, 2, WT>);
+    case 2: return go(launch<1, 1, WT, AT>);
+    case 3: return go(launch<1, 2, WT, AT>);
+    case 4: return go(launch<2, 1, WT, AT>);
+    case 5: return go(launch<2, 2, WT, AT>);
+    case 8: return go(launch<4, 1, WT, AT>);
+    case 9: return go(launch<4, 2, WT, AT>);
+    case 16: return go(launch<8, 1, WT, AT>);
+    default: return go(launch<8, 2, WT, AT>);
   }
 }
 
@@ -254,13 +271,16 @@ extern "C" size_t dse_hifigan_unit_smem(int tile, int c, int taps, int dil, int 
                     (dse::unit_x_rows(tile, taps, dil) + dse::unit_h_rows(tile, taps));
 }
 
+// `types`: bit 0 bf16 weights (else f32), bit 1 bf16 x, acc and out (else f32).
 extern "C" int dse_hifigan_unit(const float* cache1, long long c1_bs, const float* cache2,
-                                long long c2_bs, const float* x, const void* w1, const float* b1,
-                                const void* w2, const float* b2, const float* acc,
-                                float out_scale, float* out, float* new_cache2, int B, int T,
+                                long long c2_bs, const void* x, const void* w1, const float* b1,
+                                const void* w2, const float* b2, const void* acc,
+                                float out_scale, void* out, float* new_cache2, int B, int T,
                                 int c, int groups, int tiled, int taps, int dil, int tile,
-                                int cluster, float slope, int bf16, void* stream) {
+                                int cluster, float slope, int types, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int bf16 = types & 1;
+  if (types & ~3) return cudaErrorInvalidValue;
   if (B <= 0 || T <= 0 || c <= 0 || c % 4 != 0 || groups <= 0 || taps <= 1 || dil <= 0 ||
       tile <= 0 || cluster < 1 || cluster > dse::kMaxUnitCluster || c % cluster != 0 ||
       (c / cluster) % 4 != 0 || c / cluster > 64 ||
@@ -274,12 +294,16 @@ extern "C" int dse_hifigan_unit(const float* cache1, long long c1_bs, const floa
   const int Cin = tiled ? c : groups * c;
   const int nf = dse::unit_nf(c / cluster);
   const int wm = dse::unit_wm(tile, taps, nf);
-  if (bf16)
-    return dse::launch_plan<__nv_bfloat16>(nf, wm, cache1, c1_bs, cache2, c2_bs, x, w1, b1, w2,
-                                           b2, acc, out_scale, out, new_cache2, B, T, c, groups,
-                                           in_gstride, Cin, taps, dil, tile, cluster, slope,
-                                           smem, s);
-  return dse::launch_plan<float>(nf, wm, cache1, c1_bs, cache2, c2_bs, x, w1, b1, w2, b2, acc,
-                                 out_scale, out, new_cache2, B, T, c, groups, in_gstride, Cin,
-                                 taps, dil, tile, cluster, slope, smem, s);
+  auto go = [&](auto launch_plan) {
+    return launch_plan(nf, wm, cache1, c1_bs, cache2, c2_bs, x, w1, b1, w2, b2, acc, out_scale,
+                       out, new_cache2, B, T, c, groups, in_gstride, Cin, taps, dil, tile,
+                       cluster, slope, smem, s);
+  };
+  using bf = __nv_bfloat16;
+  switch (types) {
+    case 0: return go(dse::launch_plan<float, float>);
+    case 1: return go(dse::launch_plan<bf, float>);
+    case 2: return go(dse::launch_plan<float, bf>);
+    default: return go(dse::launch_plan<bf, bf>);
+  }
 }

@@ -14,6 +14,10 @@
 // stride `cache_bs` floats (rows contiguous, so a cache may be a view into the
 // previous activation), x and out (B, T, C). Each stream's halo comes from its
 // own cache and no window crosses a stream: a tile never spans two streams.
+// x and out are f32 or bf16 (AT, the streams' boundary dtype: bf16 halves the
+// activations' traffic between launches; ops/mega_stacked.py): the kernel
+// widens x to f32 as it loads it and rounds only the rows it writes, so every
+// sum is the f32 arm's on the same values. The cache stays f32.
 //
 // What bounds it on an H100: at many rows the operations, 48*C^2 multiply-adds
 // per output row (plus the halo rows a tile recomputes) against 8*C bytes of
@@ -173,11 +177,11 @@ __device__ __forceinline__ void chain_gemm(int M, int taps, int d, int C, const 
   }
 }
 
-template <int NF, typename WT>
+template <int NF, typename WT, typename AT>
 __global__ void __launch_bounds__(kThreads, 1)
 residual_chain_kernel(const float* __restrict__ cache, long long cache_bs,
-                      const float* __restrict__ x, const WT* __restrict__ w1,
-                      const WT* __restrict__ w2, float* __restrict__ out,
+                      const AT* __restrict__ x, const WT* __restrict__ w1,
+                      const WT* __restrict__ w2, AT* __restrict__ out,
                       float* __restrict__ scratch, int T, int C, int d0, int d1, int d2,
                       int tile) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -206,12 +210,25 @@ residual_chain_kernel(const float* __restrict__ cache, long long cache_bs,
   float* sE = shared ? scratch + (size_t)cl * chain_scratch_floats(tile, C, d0, d1, d2) : nullptr;
   float* sH = shared ? sE + (size_t)(tile + halo) * C : nullptr;
 
-  // X: rows t0 .. t0 + rows of this stream's x_ext, this block's channels.
-  const bool vec = (reinterpret_cast<uintptr_t>(cache) | reinterpret_cast<uintptr_t>(x)) % 16 ==
-                       0 && cache_bs % 4 == 0;
+  // X: rows t0 .. t0 + rows of this stream's x_ext, this block's channels:
+  // the f32 cache rows and f32 x rows by cp.async, bf16 x rows widened by
+  // the threads' own loads (visible after the barrier below).
+  const bool vec = reinterpret_cast<uintptr_t>(cache) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(x) % (4 * sizeof(AT)) == 0 && cache_bs % 4 == 0;
   for (int q = threadIdx.x * 4; q < rows * nc; q += kThreads * 4) {
     const int r = q / nc, c = c_base + q - r * nc, g = t0 + r;
-    const float* src = g < halo ? cache + (size_t)g * C + c : x + (size_t)(g - halo) * C + c;
+    if (sizeof(AT) == 2 && g >= halo) {
+      const AT* src = x + (size_t)(g - halo) * C + c;
+      if (vec) {
+        *reinterpret_cast<float4*>(X + q) = load4(src);
+      } else {
+#pragma unroll
+        for (int u = 0; u < 4; ++u) X[q + u] = to_f(src[u]);
+      }
+      continue;
+    }
+    const float* src = g < halo ? cache + (size_t)g * C + c
+                                : reinterpret_cast<const float*>(x) + (size_t)(g - halo) * C + c;
     if (vec) {
       cp_async<16>(X + q, src, 16);
     } else {
@@ -265,24 +282,23 @@ residual_chain_kernel(const float* __restrict__ cache, long long cache_bs,
 
   for (int q = threadIdx.x * 4; q < count * nc; q += kThreads * 4) {
     const int r = q / nc, c = q - r * nc;
-    *reinterpret_cast<float4*>(out + (size_t)(t0 + r) * C + c_base + c) =
-        *reinterpret_cast<const float4*>(X + (size_t)(halo + r) * nc + c);
+    store4(out + (size_t)(t0 + r) * C + c_base + c,
+           *reinterpret_cast<const float4*>(X + (size_t)(halo + r) * nc + c));
   }
 }
 
-template <int NF, typename WT>
-cudaError_t launch(const float* cache, long long cache_bs, const float* x, const void* w1,
-                   const void* w2, float* out, float* scratch, int B, int T, int C, int d0,
+template <int NF, typename WT, typename AT>
+cudaError_t launch(const float* cache, long long cache_bs, const void* x, const void* w1,
+                   const void* w2, void* out, float* scratch, int B, int T, int C, int d0,
                    int d1, int d2, int tile, int cluster, size_t smem, cudaStream_t stream) {
-  static size_t configured = 0;
-  static bool wide = false;  // clusters above 8 blocks allowed
-  auto kernel = residual_chain_kernel<NF, WT>;
-  cudaError_t err = allow_smem(kernel, smem, &configured);
+  static size_t configured[kMaxDevices] = {};
+  static bool wide[kMaxDevices] = {};  // clusters above 8 blocks allowed
+  auto kernel = residual_chain_kernel<NF, WT, AT>;
+  cudaError_t err = allow_smem(kernel, smem, configured);
   if (err != cudaSuccess) return err;
-  if (cluster > 8 && !wide) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (cluster > 8) {
+    err = allow_wide_clusters(kernel, wide);
     if (err != cudaSuccess) return err;
-    wide = true;
   }
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -296,15 +312,16 @@ cudaError_t launch(const float* cache, long long cache_bs, const float* x, const
   cfg.stream = stream;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, kernel, cache, cache_bs, x, static_cast<const WT*>(w1),
-                           static_cast<const WT*>(w2), out, scratch, T, C, d0, d1, d2, tile);
+  err = cudaLaunchKernelEx(&cfg, kernel, cache, cache_bs, static_cast<const AT*>(x),
+                           static_cast<const WT*>(w1), static_cast<const WT*>(w2),
+                           static_cast<AT*>(out), scratch, T, C, d0, d1, d2, tile);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
-template <typename WT>
-cudaError_t launch_nf(int nf, const float* cache, long long cache_bs, const float* x,
-                      const void* w1, const void* w2, float* out, float* scratch, int B, int T,
+template <typename WT, typename AT>
+cudaError_t launch_nf(int nf, const float* cache, long long cache_bs, const void* x,
+                      const void* w1, const void* w2, void* out, float* scratch, int B, int T,
                       int C, int d0, int d1, int d2, int tile, int cluster, size_t smem,
                       cudaStream_t s) {
   auto go = [&](auto kernel_launch) {
@@ -312,11 +329,23 @@ cudaError_t launch_nf(int nf, const float* cache, long long cache_bs, const floa
                          cluster, smem, s);
   };
   switch (nf) {
-    case 1: return go(launch<1, WT>);
-    case 2: return go(launch<2, WT>);
-    case 4: return go(launch<4, WT>);
-    default: return go(launch<8, WT>);
+    case 1: return go(launch<1, WT, AT>);
+    case 2: return go(launch<2, WT, AT>);
+    case 4: return go(launch<4, WT, AT>);
+    default: return go(launch<8, WT, AT>);
   }
+}
+
+template <typename WT>
+cudaError_t launch_act(int act_bf16, int nf, const float* cache, long long cache_bs,
+                       const void* x, const void* w1, const void* w2, void* out, float* scratch,
+                       int B, int T, int C, int d0, int d1, int d2, int tile, int cluster,
+                       size_t smem, cudaStream_t s) {
+  if (act_bf16)
+    return launch_nf<WT, __nv_bfloat16>(nf, cache, cache_bs, x, w1, w2, out, scratch, B, T, C,
+                                        d0, d1, d2, tile, cluster, smem, s);
+  return launch_nf<WT, float>(nf, cache, cache_bs, x, w1, w2, out, scratch, B, T, C, d0, d1,
+                              d2, tile, cluster, smem, s);
 }
 
 }  // namespace
@@ -339,10 +368,13 @@ extern "C" size_t dse_residual_chain_scratch(int tile, int C, int cluster, int d
 
 // `scratch` holds dse_residual_chain_scratch floats for each of the
 // B * ceil(T / tile) clusters (may be null for a cluster of one block).
-extern "C" int dse_residual_chain(const float* cache, long long cache_bs, const float* x,
-                                  const void* w1, const void* w2, float* out, float* scratch,
+// `types`: bit 0 bf16 weights (else f32), bit 1 bf16 x and out (else f32).
+extern "C" int dse_residual_chain(const float* cache, long long cache_bs, const void* x,
+                                  const void* w1, const void* w2, void* out, float* scratch,
                                   int B, int T, int C, int d0, int d1, int d2, int tile,
-                                  int cluster, int bf16, void* stream) {
+                                  int cluster, int types, void* stream) {
+  const int bf16 = types & 1, act_bf16 = (types >> 1) & 1;
+  if (types & ~3) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0 || T <= 0 || tile <= 0 || C <= 0 || C % 4 != 0 || d0 <= 0 || d1 <= 0 || d2 <= 0 ||
       cluster < 1 || cluster > dse::kMaxChainCluster || (cluster & (cluster - 1)) != 0 ||
@@ -356,8 +388,8 @@ extern "C" int dse_residual_chain(const float* cache, long long cache_bs, const 
   if (smem > 232448) return cudaErrorInvalidValue;
   const int nf = dse::chain_nf(C / cluster);
   if (bf16)
-    return dse::launch_nf<__nv_bfloat16>(nf, cache, cache_bs, x, w1, w2, out, scratch, B, T, C,
-                                         d0, d1, d2, tile, cluster, smem, s);
-  return dse::launch_nf<float>(nf, cache, cache_bs, x, w1, w2, out, scratch, B, T, C, d0, d1,
-                               d2, tile, cluster, smem, s);
+    return dse::launch_act<__nv_bfloat16>(act_bf16, nf, cache, cache_bs, x, w1, w2, out,
+                                          scratch, B, T, C, d0, d1, d2, tile, cluster, smem, s);
+  return dse::launch_act<float>(act_bf16, nf, cache, cache_bs, x, w1, w2, out, scratch, B, T, C,
+                                d0, d1, d2, tile, cluster, smem, s);
 }

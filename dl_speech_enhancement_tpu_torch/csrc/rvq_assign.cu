@@ -8,7 +8,9 @@
 //                 codes[row, l] = ind + l*K
 //
 // with books E (L, D, K) f32 in the JAX package's VQState layout and their
-// squared norms (L, K) f32. Replaces the residual-VQ part of the TPU kernel
+// squared norms (L, K) f32. z is f32, or bf16 where the streams' boundary dtype
+// is bf16 (ops/mega_stacked.py): it is widened to f32 as the tile is loaded,
+// and the search is the f32 one on those values. Replaces the residual-VQ part of the TPU kernel
 // dl_speech_enhancement_tpu/ops/mega_kernel.py::make_mega_stream.enc_kernel
 // (:418-432), which loops over the L books inside its body with the books
 // resident in VMEM.
@@ -182,7 +184,7 @@ __device__ __forceinline__ void merge_lanes(float& d, int& i, int n) {
 }
 
 struct RvqArgs {
-  const float* z;
+  const void* z;  // ZT: f32 or bf16
   const float* books;
   const float* sqnorm;
   const float* books_t;  // (L, K, D): the winner's codeword from L2
@@ -251,7 +253,7 @@ __device__ __forceinline__ void dot(float (&acc)[RT][CW], const float* res, cons
   }
 }
 
-template <int RT, int CW>
+template <int RT, int CW, typename ZT>
 __global__ void __launch_bounds__(kMaxThreads) rvq_assign_kernel(const RvqArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   cg::cluster_group cluster = cg::this_cluster();
@@ -321,11 +323,11 @@ __global__ void __launch_bounds__(kMaxThreads) rvq_assign_kernel(const RvqArgs a
     const int r0 = t * tile, rows = min(tile, a.R - r0);
     // the tile's rows (zeros past the last) and their |r|^2
     if (P) {
-      const float4* z4 = reinterpret_cast<const float4*>(a.z) + (size_t)r0 * P;
+      const ZT* z4 = static_cast<const ZT*>(a.z) + (size_t)r0 * P * 4;
       for (int q0 = 0; q0 < tile * P; q0 += nthreads) {
         const int q = q0 + tid, row = q / P, x = q - row * P;
         float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (q < tile * P && row < rows) v = z4[q];
+        if (q < tile * P && row < rows) v = load4(z4 + (size_t)q * 4);
         if (q < tile * P) *reinterpret_cast<float4*>(res + (size_t)row * ldr + 4 * x) = v;
         const float s = chunk_norm(v, P);
         if (x == 0 && q < tile * P) rsq[row] = s;
@@ -333,7 +335,9 @@ __global__ void __launch_bounds__(kMaxThreads) rvq_assign_kernel(const RvqArgs a
     } else {
       for (int e = tid; e < tile * ldr; e += nthreads) {
         const int row = e / ldr, d = e - row * ldr;
-        res[e] = row < rows && d < D ? a.z[(size_t)(r0 + row) * D + d] : 0.f;
+        res[e] = row < rows && d < D
+                     ? to_f(static_cast<const ZT*>(a.z)[(size_t)(r0 + row) * D + d])
+                     : 0.f;
       }
       __syncthreads();
       for (int row = tid; row < tile; row += nthreads)
@@ -503,18 +507,17 @@ __global__ void __launch_bounds__(kMaxThreads) rvq_assign_kernel(const RvqArgs a
   cluster.sync();  // no block leaves while a peer may still store into its shared memory
 }
 
-template <int RT, int CW>
+template <int RT, int CW, typename ZT>
 cudaError_t launch(const RvqArgs& a, int cluster, int clusters, size_t smem,
                    cudaStream_t stream, int* max_clusters) {
-  static size_t configured = 0;
-  static bool wide = false;  // clusters above 8 blocks allowed
-  auto kernel = rvq_assign_kernel<RT, CW>;
-  cudaError_t err = allow_smem(kernel, smem, &configured);
+  static size_t configured[kMaxDevices] = {};
+  static bool wide[kMaxDevices] = {};  // clusters above 8 blocks allowed
+  auto kernel = rvq_assign_kernel<RT, CW, ZT>;
+  cudaError_t err = allow_smem(kernel, smem, configured);
   if (err != cudaSuccess) return err;
-  if (cluster > 8 && !wide) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (cluster > 8) {
+    err = allow_wide_clusters(kernel, wide);
     if (err != cudaSuccess) return err;
-    wide = true;
   }
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -536,7 +539,8 @@ cudaError_t launch(const RvqArgs& a, int cluster, int clusters, size_t smem,
 
 // Checks a plan and launches it (or, with `max_clusters`, asks how many of
 // its clusters the card holds at once).
-cudaError_t run(const float* z, const float* books, const float* sqnorm, const float* books_t,
+template <typename ZT>
+cudaError_t run(const ZT* z, const float* books, const float* sqnorm, const float* books_t,
                 int* codes, int R, int D, int K, int L, int cluster, int tile, int clusters,
                 int stages, cudaStream_t stream, int* max_clusters) {
   if (R <= 0 || D <= 0 || D > kMaxDim || K <= 0 || L <= 0 || cluster < 1 ||
@@ -568,18 +572,19 @@ cudaError_t run(const float* z, const float* books, const float* sqnorm, const f
   a.tile = tile;
   a.stages = stages;
   a.chunks = D % 4 == 0 && D <= 128 && ((D / 4) & (D / 4 - 1)) == 0 &&
-                     (reinterpret_cast<uintptr_t>(z) | reinterpret_cast<uintptr_t>(books_t)) % 16 == 0
+                     reinterpret_cast<uintptr_t>(z) % (4 * sizeof(ZT)) == 0 &&
+                     reinterpret_cast<uintptr_t>(books_t) % 16 == 0
                  ? D / 4
                  : 0;
   a.async = K % 4 == 0 &&
             (reinterpret_cast<uintptr_t>(books) | reinterpret_cast<uintptr_t>(sqnorm)) % 16 == 0;
 
-  if (cw == 2) return launch<1, 2>(a, cluster, clusters, smem, stream, max_clusters);
+  if (cw == 2) return launch<1, 2, ZT>(a, cluster, clusters, smem, stream, max_clusters);
   switch (rt) {
-    case 1: return launch<1, 4>(a, cluster, clusters, smem, stream, max_clusters);
-    case 2: return launch<2, 4>(a, cluster, clusters, smem, stream, max_clusters);
-    case 4: return launch<4, 4>(a, cluster, clusters, smem, stream, max_clusters);
-    default: return launch<8, 4>(a, cluster, clusters, smem, stream, max_clusters);
+    case 1: return launch<1, 4, ZT>(a, cluster, clusters, smem, stream, max_clusters);
+    case 2: return launch<2, 4, ZT>(a, cluster, clusters, smem, stream, max_clusters);
+    case 4: return launch<4, 4, ZT>(a, cluster, clusters, smem, stream, max_clusters);
+    default: return launch<8, 4, ZT>(a, cluster, clusters, smem, stream, max_clusters);
   }
 }
 
@@ -604,16 +609,24 @@ extern "C" int dse_rvq_assign_threads(int tile, int K, int cluster) {
 // How many clusters of a plan the card runs at once (into *out).
 extern "C" int dse_rvq_assign_max_clusters(int R, int D, int K, int L, int cluster, int tile,
                                            int stages, int* out) {
-  return dse::run(nullptr, nullptr, nullptr, nullptr, nullptr, R, D, K, L, cluster, tile, 1,
-                  stages, nullptr, out);
+  return dse::run<float>(nullptr, nullptr, nullptr, nullptr, nullptr, R, D, K, L, cluster, tile,
+                         1, stages, nullptr, out);
 }
 
 // z (R, D), books (L, D, K), sqnorm (L, K) and books_t (L, K, D) f32 ->
 // codes (R, L) int32, at the plan (cluster, tile, clusters, stages) of
-// ops/mega_kernel.py::_rvq_plan.
-extern "C" int dse_rvq_assign(const float* z, const float* books, const float* sqnorm,
+// ops/mega_kernel.py::_rvq_plan. `types` holds the activations' bits of
+// ops/stream_kernel.py::act_types: bit 1 for bf16 z (the books are f32, so
+// bit 0 stays clear).
+extern "C" int dse_rvq_assign(const void* z, const float* books, const float* sqnorm,
                               const float* books_t, int* codes, int R, int D, int K, int L,
-                              int cluster, int tile, int clusters, int stages, void* stream) {
-  return dse::run(z, books, sqnorm, books_t, codes, R, D, K, L, cluster, tile, clusters, stages,
-                  static_cast<cudaStream_t>(stream), nullptr);
+                              int cluster, int tile, int clusters, int stages, int types,
+                              void* stream) {
+  if (types & ~2) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (types)
+    return dse::run(static_cast<const __nv_bfloat16*>(z), books, sqnorm, books_t, codes, R, D,
+                    K, L, cluster, tile, clusters, stages, s, nullptr);
+  return dse::run(static_cast<const float*>(z), books, sqnorm, books_t, codes, R, D, K, L,
+                  cluster, tile, clusters, stages, s, nullptr);
 }

@@ -285,6 +285,7 @@ class AudioDecGenerator(nn.Module):
             self.quantizer = Quantizer(code_dim, codebook_num, codebook_size)
         self.hop = self.encoder.hop
         self.receptive_length = self._derive_receptive_length()
+        self.model_receptive_length = self._derive_model_receptive_length()
         self.to(device)
 
     @property
@@ -308,6 +309,38 @@ class AudioDecGenerator(nn.Module):
         c = self.encoder.conv
         r += (c.kernel_size - 1) * c.dilation
         return r
+
+    def _derive_model_receptive_length(self) -> int:
+        """The whole model's reach back in input samples: the least R such
+        that output sample ``t`` depends on no input before ``t - R + 1``
+        (13217 for the without-PQC denoiser, 15617 for
+        symAD_vctk_48000_hop300). ``receptive_length`` covers the encoder
+        only. The first input row an output row needs is walked back through
+        the decoder (a transposed conv of stride s and kernel 2 * s gives
+        output row t the input rows t // s - 1 and t // s) and the
+        transmitter (a causal conv of stride s gives output row j the input
+        rows from j * s - (kernel - 1) * dilation), at each phase of ``t``
+        within the hop. Chunks of a long signal equal its full forward with
+        this much left context (parallel/long_audio.py)."""
+        def reach(conv):
+            return (conv.kernel_size - 1) * conv.dilation
+
+        dec, longest = self.decoder, 0
+        for t in range(self.hop):
+            first = t - reach(dec.conv2)
+            for blk in reversed(dec.blocks):
+                first -= sum(reach(u.conv1) for u in blk.res_units)
+                first = first // blk.conv.stride - 1
+            if dec.use_input_conv:
+                first -= reach(dec.conv1)
+            if self.use_pqc:
+                first = first * self.projector.conv.stride - reach(self.projector.conv)
+            for blk in reversed(self.encoder.blocks):
+                first = first * blk.conv.stride - reach(blk.conv)
+                first -= sum(reach(u.conv1) for u in blk.res_units)
+            first -= reach(self.encoder.conv)
+            longest = max(longest, t - first + 1)
+        return longest
 
     # ---------------- parallel (offline) path ----------------
 

@@ -33,13 +33,16 @@ _P, _I, _L, _Z, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c
                       ctypes.c_float)
 # C entry points: name -> (argtypes, restype). The layer kernels take (cache,
 # cache stream stride, x, ...) and the stream count B; residual_chain a
-# device scratch after its output, and its (tile, cluster) plan; the boundary convs an
+# device scratch after its output, and its (tile, cluster) plan; each takes a
+# `types` word where the others took the weight type (bit 0 bf16 weights, then a
+# bit for bf16 activations: x and out, for causal_conv x then out;
+# ops/stream_kernel.py::act_types); the boundary convs an
 # activation code and slope (and causal_conv a tanh flag) before the weight type,
 # causal_conv its (arm, tile, steps per block) plan after it, causal_conv_transpose
 # its (tile, steps per block);
 # rvq_assign the books in both layouts and its (cluster, tile, clusters, stages)
-# plan;
-# codebook_lookup its bad-code word and the call's number;
+# plan, then a `types` word for z; codebook_lookup its bad-code word, the call's
+# number and a `types` word for its output (bit 0 clear: the books are f32);
 # hifigan_unit an optional running sum and an output scale after its biases,
 # and its (tile, cluster) plan;
 # the DFT kernels the padded signal and its frames' geometry (signal stride, hop,
@@ -63,13 +66,13 @@ _ENTRIES = {
         "dse_causal_conv_transpose_smem": ([_I, _I, _I, _I, _I], _Z),
     },
     "rvq_assign": {
-        "dse_rvq_assign": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P], _I),
+        "dse_rvq_assign": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P], _I),
         "dse_rvq_assign_smem": ([_I, _I, _I, _I, _I], _Z),
         "dse_rvq_assign_max_clusters": ([_I, _I, _I, _I, _I, _I, _I, _P], _I),
         "dse_rvq_assign_threads": ([_I, _I, _I], _I),
     },
     "codebook_lookup": {
-        "dse_codebook_lookup": ([_P, _P, _P, _P, _L, _I, _I, _I, _I, _P], _I),
+        "dse_codebook_lookup": ([_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _P], _I),
         "dse_mapped_word_alloc": ([_P, _P], _I),
         "dse_mapped_word_free": ([_P], _I),
     },
@@ -167,8 +170,18 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
 
 
-def stream_handle(tensor) -> int:
-    """The raw handle of PyTorch's current stream on ``tensor``'s device."""
+def launch(lib: ctypes.CDLL, entry: str, what: str, tensor, *args) -> None:
+    """Call ``lib``'s C entry point ``entry`` with ``args`` and PyTorch's
+    current stream on ``tensor``'s card, with that card the current device
+    for the call (made so for the call where another is): a launch goes to
+    the calling thread's current device, and the kernels' attributes are
+    set there. Raises as :func:`check`."""
     import torch
 
-    return torch.cuda.current_stream(tensor.device).cuda_stream
+    fn, stream = getattr(lib, entry), torch.cuda.current_stream(tensor.device).cuda_stream
+    if tensor.get_device() == torch.cuda.current_device():
+        err = fn(*args, stream)
+    else:
+        with torch.cuda.device(tensor.device):
+            err = fn(*args, stream)
+    check(lib, err, what)

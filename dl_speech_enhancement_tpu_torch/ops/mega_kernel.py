@@ -41,9 +41,19 @@ over. Instead:
   dispatch waits for the card; the decoder half raises at its next call.
 - Weights are assembled once, at build time, into the kernels' (tap, in,
   out) layout and ``weight_dtype`` (bf16 by default, as in the JAX package;
-  activations and sums stay f32). Codebooks, their squared norms and the
-  distances stay f32 whatever ``weight_dtype`` is. That is the counterpart
-  of the TPU's one-time VMEM load.
+  sums stay f32). Codebooks, their squared norms and the distances stay f32
+  whatever ``weight_dtype`` is. That is the counterpart of the TPU's
+  one-time VMEM load.
+- ``boundary_dtype`` (f32 by default) is the dtype of every dense activation
+  that leaves one launch for the next: bf16 halves that traffic. Each kernel
+  loads and stores it itself (no conversion launch), and computes in f32 on
+  the widened values; the int32 wire codes are never converted, the final
+  audio stays f32, and the caches stay f32 (a bf16 activation's tail widened
+  exactly), as JAX ``_assemble`` (ops/mega_stacked.py:173-180) keeps them.
+  The launch boundaries here are the layers, finer than JAX's stages in the
+  chains' three units (one launch, no rounding between them) and coarser at
+  the PQC projector and lookup (their outputs z and zq cross a launch, so
+  they are rounded too).
 - The TPU's time folding and 0/1 selection / replication / permutation
   matmuls work around TPU lanes and Mosaic; the CUDA kernels index strided
   rows, transposed phases and streams directly.
@@ -74,10 +84,13 @@ from dl_speech_enhancement_tpu_torch.ops import _cuda
 from dl_speech_enhancement_tpu_torch.ops.stream_kernel import (
     _MAX_SMEM,
     _N_SM,
+    ACT_DTYPES,
     _check_operands,
+    act_types,
     chain_halo,
     chain_topology_error,
     chain_weights,
+    check_boundary_dtype,
     residual_chain,
     tail,
 )
@@ -91,15 +104,17 @@ def _leaky(x, slope):
 
 
 def _loaded(cache, x, leaky):
-    """``[cache; x]``, with LeakyReLU(``leaky``) applied unless it is None."""
-    h = torch.cat([cache, x], dim=-2)
+    """``[cache; x]`` in f32, with LeakyReLU(``leaky``) applied unless it is
+    None."""
+    h = torch.cat([cache, x.float()], dim=-2)
     return h if leaky is None else _leaky(h, leaky)
 
 
 def causal_conv_plain(cache, x, w, b=None, stride: int = 1, dilation: int = 1,
-                      leaky: float | None = None, tanh: bool = False):
+                      leaky: float | None = None, tanh: bool = False, out_dtype=None):
     """Plain PyTorch version of :func:`causal_conv`, in f32, on (time, C) or
-    (B, time, C)."""
+    (B, time, C); returns ``out_dtype`` (x's by default)."""
+    out_dtype = x.dtype if out_dtype is None else out_dtype
     h = _loaded(cache, x, leaky)
     w = w.float()
     rows = x.shape[-2] // stride
@@ -108,7 +123,7 @@ def causal_conv_plain(cache, x, w, b=None, stride: int = 1, dilation: int = 1,
     for j in range(1, w.shape[0]):
         y = y + h[..., j * dilation: j * dilation + span: stride, :] @ w[j]
     y = y if b is None else y + b
-    return torch.tanh(y) if tanh else y
+    return (torch.tanh(y) if tanh else y).to(out_dtype)
 
 
 # csrc/causal_conv.cu, as the planner needs it
@@ -252,18 +267,24 @@ def _conv_plan(batch: int, t_out: int, cin: int, cout: int, taps: int, stride: i
 
 def causal_conv(cache: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
                 b: torch.Tensor | None = None, stride: int = 1, dilation: int = 1,
-                leaky: float | None = None, tanh: bool = False) -> torch.Tensor:
+                leaky: float | None = None, tanh: bool = False,
+                out_dtype=None) -> torch.Tensor:
     """Causal conv over ``[cache; x]`` for B streams: cache (B, (k-1)*d,
-    Cin) f32, x (B, T, Cin) f32 with T a multiple of ``stride`` (or (ctx,
-    Cin) / (T, Cin) for one stream), w (k, Cin, Cout) f32 or bf16, b (Cout,)
-    f32 or None. ``leaky`` (a slope) applies LeakyReLU to the input as it is
-    loaded, ``tanh`` tanh to the output. Returns (B, T / stride, Cout) f32
-    (2-D for one stream). On the card the arm and plan come from
-    :func:`_conv_plan`; the GEMM arm's products are split-TF32 tensor-core
-    passes summed in an order fixed by the layer, so a stream's bits do not
-    depend on B, T or the plan."""
+    Cin) f32, x (B, T, Cin) f32 or bf16 with T a multiple of ``stride`` (or
+    (ctx, Cin) / (T, Cin) for one stream), w (k, Cin, Cout) f32 or bf16, b
+    (Cout,) f32 or None. ``leaky`` (a slope) applies LeakyReLU to the input
+    as it is loaded, ``tanh`` tanh to the output. Returns (B, T / stride,
+    Cout) in ``out_dtype`` (f32 or bf16; x's by default; 2-D for one
+    stream). On the card the arm and plan come from :func:`_conv_plan`; the
+    GEMM arm's products are split-TF32 tensor-core passes summed in an order
+    fixed by the layer, so a stream's bits do not depend on B, T or the
+    plan. The GEMM arm takes every pair of dtypes but bf16 x into an f32
+    output (no path asks for it)."""
+    out_dtype = x.dtype if out_dtype is None else out_dtype
+    if out_dtype not in ACT_DTYPES:
+        raise ValueError(f"causal_conv: out_dtype must be float32 or bfloat16, got {out_dtype}")
     if x.device.type == "cpu":
-        return causal_conv_plain(cache, x, w, b, stride, dilation, leaky, tanh)
+        return causal_conv_plain(cache, x, w, b, stride, dilation, leaky, tanh, out_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"causal_conv: unsupported device {x.device}")
     if x.dim() not in (2, 3) or cache.dim() != x.dim():
@@ -279,21 +300,23 @@ def causal_conv(cache: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
                          f"{tuple(w.shape)} do not fit input {tuple(x.shape)}")
     if b is not None and b.shape != (cout,):
         raise ValueError(f"causal_conv: bias {tuple(b.shape)} does not fit Cout={cout}")
-    _check_operands("causal_conv", x.device, {"x": x}, (w,), b, cache=cache)
+    _check_operands("causal_conv", x.device, {"x": x}, (w,), b, cache=cache,
+                    act_dtypes=ACT_DTYPES)
     B = x.shape[0] if x.dim() == 3 else 1
-    out = torch.empty((*x.shape[:-2], T // stride, cout), device=x.device)
+    out = torch.empty((*x.shape[:-2], T // stride, cout), device=x.device, dtype=out_dtype)
     if B * T == 0:
         return out
     bf16 = w.dtype == torch.bfloat16
     arm, tile, steps = _conv_plan(B, T // stride, cin, cout, k, stride, dilation, bf16)
+    x_bf16, y_bf16 = x.dtype == torch.bfloat16, out_dtype == torch.bfloat16
+    if arm == "gemm" and x_bf16 and not y_bf16:
+        raise ValueError("causal_conv: the GEMM arm does not take bf16 x into an f32 output")
     lib = _cuda.load("causal_conv")
-    err = lib.dse_causal_conv(cache.data_ptr(), cache.stride(0) if B > 1 else 0, x.data_ptr(),
-                              w.data_ptr(),
-                              None if b is None else b.data_ptr(), out.data_ptr(), B,
-                              T // stride, cin, cout, k, stride, dilation, int(leaky is not None),
-                              leaky or 0.0, int(tanh), int(bf16), CONV_ARMS.index(arm), tile,
-                              steps, _cuda.stream_handle(x))
-    _cuda.check(lib, err, "causal_conv")
+    _cuda.launch(lib, "dse_causal_conv", "causal_conv", x, cache.data_ptr(),
+                 cache.stride(0) if B > 1 else 0, x.data_ptr(), w.data_ptr(),
+                 None if b is None else b.data_ptr(), out.data_ptr(), B, T // stride, cin, cout,
+                 k, stride, dilation, int(leaky is not None), leaky or 0.0, int(tanh),
+                 act_types(bf16, x_bf16, y_bf16), CONV_ARMS.index(arm), tile, steps)
     causal_conv.launches += 1
     return out
 
@@ -304,15 +327,15 @@ causal_conv.launches = 0
 def causal_conv_transpose_plain(cache, x, w, b=None, stride: int = 1,
                                 leaky: float | None = None):
     """Plain PyTorch version of :func:`causal_conv_transpose`, in f32, on
-    (time, C) or (B, time, C)."""
+    (time, C) or (B, time, C); returns x's dtype."""
     h = _loaded(cache, x, leaky)
     w = w.float()
     cpad = stride - 1
-    y = x.new_empty((*x.shape[:-2], x.shape[-2] * stride, w.shape[2]))
+    y = h.new_empty((*x.shape[:-2], x.shape[-2] * stride, w.shape[2]))
     for p in range(stride):
         y[..., p::stride, :] = (h[..., :-1, :] @ w[cpad - p]
                                 + h[..., 1:, :] @ w[cpad + stride - p])
-    return y if b is None else y + b
+    return (y if b is None else y + b).to(x.dtype)
 
 
 @functools.lru_cache(maxsize=1024)
@@ -337,11 +360,11 @@ def causal_conv_transpose(cache: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
                           b: torch.Tensor | None = None, stride: int = 1,
                           leaky: float | None = None) -> torch.Tensor:
     """Causal transposed conv (k = 2 * stride) over ``[cache; x]`` for B
-    streams: cache (B, 1, Cin) f32, x (B, T, Cin) f32 (or (1, Cin) / (T,
-    Cin) for one stream), w (2s, Cin, Cout) conv-ready tap-flipped, f32 or
-    bf16, b (Cout,) f32 or None; ``leaky`` (a slope) applies LeakyReLU to the
-    input as it is loaded. Returns (B, T * stride, Cout) f32 (2-D for one
-    stream). On the card the plan comes from :func:`_upsample_plan`; each
+    streams: cache (B, 1, Cin) f32, x (B, T, Cin) f32 or bf16 (or (1, Cin) /
+    (T, Cin) for one stream), w (2s, Cin, Cout) conv-ready tap-flipped, f32
+    or bf16, b (Cout,) f32 or None; ``leaky`` (a slope) applies LeakyReLU to
+    the input as it is loaded. Returns (B, T * stride, Cout) in x's dtype
+    (2-D for one stream). On the card the plan comes from :func:`_upsample_plan`; each
     phase's products are split-TF32 tensor-core passes summed in an order
     fixed by the layer, so a stream's bits do not depend on B, T or the
     plan."""
@@ -363,20 +386,19 @@ def causal_conv_transpose(cache: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
     if b is not None and b.shape != (cout,):
         raise ValueError(f"causal_conv_transpose: bias {tuple(b.shape)} does not fit "
                          f"Cout={cout}")
-    _check_operands("causal_conv_transpose", x.device, {"x": x}, (w,), b, cache=cache)
-    out = torch.empty((B, T * stride, cout), device=x.device)
+    _check_operands("causal_conv_transpose", x.device, {"x": x}, (w,), b, cache=cache,
+                    act_dtypes=ACT_DTYPES)
+    out = torch.empty((B, T * stride, cout), device=x.device, dtype=x.dtype)
     if B * T == 0:
         return out
     bf16 = w.dtype == torch.bfloat16
     tile, steps = _upsample_plan(B, T, cin, cout, stride, bf16)
     lib = _cuda.load("causal_conv_transpose")
-    err = lib.dse_causal_conv_transpose(cache.data_ptr(), cache.stride(0) if B > 1 else 0,
-                                        x.data_ptr(), w.data_ptr(),
-                                        None if b is None else b.data_ptr(), out.data_ptr(), B,
-                                        T, cin, cout, stride, int(leaky is not None),
-                                        leaky or 0.0, int(bf16), tile, steps,
-                                        _cuda.stream_handle(x))
-    _cuda.check(lib, err, "causal_conv_transpose")
+    _cuda.launch(lib, "dse_causal_conv_transpose", "causal_conv_transpose", x,
+                 cache.data_ptr(), cache.stride(0) if B > 1 else 0, x.data_ptr(), w.data_ptr(),
+                 None if b is None else b.data_ptr(), out.data_ptr(), B, T, cin, cout, stride,
+                 int(leaky is not None), leaky or 0.0,
+                 act_types(bf16, x.dtype == torch.bfloat16), tile, steps)
     causal_conv_transpose.launches += 1
     return out
 
@@ -532,9 +554,10 @@ def _rvq_plan(rows: int, dim: int, book_k: int, n_books: int) -> RvqPlan:
 
 def rvq_assign_plain(z, books, sqnorm):
     """Plain PyTorch version of :func:`rvq_assign`: the JAX package's
-    ``(|r|^2 - 2 r.E) + |E|^2`` in f32, ``argmin`` at the lowest index."""
+    ``(|r|^2 - 2 r.E) + |E|^2`` in f32 (on z widened where it is bf16),
+    ``argmin`` at the lowest index."""
     n_books, _, book_k = books.shape
-    r, codes = z, []
+    r, codes = z.float(), []
     for l in range(n_books):
         dist = (r * r).sum(1, keepdim=True) - 2.0 * (r @ books[l]) + sqnorm[l]
         ind = torch.argmin(dist, dim=1)
@@ -545,7 +568,8 @@ def rvq_assign_plain(z, books, sqnorm):
 
 def rvq_assign(z: torch.Tensor, books: torch.Tensor, sqnorm: torch.Tensor,
                books_t: torch.Tensor) -> torch.Tensor:
-    """Residual-VQ nearest-codeword search: z (R, D) f32, books (L, D, K) f32,
+    """Residual-VQ nearest-codeword search: z (R, D) f32 or bf16 (widened to
+    f32 as it is loaded), books (L, D, K) f32,
     sqnorm (L, K) f32 (``(books ** 2).sum(1)``). Returns the flattened wire
     codes (R, L) int32, ``ind + l * K``. Rows are independent: B streams of
     N frames are B * N * chunk / hop rows of one launch, at the plan of
@@ -568,17 +592,18 @@ def rvq_assign(z: torch.Tensor, books: torch.Tensor, sqnorm: torch.Tensor,
     if books_t.shape != (L, K, D):
         raise ValueError(f"rvq_assign: books_t {tuple(books_t.shape)} is not books "
                          f"{tuple(books.shape)} as (L, K, D)")
-    _check_operands("rvq_assign", z.device, {"z": z, "books": books, "sqnorm": sqnorm,
+    _check_operands("rvq_assign", z.device, {"z": z}, (books,), act_dtypes=ACT_DTYPES)
+    _check_operands("rvq_assign", z.device, {"books": books, "sqnorm": sqnorm,
                                              "books_t": books_t}, (books,))
     codes = torch.empty((R, L), dtype=torch.int32, device=z.device)
     if R == 0:
         return codes
     plan = _rvq_plan(R, D, K, L)
     lib = _cuda.load("rvq_assign")
-    err = lib.dse_rvq_assign(z.data_ptr(), books.data_ptr(), sqnorm.data_ptr(),
-                             books_t.data_ptr(), codes.data_ptr(), R, D, K, L, plan.cluster,
-                             plan.tile, plan.clusters, plan.stages, _cuda.stream_handle(z))
-    _cuda.check(lib, err, "rvq_assign")
+    _cuda.launch(lib, "dse_rvq_assign", "rvq_assign", z, z.data_ptr(), books.data_ptr(),
+                 sqnorm.data_ptr(), books_t.data_ptr(), codes.data_ptr(), R, D, K, L,
+                 plan.cluster, plan.tile, plan.clusters, plan.stages,
+                 act_types(False, z.dtype == torch.bfloat16))
     rvq_assign.launches += 1
     return codes
 
@@ -590,9 +615,9 @@ def _bad_codes(what):
     return ValueError(f"{what}: a code lies outside its book's range [l*K, (l+1)*K)")
 
 
-def codebook_lookup_plain(codes, books_t):
+def codebook_lookup_plain(codes, books_t, out_dtype=torch.float32):
     """Plain PyTorch version of :func:`codebook_lookup`, summing over the
-    books in ascending order."""
+    books in ascending order in f32, returned in ``out_dtype``."""
     n_books, book_k, _ = books_t.shape
     ind = codes.long() - torch.arange(n_books, device=codes.device) * book_k
     if bool(((ind < 0) | (ind >= book_k)).any()):
@@ -600,7 +625,7 @@ def codebook_lookup_plain(codes, books_t):
     zq = books_t[0][ind[:, 0]]
     for l in range(1, n_books):
         zq = zq + books_t[l][ind[:, l]]
-    return zq
+    return zq.to(out_dtype)
 
 
 class BadCodeWord:
@@ -666,19 +691,23 @@ def check_codes(device="cuda") -> None:
 
 
 def codebook_lookup(codes: torch.Tensor, books_t: torch.Tensor,
-                    word: BadCodeWord | None = None) -> torch.Tensor:
+                    word: BadCodeWord | None = None, out_dtype=torch.float32) -> torch.Tensor:
     """Codebook lookup of flattened wire codes: codes (R, L) int32, books_t
-    (L, K, D) f32. Returns zq (R, D) f32, ``sum_l books_t[l, codes[:, l] -
-    l * K]``. A code outside its book's range raises ValueError. On the CPU
-    it raises at once. On the card the kernel reads no such code (its term
+    (L, K, D) f32. Returns zq (R, D) in ``out_dtype`` (f32 or bf16: the f32
+    sum rounded once), ``sum_l books_t[l, codes[:, l] - l * K]``. A code
+    outside its book's range raises ValueError. On the CPU it raises at
+    once. On the card the kernel reads no such code (its term
     is zero, as the TPU kernel's one-hot product makes it) and records it in
     ``word`` (the caller's :class:`BadCodeWord`; by default the device's),
     and the call returns without waiting for the card: the bad code raises
     at the first check of the word after its call has finished there, that
     is at the word's next call (which checks first) or at an explicit
     ``word.check()`` / :func:`check_codes` after a synchronising read."""
+    if out_dtype not in ACT_DTYPES:
+        raise ValueError(f"codebook_lookup: out_dtype must be float32 or bfloat16, got "
+                         f"{out_dtype}")
     if codes.device.type == "cpu":
-        return codebook_lookup_plain(codes, books_t)
+        return codebook_lookup_plain(codes, books_t, out_dtype)
     if codes.device.type != "cuda":
         raise ValueError(f"codebook_lookup: unsupported device {codes.device}")
     R, L = codes.shape
@@ -691,17 +720,16 @@ def codebook_lookup(codes: torch.Tensor, books_t: torch.Tensor,
         raise ValueError(f"codebook_lookup: codes must be a contiguous int32 tensor on "
                          f"{books_t.device}")
     _check_operands("codebook_lookup", codes.device, {"books_t": books_t}, (books_t,))
-    out = torch.empty((R, D), device=codes.device)
+    out = torch.empty((R, D), device=codes.device, dtype=out_dtype)
     if R == 0:
         return out
     word = _device_word(codes.device) if word is None else word
     word.check()
     call = word.next_call()
     lib = _cuda.load("codebook_lookup")
-    err = lib.dse_codebook_lookup(codes.data_ptr(), books_t.data_ptr(), out.data_ptr(),
-                                  word.device_ptr, call, R, L, K, D,
-                                  _cuda.stream_handle(codes))
-    _cuda.check(lib, err, "codebook_lookup")
+    _cuda.launch(lib, "dse_codebook_lookup", "codebook_lookup", codes, codes.data_ptr(),
+                 books_t.data_ptr(), out.data_ptr(), word.device_ptr, call, R, L, K, D,
+                 act_types(False, out_dtype == torch.bfloat16))
     codebook_lookup.launches += 1
     return out
 
@@ -772,6 +800,7 @@ class StreamHalf(NamedTuple):
     hop: int  # samples per wire row
     codes: bool  # the wire is int32 codes (PQC), not encoder features
     fills: dict | None = None  # cache name -> (channels,) row a fresh cache holds; else zeros
+    boundary: torch.dtype = torch.float32  # activations between its launches
 
 
 def init_half_cache(halves, batch: int, device) -> dict:
@@ -791,24 +820,27 @@ def _check_half_dtype(weight_dtype):
         raise ValueError(f"weight_dtype must be float32 or bfloat16, got {weight_dtype}")
 
 
-def _check_half(gen, weight_dtype, vq_state):
+def _check_half(gen, weight_dtype, vq_state, boundary_dtype):
     gen.check_vq_state(vq_state)
     _check_half_dtype(weight_dtype)
+    check_boundary_dtype(boundary_dtype)
     reason = mega_topology_error(gen, gen.hop)
     if reason:
         raise ValueError(reason)
 
 
-def mega_encoder(gen, weight_dtype=torch.bfloat16, vq_state=None) -> StreamHalf:
+def mega_encoder(gen, weight_dtype=torch.bfloat16, vq_state=None,
+                 boundary_dtype=torch.float32) -> StreamHalf:
     """The encoder half of ``gen``'s whole-model stream: input conv -> 4 x
     (residual_chain, downsample), with PQC then the projector and
     rvq_assign; 9 launches, 11 with PQC.
 
-    ``run(cache, x (B, T, 1)) -> (wire, new cache entries)``: ``wire`` is the
-    int32 wire codes (B, T / hop, L) with PQC (pass ``vq_state``), the
-    encoder features (B, T / hop, C) without. Weights are copied now in
-    ``weight_dtype``, the codebooks in f32."""
-    _check_half(gen, weight_dtype, vq_state)
+    ``run(cache, x (B, T, 1) f32) -> (wire, new cache entries)``: ``wire`` is
+    the int32 wire codes (B, T / hop, L) with PQC (pass ``vq_state``), the
+    encoder features (B, T / hop, C) in ``boundary_dtype`` without. Weights
+    are copied now in ``weight_dtype``, the codebooks in f32; activations
+    cross launches in ``boundary_dtype`` (float32 or bfloat16)."""
+    _check_half(gen, weight_dtype, vq_state, boundary_dtype)
     enc, wd, halo = gen.encoder, weight_dtype, chain_halo()
     w_in = conv_weight(enc.conv, wd)
     levels = [(chain_weights(blk.res_units, wd), conv_weight(blk.conv, wd), _bias(blk.conv),
@@ -825,7 +857,7 @@ def mega_encoder(gen, weight_dtype=torch.bfloat16, vq_state=None) -> StreamHalf:
     def run(cache, x):
         # x may be a view of the caller's frames: keep the cache off it
         new = {"enc_in": tail(cache["enc_in"], x, shapes["enc_in"][0]).clone()}
-        h = causal_conv(cache["enc_in"], x, w_in)
+        h = causal_conv(cache["enc_in"], x, w_in, out_dtype=boundary_dtype)
         for bi, ((w1, w2), w_dn, b_dn, s) in enumerate(levels):
             new[f"e{bi}ch"] = tail(cache[f"e{bi}ch"], h, halo)
             h = residual_chain(cache[f"e{bi}ch"], h, w1, w2)
@@ -839,20 +871,24 @@ def mega_encoder(gen, weight_dtype=torch.bfloat16, vq_state=None) -> StreamHalf:
         codes = rvq_assign(z.reshape(b * rows, dim), books, sqnorm, books_t)
         return codes.reshape(b, rows, -1), new
 
-    return StreamHalf(shapes, run, gen.hop, gen.use_pqc)
+    return StreamHalf(shapes, run, gen.hop, gen.use_pqc, boundary=boundary_dtype)
 
 
-def mega_decoder(gen, weight_dtype=torch.bfloat16, vq_state=None) -> StreamHalf:
+def mega_decoder(gen, weight_dtype=torch.bfloat16, vq_state=None,
+                 boundary_dtype=torch.float32) -> StreamHalf:
     """The decoder half of ``gen``'s whole-model stream: with PQC first
     codebook_lookup and the decoder input conv, then 4 x (upsample,
     residual_chain) -> output conv; 9 launches, 11 with PQC.
 
-    ``run(cache, wire) -> (audio (B, T, 1), new cache entries)`` takes what
-    an encoder half sends: int32 wire codes (B, rows, L) with PQC (looked up
-    in ``vq_state``'s books; a code outside its book raises ValueError, on
-    the card at the half's next ``run`` after its dispatch has finished:
-    the half owns a :class:`BadCodeWord`), features (B, rows, C) without."""
-    _check_half(gen, weight_dtype, vq_state)
+    ``run(cache, wire) -> (audio (B, T, 1) f32, new cache entries)`` takes
+    what an encoder half sends: int32 wire codes (B, rows, L) with PQC
+    (looked up in ``vq_state``'s books; a code outside its book raises
+    ValueError, on the card at the half's next ``run`` after its dispatch has
+    finished: the half owns a :class:`BadCodeWord`), features (B, rows, C)
+    without (f32 features are converted to ``boundary_dtype`` as they come
+    in: an encoder half of that dtype sends them so already). Activations
+    cross launches in ``boundary_dtype``."""
+    _check_half(gen, weight_dtype, vq_state, boundary_dtype)
     dec, wd, halo = gen.decoder, weight_dtype, chain_halo()
     levels = [(conv_transpose_weight(blk.conv, wd), _bias(blk.conv), blk.conv.stride,
                chain_weights(blk.res_units, wd)) for blk in dec.blocks]
@@ -872,19 +908,21 @@ def mega_decoder(gen, weight_dtype=torch.bfloat16, vq_state=None) -> StreamHalf:
         new, h = {}, wire
         if gen.use_pqc:
             b, rows, n_books = wire.shape
-            zq = codebook_lookup(wire.reshape(b * rows, n_books), books_t,
-                                 word).reshape(b, rows, -1)
+            zq = codebook_lookup(wire.reshape(b * rows, n_books), books_t, word,
+                                 boundary_dtype).reshape(b, rows, -1)
             new["dc1"] = tail(cache["dc1"], zq, shapes["dc1"][0])
             h = causal_conv(cache["dc1"], zq, w_dc1)
+        elif wire.dtype != boundary_dtype:
+            h = wire.to(boundary_dtype)
         for bi, (w_up, b_up, s, (w1, w2)) in enumerate(levels):
             new[f"d{bi}u"] = tail(cache[f"d{bi}u"], h, 1)
             h = causal_conv_transpose(cache[f"d{bi}u"], h, w_up, b_up, stride=s)
             new[f"d{bi}ch"] = tail(cache[f"d{bi}ch"], h, halo)
             h = residual_chain(cache[f"d{bi}ch"], h, w1, w2)
         new["dec_out"] = tail(cache["dec_out"], h, shapes["dec_out"][0])
-        return causal_conv(cache["dec_out"], h, w_out), new
+        return causal_conv(cache["dec_out"], h, w_out, out_dtype=torch.float32), new
 
-    return StreamHalf(shapes, run, gen.hop, gen.use_pqc)
+    return StreamHalf(shapes, run, gen.hop, gen.use_pqc, boundary=boundary_dtype)
 
 
 def join_halves(encoder: StreamHalf, decoder: StreamHalf, batch: int, device,
@@ -897,10 +935,15 @@ def join_halves(encoder: StreamHalf, decoder: StreamHalf, batch: int, device,
     (:func:`init_half_cache`);
     ``run(cache, frames (N, batch, F)) -> (out (N, batch, F'), new_cache)``,
     and with PQC also ``codes (N, batch, F / hop, L)`` int32. ``F`` must be
-    ``chunk``, or any positive multiple of the hop when ``chunk`` is None."""
+    ``chunk``, or any positive multiple of the hop when ``chunk`` is None.
+    The halves must share their boundary dtype (the activations between
+    launches, the features on the wire without PQC)."""
     if encoder.codes != decoder.codes:
         raise ValueError("one half sends int32 wire codes (PQC) and the other takes "
                          "encoder features")
+    if encoder.boundary != decoder.boundary:
+        raise ValueError(f"the halves' boundary dtypes differ: {encoder.boundary} and "
+                         f"{decoder.boundary}")
     if batch < 1:
         raise ValueError(f"batch must be at least 1, got {batch}")
     if set(encoder.shapes) & set(decoder.shapes):
@@ -932,7 +975,7 @@ def join_halves(encoder: StreamHalf, decoder: StreamHalf, batch: int, device,
 
 
 def make_mega_stream_batched(gen, chunk: int, batch: int, weight_dtype=torch.bfloat16,
-                             vq_state=None):
+                             vq_state=None, boundary_dtype=torch.float32):
     """Whole-model streaming of ``batch`` independent streams of the
     ``AudioDecGenerator`` family, 18 launches per dispatch (22 with PQC)
     whatever ``batch`` is.
@@ -953,14 +996,19 @@ def make_mega_stream_batched(gen, chunk: int, batch: int, weight_dtype=torch.bfl
 
     The returned cache continues the streams in the next dispatch. The
     weights are the generator's own, copied once now in ``weight_dtype``
-    (float32 or bfloat16); the codebooks are copied in f32. Runs on the
-    generator's device: kernels on CUDA, their plain versions on the CPU."""
+    (float32 or bfloat16); the codebooks are copied in f32. Dense activations
+    cross launches in ``boundary_dtype`` (float32 or bfloat16: bf16 halves
+    that traffic, the kernels converting as they load and store; the codes,
+    the audio and the caches stay as they are). Runs on the generator's
+    device: kernels on CUDA, their plain versions on the CPU."""
     gen.check_vq_state(vq_state)
+    check_boundary_dtype(boundary_dtype)
     reason = mega_topology_error(gen, chunk)
     if reason:
         raise ValueError(reason)
-    return join_halves(mega_encoder(gen, weight_dtype, vq_state),
-                       mega_decoder(gen, weight_dtype, vq_state), batch, gen.device, chunk)
+    return join_halves(mega_encoder(gen, weight_dtype, vq_state, boundary_dtype),
+                       mega_decoder(gen, weight_dtype, vq_state, boundary_dtype), batch,
+                       gen.device, chunk)
 
 
 def make_mega_stream(gen, chunk: int, weight_dtype=torch.bfloat16, vq_state=None):

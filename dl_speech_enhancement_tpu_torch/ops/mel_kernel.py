@@ -219,11 +219,10 @@ def _launch(arm: str, frames, out, bases, eps: float, fft: FftTables | None = No
         args += [bases[0].data_ptr(), bases[1].data_ptr(), bases[0].shape[1]]
         if mel is not None:
             args.append(mel[0].data_ptr())
-    args += [out.shape[1], eps, *(() if mel is None else mel[1:]), out.data_ptr(),
-             _cuda.stream_handle(frames)]
+    args += [out.shape[1], eps, *(() if mel is None else mel[1:]), out.data_ptr()]
     lib = _cuda.load("dft_spectrum")
-    err = getattr(lib, f"dse_{kind}_fft" if arm == "fft" else f"dse_{kind}")(*args)
-    _cuda.check(lib, err, f"{kind} ({arm} arm)")
+    _cuda.launch(lib, f"dse_{kind}_fft" if arm == "fft" else f"dse_{kind}",
+                 f"{kind} ({arm} arm)", frames, *args)
 
 
 def log_mel_plain(frames, cos_b, sin_b, mel_m, eps: float, log_base) -> torch.Tensor:

@@ -14,7 +14,11 @@ Each kernel wrapper takes its plain PyTorch version (tap-by-tap f32
 or raises. ``<wrapper>.launches`` counts kernel launches. The layer kernels
 take B independent streams in one launch, as (B, time, C) activations with
 (B, ctx, C) caches; a 2-D (time, C) call is the B = 1 case of the same
-kernel.
+kernel. Activations are f32 or bf16 (:data:`ACT_DTYPES`, the streams'
+boundary dtype between launches, ops/mega_stacked.py): a kernel widens bf16
+to f32 as it loads it, computes in f32 and rounds what it stores, and the
+plain version rounds at the same point with ``.to(torch.bfloat16)``.
+Caches stay f32.
 """
 
 from __future__ import annotations
@@ -29,6 +33,23 @@ KERNEL_SIZE = 7
 DILATIONS = (1, 3, 9)
 _MAX_SMEM = 232448  # bytes of shared memory one H100 block may use
 _N_SM = 132
+ACT_DTYPES = (torch.float32, torch.bfloat16)  # activations between launches
+
+
+def check_boundary_dtype(boundary_dtype) -> None:
+    """Raise unless ``boundary_dtype`` is one the kernels take between
+    launches: float32 or bfloat16."""
+    if boundary_dtype not in ACT_DTYPES:
+        raise ValueError(f"boundary_dtype must be float32 or bfloat16, got {boundary_dtype}")
+
+
+def act_types(weights_bf16: bool, *acts_bf16: bool) -> int:
+    """The C entries' ``types`` bits: bit 0 bf16 weights, then one bit each
+    for the activations named (x, then the output where it has its own)."""
+    bits = int(weights_bf16)
+    for i, flag in enumerate(acts_bf16):
+        bits |= int(flag) << (i + 1)
+    return bits
 
 
 def _elu(x: torch.Tensor) -> torch.Tensor:
@@ -43,8 +64,8 @@ def chain_halo(dilations=DILATIONS, kernel_size: int = KERNEL_SIZE) -> int:
 
 def residual_chain_plain(cache, x, w1, w2, dilations=DILATIONS):
     """Plain PyTorch version of :func:`residual_chain`, in f32, on (time, C)
-    or (B, time, C)."""
-    h = torch.cat([cache, x], dim=-2)
+    or (B, time, C); returns x's dtype."""
+    h = torch.cat([cache, x.float()], dim=-2)
     w1, w2 = w1.float(), w2.float()
     for u, d in enumerate(dilations):
         pad = (KERNEL_SIZE - 1) * d
@@ -54,17 +75,19 @@ def residual_chain_plain(cache, x, w1, w2, dilations=DILATIONS):
         for j in range(1, KERNEL_SIZE):
             acc = acc + a[..., j * d: j * d + rows, :] @ w1[u, j]
         h = h[..., pad:, :] + _elu(acc) @ w2[u]
-    return h
+    return h.to(x.dtype)
 
 
-def _check_operands(what, device, acts, weights, bias=None, cache=None):
+def _check_operands(what, device, acts, weights, bias=None, cache=None,
+                    act_dtypes=(torch.float32,)):
     """Raise unless the operands are what the kernels take: activations
-    contiguous f32, weights all f32 or all bf16, bias f32, and the cache f32
-    with contiguous rows (streams may lie at any stride: a cache is often the
-    tail of the previous activation, a view)."""
+    contiguous, of ``act_dtypes``, weights all f32 or all bf16, bias f32, and
+    the cache f32 with contiguous rows (streams may lie at any stride: a cache
+    is often the tail of the previous activation, a view)."""
     for name, t in acts.items():
-        if t.device != device or t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError(f"{what}: {name} must be a contiguous float32 tensor on "
+        if t.device != device or t.dtype not in act_dtypes or not t.is_contiguous():
+            names = " or ".join(str(d).replace("torch.", "") for d in act_dtypes)
+            raise ValueError(f"{what}: {name} must be a contiguous {names} tensor on "
                              f"{device}, got {t.dtype} on {t.device}")
     if cache is not None and (cache.device != device or cache.dtype != torch.float32
                               or cache.stride(-1) != 1
@@ -273,10 +296,10 @@ def residual_chain(cache: torch.Tensor, x: torch.Tensor, w1: torch.Tensor,
                    w2: torch.Tensor, dilations=DILATIONS) -> torch.Tensor:
     """Three fused causal residual units over ``[cache; x]``, for B streams.
 
-    cache: (B, sum (k-1)*d, C) f32, x: (B, T, C) f32 (or (halo, C) / (T, C)
-    for one stream), w1: (3, 7, C, C) and w2: (3, C, C) in f32 or bf16 ((tap,
-    in, out) layout). Returns x's shape in f32. A stream's new chain cache is
-    the last ``halo`` rows of its ``[cache; x]``."""
+    cache: (B, sum (k-1)*d, C) f32, x: (B, T, C) f32 or bf16 (or (halo, C) /
+    (T, C) for one stream), w1: (3, 7, C, C) and w2: (3, C, C) in f32 or bf16
+    ((tap, in, out) layout). Returns x's shape and dtype. A stream's new chain
+    cache is the last ``halo`` rows of its ``[cache; x]``, in f32."""
     if x.device.type == "cpu":
         return residual_chain_plain(cache, x, w1, w2, dilations)
     if x.device.type != "cuda":
@@ -293,7 +316,8 @@ def residual_chain(cache: torch.Tensor, x: torch.Tensor, w1: torch.Tensor,
     if w1.shape != (3, KERNEL_SIZE, C, C) or w2.shape != (3, C, C):
         raise ValueError(f"residual_chain: weights {tuple(w1.shape)}, {tuple(w2.shape)} "
                          f"do not fit C={C}")
-    _check_operands("residual_chain", x.device, {"x": x}, (w1, w2), cache=cache)
+    _check_operands("residual_chain", x.device, {"x": x}, (w1, w2), cache=cache,
+                    act_dtypes=ACT_DTYPES)
     reason = chain_fit_error(C, dilations)
     if reason:
         raise ValueError(f"residual_chain: {reason}")
@@ -309,11 +333,10 @@ def residual_chain(cache: torch.Tensor, x: torch.Tensor, w1: torch.Tensor,
         scratch = torch.empty(B * -(-T // tile) * chain_scratch_floats(tile, C, dilations),
                               device=x.device)
     lib = _cuda.load("residual_chain")
-    err = lib.dse_residual_chain(cache.data_ptr(), cache.stride(0), x.data_ptr(),
-                                 w1.data_ptr(), w2.data_ptr(), out.data_ptr(),
-                                 None if scratch is None else scratch.data_ptr(), B, T, C,
-                                 *dilations, tile, cluster, int(bf16), _cuda.stream_handle(x))
-    _cuda.check(lib, err, "residual_chain")
+    _cuda.launch(lib, "dse_residual_chain", "residual_chain", x, cache.data_ptr(),
+                 cache.stride(0), x.data_ptr(), w1.data_ptr(), w2.data_ptr(), out.data_ptr(),
+                 None if scratch is None else scratch.data_ptr(), B, T, C, *dilations, tile,
+                 cluster, act_types(bf16, x.dtype == torch.bfloat16))
     residual_chain.launches += 1
     return out
 
@@ -406,11 +429,14 @@ def fused_residual_chain_folded(units, x: torch.Tensor, fold: int, *, dilations=
 
 def tail(cache: torch.Tensor, x: torch.Tensor, n: int) -> torch.Tensor:
     """The last ``n`` rows of ``[cache; x]`` along the time axis (-2), per
-    stream: a layer's next cache. A view of ``x`` where it holds them."""
+    stream, in the cache's dtype: a layer's next cache. A view of ``x`` where
+    it holds them and has that dtype; where ``x`` is a bf16 activation, its
+    rows widened to the f32 cache (exactly, as the JAX package's caches hold
+    a bf16 boundary's values in f32)."""
     t = x.shape[-2]
     if t >= n:
-        return x[..., t - n:, :]
-    return torch.cat([cache[..., t:, :], x], dim=-2)
+        return x[..., t - n:, :].to(cache.dtype)
+    return torch.cat([cache[..., t:, :], x.to(cache.dtype)], dim=-2)
 
 
 def chain_topology_error(gen) -> str | None:

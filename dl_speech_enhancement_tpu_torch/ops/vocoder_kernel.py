@@ -31,8 +31,10 @@ whatever B is:
 :class:`~dl_speech_enhancement_tpu_torch.ops.mega_kernel.StreamHalf`, so
 ``join_halves(mega_encoder(codec, ...), vocoder_half(voc, ...), ...)`` is the
 tx -> wire codes -> rx stream of a vocoder-paired preset. Weights are
-copied once, at build time, in ``weight_dtype`` (bf16 by default;
-activations, sums, biases and books stay f32). The JAX K5 refuses a
+copied once, at build time, in ``weight_dtype`` (bf16 by default; sums,
+biases and books stay f32); the activations between launches (the units'
+running sum too) in ``boundary_dtype``, f32 by default or bf16, which the
+kernels load and store themselves (ops/mega_kernel.py). The JAX K5 refuses a
 MultiReceptiveField receiver; the port's batch axis serves it, as the JAX
 ``VocoderReceiver`` does through XLA.
 """
@@ -65,7 +67,10 @@ from dl_speech_enhancement_tpu_torch.ops.mega_kernel import (
 from dl_speech_enhancement_tpu_torch.ops.stream_kernel import (
     _MAX_SMEM,
     _N_SM,
+    ACT_DTYPES,
     _check_operands,
+    act_types,
+    check_boundary_dtype,
     tail,
 )
 
@@ -75,10 +80,11 @@ from dl_speech_enhancement_tpu_torch.ops.stream_kernel import (
 def hifigan_unit_plain(cache1, cache2, x, w1, b1, w2, b2, dilation: int, groups: int,
                        slope: float = 0.1, acc=None, out_scale: float = 1.0):
     """Plain PyTorch version of :func:`hifigan_unit`, in f32, on (time, C)
-    or (B, time, C). Returns (out, new cache2)."""
+    or (B, time, C). Returns (out in x's dtype, new cache2 f32)."""
     taps, c, gc = w1.shape
     s = 0 if x.shape[-1] != gc else c  # tiled first unit: every group reads x
     w1, w2 = w1.float(), w2.float()
+    dtype, x = x.dtype, x.float()
     T = x.shape[-2]
     a = _leaky(torch.cat([cache1, x], dim=-2), slope)
     hs = []
@@ -103,8 +109,8 @@ def hifigan_unit_plain(cache1, cache2, x, w1, b1, w2, b2, dilation: int, groups:
     res = x if s else x.repeat(*([1] * (x.dim() - 1)), groups)
     out = res + y
     if acc is not None:
-        out = acc + out
-    return out * out_scale, tail(cache2, h, taps - 1)
+        out = acc.float() + out
+    return (out * out_scale).to(dtype), tail(cache2, h, taps - 1)
 
 
 # csrc/tile_mma.cuh and csrc/hifigan_unit.cu, as the planner needs them
@@ -223,14 +229,14 @@ def hifigan_unit(cache1: torch.Tensor, cache2: torch.Tensor, x: torch.Tensor,
     running sum and scaled: ``(acc + unit) * out_scale``, a
     MultiReceptiveField stage's block sum and mean.
 
-    x (B, T, Cin) f32 with Cin = groups * c, or Cin = c for the first unit
-    of a MultiGroupConv1d (every group reads x); cache1 (B, (k-1) * dilation,
-    Cin), the tail of the raw unit input (any stream stride); cache2 (B, k-1,
-    groups * c), conv2's activated window rows; w1, w2 (k, c, groups * c) f32
-    or bf16, 16-byte aligned, c a multiple of 4; b1, b2 (groups * c,) f32 or
-    None; acc None or x's batch and time by groups * c, f32. 2-D tensors are
-    one stream. Returns (out (B, T, groups * c), new cache2 (B, k-1, groups *
-    c)). On the card the products are split-TF32 tensor-core passes in a
+    x (B, T, Cin) f32 or bf16 with Cin = groups * c, or Cin = c for the
+    first unit of a MultiGroupConv1d (every group reads x); cache1 (B, (k-1)
+    * dilation, Cin) f32, the tail of the raw unit input (any stream stride);
+    cache2 (B, k-1, groups * c) f32, conv2's activated window rows; w1, w2
+    (k, c, groups * c) f32 or bf16, 16-byte aligned, c a multiple of 4; b1,
+    b2 (groups * c,) f32 or None; acc None or x's batch and time by groups *
+    c, in x's dtype. 2-D tensors are one stream. Returns (out (B, T, groups *
+    c) in x's dtype, new cache2 (B, k-1, groups * c) f32). On the card the products are split-TF32 tensor-core passes in a
     fixed order, so a stream's bits do not depend on B or the plan."""
     if x.device.type == "cpu":
         return hifigan_unit_plain(cache1, cache2, x, w1, b1, w2, b2, dilation, groups, slope,
@@ -259,10 +265,13 @@ def hifigan_unit(cache1: torch.Tensor, cache2: torch.Tensor, x: torch.Tensor,
     if acc is not None and acc.shape != (B, T, gc):
         raise ValueError(f"hifigan_unit: running sum {tuple(acc.shape)} does not fit "
                          f"output {(B, T, gc)}")
-    _check_operands("hifigan_unit", x.device, {"x": x}, (w1, w2), b1, cache=cache1)
+    if acc is not None and acc.dtype != x.dtype:
+        raise ValueError(f"hifigan_unit: the running sum is {acc.dtype}, x {x.dtype}")
+    _check_operands("hifigan_unit", x.device, {"x": x}, (w1, w2), b1, cache=cache1,
+                    act_dtypes=ACT_DTYPES)
     _check_operands("hifigan_unit", x.device, {"x": x, **({} if acc is None else {"acc": acc})},
-                    (w1, w2), b2, cache=cache2)
-    out = torch.empty((B, T, gc), device=x.device)
+                    (w1, w2), b2, cache=cache2, act_dtypes=ACT_DTYPES)
+    out = torch.empty((B, T, gc), device=x.device, dtype=x.dtype)
     new2 = torch.empty((B, taps - 1, gc), device=x.device)
     if B * T == 0:
         return out, cache2.clone()
@@ -272,15 +281,13 @@ def hifigan_unit(cache1: torch.Tensor, cache2: torch.Tensor, x: torch.Tensor,
     bf16 = w1.dtype == torch.bfloat16
     tile, cluster = _unit_plan(B, T, c, groups, taps, dilation, bf16)
     lib = _cuda.load("hifigan_unit")
-    err = lib.dse_hifigan_unit(cache1.data_ptr(), cache1.stride(0), cache2.data_ptr(),
-                               cache2.stride(0), x.data_ptr(), w1.data_ptr(),
-                               None if b1 is None else b1.data_ptr(), w2.data_ptr(),
-                               None if b2 is None else b2.data_ptr(),
-                               None if acc is None else acc.data_ptr(), out_scale,
-                               out.data_ptr(), new2.data_ptr(), B, T, c, groups,
-                               int(cin != gc), taps, dilation, tile, cluster, slope,
-                               int(bf16), _cuda.stream_handle(x))
-    _cuda.check(lib, err, "hifigan_unit")
+    _cuda.launch(lib, "dse_hifigan_unit", "hifigan_unit", x, cache1.data_ptr(),
+                 cache1.stride(0), cache2.data_ptr(), cache2.stride(0), x.data_ptr(),
+                 w1.data_ptr(), None if b1 is None else b1.data_ptr(), w2.data_ptr(),
+                 None if b2 is None else b2.data_ptr(),
+                 None if acc is None else acc.data_ptr(), out_scale, out.data_ptr(),
+                 new2.data_ptr(), B, T, c, groups, int(cin != gc), taps, dilation, tile,
+                 cluster, slope, act_types(bf16, x.dtype == torch.bfloat16))
     hifigan_unit.launches += 1
     return out, new2
 
@@ -361,7 +368,8 @@ def _stage_blocks(si, blk, c, wd):
     return blocks, None if mrf else conv_weight(blk.conv_out, wd), groups, shapes
 
 
-def vocoder_half(voc, weight_dtype=torch.bfloat16, vq_state=None) -> StreamHalf:
+def vocoder_half(voc, weight_dtype=torch.bfloat16, vq_state=None,
+                 boundary_dtype=torch.float32) -> StreamHalf:
     """The HiFiGAN receiver as a stream half: with PQC (``vq_state``, the
     transmitter's ``VQState``) codebook_lookup first, then the input conv,
     per stage the upsample and the fusion block, and the output conv.
@@ -374,16 +382,18 @@ def vocoder_half(voc, weight_dtype=torch.bfloat16, vq_state=None) -> StreamHalf:
       by 1 / blocks (the kernel's epilogue), so the stage's mean costs no
       launch: 43 launches a dispatch with 3 blocks, 42 without PQC.
 
-    ``run(cache, wire) -> (audio (B, rows * total_upsample, 1), new cache
+    ``run(cache, wire) -> (audio (B, rows * total_upsample, 1) f32, new cache
     entries)`` takes int32 wire codes (B, rows, L) (a code outside its book
     raises ValueError, on the card at the half's next ``run`` after its
     dispatch has finished: the half owns a ``BadCodeWord``), or features (B,
-    rows, in_channels) without PQC.
+    rows, in_channels) without PQC, f32 or ``boundary_dtype``. Activations
+    cross launches in ``boundary_dtype`` (float32 or bfloat16).
     Cache names start with ``v``, apart from the codec halves' names."""
     reason = vocoder_topology_error(voc, voc.total_upsample)
     if reason:
         raise ValueError(reason)
     _check_half_dtype(weight_dtype)
+    check_boundary_dtype(boundary_dtype)
     wd, slope = weight_dtype, voc.negative_slope
     ci, co = voc.input_conv, voc.output_conv
     w_in, b_in = _folded_input_conv(voc, wd)
@@ -410,11 +420,11 @@ def vocoder_half(voc, weight_dtype=torch.bfloat16, vq_state=None) -> StreamHalf:
         new, h = {}, wire
         if vq_state is not None:
             batch, rows, n_books = wire.shape
-            h = codebook_lookup(wire.reshape(batch * rows, n_books), books_t,
-                                word).reshape(batch, rows, -1)
+            h = codebook_lookup(wire.reshape(batch * rows, n_books), books_t, word,
+                                boundary_dtype).reshape(batch, rows, -1)
         # without PQC the wire may be the caller's tensor: keep the cache off it
         new["v_in"] = tail(cache["v_in"], h, shapes["v_in"][0]).clone()
-        h = causal_conv(cache["v_in"], h, w_in, b_in)
+        h = causal_conv(cache["v_in"], h, w_in, b_in, out_dtype=boundary_dtype)
         for si, (w_up, b_up, s, blocks, w_f, groups) in enumerate(stages):
             new[f"v{si}u"] = tail(cache[f"v{si}u"], h, 1)
             h = causal_conv_transpose(cache[f"v{si}u"], h, w_up, b_up, s, leaky=slope)
@@ -428,12 +438,17 @@ def vocoder_half(voc, weight_dtype=torch.bfloat16, vq_state=None) -> StreamHalf:
                     y, new[act] = hifigan_unit(cache[raw], cache[act], y, w1, b1, w2, b2, d,
                                                groups, slope, total if sums else None, scale)
                 total = y
-            h = total if w_f is None else causal_conv(total[:, :0], total, w_f)
+            # the 1x1 fuse reads no cache: an empty f32 one
+            h = total if w_f is None else causal_conv(
+                total.new_empty((total.shape[0], 0, total.shape[2]), dtype=torch.float32),
+                total, w_f)
         new["v_out"] = tail(cache["v_out"], h, shapes["v_out"][0])
         # upstream uses LeakyReLU(0.01) before the output conv (HiFiGAN.py:116)
-        return causal_conv(cache["v_out"], h, w_out, b_out, leaky=0.01, tanh=True), new
+        return causal_conv(cache["v_out"], h, w_out, b_out, leaky=0.01, tanh=True,
+                           out_dtype=torch.float32), new
 
-    return StreamHalf(shapes, run, voc.total_upsample, vq_state is not None, fills)
+    return StreamHalf(shapes, run, voc.total_upsample, vq_state is not None, fills,
+                      boundary_dtype)
 
 
 def conv_sites(model, frame: int) -> list:
@@ -460,19 +475,21 @@ def conv_sites(model, frame: int) -> list:
 
 
 def make_stacked_vocoder(voc, chunk: int, batch: int, weight_dtype=torch.bfloat16,
-                         vq_state=None):
+                         vq_state=None, boundary_dtype=torch.float32):
     """The receiver alone for ``batch`` streams, the counterpart of JAX
     ops/vocoder_stacked.py::make_stacked_vocoder (K5; re-exported from
     ops/vocoder_stacked.py): ``init_cache() -> {name: (B, ctx, C)}`` and
     ``run(cache, wire (N, B, chunk / total_upsample, L or in_channels)) ->
-    (audio (N, B, chunk), new_cache)``; per stream and frame it matches
-    ``voc.step`` (after the codebook lookup with PQC) from zero caches."""
+    (audio (N, B, chunk) f32, new_cache)``; per stream and frame it matches
+    ``voc.step`` (after the codebook lookup with PQC) from zero caches.
+    ``boundary_dtype`` (float32 or bfloat16) is the activations' dtype
+    between launches (JAX's, :120)."""
     reason = vocoder_topology_error(voc, chunk)
     if reason:
         raise ValueError(reason)
     if batch < 1:
         raise ValueError(f"batch must be at least 1, got {batch}")
-    half = vocoder_half(voc, weight_dtype, vq_state)
+    half = vocoder_half(voc, weight_dtype, vq_state, boundary_dtype)
     rows = chunk // voc.total_upsample
 
     def init_cache():

@@ -76,7 +76,7 @@ from dl_speech_enhancement_tpu_torch.ops.vocoder_kernel import (
     vocoder_half,
     vocoder_topology_error,
 )
-from dl_speech_enhancement_tpu_torch.utils.device import resolve_device
+from dl_speech_enhancement_tpu_torch.utils.device import replica, resolve_device
 
 BACKENDS = ("auto", "cuda", "cuda_chain", "eager")
 logger = logging.getLogger(__name__)
@@ -492,13 +492,21 @@ class AudioCodec:
     ``AudioCodec``, bin/stream.py AudioCodec / utils/audiodec.py AudioDec).
     Pass prebuilt ``tx`` / ``rx`` to pair other endpoints (a transmitter
     with a :class:`VocoderReceiver`, the v0-v3 presets); the int32 wire
-    codes are what crosses between them."""
+    codes are what crosses between them. ``tx_device`` / ``rx_device``
+    (``device`` by default) place the endpoints on distinct devices
+    (reference bin/stream.py:26-35): each gets the generator there (a copy
+    where it lies elsewhere), and the codes (encoder features without PQC)
+    cross between them on the host."""
 
     def __init__(self, gen, vq_state, batch: int = 1, receptive_length: int | None = None,
-                 tx=None, rx=None, device="cuda"):
+                 tx=None, rx=None, device="cuda", tx_device=None, rx_device=None):
         self.gen = gen
-        self.tx_encoder = tx or StreamingTransmitter(gen, vq_state, batch, device=device)
-        self.rx_encoder = rx or StreamingReceiver(gen, vq_state, batch, device=device)
+        tx_device = resolve_device(device if tx_device is None else tx_device)
+        rx_device = resolve_device(device if rx_device is None else rx_device)
+        self.tx_encoder = tx or StreamingTransmitter(replica(gen, tx_device), vq_state, batch,
+                                                     device=tx_device)
+        self.rx_encoder = rx or StreamingReceiver(replica(gen, rx_device), vq_state, batch,
+                                                  device=rx_device)
         self.receptive_length = receptive_length or gen.receptive_length
 
     def load(self):
@@ -524,29 +532,38 @@ class AudioCodecStreamer(AudioCodec):
     thread -> audio out, with latency tracking, frame drops when a frame's
     latency exceeds ``max_latency``, and zeros on underflow.
 
-    ``fused=True`` (the default, with one generator and no custom
-    endpoints) runs one worker on ``make_scan_stream(gen, vq_state, batch,
-    frame_size=frame_size)``: on the card the kernel route, the function of
-    the JAX package's jitted ``_fused`` step (encode, quantize, lookup,
-    decode) in one dispatch a frame. Its per-side times are the frame time
-    split 50/50, labelled so in ``stats()``. Otherwise the tx and rx
-    endpoints run in two threads and the wire codes cross on the host. The
-    worker fences each frame by copying its result to the host, as the JAX
-    streamer fetches it."""
+    ``fused=True`` (the default, with one generator, no custom endpoints
+    and ``tx_device`` the same as ``rx_device``) runs one worker on
+    ``make_scan_stream(gen, vq_state, batch, frame_size=frame_size)``: on
+    the card the kernel route, the function of the JAX package's jitted
+    ``_fused`` step (encode, quantize, lookup, decode) in one dispatch a
+    frame. Its per-side times are the frame time split by a ratio, labelled
+    so in ``stats()``: 50/50, or with ``calibrate_split=True`` the share the
+    encoder took of separate encode and decode calls timed at
+    :meth:`warmup`. Otherwise (the endpoints on distinct devices, custom
+    endpoints or ``fused=False``) the tx and rx endpoints run in two threads
+    and the wire codes cross on the host. The worker fences each frame by
+    copying its result to the host, as the JAX streamer fetches it."""
+
+    CALIBRATION_CALLS = 16  # timed encode / decode calls a side for calibrate_split
 
     def __init__(self, gen, vq_state, *, frame_size: int = 1200, sample_rate: int = 48000,
                  max_latency: float = 0.1, batch: int = 1,
                  receptive_length: int | None = None, input_dump=None, output_dump=None,
-                 fused: bool = True, tx=None, rx=None, device="cuda"):
-        super().__init__(gen, vq_state, batch, receptive_length, tx=tx, rx=rx, device=device)
+                 fused: bool = True, calibrate_split: bool = False, tx=None, rx=None,
+                 device="cuda", tx_device=None, rx_device=None):
+        super().__init__(gen, vq_state, batch, receptive_length, tx=tx, rx=rx, device=device,
+                         tx_device=tx_device, rx_device=rx_device)
         if frame_size <= 0 or frame_size % gen.hop:
             raise ValueError(f"frame_size {frame_size} must be a positive multiple of the "
                              f"hop {gen.hop}")
-        self.fused = fused and tx is None and rx is None
+        self.fused = (fused and tx is None and rx is None
+                      and self.tx_encoder.device == self.rx_encoder.device)
         self.batch = batch
         if self.fused:
-            self._fused_run = make_scan_stream(gen, vq_state, batch, frame_size=frame_size,
-                                               device=device)
+            self._fused_run = make_scan_stream(self.tx_encoder.gen, vq_state, batch,
+                                               frame_size=frame_size,
+                                               device=self.tx_encoder.device)
             self._fused_cache = self._fused_run.init_cache()
         self.frame_size = frame_size
         self.sample_rate = sample_rate
@@ -557,7 +574,10 @@ class AudioCodecStreamer(AudioCodec):
         self.enc_times: list[float] = []
         self.dec_times: list[float] = []
         self.fused_times: list[float] = []
-        self._enc_frac = 0.5  # the fused frame time's share given to the tx side
+        # the fused frame time's share given to the tx side: 50/50, or
+        # measured at warmup() from separate encode and decode calls
+        self._enc_frac = 0.5
+        self._calibrate_split = calibrate_split
         self.latencies: list[float] = []
         self.frame_drops = 0
         self.n_frames = 0
@@ -594,13 +614,34 @@ class AudioCodecStreamer(AudioCodec):
 
     def warmup(self):
         """Run one frame of zeros through the frame-shaped steps (the
-        kernels are built at their first launch), then restore the caches."""
+        kernels are built at their first launch), then restore the caches.
+        In the fused mode with ``calibrate_split``, also time
+        ``CALIBRATION_CALLS`` separate encode and decode calls on the
+        endpoints (each fenced by a copy to the host; a first pair, which
+        builds, not counted) and take the encoder's share of the two sides'
+        median times as the split of the fused frame time. JAX ``warmup``
+        (stream/runtime.py:695-712) sums 3 calls a side; on a host-bound
+        path the share of so few calls moves from run to run, so the port
+        takes medians of more."""
         zeros = self._zeros(self.frame_size)
+        tx_cache, rx_cache = dict(self.tx_encoder.cache), dict(self.rx_encoder.cache)
         if self.fused:
             self._fused_run(self._fused_cache, zeros[None])[0].cpu()
-            return
-        tx_cache, rx_cache = dict(self.tx_encoder.cache), dict(self.rx_encoder.cache)
-        self._decode(self._encode(zeros)).cpu()
+            if self._calibrate_split:
+                self._decode(self._encode(zeros).cpu()).cpu()
+                enc_t, dec_t = [], []
+                for _ in range(self.CALIBRATION_CALLS):
+                    t0 = time.perf_counter()
+                    idx = self._encode(zeros).cpu()
+                    t1 = time.perf_counter()
+                    self._decode(idx).cpu()
+                    enc_t.append(t1 - t0)
+                    dec_t.append(time.perf_counter() - t1)
+                enc, dec = float(np.median(enc_t)), float(np.median(dec_t))
+                if enc + dec > 0:
+                    self._enc_frac = enc / (enc + dec)
+        else:
+            self._decode(self._encode(zeros)).cpu()
         self.tx_encoder.cache, self.rx_encoder.cache = tx_cache, rx_cache
 
     # ---------------- worker threads (bin/stream.py:184-239) ----------------
@@ -771,9 +812,12 @@ class AudioCodecStreamer(AudioCodec):
         }
         if self.fused_times:
             fused_mean, fused_std = ms(self.fused_times)
-            # the per-side numbers above are the fused frame time split 50/50
+            # the per-side numbers above are the fused frame time split by a
+            # ratio (calibrated at warmup, or the 50/50 estimate)
             out.update(fused_ms_mean=fused_mean, fused_ms_std=fused_std,
-                       timing_mode="fused-estimated-split", enc_frac=self._enc_frac)
+                       timing_mode=("fused-calibrated-split" if self._calibrate_split
+                                    else "fused-estimated-split"),
+                       enc_frac=self._enc_frac)
         else:
             out["timing_mode"] = "per-side"
         return out

@@ -69,9 +69,8 @@ def fold_copy(x: torch.Tensor, s: int, mode: str) -> torch.Tensor:
         raise ValueError("fold_copy: x must be a contiguous float32 tensor")
     out = torch.empty(out_shape, device=x.device)
     lib = _cuda.load("fold_copy")
-    err = lib.dse_fold_copy(x.data_ptr(), out.data_ptr(), x.shape[0], x.shape[1], s,
-                            int(mode == "unfold"), _cuda.stream_handle(x))
-    _cuda.check(lib, err, "fold_copy")
+    _cuda.launch(lib, "dse_fold_copy", "fold_copy", x, x.data_ptr(), out.data_ptr(),
+                 x.shape[0], x.shape[1], s, int(mode == "unfold"))
     fold_copy.launches += 1
     return out
 

@@ -167,7 +167,8 @@ def main() -> int:
         err = lib.dse_rvq_assign(z.data_ptr(), books.data_ptr(), sqnorm.data_ptr(),
                                  books_t.data_ptr(), codes.data_ptr(), z.shape[0], D, K, n_books,
                                  plan.cluster, plan.tile, plan.clusters,
-                                 min(plan.stages, n_books), torch.cuda.current_stream().cuda_stream)
+                                 min(plan.stages, n_books), 0,
+                                 torch.cuda.current_stream().cuda_stream)
         _cuda.check(lib, err, f"rvq_assign at {tuple(plan)}")
 
     def co_resident(rows, plan):

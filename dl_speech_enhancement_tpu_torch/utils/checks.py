@@ -43,3 +43,34 @@ def rvq_near_ties(z, books, sqnorm, codes, ref, rtol: float = 1e-5) -> dict:
             done |= differ
         r = r - books[l].t()[want]
     return {"ties": ties, "mismatches": bad, "max_excess": excess}
+
+
+def moved_near_ties(z_ref, z, books, codes, ref, rtol: float = 1e-5) -> dict:
+    """Hold wire codes (R, L) of a search on ``z`` against ``ref``, the
+    codes of the same search on ``z_ref`` (R, D), where z moved from z_ref
+    (bf16 activations between launches, say). A row whose code differs
+    first at stage l is allowed where the two picks' distances for ``ref``'s
+    residual differ by at most ``2 |dz| |E_codes - E_ref|`` plus ``rtol *
+    max(1, |min distance|)``: up to stage l both searches subtracted the same
+    codewords, so their residuals differ by dz = z - z_ref, and a change dz
+    moves one codeword's distance past another's by at most that. Returns
+    ``{"moved": rows that differ, "beyond": rows beyond the bound}``."""
+    n_books, _, book_k = books.shape
+    r, books = z_ref.double(), books.double()
+    dz = (z.double() - r).norm(dim=1)
+    done = torch.zeros(r.shape[0], dtype=torch.bool, device=r.device)
+    moved = beyond = 0
+    for l in range(n_books):
+        e = books[l]
+        dist = (r * r).sum(1, keepdim=True) - 2 * r @ e + (e * e).sum(0)
+        k_ref, k = ref[:, l].long() - l * book_k, codes[:, l].long() - l * book_k
+        rows = torch.nonzero(~done & (k_ref != k))[:, 0]
+        if rows.numel():
+            gap = dist[rows, k[rows]] - dist[rows, k_ref[rows]]
+            allowed = (2 * dz[rows] * (e[:, k[rows]] - e[:, k_ref[rows]]).norm(dim=0)
+                       + rtol * dist[rows].min(1).values.abs().clamp(min=1.0))
+            moved += rows.numel()
+            beyond += int((gap > allowed).sum())
+            done[rows] = True
+        r = r - e.t()[k_ref]
+    return {"moved": moved, "beyond": beyond}

@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import copy
+
 import torch
 
 
@@ -19,6 +21,15 @@ def resolve_device(device) -> torch.device:
         if device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
     return device
+
+
+def replica(model, device):
+    """``model`` where it already lies on ``device`` (a resolved device),
+    else a copy of it moved there: a fleet's slice or an endpoint on another
+    device gets its own weights, as the JAX package replicates parameters."""
+    if model is None or model.device == device:
+        return model
+    return copy.deepcopy(model).to(device)
 
 
 def refuse_data_parallel(config: dict, device: torch.device) -> None:

@@ -378,8 +378,8 @@ def test_sharded_stream_checks_its_arguments():
         make_sharded_stream(tgen, tvq, batch=2, device="cpu", rx_gen=tgen)
     with pytest.raises(ValueError, match="both use PQC"):
         make_sharded_stream(denoiser, batch=2, device="cpu", rx_gen=tgen)
-    with pytest.raises(NotImplementedError, match="'Parallel'"):
-        make_sharded_stream(tgen, tvq, batch=2, device=["cpu", "cpu"])
+    with pytest.raises(ValueError, match="divide over 2 devices"):
+        make_sharded_stream(tgen, tvq, batch=3, device=["cpu", "cpu"])
     with pytest.raises(ValueError, match="at least 1"):
         make_sharded_stream(tgen, tvq, batch=0, device="cpu")
     with pytest.raises(ValueError, match="VQState"):

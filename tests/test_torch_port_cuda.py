@@ -215,7 +215,8 @@ def test_residual_chain_runs_on_the_tensor_cores(card):
                           check=True).stdout
     functions = [f for f in sass.split("Function : ")[1:]
                  if "residual_chain_kernel" in f.splitlines()[0]]
-    assert len(functions) == 8  # 1, 2, 4 and 8 fragments a block, f32 and bf16 weights
+    # 1, 2, 4 and 8 fragments a block, f32 and bf16 weights, f32 and bf16 activations
+    assert len(functions) == 16
     assert all("HMMA.1688.F32.TF32" in f for f in functions)
 
 

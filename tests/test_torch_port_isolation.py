@@ -38,7 +38,8 @@ def test_port_has_the_slice_modules():
                 "cli.statistic", "cli.train_denoise", "utils.torch_import",
                 "utils.torch_export", "cli.import_checkpoint", "cli.export_checkpoint", "eval",
                 "eval.metrics", "eval.onnx_graph", "eval.onnx_torch", "eval.dnsmos",
-                "cli.testing_denoise", "cli.test", "cli.analyze", "cli.dnsmos", "data.native"):
+                "cli.testing_denoise", "cli.test", "cli.analyze", "cli.dnsmos", "data.native",
+                "parallel.mesh", "parallel.long_audio", "cli.serve", "eval.dnsmos_web"):
         assert f"dl_speech_enhancement_tpu_torch.{mod}" in names
 
 

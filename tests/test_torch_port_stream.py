@@ -117,14 +117,15 @@ def test_later_slices_raise_not_implemented(pair):
     # multi-stream and the vocoder receiver are served (tests/
     # test_torch_port_batched.py, test_torch_port_vocoder.py, and K4's
     # MultiReceptiveField arm, test_torch_port_vocoder_mrf.py); a grouped
-    # MultiReceptiveField block is not on the kernel route, and a fleet over
-    # several devices is a later slice
+    # MultiReceptiveField block is not on the kernel route; a fleet over
+    # several devices is served (tests/test_torch_port_serve.py) where the
+    # streams divide over them
     mrf = HiFiGANGenerator(in_channels=512, channels=32, upsample_scales=(5, 5, 4, 3),
                            upsample_kernel_sizes=(10, 10, 8, 6), groups=2, device="cpu")
     with pytest.raises(ValueError, match="MultiReceptiveField"):
         make_sharded_stream(tgen, batch=2, device="cpu", vocoder=mrf)
-    with pytest.raises(NotImplementedError, match="'Parallel'"):
-        make_sharded_stream(tgen, batch=2, device=["cpu", "cpu"])
+    with pytest.raises(ValueError, match="divide over 2 devices"):
+        make_sharded_stream(tgen, batch=3, device=["cpu", "cpu"])
     # the PQC codec is served (tests/test_torch_port_pqc.py); the denoiser
     # refuses a VQ state
     with pytest.raises(ValueError, match="VQState"):
