@@ -227,6 +227,30 @@ failure exits non-zero before the result line):
      receiver on the CPU: its codes the all-card streamer's, up to near ties
      the all-CPU one's, its audio within MAIN_ATOL_F32 of the all-CPU
      one's; the fused streamer's ``calibrate_split`` stats.
+10. slice 11: training over ranks (``parallel_phase``), two gloo ranks on
+    the one card (DP_DEVICES, parallel/mesh.py::launch; one spawn for all
+    three), each held to the same work in this process, cuDNN
+    deterministic, TF32 off:
+   - 10a the course's ``train_disc`` step (configs/denoise/
+     symAD_48MelWaveL1.yaml, 16 x 48000): losses DP_LOSS_RTOL, parameters
+     DP_PARAM_ATOL where the one-process gradient is above DP_GRAD_FLOOR of
+     its tensor's largest and within 2 lr elsewhere (Adam's first step at a
+     gradient near its rounding floor), both ranks' parameters equal;
+   - 10b CODEC_DP_STEPS stage-1 steps of the codec through ``TrainerGAN``
+     (16 x 96000; the codebooks after the first step DP_VQ_ATOL of their
+     largest, its parameters as 10a's, the last step's within 2 lr an
+     update) and one generator step of the ``vctk_v1`` vocoder workload
+     (spectral convergence, K7; its log-magnitude term's gradient, 1 / |S|
+     near f32's floor, moves with the output's last bits: the gradients
+     within LOG_MAG_GRAD_RTOL of each tensor's largest, the parameters
+     within 2 lr);
+   - 10c the full PQC codec on (data 1, time 2), SHARD_BATCH x SHARD_LENGTH:
+     ``time_sharded_forward`` beyond the warm-up within SHARD_FWD_ATOL /
+     SHARD_FWD_RTOL of the offline forward, one step against
+     ``blocked_reference_step`` (loss SHARD_LOSS_RTOL, parameters
+     SHARD_PARAM_ATOL as 10a's, codebooks DP_VQ_ATOL).
+   Each step's wall time, its gradient reduction timed alone and its share,
+   and each rank's peak memory; K6 / K7 counted in every rank.
 
 Prints the per-kernel JSON line (times summed over the kernel's sites in one
 100-frame dispatch of the single-stream path that first runs it, the codec's
@@ -330,6 +354,20 @@ from dl_speech_enhancement_tpu_torch.ops.vocoder_kernel import (
     vocoder_topology_error,
 )
 from dl_speech_enhancement_tpu_torch.parallel import make_sharded_stream, parallel_denoise
+from dl_speech_enhancement_tpu_torch.parallel.mesh import (
+    backend_for,
+    device_mesh,
+    launch,
+    mesh_from_config,
+    shard_batch,
+)
+from dl_speech_enhancement_tpu_torch.parallel.time_shard import (
+    blocked_reference_step,
+    decoder_receptive_frames,
+    local_shard,
+    make_time_sharded_steps,
+    time_sharded_forward,
+)
 from dl_speech_enhancement_tpu_torch.stream.runtime import (
     AudioCodecStreamer,
     StreamingReceiver,
@@ -343,7 +381,11 @@ from dl_speech_enhancement_tpu_torch.train.denoise_course import (
     make_course_steps,
     train_denoise_course,
 )
-from dl_speech_enhancement_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
+from dl_speech_enhancement_tpu_torch.train.checkpoint import (
+    is_rank0,
+    load_checkpoint,
+    save_checkpoint,
+)
 from dl_speech_enhancement_tpu_torch.train.gan_trainer import TrainerGAN
 from dl_speech_enhancement_tpu_torch.train.optim import build_optimizer, build_optimizer_from_config
 from dl_speech_enhancement_tpu_torch.train.workloads import autoencoder as ae_workload
@@ -355,6 +397,7 @@ from dl_speech_enhancement_tpu_torch.utils.audiodec import (
     load_generator_from_checkpoint,
 )
 from dl_speech_enhancement_tpu_torch.utils.checks import moved_near_ties, rvq_near_ties
+from dl_speech_enhancement_tpu_torch.utils.collectives import average_gradients, pmean_values
 from dl_speech_enhancement_tpu_torch.utils.config import load_config
 from dl_speech_enhancement_tpu_torch.utils.model_factory import build_discriminator
 
@@ -4708,6 +4751,436 @@ def spectrum_entries(sites, worst, by_path, course) -> list:
     return entries
 
 
+# ---------------------------------------------------------------- phase 10
+
+DP_DEVICES = ("cuda:0", "cuda:0")  # two ranks on the one card: gloo (parallel.mesh.backend_for)
+DP_LOSS_RTOL = 2e-4  # JAX's data-parallel tolerances (tests/test_parallel.py:91-95)
+DP_PARAM_ATOL = 5e-5
+DP_VQ_ATOL = 1e-5
+DP_GRAD_FLOOR = 1e-4  # parameters held at the atol where |grad| is above this of the tensor's largest
+CODEC_DP_STEPS = 2
+SHARD_BATCH, SHARD_LENGTH = 2, 384000  # 8 s, 640 hops a shard on (data 1, time 2)
+SHARD_LOSS_RTOL = 1e-4  # JAX's (tests/test_time_shard.py)
+SHARD_PARAM_ATOL = 1e-5
+SHARD_FWD_ATOL, SHARD_FWD_RTOL = 2e-5, 1e-4
+REDUCE_REPS = 5
+
+
+def rank_group(mesh):
+    return None if mesh is None else mesh.get_group("data")
+
+
+def timed(drive, params, group):
+    """``drive()`` with the launch counters at 0 before and read after: (its
+    result, {wall_ms, peak_bytes, launches, reduce_ms}). ``reduce_ms`` is one
+    gradient reduction of ``params`` timed alone afterwards (the median of
+    REDUCE_REPS, each between two synchronizations), None in one process."""
+    for spec in KERNELS.values():
+        spec["fn"].launches = 0
+    torch.cuda.synchronize()
+    if group is not None:
+        torch.distributed.barrier()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    result = drive()
+    torch.cuda.synchronize()
+    stats = {"wall_ms": (time.perf_counter() - t0) * 1e3,
+             "peak_bytes": torch.cuda.max_memory_allocated(),
+             "launches": {name: spec["fn"].launches for name, spec in KERNELS.items()},
+             "reduce_ms": None}
+    if group is not None:
+        params = [p for p in params if p.grad is not None]
+        times = []
+        for _ in range(REDUCE_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            average_gradients(params, group)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        stats["reduce_ms"] = statistics.median(times)
+        stats["reduce_share"] = stats["reduce_ms"] / stats["wall_ms"]
+    return result, stats
+
+
+def net_state(nets: dict, rank0: bool, grads: bool = False) -> dict:
+    """The networks' parameters after a step (rank 0's, on the host), each
+    tensor's f64 sum (every rank's: the ranks must agree), and in one
+    process the gradients the parameters are held by."""
+    out = {"sums": {f"{k}.{n}": float(p.detach().double().sum())
+                    for k, m in nets.items() for n, p in m.named_parameters()}}
+    if rank0:
+        out["after"] = {f"{k}.{n}": p.detach().cpu() for k, m in nets.items()
+                        for n, p in m.named_parameters()}
+    if grads:
+        out["grads"] = {f"{k}.{n}": p.grad.detach().cpu() for k, m in nets.items()
+                        for n, p in m.named_parameters() if p.grad is not None}
+    return out
+
+
+def dp_course_step(inp, mesh):
+    """10a: one course ``train_disc`` step at the config's widths (the
+    generator, then the MSD + MPD discriminator) on this rank's rows."""
+    cfg = course_config()
+    group = rank_group(mesh)
+    gen, disc = course_generator(cfg), course_discriminator(cfg)
+    opt_g = build_optimizer(gen.parameters(), "Adam", cfg["generator_optimizer_params"],
+                            grad_norm=cfg.get("generator_grad_norm", -1))
+    opt_d = build_optimizer(disc.parameters(), "Adam", cfg["discriminator_optimizer_params"],
+                            grad_norm=cfg.get("discriminator_grad_norm", -1))
+    step = make_course_steps(gen, disc, cfg, opt_g, opt_d, group)["train_disc"]
+    x, t = (torch.from_numpy(a).to(DEVICE)
+            for a in shard_batch(mesh, (inp["mixed"], inp["clean"])))
+    (g, d, frags, _), stats = timed(lambda: step(x, t),
+                                    [*gen.parameters(), *disc.parameters()], group)
+    losses = {"g_loss": float(g), "d_loss": float(d), **{k: float(v) for k, v in frags.items()}}
+    lrs = {"generator": cfg["generator_optimizer_params"]["lr"],
+           "discriminator": cfg["discriminator_optimizer_params"]["lr"]}
+    return {"losses": losses, "lr": lrs, **stats,
+            **net_state({"generator": gen, "discriminator": disc}, is_rank0(), mesh is None)}
+
+
+def codec_dp_config(mesh) -> dict:
+    cfg = dict(load_config(CODEC_CONFIG), outdir=None, train_max_steps=CODEC_DP_STEPS,
+               save_interval_steps=10 ** 9, eval_interval_steps=10 ** 9,
+               log_interval_steps=10 ** 9)
+    if mesh is not None:
+        cfg["parallel"] = {"data_devices": len(DP_DEVICES)}
+    return cfg
+
+
+def dp_codec_steps(inp, mesh):
+    """10b: CODEC_DP_STEPS stage-1 steps of the codec through ``TrainerGAN``
+    (the EMA codebooks over the ranks), each on this rank's rows."""
+    cfg = codec_dp_config(mesh)
+    codec = AudioDecGenerator(**cfg["generator_params"], use_pqc=True, seed=SEED + 80,
+                              device=DEVICE)
+    disc = build_discriminator(cfg["model_type"], cfg["discriminator_params"], device=DEVICE,
+                               seed=SEED + 81)
+    vq = VQState(*(torch.from_numpy(inp["vq"][f]).to(DEVICE) for f in VQState._fields))
+    tr = ae_workload.Trainer(0, 0, {"train": []}, codec, disc, cfg, vq_state=vq)
+    require(tr.mesh is not None or mesh is None, "the codec trainer built no mesh")
+    books, steps, states = [], [], []
+    # the epoch loop's own feed: this rank's rows of each host batch, pinned
+    # and uploaded ahead (TrainerGAN._batches), the wait for each timed
+    batches = tr._batches(iter(inp["batches"]))
+    for _ in inp["batches"]:
+        t0 = time.perf_counter()
+        rows = next(batches)
+        wait_ms = (time.perf_counter() - t0) * 1e3
+        _, stats = timed(lambda: tr._train_step(rows), codec.parameters(), tr.group)
+        stats["loader_wait_ms"] = wait_ms
+        stats["loader_wait_share"] = wait_ms / (wait_ms + stats["wall_ms"])
+        steps.append(stats)
+        books.append({f: getattr(tr.vq_state, f).cpu() for f in VQState._fields})
+        states.append(net_state({"codec": codec}, is_rank0(), mesh is None))
+    batches.close()
+    return {"losses": tr._read(tr.total_train_loss, len(inp["batches"])), "books": books,
+            "steps": steps, "states": states,
+            "lr": {"codec": cfg["generator_optimizer_params"]["lr"]}}
+
+
+def dp_vocoder_step(inp, mesh):
+    """10b: one generator step of the ``vctk_v1`` vocoder workload
+    (spectral convergence over the ranks, K7) on the codec's codes."""
+    vcfg = load_config(VOCODER_CONFIG)
+    group = rank_group(mesh)
+    analyzer = AudioDecGenerator(**load_config(CODEC_CONFIG)["generator_params"], use_pqc=True,
+                                 seed=SEED + 80, device=DEVICE)
+    analyzer.requires_grad_(False)
+    vq = VQState(*(torch.from_numpy(inp["vq"][f]).to(DEVICE) for f in VQState._fields))
+    voc = build_vocoder()
+    disc = build_discriminator(vcfg["model_type"], vcfg["discriminator_params"], device=DEVICE,
+                               seed=SEED + 82)
+    opt_g = build_optimizer_from_config(vcfg, "generator", voc.parameters())
+    opt_d = build_optimizer_from_config(vcfg, "discriminator", disc.parameters())
+    steps = voc_workload.make_vocoder_steps(analyzer, vq, voc, disc, vcfg, opt_g, opt_d, group)
+    x = torch.from_numpy(shard_batch(mesh, inp["x"])).to(DEVICE)
+    frags, stats = timed(lambda: steps["gen"](x), voc.parameters(), group)
+    frags = {k: float(v) for k, v in pmean_values(frags, group).items()}
+    require("spectral_convergence_loss" in frags, f"vocoder frags {sorted(frags)}")
+    return {"losses": frags, "lr": {"vocoder": vcfg["generator_optimizer_params"]["lr"]},
+            **stats, **net_state({"vocoder": voc}, is_rank0(), is_rank0())}
+
+
+def shard_config() -> dict:
+    cfg = load_config(CODEC_CONFIG)
+    return {"mel_loss_params": cfg["mel_loss_params"], "lambda_mel_loss": cfg["lambda_mel_loss"],
+            "lambda_snr_loss": 1.0, "lambda_vq_loss": cfg.get("lambda_vq_loss", 1.0),
+            "lr": cfg["generator_optimizer_params"]["lr"]}
+
+
+def shard_codec(inp):
+    codec = AudioDecGenerator(**load_config(CODEC_CONFIG)["generator_params"], use_pqc=True,
+                              seed=SEED + 85, device=DEVICE)
+    vq = VQState(*(torch.from_numpy(inp["vq"][f]).to(DEVICE) for f in VQState._fields))
+    opt = build_optimizer(codec.parameters(), "Adam", {"lr": shard_config()["lr"]})
+    return codec, vq, opt
+
+
+def time_shard_step(inp):
+    """10c: the full PQC codec on (data 1, time 2): ``time_sharded_forward``
+    on this rank's block, then one time-sharded train step."""
+    codec, vq, opt = shard_codec(inp)
+    mesh = device_mesh((1, 2), ("data", "time"))
+    x, t = (local_shard(mesh, torch.from_numpy(inp[k]).to(DEVICE), batch_axis="data")
+            for k in ("x", "target"))
+    y = time_sharded_forward(codec, mesh, batch_axis="data")(vq, x)
+    steps = make_time_sharded_steps(codec, shard_config(), opt, mesh, batch_axis="data")
+    groups = (mesh.get_group("time"), mesh.get_group("data"))
+    (new_vq, loss, frags), stats = timed(lambda: steps["train"](vq, x, t), codec.parameters(),
+                                         groups)
+    return {"loss": float(loss), "frags": {k: float(v) for k, v in frags.items()},
+            "y": y.cpu(), "position": mesh.get_local_rank("time"), **stats,
+            "books": {f: getattr(new_vq, f).cpu() for f in VQState._fields},
+            **net_state({"codec": codec}, is_rank0())}
+
+
+def blocked_shard_step(inp):
+    """10c's reference in one process: the offline forward, then
+    ``blocked_reference_step`` over the same 2 shards."""
+    codec, vq, opt = shard_codec(inp)
+    x, t = (torch.from_numpy(inp[k]).to(DEVICE) for k in ("x", "target"))
+    with torch.no_grad():
+        y = codec(x, vq, train=False)[0]
+    step = blocked_reference_step(codec, shard_config(), opt, 2)
+    (new_vq, loss), stats = timed(lambda: step(vq, x, t), codec.parameters(), None)
+    return {"loss": float(loss), "y": y.cpu(), **stats,
+            "books": {f: getattr(new_vq, f).cpu() for f in VQState._fields},
+            **net_state({"codec": codec}, True, True)}
+
+
+def parallel_rank(device, inp):
+    """Phase 10 in one rank (parallel.mesh.launch): 10a, 10b and 10c in turn."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    require(torch.distributed.get_backend() == "gloo", "two ranks on one card must use gloo")
+    mesh = mesh_from_config({"parallel": {"data_devices": len(DP_DEVICES)}})
+    return {"course": dp_course_step(inp["course"], mesh),
+            "codec": dp_codec_steps(inp["codec"], mesh),
+            "vocoder": dp_vocoder_step(inp["vocoder"], mesh),
+            "time_shard": time_shard_step(inp["time_shard"]),
+            "device": str(device)}
+
+
+def parallel_inputs(codec_vq) -> dict:
+    """The phase's seeded batches (numpy) and the codec's codebooks."""
+    clean, noise = course_clips(1, SEED + 90)[0]
+    mixed = add_noise(clean, noise, 15).astype(np.float32)
+    length = load_config(CODEC_CONFIG)["batch_length"]
+    vq = {f: getattr(codec_vq, f).cpu().numpy() for f in VQState._fields}
+    sc, sn = course_clips(1, SEED + 93, SHARD_LENGTH)[0]
+    return {"course": {"mixed": mixed, "clean": clean},
+            "codec": {"vq": vq, "batches": [course_clips(1, SEED + 91 + i, length)[0][0]
+                                            for i in range(CODEC_DP_STEPS)]},
+            "vocoder": {"vq": vq, "x": course_clips(1, SEED + 92,
+                                                   load_config(VOCODER_CONFIG)["batch_length"])
+                        [0][0]},
+            "time_shard": {"vq": vq, "target": sc[:SHARD_BATCH],
+                           "x": add_noise(sc[:SHARD_BATCH], sn[:SHARD_BATCH], 15).astype(
+                               np.float32)}}
+
+
+def held_after(what, got, ref, lr_of, atol):
+    """Parameters after a step against the one-process step's: within
+    ``atol`` where the one-process gradient is above DP_GRAD_FLOOR of its
+    tensor's largest |value|, within 2 lr an update elsewhere (Adam's first
+    step is about lr * g / (|g| + eps): at a gradient near its rounding floor
+    two summation orders may differ in sign). Returns the worst errors."""
+    worst_big, worst_all, flips = 0.0, 0.0, 0
+    require(sorted(got["after"]) == sorted(ref["after"]), f"{what}: parameter names differ")
+    for name, r in ref["after"].items():
+        diff = (got["after"][name] - r).abs()
+        g = ref["grads"].get(name)
+        lr = lr_of(name)
+        if g is None:
+            require(float(diff.max()) == 0.0, f"{what}: {name} took no gradient but moved")
+            continue
+        big = g.abs() > DP_GRAD_FLOOR * float(g.abs().max())
+        if bool(big.any()):
+            worst_big = max(worst_big, float(diff[big].max()))
+        worst_all = max(worst_all, float(diff.max()))
+        flips += int((diff > atol).sum())
+        require(float(diff.max()) <= 2.0 * lr * (1 + 1e-3), f"{what}: {name} moved "
+                f"{float(diff.max()):.3e} from the one-process step, beyond 2 lr")
+    require(worst_big <= atol, f"{what}: a parameter with a gradient above {DP_GRAD_FLOOR} of "
+            f"its tensor's largest is {worst_big:.3e} from the one-process step (limit {atol})")
+    log(f"  {what}: parameters within {worst_big:.3e} where the gradient counts (limit "
+        f"{atol}); {flips} elements beyond it elsewhere, the largest {worst_all:.3e}")
+    return {"param_err": worst_big, "param_err_all": worst_all, "beyond_atol": flips}
+
+
+def moved_within(what, got: dict, ref: dict, bound: float) -> float:
+    worst = max(float((got[k] - ref[k]).abs().max()) for k in ref)
+    require(worst <= bound * (1 + 1e-3), f"{what}: a parameter is {worst:.3e} from the "
+            f"one-process run's, beyond {bound:.3e}")
+    return worst
+
+
+def ranks_agree(what, results, key):
+    a, b = (r[key]["sums"] for r in results)
+    worst = max(abs(a[k] - b[k]) / max(1.0, abs(a[k])) for k in a)
+    require(worst == 0.0, f"{what}: the ranks' parameters differ (relative {worst:.3e})")
+
+
+def held_losses(what, got: dict, ref: dict, rtol: float) -> float:
+    require(sorted(got) == sorted(ref), f"{what}: losses {sorted(got)} against {sorted(ref)}")
+    worst = max(abs(got[k] - ref[k]) / max(abs(ref[k]), 1e-30) for k in ref)
+    require(worst <= rtol, f"{what}: a loss is {worst:.3e} from the one-process value "
+            f"(limit {rtol}): {got} against {ref}")
+    return worst
+
+
+def rank_line(what, one, results):
+    """Log each rank's wall time, reduction share and peak beside the
+    one-process step's."""
+    log(f"  {what}, first step: one process {one['wall_ms']:.1f} ms, peak "
+        f"{one['peak_bytes'] / 2**30:.2f} GiB; "
+        + "; ".join(f"rank {i} {r['wall_ms']:.1f} ms (gradient reduction {r['reduce_ms']:.1f} ms, "
+                    f"share {r['reduce_share']:.3f}), peak {r['peak_bytes'] / 2**30:.2f} GiB"
+                    for i, r in enumerate(results)))
+
+
+def parallel_phase(codec_vq):
+    """Phase 10: data-parallel and time-sharded training over two gloo ranks
+    on the one card (DP_DEVICES), each held to the one-process step; the
+    ranks' K6 / K7 launches by path."""
+    inp = parallel_inputs(codec_vq)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        one = {"course": dp_course_step(inp["course"], None),
+               "codec": dp_codec_steps(inp["codec"], None),
+               "vocoder": dp_vocoder_step(inp["vocoder"], None),
+               "time_shard": blocked_shard_step(inp["time_shard"])}
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    results = launch(parallel_rank, DP_DEVICES, inp)
+    launch_s = time.perf_counter() - t0
+    report = {"devices": list(DP_DEVICES), "backend": backend_for(DP_DEVICES),
+              "launch_seconds": launch_s}
+    by_path = {}
+
+    # 10a
+    r0 = results[0]["course"]
+    ranks_agree("10a", results, "course")
+    lr = r0["lr"]
+    report["10a_course_step"] = {
+        "loss_err": max(held_losses(f"10a rank {i}", r["course"]["losses"],
+                                    one["course"]["losses"], DP_LOSS_RTOL)
+                        for i, r in enumerate(results)),
+        **held_after("10a course step", r0, one["course"],
+                     lambda n: lr[n.split(".")[0]], DP_PARAM_ATOL),
+        "one_process": {k: one["course"][k] for k in ("wall_ms", "peak_bytes")},
+        "ranks": [{k: r["course"][k] for k in ("wall_ms", "peak_bytes", "reduce_ms",
+                                                 "reduce_share")} for r in results]}
+    rank_line("10a course step (16 x 48000)", one["course"], [r["course"] for r in results])
+
+    # 10b
+    r0 = results[0]["codec"]
+    for i in range(CODEC_DP_STEPS):
+        ranks_agree(f"10b codec step {i + 1}", [{"s": r["codec"]["states"][i]} for r in results],
+                    "s")
+    worst_vq = 0.0
+    for i, (got, ref) in enumerate(zip(r0["books"], one["codec"]["books"])):
+        for f in VQState._fields:
+            err = float((got[f] - ref[f]).abs().max())
+            if i == 0:
+                require(err <= DP_VQ_ATOL * max(1.0, float(ref[f].abs().max())),
+                        f"10b codec step 1: {f} is {err:.3e} from the one-process EMA")
+            worst_vq = max(worst_vq, err / max(1.0, float(ref[f].abs().max())))
+    report["10b_codec"] = {
+        "loss_err": held_losses("10b codec", r0["losses"], one["codec"]["losses"],
+                                DP_LOSS_RTOL),
+        "codebook_rel_err": worst_vq,
+        # the first step's parameters by its gradients; the last within 2 lr an update
+        **held_after("10b codec step 1", r0["states"][0], one["codec"]["states"][0],
+                     lambda n: r0["lr"]["codec"], DP_PARAM_ATOL),
+        "last_step_param_err": moved_within(
+            f"10b codec step {CODEC_DP_STEPS}", r0["states"][-1]["after"],
+            one["codec"]["states"][-1]["after"], 2.0 * r0["lr"]["codec"] * CODEC_DP_STEPS),
+        "steps": [{"one_process": {k: o[k] for k in ("wall_ms", "peak_bytes", "loader_wait_ms",
+                                                       "loader_wait_share")},
+                   "ranks": [{k: r["codec"]["steps"][i][k]
+                              for k in ("wall_ms", "peak_bytes", "reduce_ms", "reduce_share",
+                                        "loader_wait_ms", "loader_wait_share")}
+                             for r in results]}
+                  for i, o in enumerate(one["codec"]["steps"])]}
+    for i, o in enumerate(one["codec"]["steps"]):
+        rank_line(f"10b codec stage-1 step {i + 1} (16 x 96000)", o,
+                  [r["codec"]["steps"][i] for r in results])
+        log("    loader wait (the rank's rows cut, pinned and uploaded): one process "
+            f"{o['loader_wait_ms']:.1f} ms, ranks " + ", ".join(
+                f"{r['codec']['steps'][i]['loader_wait_ms']:.1f} ms (share "
+                f"{r['codec']['steps'][i]['loader_wait_share']:.3f})" for r in results))
+    r0 = results[0]["vocoder"]
+    ranks_agree("10b vocoder", results, "vocoder")
+    # the log-STFT-magnitude term's gradient, 1 / |S| at bins near f32's floor,
+    # moves with the output's last bits (cuDNN at 8 rows against 16): the
+    # gradients are held as phase 7f holds that term across routes
+    # (LOG_MAG_GRAD_RTOL of each tensor's largest), the parameters within 2 lr
+    grad_err = max(float((r0["grads"][k] - g).abs().max()) / max(float(g.abs().max()), 1e-30)
+                   for k, g in one["vocoder"]["grads"].items())
+    require(grad_err <= LOG_MAG_GRAD_RTOL, f"10b vocoder: a gradient is {grad_err:.3e} of its "
+            f"tensor's largest from the one-process step's (limit {LOG_MAG_GRAD_RTOL})")
+    report["10b_vocoder"] = {
+        "loss_err": held_losses("10b vocoder", r0["losses"], one["vocoder"]["losses"],
+                                DP_LOSS_RTOL),
+        "grad_rel_err": grad_err,
+        "param_err_all": moved_within("10b vocoder", r0["after"], one["vocoder"]["after"],
+                                      2.0 * r0["lr"]["vocoder"])}
+    log(f"  10b vocoder: gradients within {grad_err:.3e} of each tensor's largest (limit "
+        f"{LOG_MAG_GRAD_RTOL}), parameters within {report['10b_vocoder']['param_err_all']:.3e}")
+    rank_line("10b vocoder step (16 x 9600)", one["vocoder"], [r["vocoder"] for r in results])
+
+    # 10c
+    ts = sorted((r["time_shard"] for r in results), key=lambda r: r["position"])
+    ref = one["time_shard"]
+    got_y = torch.cat([r["y"] for r in ts], dim=1)
+    codec = AudioDecGenerator(**load_config(CODEC_CONFIG)["generator_params"], use_pqc=True,
+                              seed=SEED + 85, device="cpu")
+    warm = ((-(-codec.receptive_length // codec.hop))
+            + 2 * decoder_receptive_frames(codec.decoder)) * codec.hop
+    require(tuple(got_y.shape) == tuple(ref["y"].shape), f"10c forward {tuple(got_y.shape)}")
+    fwd_err = (got_y[:, warm:] - ref["y"][:, warm:]).abs()
+    fwd_limit = SHARD_FWD_ATOL + SHARD_FWD_RTOL * ref["y"][:, warm:].abs()
+    require(bool((fwd_err <= fwd_limit).all()), f"10c: the sharded forward beyond {warm} "
+            f"samples is {float(fwd_err.max()):.3e} from the offline forward")
+    require(all(abs(r["loss"] - ref["loss"]) <= SHARD_LOSS_RTOL * abs(ref["loss"]) for r in ts),
+            f"10c: losses {[r['loss'] for r in ts]} against the blocked step's {ref['loss']}")
+    r0 = next(r for r in ts if "after" in r)
+    worst_vq = max(float((r0["books"][f] - ref["books"][f]).abs().max()) for f in ("embed",
+                                                                                    "cluster_size"))
+    require(worst_vq <= DP_VQ_ATOL, f"10c: the codebooks are {worst_vq:.3e} from the blocked step's")
+    report["10c_time_shard"] = {
+        "loss_err": abs(r0["loss"] - ref["loss"]) / abs(ref["loss"]),
+        "forward_err_beyond_warmup": float(fwd_err.max()), "warmup_samples": warm,
+        "codebook_err": worst_vq,
+        **held_after("10c time shard", r0, ref, lambda n: shard_config()["lr"], SHARD_PARAM_ATOL),
+        "one_process": {k: ref[k] for k in ("wall_ms", "peak_bytes")},
+        "ranks": [{k: r[k] for k in ("wall_ms", "peak_bytes", "reduce_ms", "reduce_share")}
+                  for r in ts]}
+    log(f"  10c: forward within {float(fwd_err.max()):.3e} beyond {warm} samples; loss "
+        f"{r0['loss']:.6g} against {ref['loss']:.6g}")
+    rank_line("10c time-sharded step (2 x 384000, (data 1, time 2))", ref, ts)
+
+    for what, key, kernels in (("10a course step", "course", ("log_mel",)),
+                               ("10b codec steps", "codec", ("log_mel",)),
+                               ("10b vocoder step", "vocoder", ("log_mel", "stft_magnitude")),
+                               ("10c time-sharded step", "time_shard", ("log_mel",))):
+        runs = [r[key]["launches"] if key != "codec" else
+                {n: sum(s["launches"][n] for s in r[key]["steps"]) for n in KERNELS}
+                for r in results]
+        counts = {n: sum(c[n] for c in runs) for n in KERNELS}
+        for name in kernels:
+            require(all(c[name] > 0 for c in runs), f"{what}: a rank never launched {name}")
+        by_path[f"{what} x{len(DP_DEVICES)} ranks"] = counts
+    log(f"phase 10 launches: {json.dumps(by_path)}")
+    return by_path, report
+
+
 def card() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -4929,6 +5402,13 @@ def main() -> int:
     by_path.update(runs)
     stamp("phase 9c-9f, fleets, long audio, the streamer split")
 
+    log("phase 10: data-parallel training over two gloo ranks on the card (the course step, "
+        "the codec's stage 1 and the vocoder step through the workloads) and time-sharded "
+        "training of the full PQC codec on (data 1, time 2)")
+    runs, slice11 = parallel_phase(vq)
+    by_path.update(runs)
+    stamp("phase 10, data-parallel and time-sharded training")
+
     name_power = card()
     entries = []
     for name in SERVING_KERNELS:
@@ -5066,7 +5546,7 @@ def main() -> int:
                                            "step_routes": adv_checks, "loop": adv_loop,
                                            "times": adv_times},
                            "recipe": recipe_report},
-              "evaluation": eval_report, "slice10": slice10,
+              "evaluation": eval_report, "slice10": slice10, "slice11": slice11,
               "kernel_sites": {str(n): {k: v["sites"] for k, v in agg.items()}
                                for n, agg in ktimes.items()},
               "codec_kernel_sites": {str(n): {k: v["sites"] for k, v in agg.items()}

@@ -20,8 +20,13 @@ The AudioDec recipe, from a directory holding the corpus the configs name:
         -c configs/vocoder/AudioDec_v1_symAD_vctk_48000_hop300_clean.yaml
 
 ``--device cpu`` runs the plain PyTorch path; the default is the card.
-Checkpoints are the port's own (train/checkpoint.py). ``--dp`` above 1
-raises NotImplementedError: data parallelism is not ported yet.
+Checkpoints are the port's own (train/checkpoint.py). ``--dp N`` trains
+data-parallel over N ranks that this command spawns (parallel/mesh.py::
+launch), as the JAX CLI's ``--dp N`` shards over N devices: with ``--device
+cuda`` over the first N cards (NCCL; ``--dp -1`` takes every card), with
+``--device cuda:K`` N ranks on card K (gloo), with ``--device cpu`` N gloo
+ranks on the host. Rank 0 writes the checkpoints, which have the
+one-process layout and resume on any number of ranks.
 """
 
 from __future__ import annotations
@@ -29,10 +34,12 @@ from __future__ import annotations
 import logging
 import os
 import random
+import sys
 from argparse import ArgumentParser
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from dl_speech_enhancement_tpu_torch.data import (
     CollaterAudio,
@@ -41,7 +48,12 @@ from dl_speech_enhancement_tpu_torch.data import (
     MultiDataset,
     SingleDataset,
 )
-from dl_speech_enhancement_tpu_torch.train.checkpoint import latest_checkpoint, load_checkpoint
+from dl_speech_enhancement_tpu_torch.parallel.mesh import data_parallel_devices, launch
+from dl_speech_enhancement_tpu_torch.train.checkpoint import (
+    is_rank0,
+    latest_checkpoint,
+    load_checkpoint,
+)
 from dl_speech_enhancement_tpu_torch.utils.audiodec import load_generator_from_checkpoint
 from dl_speech_enhancement_tpu_torch.utils.config import load_config, save_config
 from dl_speech_enhancement_tpu_torch.utils.device import resolve_device
@@ -125,8 +137,15 @@ def build_trainer(config: dict, data_loader, device="cuda"):
     raise NotImplementedError(f"train_mode: {mode}")
 
 
+def _rank(device, argv):
+    """One rank of ``--dp N``: the same command on its own device."""
+    trainer = main([*argv, "--device", str(device)])
+    return {"steps": trainer.steps, "loader_wait": trainer.loader_wait}
+
+
 def main(argv=None):
-    """Train as the config says; returns the trainer."""
+    """Train as the config says; returns the trainer, or, where ``--dp``
+    launches ranks, each rank's ``{"steps", "loader_wait"}``."""
     parser = ArgumentParser()
     parser.add_argument("-c", "--config", required=True)
     parser.add_argument("--tag", default=None)
@@ -136,8 +155,8 @@ def main(argv=None):
                              "newest checkpoint in the expdir")
     parser.add_argument("--seed", type=int, default=None)
     parser.add_argument("--dp", type=int, default=None, metavar="N",
-                        help="data-parallel devices (-1: all visible); overrides the config "
-                             "key parallel.data_devices (not ported: above 1 raises)")
+                        help="data-parallel ranks (-1: every visible card); overrides the "
+                             "config key parallel.data_devices")
     parser.add_argument("--device", default="cuda",
                         help="'cuda' (the card, the default) or 'cpu' (the plain modules)")
     args = parser.parse_args(argv)
@@ -147,6 +166,11 @@ def main(argv=None):
     if args.dp is not None:
         # a bare `parallel:` YAML section loads as None
         config["parallel"] = dict(config.get("parallel") or {}, data_devices=args.dp)
+    if not dist.is_initialized():
+        devices = data_parallel_devices(config, args.device)
+        if devices is not None:
+            argv = list(sys.argv[1:] if argv is None else argv)
+            return launch(_rank, devices, argv)
     if args.seed is not None:
         config["seed"] = args.seed
     seed = config.get("seed", 1337)
@@ -159,7 +183,8 @@ def main(argv=None):
     outdir = os.path.join(args.exp_root, mode, tag)
     config["outdir"] = outdir
     os.makedirs(outdir, exist_ok=True)
-    save_config(os.path.join(outdir, "config.yml"), config)
+    if is_rank0():
+        save_config(os.path.join(outdir, "config.yml"), config)
     logger.info("expdir: %s", outdir)
 
     trainer = build_trainer(config, build_data_loaders(config, mode, config["batch_length"]),
@@ -185,7 +210,8 @@ def main(argv=None):
             trainer.run()
     finally:
         trainer.save_checkpoint(os.path.join(outdir, f"checkpoint-{trainer.steps}steps"))
-        logger.info("Successfully saved checkpoint @ %d steps.", trainer.steps)
+        if trainer.rank0:
+            logger.info("Successfully saved checkpoint @ %d steps.", trainer.steps)
     return trainer
 
 

@@ -14,17 +14,26 @@ warm-starts the generator. Scalars go to the log and, where
 
     python -m dl_speech_enhancement_tpu_torch.cli.train_denoise -e HPC \\
         -c symAD_48MelWaveL1.yaml --clean-path DIR --noise-path DIR
+
+``--dp N`` trains data-parallel over N ranks that this command spawns, as
+cli/train.py's does (``--device cuda``: the first N cards over NCCL, ``-1``
+every card; ``--device cuda:K``: N ranks on card K over gloo; ``--device
+cpu``: N gloo ranks on the host). Rank 0 reports and writes checkpoints.
 """
 
 from __future__ import annotations
 
 import logging
 import os
+import sys
 from argparse import ArgumentParser
+
+import torch.distributed as dist
 
 from dl_speech_enhancement_tpu_torch.data import AudioDataset, get_dataloaders
 from dl_speech_enhancement_tpu_torch.models import AudioDecGenerator, HiFiGANDiscriminator
-from dl_speech_enhancement_tpu_torch.train.checkpoint import load_checkpoint
+from dl_speech_enhancement_tpu_torch.parallel.mesh import data_parallel_devices, launch
+from dl_speech_enhancement_tpu_torch.train.checkpoint import is_rank0, load_checkpoint
 from dl_speech_enhancement_tpu_torch.train.denoise_course import train_denoise_course
 from dl_speech_enhancement_tpu_torch.utils.config import load_config
 from dl_speech_enhancement_tpu_torch.utils.device import resolve_device
@@ -46,8 +55,15 @@ def _report_to_tensorboard(logdir: str):
     return report
 
 
+def _rank(device, argv):
+    """One rank of ``--dp N``: the same command on its own device."""
+    state, history = main([*argv, "--device", str(device)])
+    return {"steps": state["steps"], "history": history}
+
+
 def main(argv=None):
-    """Run the course loop; returns its ``(state, history)``."""
+    """Run the course loop; returns its ``(state, history)``, or, where
+    ``--dp`` launches ranks, each rank's ``{"steps", "history"}``."""
     parser = ArgumentParser()
     parser.add_argument("-e", "--environment", default="LAPTOP")
     parser.add_argument("-c", "--config", default="symAD_custom.yaml")
@@ -56,8 +72,8 @@ def main(argv=None):
     parser.add_argument("--noise-path", default=None)
     parser.add_argument("--job-dir", default="job_out")
     parser.add_argument("--dp", type=int, default=None, metavar="N",
-                        help="data-parallel devices (-1: all visible); overrides the config "
-                             "key parallel.data_devices (not ported: above 1 raises)")
+                        help="data-parallel ranks (-1: every visible card); overrides the "
+                             "config key parallel.data_devices")
     parser.add_argument("--device", default="cuda",
                         help="'cuda' (the card, the default) or 'cpu' (the plain modules)")
     args = parser.parse_args(argv)
@@ -66,6 +82,11 @@ def main(argv=None):
     config = load_config(os.path.join(args.config_dir, args.config))
     if args.dp is not None:
         config["parallel"] = dict(config.get("parallel") or {}, data_devices=args.dp)
+    if not dist.is_initialized():
+        devices = data_parallel_devices(config, args.device)
+        if devices is not None:
+            argv = list(sys.argv[1:] if argv is None else argv)
+            return launch(_rank, devices, argv)
     env = args.environment
     if env == "LAPTOP":
         clean_path = args.clean_path or "corpus/train/clean"
@@ -111,11 +132,10 @@ def main(argv=None):
             print("No inital model")
 
     print("Start training")
+    report = _report_to_tensorboard(os.path.join(args.job_dir, task_name)) if is_rank0() else None
     return train_denoise_course(config, gen, disc, (train_c, train_n), (val_c, val_n),
                                 environment=env, job_dir=args.job_dir, task_name=task_name,
-                                report=_report_to_tensorboard(os.path.join(args.job_dir,
-                                                                           task_name)),
-                                initial_params=initial_params)
+                                report=report, initial_params=initial_params)
 
 
 if __name__ == "__main__":

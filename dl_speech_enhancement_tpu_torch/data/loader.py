@@ -97,15 +97,22 @@ def _map(fn, batch):
     return fn(batch)
 
 
-def prefetch_to_device(iterator, size: int = 2, device="cpu"):
+def prefetch_to_device(iterator, size: int = 2, device="cpu", rows=None):
     """Yield the batches of ``iterator`` (numpy arrays, or tuples of them) as
     tensors on ``device``, each copied from pinned host memory with
     ``non_blocking=True`` ``size`` batches ahead of the one yielded, so the
     copies queue behind the card's work instead of waiting for it. A pinned
     buffer is released only after an event recorded behind its copy has
     completed (a pinned buffer reused while its copy is in flight would
-    corrupt a batch). On the CPU the batches pass through unchanged."""
+    corrupt a batch). On the CPU the batches pass through unchanged.
+
+    ``rows`` (a data-parallel rank's ``parallel.mesh.shard_batch``) cuts each
+    host batch to the rows the rank trains on before anything is copied, so
+    a rank uploads only its rows; the ranks' rows at step s are the
+    one-process batch at step s."""
     device = torch.device(device)
+    if rows is not None:
+        iterator = map(rows, iterator)
     if device.type != "cuda":
         yield from iterator
         return

@@ -8,17 +8,27 @@ from __future__ import annotations
 
 import torch
 
+from dl_speech_enhancement_tpu_torch.utils.collectives import group_size, psum
+
 _EPS = torch.finfo(torch.float32).eps
 
 
-def signal_noise_ratio(preds, target, zero_mean: bool = False):
-    """SNR = 10 log10(||target||^2 / ||target - preds||^2), batch-global."""
+def _mean(x, group):
+    if group is None:
+        return torch.mean(x)
+    return psum(torch.sum(x), group) / (x.numel() * group_size(group))
+
+
+def signal_noise_ratio(preds, target, zero_mean: bool = False, group=None):
+    """SNR = 10 log10(||target||^2 / ||target - preds||^2), batch-global.
+    With ``group`` (utils/collectives.py) the batch is spread over its ranks:
+    the sums, and the means of ``zero_mean``, are taken over all of them."""
     if zero_mean:
-        target = target - torch.mean(target)
-        preds = preds - torch.mean(preds)
+        target = target - _mean(target, group)
+        preds = preds - _mean(preds, group)
     noise = target - preds
-    return 10.0 * (torch.log10(torch.sum(target * target) + _EPS)
-                   - torch.log10(torch.sum(noise * noise) + _EPS))
+    return 10.0 * (torch.log10(psum(torch.sum(target * target), group) + _EPS)
+                   - torch.log10(psum(torch.sum(noise * noise), group) + _EPS))
 
 
 def scale_invariant_sdr(preds, target):

@@ -350,15 +350,18 @@ class AudioDecGenerator(nn.Module):
         if not self.use_pqc and vq_state is not None:
             raise ValueError("a VQState was given to a without-PQC generator")
 
-    def forward(self, x, vq_state=None, train: bool = True):
-        """x: (B, T, C_in). Returns (y, zq, z, vqloss, ppl, new_vq_state)."""
+    def forward(self, x, vq_state=None, train: bool = True, axis_name=None):
+        """x: (B, T, C_in). Returns (y, zq, z, vqloss, ppl, new_vq_state).
+        ``axis_name`` (a process group or a tuple of them) reduces the
+        quantizer's statistics over the ranks that share the batch (nn/vq.py)."""
         if x.shape[-1] != self.input_channels:
             x = x.reshape(x.shape[0], -1, self.input_channels)
         e = self.encoder(x)
         if self.use_pqc:
             self.check_vq_state(vq_state)
             z = self.projector(e)
-            zq, new_state, vqloss, ppl = self.quantizer(vq_state, z, train=train)
+            zq, new_state, vqloss, ppl = self.quantizer(vq_state, z, train=train,
+                                                        axis_name=axis_name)
         else:
             z = zq = e
             new_state = vq_state

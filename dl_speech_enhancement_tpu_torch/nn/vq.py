@@ -17,9 +17,12 @@ layers/vq_module.py):
 The state is an explicit ``VQState`` of tensors, never updated in place: each
 call returns a new one. Distances are ``|x|^2 - 2 x.E + |E|^2`` in f32 in
 exactly the JAX package's form, and ``argmin`` keeps the lowest index on ties,
-so the wire codes agree with the reference. The EMA statistics are local:
-their cross-replica reduction (``axis_name``) belongs to the parallel slice
-of the port (ROADMAP.md).
+so the wire codes agree with the reference. Under data or sequence
+parallelism ``axis_name`` names the ranks a call's batch is spread over (a
+process group, or a tuple of them for the 2-D ``(data, time)`` layout; None
+is local): the EMA counts and codeword sums are summed over them and the
+assignment histogram averaged before the entropy, as the JAX package's
+``psum`` / ``pmean`` do, so every rank applies the update of the whole batch.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from dl_speech_enhancement_tpu_torch.utils.collectives import pmean, psum
 from dl_speech_enhancement_tpu_torch.utils.device import resolve_device
 
 
@@ -36,13 +40,6 @@ class VQState(NamedTuple):
     embed: torch.Tensor  # (dim, n_embed), or (L, dim, n_embed) when stacked
     cluster_size: torch.Tensor  # (n_embed,) or (L, n_embed)
     embed_avg: torch.Tensor  # same shape as embed
-
-
-def _no_axis_name(axis_name) -> None:
-    if axis_name is not None:
-        raise NotImplementedError(
-            "axis_name (EMA statistics reduced across replicas) is not ported yet: "
-            "see ROADMAP.md, 'Parallel'")
 
 
 def _quantize_core(embed: torch.Tensor, flat: torch.Tensor):
@@ -77,9 +74,9 @@ class VectorQuantizeEMA:
         return VQState(embed, torch.zeros((self.n_embed,), device=device), embed.clone())
 
     @torch.no_grad()
-    def _ema_update(self, state: VQState, flat, onehot) -> VQState:
-        counts = onehot.sum(0)
-        embed_sum = flat.t() @ onehot
+    def _ema_update(self, state: VQState, flat, onehot, axis_name=None) -> VQState:
+        counts = psum(onehot.sum(0), axis_name)
+        embed_sum = psum(flat.t() @ onehot, axis_name)
         d = self.decay
         cluster_size = state.cluster_size * d + counts * (1.0 - d)
         embed_avg = state.embed_avg * d + embed_sum * (1.0 - d)
@@ -89,15 +86,15 @@ class VectorQuantizeEMA:
 
     def __call__(self, state: VQState, x: torch.Tensor, train: bool, axis_name=None):
         """x: (..., dim). Returns (q_st, new_state, loss, perplexity)."""
-        _no_axis_name(axis_name)
         flat = x.reshape(-1, self.dim)
         ind, quantized = _quantize_core(state.embed, flat)
         onehot = F.one_hot(ind, self.n_embed).to(flat.dtype)
         quantized = quantized.reshape(x.shape)
-        new_state = self._ema_update(state, flat.detach(), onehot) if train else state
+        new_state = (self._ema_update(state, flat.detach(), onehot, axis_name) if train
+                     else state)
         loss = self.commitment * torch.mean((quantized.detach() - x) ** 2)
         q_st = x + (quantized - x).detach()
-        avg_probs = onehot.mean(0)
+        avg_probs = pmean(onehot.mean(0), axis_name)
         perplexity = torch.exp(-torch.sum(avg_probs * torch.log(avg_probs + 1e-10)))
         return q_st, new_state, loss, perplexity
 
@@ -140,11 +137,11 @@ class ResidualVQ:
         """Returns (quantized_out, new_state, losses (L,), perplexities (L,)).
         The residual subtraction uses the straight-through ``q`` (not
         detached), as the reference does."""
-        _no_axis_name(axis_name)
         residual, q_out = x, torch.zeros_like(x)
         new_states, losses, ppls = [], [], []
         for i in range(self.num_quantizers):
-            q, new_ls, loss, ppl = self.layer(_layer(state, i), residual, train=train)
+            q, new_ls, loss, ppl = self.layer(_layer(state, i), residual, train=train,
+                                              axis_name=axis_name)
             residual, q_out = residual - q, q_out + q
             new_states.append(new_ls)
             losses.append(loss)

@@ -8,6 +8,10 @@ state (a nested dict of tensors: generator and discriminator state dicts, a
 package writes the same layout through orbax, which needs JAX, so the two
 formats differ on purpose: a JAX checkpoint is carried into the port with
 ``utils/jax_params.py``, not read here.
+
+Under data parallelism (parallel/mesh.py) every rank holds the same state:
+rank 0 alone writes it, in the one-process layout (the modules' own state
+dicts, no wrapper prefix), and every rank reads it, on any number of ranks.
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ import re
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from dl_speech_enhancement_tpu_torch.utils.config import save_config
 
@@ -40,13 +45,23 @@ def _saveable(tree):
     return tree
 
 
+def is_rank0() -> bool:
+    """True outside a process group and on its rank 0."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def save_checkpoint(path: str, state: dict, config: dict | None = None):
-    """Save ``state`` to the directory ``path`` (``config`` beside it)."""
-    path = os.path.abspath(path)
-    os.makedirs(path, exist_ok=True)
-    torch.save(_saveable(state), os.path.join(path, STATE_FILE))
-    if config is not None:
-        save_config(os.path.join(os.path.dirname(path), "config.yml"), config)
+    """Save ``state`` to the directory ``path`` (``config`` beside it). In a
+    process group every rank calls it: rank 0 writes, and the others wait
+    until it has."""
+    if is_rank0():
+        path = os.path.abspath(path)
+        os.makedirs(path, exist_ok=True)
+        torch.save(_saveable(state), os.path.join(path, STATE_FILE))
+        if config is not None:
+            save_config(os.path.join(os.path.dirname(path), "config.yml"), config)
+    if dist.is_initialized():
+        dist.barrier()
 
 
 def restore(like, stored, where: str = "state"):

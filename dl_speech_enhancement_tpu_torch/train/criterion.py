@@ -19,13 +19,15 @@ from dl_speech_enhancement_tpu_torch.losses import (
 )
 
 
-def build_criterion(config: dict, device="cuda") -> dict:
+def build_criterion(config: dict, device="cuda", group=None) -> dict:
+    """The losses the config enables; ``group`` spreads the batch over the
+    ranks of a process group (spectral convergence reduces over it)."""
     crit = {}
     if config.get("use_mel_loss", False):
         crit["mel"] = MultiMelSpectrogramLoss(**config.get("mel_loss_params", {}), device=device)
     if config.get("use_stft_loss", False):
         crit["stft"] = MultiResolutionSTFTLoss(**config.get("stft_loss_params", {}),
-                                               device=device)
+                                               device=device, group=group)
     if config.get("use_shape_loss", False):
         crit["shape"] = MultiWindowShapeLoss(**config.get("shape_loss_params", {}))
     crit["gen_adv"] = GeneratorAdversarialLoss(**config.get("generator_adv_loss_params", {}))

@@ -18,8 +18,13 @@ mixed on the host in numpy at a random SNR in [10, 20) with noise dropout
 every epoch writes ``{job_dir}/{task_name}checkpoint-{steps}`` through
 train/checkpoint.py (the port's torch format, not the JAX package's orbax).
 
-Waiting for its ROADMAP item, raising NotImplementedError: data
-parallelism (``parallel.data_devices`` > 1) for "Parallel".
+``parallel.data_devices`` above 1 runs the loop data-parallel over the ranks
+parallel/mesh.py::launch started (the CLI's ``--dp N``), as the JAX loop
+shards its batches over its mesh: every rank mixes the whole batch from the
+same ``mix_rng`` and keeps its rows, the SNR gate reduces its energy sums over
+the ranks, one gradient reduction a step averages the gradients, and rank 0
+alone reports and writes checkpoints. The losses, the gradient statistics and
+the history are the one-process values on every rank.
 """
 
 from __future__ import annotations
@@ -42,9 +47,14 @@ from dl_speech_enhancement_tpu_torch.losses import (
     MultiMelSpectrogramLoss,
     signal_noise_ratio,
 )
-from dl_speech_enhancement_tpu_torch.train.checkpoint import save_checkpoint
+from dl_speech_enhancement_tpu_torch.parallel.mesh import (
+    mesh_from_config,
+    shard_batch,
+    shard_train_state,
+)
+from dl_speech_enhancement_tpu_torch.train.checkpoint import is_rank0, save_checkpoint
 from dl_speech_enhancement_tpu_torch.train.optim import build_optimizer, frozen
-from dl_speech_enhancement_tpu_torch.utils.device import refuse_data_parallel
+from dl_speech_enhancement_tpu_torch.utils.collectives import average_gradients, pmean_values
 
 logger = logging.getLogger(__name__)
 
@@ -69,7 +79,7 @@ class _DiscCall(nn.Module):
         return self.disc(x) if sub is None else self.disc.apply_sub(sub, x)
 
 
-def make_course_steps(gen, disc, config, opt_g, opt_d):
+def make_course_steps(gen, disc, config, opt_g, opt_d, group=None):
     """``{"train", "eval", "train_disc", "eval_disc"}`` steps of ``gen`` (an
     ``AudioDecGenerator(use_pqc=False)``) with ``opt_g`` (a
     ``train.optim.Optimizer`` over its parameters) and, for the ``_disc``
@@ -94,7 +104,12 @@ def make_course_steps(gen, disc, config, opt_g, opt_d):
     live at a time (a discriminator with ``num_subs`` / ``apply_sub``);
     ``discriminator_dtype: bf16`` runs the discriminator on bf16 copies of
     its parameters and input (gradients reach the f32 parameters) and
-    returns its outputs in f32."""
+    returns its outputs in f32.
+
+    ``group`` (a process group) spreads the batch over its ranks, each
+    holding its rows of every microbatch: the SNR gate sums over all of them,
+    the gradients are averaged over them once a step before the clip and the
+    statistics, and the returned losses are the one-process values."""
     mel_loss = MultiMelSpectrogramLoss(**config["mel_loss_params"], device=gen.device)
     gen_adv = GeneratorAdversarialLoss(**config.get("generator_adv_loss_params", {}))
     dis_adv = DiscriminatorAdversarialLoss(**config.get("discriminator_adv_loss_params", {}))
@@ -136,7 +151,7 @@ def make_course_steps(gen, disc, config, opt_g, opt_d):
     def gen_loss(x, target, use_disc):
         y = gen(x, None, train=True)[0]
         mel = l_mel * mel_loss(y, target)
-        snr = l_snr * (1.0 - torch.sigmoid(signal_noise_ratio(y, target)))
+        snr = l_snr * (1.0 - torch.sigmoid(signal_noise_ratio(y, target, group=group)))
         total = mel + snr
         frags = {"mel_loss": mel, "snr_loss": snr}
         if l_wl1 > 0.0:
@@ -197,9 +212,11 @@ def make_course_steps(gen, disc, config, opt_g, opt_d):
                 g_loss = g_loss + loss.detach() / grad_accum
                 for k, v in fr.items():
                     frags[k] = frags.get(k, 0.0) + v.detach() / grad_accum
+        average_gradients(opt_g.params, group)
         stats = grad_stats()
         opt_g.step()
-        return g_loss, frags, stats
+        frags = pmean_values(dict(frags, _total=g_loss), group)
+        return frags.pop("_total"), frags, stats
 
     def discriminator_step(x, target):
         opt_d.zero_grad()
@@ -210,8 +227,9 @@ def make_course_steps(gen, disc, config, opt_g, opt_d):
             loss = dis_loss(y, tm)
             (loss / grad_accum).backward()
             d_loss = d_loss + loss.detach() / grad_accum
+        average_gradients(opt_d.params, group)
         opt_d.step()
-        return d_loss
+        return pmean_values({"d": d_loss}, group)["d"]
 
     def train(x, target):
         g_loss, frags, stats = generator_step(x, target, False)
@@ -227,17 +245,21 @@ def make_course_steps(gen, disc, config, opt_g, opt_d):
         g_loss, frags, stats = generator_step(x, target, True)
         return g_loss, discriminator_step(x, target), frags, stats
 
+    def global_values(g_loss, d_loss, frags):
+        out = pmean_values(dict(frags, _g=g_loss, _d=d_loss), group)
+        return out.pop("_g"), out.pop("_d"), out
+
     def evaluate(x, target):
         with torch.no_grad():
             g_loss, frags = gen_loss(x, target, False)
-        return g_loss, torch.zeros((), device=x.device), frags
+        return global_values(g_loss, torch.zeros((), device=x.device), frags)
 
     def evaluate_disc(x, target):
         need_disc("eval_disc")
         with torch.no_grad():
             g_loss, frags = gen_loss(x, target, True)
             d_loss = dis_loss(gen(x, None, train=False)[0], target)
-        return g_loss, d_loss, frags
+        return global_values(g_loss, d_loss, frags)
 
     return {"train": train, "eval": evaluate, "train_disc": train_disc,
             "eval_disc": evaluate_disc}
@@ -257,10 +279,24 @@ def train_denoise_course(config: dict, gen, disc, train_loaders, val_loaders, *,
     after every epoch's training. ``report(category, series, value,
     iteration)`` is the scalar sink. Returns ``({"generator",
     "discriminator", "opt_generator", "opt_discriminator", "steps"},
-    history)``, one history entry per epoch as the JAX loop keeps it."""
-    refuse_data_parallel(config, gen.device)
+    history)``, one history entry per epoch as the JAX loop keeps it.
+
+    With ``parallel.data_devices`` above 1 (inside the ranks
+    parallel/mesh.py::launch started) ``gen`` and ``disc`` lie on the rank's
+    device and are made equal to rank 0's; a ``batch_size`` the ranks do not
+    divide raises ValueError."""
     if initial_params is not None:
         gen.load_state_dict(initial_params)
+    mesh = mesh_from_config(config)
+    group = None
+    if mesh is not None:
+        n = mesh["data"].size()
+        if config.get("batch_size", 0) % n:
+            raise ValueError(f"batch_size {config['batch_size']} is not divisible by "
+                             f"parallel.data_devices={n}")
+        group = mesh.get_group("data")
+        shard_train_state(mesh, [gen, disc] if disc is not None else [gen])
+    rank0 = is_rank0()
     device = gen.device
     laptop = environment == "LAPTOP"
     opt_g = build_optimizer(gen.parameters(), "Adam", config["generator_optimizer_params"],
@@ -270,10 +306,12 @@ def train_denoise_course(config: dict, gen, disc, train_loaders, val_loaders, *,
         opt_d = build_optimizer(disc.parameters(), "Adam",
                                 config["discriminator_optimizer_params"],
                                 grad_norm=config.get("discriminator_grad_norm", -1))
-    steps_fns = make_course_steps(gen, disc, config, opt_g, opt_d)
+    steps_fns = make_course_steps(gen, disc, config, opt_g, opt_d, group)
+    grad_accum = int(config.get("grad_accum", 1))
 
     def put(a):
-        return torch.as_tensor(np.asarray(a, np.float32), device=device)
+        rows = shard_batch(mesh, np.asarray(a, np.float32), grad_accum)
+        return torch.as_tensor(rows, device=device)
 
     mix_rng = np.random.default_rng(config.get("seed", 82))
     noise_dropout_rate = config["noise_dropout_rate"]
@@ -284,7 +322,7 @@ def train_denoise_course(config: dict, gen, disc, train_loaders, val_loaders, *,
     start_time = time.perf_counter()
 
     def _report(category, series, value, iteration):
-        if report is not None:
+        if report is not None and rank0:
             report(category, series, float(value), iteration)
 
     history = []

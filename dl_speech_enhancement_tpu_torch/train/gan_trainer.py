@@ -12,12 +12,18 @@ A step's loss fragments stay on the card: they are summed there (in f64)
 and read once a log interval (and once an eval pass), not once a fragment
 and step, so the host does not wait for the card at every step.
 
-``parallel.data_devices`` > 1 raises NotImplementedError: data parallelism
-waits for its ROADMAP item ("Parallel").
+``parallel.data_devices`` above 1 runs the trainer data-parallel over the
+ranks parallel/mesh.py::launch started (the CLI's ``--dp N``), the
+counterpart of the JAX trainer's mesh: every rank runs the same host loader
+and uploads only its rows (``prefetch_to_device(rows=...)``), the workloads
+reduce their batch-coupled terms and average their gradients over
+``self.group``, the fragments are averaged over the ranks when they are
+read, and rank 0 alone logs them, writes TensorBoard and checkpoints.
 """
 
 from __future__ import annotations
 
+import functools
 import logging
 import os
 import time
@@ -25,12 +31,19 @@ import time
 import torch
 
 from dl_speech_enhancement_tpu_torch.data.loader import prefetch_to_device
+from dl_speech_enhancement_tpu_torch.parallel.mesh import (
+    mesh_from_config,
+    shard_batch,
+    shard_train_state,
+)
 from dl_speech_enhancement_tpu_torch.train.checkpoint import (
+    is_rank0,
     load_checkpoint,
     restore,
     save_checkpoint,
 )
-from dl_speech_enhancement_tpu_torch.utils.device import refuse_data_parallel, resolve_device
+from dl_speech_enhancement_tpu_torch.utils.collectives import all_reduce_, group_size
+from dl_speech_enhancement_tpu_torch.utils.device import resolve_device
 
 logger = logging.getLogger(__name__)
 
@@ -55,17 +68,25 @@ class TrainerGAN:
     -> ``train.optim.Optimizer``: ``opt_generator``, ``opt_discriminator``)
     and ``vq_state``. Their state dicts under those keys, with ``steps`` and
     ``epochs``, are the checkpoint. ``loader_wait`` sums the seconds the
-    training loop spent waiting for its next batch."""
+    training loop (this rank's) spent waiting for its next batch.
+
+    ``mesh`` is ``parallel.mesh.mesh_from_config(config)`` (None for one
+    process) and ``group`` its data axis, which the workloads reduce over;
+    a workload calls :meth:`_shard_state` once its state is built.
+    ``_train_step`` / ``_eval_step`` take this rank's rows of a batch, which
+    the epoch loops cut."""
 
     def __init__(self, steps, epochs, data_loader, config, device="cuda"):
         self.device = resolve_device(device)
-        refuse_data_parallel(config, self.device)
+        self.mesh = mesh_from_config(config)
+        self.group = None if self.mesh is None else self.mesh.get_group("data")
+        self.rank0 = is_rank0()
         self.steps = int(steps)
         self.epochs = int(epochs)
         self.data_loader = data_loader
         self.config = config
         self.train_max_steps = config.get("train_max_steps", 0)
-        self.writer = _summary_writer(config.get("outdir"))
+        self.writer = _summary_writer(config.get("outdir")) if self.rank0 else None
         self.total_train_loss: dict = {}
         self.total_eval_loss: dict = {}
         self.finish_train = False
@@ -75,6 +96,16 @@ class TrainerGAN:
         self.loader_wait = 0.0
 
     # ------------------------------------------------------------------
+    def _shard_state(self):
+        """Make every rank's modules and codebooks rank 0's (no-op in one
+        process); run once the state is built and after a restore."""
+        if self.mesh is not None:
+            shard_train_state(self.mesh, [list(self.modules.values()), self.vq_state])
+
+    def _batches(self, loader):
+        rows = None if self.mesh is None else functools.partial(shard_batch, self.mesh)
+        return prefetch_to_device(loader, device=self.device, rows=rows)
+
     def _device_batch(self, batch):
         """A batch (an array or a tuple of arrays) as tensors on the device."""
         if isinstance(batch, (tuple, list)):
@@ -104,7 +135,7 @@ class TrainerGAN:
         logger.info("Finished training.")
 
     def _train_epoch(self):
-        batches = prefetch_to_device(self.data_loader["train"], device=self.device)
+        batches = self._batches(self.data_loader["train"])
         n = 0
         try:
             while True:
@@ -127,20 +158,17 @@ class TrainerGAN:
             raise RuntimeError("training epoch yielded no batches: check the data pipeline "
                                "(batch_length against the clips' lengths, corpus paths)")
         self.epochs += 1
-        if n > 200:
+        if n > 200 and self.rank0:
             logger.info("(Steps: %d) Finished %d epoch training (%d steps per epoch).",
                         self.steps, self.epochs, n)
 
     def _eval_epoch(self):
-        logger.info("(Steps: %d) Start evaluation.", self.steps)
+        if self.rank0:
+            logger.info("(Steps: %d) Start evaluation.", self.steps)
         n = 0
-        for n, batch in enumerate(prefetch_to_device(self.data_loader["dev"],
-                                                     device=self.device), 1):
+        for n, batch in enumerate(self._batches(self.data_loader["dev"]), 1):
             self._eval_step(batch)
-        losses = self._read(self.total_eval_loss, max(n, 1))
-        for key, value in losses.items():
-            logger.info("(Steps: %d) %s = %.4f.", self.steps, key, value)
-        self._write_to_tensorboard(losses)
+        self._log(self._read(self.total_eval_loss, max(n, 1)))
         self.total_eval_loss = {}
 
     # ------------------------------------------------------------------
@@ -153,13 +181,22 @@ class TrainerGAN:
             value = torch.as_tensor(value).detach().to(self.device, torch.float64)
             store[key] = store[key] + value if key in store else value
 
-    @staticmethod
-    def _read(store: dict, divisor: int) -> dict:
-        """The running sums over ``divisor`` as floats: one read from the card."""
+    def _read(self, store: dict, divisor: int) -> dict:
+        """The running sums over ``divisor``, averaged over the ranks, as
+        floats: one reduction and one read from the card."""
         if not store:
             return {}
-        values = (torch.stack(list(store.values())) / divisor).tolist()
-        return dict(zip(store, values))
+        values = torch.stack(list(store.values()))
+        all_reduce_(values, self.group)
+        return dict(zip(store, (values / (divisor * group_size(self.group))).tolist()))
+
+    def _log(self, losses: dict):
+        """Rank 0's log lines and TensorBoard scalars of ``losses``."""
+        if not self.rank0:
+            return
+        for key, value in losses.items():
+            logger.info("(Steps: %d) %s = %.4f.", self.steps, key, value)
+        self._write_to_tensorboard(losses)
 
     def _write_to_tensorboard(self, losses: dict):
         if self.writer is None:
@@ -171,7 +208,8 @@ class TrainerGAN:
         if self.steps and self.steps % self.config["save_interval_steps"] == 0:
             self.save_checkpoint(os.path.join(self.config["outdir"],
                                               f"checkpoint-{self.steps}steps"))
-            logger.info("Successfully saved checkpoint @ %d steps.", self.steps)
+            if self.rank0:
+                logger.info("Successfully saved checkpoint @ %d steps.", self.steps)
 
     def _check_eval_interval(self):
         if "dev" in self.data_loader and self.steps % self.config["eval_interval_steps"] == 0:
@@ -180,10 +218,7 @@ class TrainerGAN:
     def _check_log_interval(self):
         interval = self.config["log_interval_steps"]
         if self.steps % interval == 0:
-            losses = self._read(self.total_train_loss, interval)
-            for key, value in losses.items():
-                logger.info("(Steps: %d) %s = %.4f.", self.steps, key, value)
-            self._write_to_tensorboard(losses)
+            self._log(self._read(self.total_train_loss, interval))
             self.total_train_loss = {}
 
     def _check_train_finish(self):
@@ -220,3 +255,4 @@ class TrainerGAN:
                 self.optimizers[key].load_state_dict(stored[key])
             elif key == "vq_state" and self.vq_state is not None:
                 self.vq_state = restore(self.vq_state, stored[key], key)
+        self._shard_state()

@@ -15,7 +15,9 @@ Counterpart of dl_speech_enhancement_tpu/train/workloads/autoencoder.py
   (autoencoder.py:117-126).
 
 The steps update the modules and optimizers in place and return their loss
-fragments as tensors on the card.
+fragments as tensors on the card. With a data-parallel ``group`` the
+codebooks' EMA statistics and perplexity, and spectral convergence, reduce
+over its ranks, and the gradients are averaged over them before each update.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ from dl_speech_enhancement_tpu_torch.train.optim import (
     frozen,
     frozen_params,
 )
+from dl_speech_enhancement_tpu_torch.utils.collectives import average_gradients
 
 FROZEN_STAGE2 = ("encoder", "projector")
 
@@ -44,19 +47,20 @@ def detached(frags: dict) -> dict:
     return {k: v.detach() for k, v in frags.items()}
 
 
-def make_autoencoder_steps(gen, disc, config, opt_g, opt_d):
+def make_autoencoder_steps(gen, disc, config, opt_g, opt_d, group=None):
     """The steps of ``gen`` (an ``AudioDecGenerator(use_pqc=True)``) and
     ``disc`` with their optimizers: ``gen_stage1`` / ``gen_stage2`` take
     ``(vq_state, x)`` and return ``(vq_state, fragments, perplexities)``,
     ``dis`` takes ``(vq_state, x)`` and returns its fragments,
     ``eval_stage1`` / ``eval_stage2`` return ``(fragments, perplexities)``
-    without gradients. ``x`` is (B, T, 1) on the generator's device."""
-    crit = build_criterion(config, device=gen.device)
+    without gradients. ``x`` is (B, T, 1) on the generator's device (a
+    rank's rows where ``group``, a process group, spreads the batch)."""
+    crit = build_criterion(config, device=gen.device, group=group)
     lambda_vq = config.get("lambda_vq_loss", 1.0)
     use_feat_match = config.get("use_feat_match_loss", False)
 
     def gen_loss(vq_state, x, train_vq, use_adv):
-        y, _, _, vqloss, ppl, new_vq = gen(x, vq_state, train=train_vq)
+        y, _, _, vqloss, ppl, new_vq = gen(x, vq_state, train=train_vq, axis_name=group)
         vq_l = torch.sum(vqloss) * lambda_vq
         metric_l, frags = metric_loss(crit, config, y, x)
         total = vq_l + metric_l
@@ -81,6 +85,7 @@ def make_autoencoder_steps(gen, disc, config, opt_g, opt_d):
             with frozen(held):
                 total, frags, ppl, new_vq = gen_loss(vq_state, x, train_vq, use_adv)
                 total.backward()
+            average_gradients(opt_g.params, group)
             opt_g.step()
             return (new_vq if train_vq else vq_state), detached(frags), ppl.detach()
         return step
@@ -91,12 +96,13 @@ def make_autoencoder_steps(gen, disc, config, opt_g, opt_d):
         opt_d.zero_grad()
         d_l, frags = dis_loss(crit, config, disc(y), disc(x))
         d_l.backward()
+        average_gradients(opt_d.params, group)
         opt_d.step()
         return detached(dict(frags, discriminator_loss=d_l))
 
     @torch.no_grad()
     def eval_step(vq_state, x, use_adv: bool):
-        y, _, _, vqloss, ppl, _ = gen(x, vq_state, train=False)
+        y, _, _, vqloss, ppl, _ = gen(x, vq_state, train=False, axis_name=group)
         vq_l = torch.sum(vqloss) * lambda_vq
         metric_l, frags = metric_loss(crit, config, y, x)
         total = vq_l + metric_l
@@ -134,10 +140,12 @@ class Trainer(TrainerGAN):
         self.optimizers = {"opt_generator": self.opt_g, "opt_discriminator": self.opt_d}
         self.vq_state = (vq_state if vq_state is not None
                          else gen.quantizer.init(seed=config.get("seed", 0), device=gen.device))
-        self._steps_fns = make_autoencoder_steps(gen, disc, config, self.opt_g, self.opt_d)
+        self._steps_fns = make_autoencoder_steps(gen, disc, config, self.opt_g, self.opt_d,
+                                                 self.group)
         start = config.get("start_steps", {})
         self.generator_start = start.get("generator", 0)
         self.discriminator_start = start.get("discriminator", 200000)
+        self._shard_state()
 
     def _train_step(self, batch):
         x = self._device_batch(batch)

@@ -5,7 +5,9 @@ Counterpart of dl_speech_enhancement_tpu/train/workloads/denoise.py
 EMA off at every step (denoise.py:60), so the codebooks do not move either;
 the loss is the VQ loss (its commitment term reaches the encoder and the
 projector) plus the metric losses between the output for the noisy input
-and the clean target.
+and the clean target. With a data-parallel ``group`` perplexity and
+spectral convergence reduce over its ranks and the gradients are averaged
+over them before each update.
 """
 
 from __future__ import annotations
@@ -20,18 +22,20 @@ from dl_speech_enhancement_tpu_torch.train.optim import (
     frozen_params,
 )
 from dl_speech_enhancement_tpu_torch.train.workloads.autoencoder import detached
+from dl_speech_enhancement_tpu_torch.utils.collectives import average_gradients
 
 FROZEN = ("decoder",)  # the codebooks are the VQState, which the EMA-off steps keep
 
 
-def make_denoise_steps(gen, config, opt_g):
+def make_denoise_steps(gen, config, opt_g, group=None):
     """``train(vq_state, x_n, x_c)`` updates ``gen`` and returns
-    ``(fragments, perplexities)``; ``eval`` the same without gradients."""
-    crit = build_criterion(config, device=gen.device)
+    ``(fragments, perplexities)``; ``eval`` the same without gradients.
+    ``group``: the process group whose ranks share the batch."""
+    crit = build_criterion(config, device=gen.device, group=group)
     lambda_vq = config.get("lambda_vq_loss", 1.0)
 
     def loss(vq_state, x_n, x_c):
-        y, _, _, vqloss, ppl, _ = gen(x_n, vq_state, train=False)
+        y, _, _, vqloss, ppl, _ = gen(x_n, vq_state, train=False, axis_name=group)
         vq_l = torch.sum(vqloss) * lambda_vq
         metric_l, frags = metric_loss(crit, config, y, x_c)
         total = vq_l + metric_l
@@ -42,6 +46,7 @@ def make_denoise_steps(gen, config, opt_g):
         with frozen(frozen_params(gen, FROZEN)):
             total, frags, ppl = loss(vq_state, x_n, x_c)
             total.backward()
+        average_gradients(opt_g.params, group)
         opt_g.step()
         return detached(frags), ppl.detach()
 
@@ -67,7 +72,8 @@ class Trainer(TrainerGAN):
         self.optimizers = {"opt_generator": self.opt_g}
         self.vq_state = (vq_state if vq_state is not None
                          else gen.quantizer.init(seed=config.get("seed", 0), device=gen.device))
-        self._steps_fns = make_denoise_steps(gen, config, self.opt_g)
+        self._steps_fns = make_denoise_steps(gen, config, self.opt_g, self.group)
+        self._shard_state()
 
     def _train_step(self, batch):
         x_n, x_c = self._device_batch(batch)

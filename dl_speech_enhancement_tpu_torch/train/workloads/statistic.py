@@ -13,7 +13,9 @@ right to a power-of-two count of code frames, as the JAX package pads it:
 there so that its jitted encoder compiles less often, here so that cuDNN
 plans its convolutions for a few lengths rather than one per clip. The
 encoder is causal, so the codes of the clip's own frames, the only ones
-summed, do not see the padding.
+summed, do not see the padding. With a process group the clips are dealt
+out over its ranks (rank r takes clips r, r + N, ...), and the sums and the
+row count are summed over them before the division.
 """
 
 from __future__ import annotations
@@ -22,17 +24,29 @@ import os
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from dl_speech_enhancement_tpu_torch.train.workloads.vocoder import encode
+from dl_speech_enhancement_tpu_torch.utils.collectives import all_reduce_, groups_of
 
 
-def compute_statistics(analyzer, vq_state, dataset, batch_length: int | None = None) -> np.ndarray:
+def compute_statistics(analyzer, vq_state, dataset, batch_length: int | None = None,
+                       group=None) -> np.ndarray:
     """(2, code_dim) float32 [mean; scale (std)] of the quantized codes of
     ``dataset``'s clips (arrays, or (utt_id, array) pairs), each cut to a
-    multiple of ``batch_length`` where given and to whole code frames."""
-    total = total_sq = None
+    multiple of ``batch_length`` where given and to whole code frames.
+    ``group`` (a process group) deals the clips out over its ranks; every
+    rank returns the statistics of the whole dataset."""
+    dim = analyzer.quantizer.code_dim
+    total = torch.zeros(dim, dtype=torch.float64, device=analyzer.device)
+    total_sq = torch.zeros_like(total)
     count = 0
-    for item in dataset:
+    n, r = 1, 0
+    if groups_of(group):
+        n, r = dist.get_world_size(group), dist.get_rank(group)
+    for i, item in enumerate(dataset):
+        if i % n != r:
+            continue
         audio = item[1] if isinstance(item, tuple) else item
         x = np.asarray(audio, np.float32)
         if x.ndim == 1:
@@ -48,12 +62,13 @@ def compute_statistics(analyzer, vq_state, dataset, batch_length: int | None = N
         padded[0, :t] = x[:t]
         zq = encode(analyzer, vq_state, torch.from_numpy(padded).to(analyzer.device))
         zq = zq[0, :frames].double()
-        if total is None:
-            total, total_sq = zq.sum(0), (zq * zq).sum(0)
-        else:
-            total += zq.sum(0)
-            total_sq += (zq * zq).sum(0)
+        total += zq.sum(0)
+        total_sq += (zq * zq).sum(0)
         count += zq.shape[0]
+    if groups_of(group):
+        sums = torch.cat([total, total_sq, total.new_tensor([count])])
+        all_reduce_(sums, group)
+        total, total_sq, count = sums[:dim], sums[dim:2 * dim], int(sums[-1].item())
     if count == 0:
         raise ValueError("no clip is as long as one code frame: no statistics")
     mean = total.cpu().numpy() / count

@@ -10,7 +10,9 @@ recomputed from the updated generator.
 
 The gates are strict (trainer/vocoder.py): the generator updates once
 ``steps > generator_train_start_steps``, the discriminator once ``steps >
-discriminator_train_start_steps``.
+discriminator_train_start_steps``. With a data-parallel ``group`` spectral
+convergence reduces over its ranks and the gradients are averaged over them
+before each update.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from dl_speech_enhancement_tpu_torch.train.criterion import (
 from dl_speech_enhancement_tpu_torch.train.gan_trainer import TrainerGAN
 from dl_speech_enhancement_tpu_torch.train.optim import build_optimizer_from_config, frozen
 from dl_speech_enhancement_tpu_torch.train.workloads.autoencoder import detached
+from dl_speech_enhancement_tpu_torch.utils.collectives import average_gradients
 
 
 @torch.no_grad()
@@ -35,11 +38,12 @@ def encode(analyzer, vq_state, x):
     return zq
 
 
-def make_vocoder_steps(analyzer, vq_state, gen, disc, config, opt_g, opt_d):
+def make_vocoder_steps(analyzer, vq_state, gen, disc, config, opt_g, opt_d, group=None):
     """The steps of the vocoder ``gen`` and ``disc`` on ``analyzer``'s codes:
     ``gen`` / ``gen_adv`` and ``dis`` take ``x`` (B, T, 1) and return their
-    fragments; ``eval`` / ``eval_adv`` the same without gradients."""
-    crit = build_criterion(config, device=gen.device)
+    fragments; ``eval`` / ``eval_adv`` the same without gradients.
+    ``group``: the process group whose ranks share the batch."""
+    crit = build_criterion(config, device=gen.device, group=group)
     use_feat_match = config.get("use_feat_match_loss", False)
 
     def gen_loss(zq, x, use_adv):
@@ -64,6 +68,7 @@ def make_vocoder_steps(analyzer, vq_state, gen, disc, config, opt_g, opt_d):
             with frozen(disc.parameters() if use_adv else ()):
                 total, frags = gen_loss(zq, x, use_adv)
                 total.backward()
+            average_gradients(opt_g.params, group)
             opt_g.step()
             return detached(frags)
         return step
@@ -74,6 +79,7 @@ def make_vocoder_steps(analyzer, vq_state, gen, disc, config, opt_g, opt_d):
         opt_d.zero_grad()
         d_l, frags = dis_loss(crit, config, disc(y), disc(x))
         d_l.backward()
+        average_gradients(opt_d.params, group)
         opt_d.step()
         return detached(dict(frags, discriminator_loss=d_l))
 
@@ -116,9 +122,10 @@ class Trainer(TrainerGAN):
         self.optimizers = {"opt_generator": self.opt_g, "opt_discriminator": self.opt_d}
         self.vq_state = vq_state
         self._steps_fns = make_vocoder_steps(analyzer, vq_state, gen, disc, config,
-                                             self.opt_g, self.opt_d)
+                                             self.opt_g, self.opt_d, self.group)
         self.generator_start = config.get("generator_train_start_steps", 0)
         self.discriminator_start = config.get("discriminator_train_start_steps", 0)
+        self._shard_state()
 
     def _train_step(self, batch):
         x = self._device_batch(batch)

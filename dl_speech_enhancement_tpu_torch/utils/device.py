@@ -31,14 +31,3 @@ def replica(model, device):
         return model
     return copy.deepcopy(model).to(device)
 
-
-def refuse_data_parallel(config: dict, device: torch.device) -> None:
-    """Raise NotImplementedError where the config asks for data parallelism
-    (``parallel.data_devices`` above 1, or -1 with more than one card
-    visible), which the port does not run yet (ROADMAP §1, 'Parallel')."""
-    n = int((config.get("parallel") or {}).get("data_devices", 1) or 1)
-    if n < 0:
-        n = torch.cuda.device_count() if device.type == "cuda" else 1
-    if n > 1:
-        raise NotImplementedError("parallel.data_devices > 1: data parallelism is not ported "
-                                  "yet (ROADMAP §1, 'Parallel')")

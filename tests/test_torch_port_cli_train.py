@@ -5,7 +5,8 @@ phase 2), its statistics (``cli.statistic``), a vocoder on the frozen
 analyzer with those statistics, the denoise fine-tune from the codec
 (``initial``), a bare ``--resume`` (and one with nothing to resume), the
 course CLI (``cli.train_denoise -e LAPTOP``) with and without
-``initial_model``, and the course loop's warm start. The topology is
+``initial_model``, the course loop's warm start, and both training CLIs'
+``--dp 2`` over two gloo ranks against ``--dp 1``. The topology is
 tests/test_cli.py's (``TINY_GEN``, ``TINY_DISC``, ``MEL_TINY``, 4.8 kHz).
 Without a card, every entry point refuses ``--device cuda`` (the default).
 """
@@ -20,7 +21,7 @@ import yaml
 from dl_speech_enhancement_tpu_torch.cli import statistic as stat_cli
 from dl_speech_enhancement_tpu_torch.cli import train as train_cli
 from dl_speech_enhancement_tpu_torch.cli import train_denoise as course_cli
-from dl_speech_enhancement_tpu_torch.data import write_wav
+from dl_speech_enhancement_tpu_torch.data import load_audio, write_wav
 from dl_speech_enhancement_tpu_torch.models import AudioDecGenerator
 from dl_speech_enhancement_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
 from dl_speech_enhancement_tpu_torch.train.denoise_course import train_denoise_course
@@ -28,6 +29,7 @@ from test_cli import MEL_TINY, SR, TINY_DISC, TINY_GEN, _base_config
 from torch_port_threads import one_thread  # noqa: F401
 
 CPU = ["--device", "cpu"]
+LR = 1e-3  # _base_config's learning rates
 VOC_GEN = {"in_channels": 16, "out_channels": 1, "channels": 32, "kernel_size": 7,
            "upsample_scales": [4, 3], "upsample_kernel_sizes": [8, 6],
            "resblock_kernel_sizes": [3], "resblock_dilations": [[1, 3]], "groups": 1,
@@ -265,9 +267,69 @@ def test_entry_points_refuse_a_missing_card(entry, corpus, monkeypatch):
         main(argv)
 
 
-def test_data_parallel_is_refused(corpus, monkeypatch):
+def _spread_codec(corpus, cfg) -> str:
+    """A step-0 checkpoint of the config's codec whose codebooks are scaled
+    to its projector's output on a corpus clip. At the init's N(0, 1) books
+    every frame of the tiny codec takes one codeword, its output repeats
+    every hop, and the mel loss's gradient into the encoder is at f32's
+    rounding floor, where two summation orders differ in sign and Adam moves
+    either by lr (tests/test_torch_port_workloads.py::_codebooks)."""
+    gen = AudioDecGenerator(**TINY_GEN, use_pqc=True, seed=cfg["seed"], device="cpu")
+    vq = gen.quantizer.init(seed=cfg["seed"], device="cpu")
+    clip = load_audio(str(corpus / "corpus" / "clean_train" / "utt0.wav")).reshape(1, -1, 1)
+    with torch.no_grad():
+        s = gen.projector(gen.encoder(torch.from_numpy(clip.astype(np.float32)))).std()
+    path = str(corpus / "spread" / "checkpoint-0steps")
+    save_checkpoint(path, {"params_generator": gen.state_dict(),
+                           "vq_state": type(vq)(vq.embed * s, vq.cluster_size, vq.embed_avg * s),
+                           "steps": 0, "epochs": 0})
+    return path
+
+
+def test_data_parallel_cli_equals_one_process(corpus, monkeypatch):
+    """``cli.train --dp 2 --device cpu`` spawns two gloo ranks on the host and
+    takes the ``--dp 1`` run's steps (a stage-1 step with its EMA codebooks,
+    then a stage-2 and discriminator step) from the same resumed codec; rank
+    0 writes the checkpoint, in the one-process layout. The codebooks atol
+    1e-5; the parameters atol 5e-5 (JAX's for its data parallelism,
+    tests/test_parallel.py:91-95) but for at most one in a thousand elements
+    a tensor, each within 2 lr an update: a gradient at f32's rounding floor
+    takes either sign in two summation orders, and Adam's step moves it by
+    lr either way."""
     monkeypatch.chdir(corpus)
-    with pytest.raises(NotImplementedError, match="data_devices"):
-        train_cli.main(["-c", _write_config(corpus / "ae_dp.yaml",
-                                            _base_config(corpus, "autoencoder")),
-                        "--tag", "dp", "--dp", "2", *CPU])
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    cfg = dict(_base_config(corpus, "autoencoder"), train_max_steps=2,
+               start_steps={"generator": 0, "discriminator": 1})
+    argv = ["-c", _write_config(corpus / "ae_dp.yaml", cfg), "--resume",
+            _spread_codec(corpus, cfg), *CPU]
+    one = train_cli.main([*argv, "--tag", "dp1", "--dp", "1"])
+    ranks = train_cli.main([*argv, "--tag", "dp2", "--dp", "2"])
+    assert one.steps == 2 and [r["steps"] for r in ranks] == [2, 2]
+    got = load_checkpoint(os.path.join(_exp(corpus, "autoencoder", "dp2"), "checkpoint-2steps"))
+    ref = load_checkpoint(os.path.join(_exp(corpus, "autoencoder", "dp1"), "checkpoint-2steps"))
+    assert sorted(got) == sorted(ref) and got["steps"] == 2
+    for key in ("params_generator", "params_discriminator"):
+        assert sorted(got[key]) == sorted(ref[key])
+        for k in ref[key]:
+            diff = (got[key][k] - ref[key][k]).abs()
+            assert diff.max() <= 2 * LR * 2, f"{key}.{k}"  # 2 updates at most
+            assert (diff > 5e-5).float().mean() <= 1e-3, f"{key}.{k}"
+    for k in ref["vq_state"]:
+        np.testing.assert_allclose(got["vq_state"][k].numpy(), ref["vq_state"][k].numpy(),
+                                   atol=1e-5, err_msg=k)
+
+
+def test_data_parallel_course_cli_equals_one_process(corpus, tmp_path, monkeypatch):
+    """``cli.train_denoise --dp 2 --device cpu``: the LAPTOP epoch of the
+    course CLI over two ranks, its history the ``--dp 1`` run's."""
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    _, ref = course_cli.main([*_course_tree(corpus, tmp_path / "one"), "--dp", "1"])
+    ranks = course_cli.main([*_course_tree(corpus, tmp_path / "two"), "--dp", "2"])
+    assert [r["steps"] for r in ranks] == [1, 1]
+    for got in (r["history"] for r in ranks):
+        assert len(got) == len(ref) == 1 and got[0]["train_dis"] != 0.0
+        for key in ("train_gen", "train_dis", "val_gen", "val_dis"):
+            np.testing.assert_allclose(got[0][key], ref[0][key], rtol=2e-4, err_msg=key)
+        for k in ref[0]["frags"]:
+            np.testing.assert_allclose(got[0]["frags"][k], ref[0]["frags"][k], rtol=2e-4,
+                                       err_msg=k)

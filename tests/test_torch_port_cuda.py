@@ -1481,3 +1481,145 @@ def test_native_loader_under_prefetch_to_device(card, tmp_path):
         native._LIB, native._TRIED = saved
     assert len(got) == len(want) == 4
     assert all(torch.equal(g, torch.from_numpy(w)) for g, w in zip(got, want))
+
+
+# ---------------------------------------------------------------- parallel training
+# Data-parallel and time-sharded training with two gloo ranks on the one card
+# (chip_smoke.py phase 10 at a small size), the ranks' cases those of the CPU
+# tests (tests/torch_port_ranks.py) with their networks seeded in the port,
+# each held to the same case in this process on the card: losses rtol 2e-4
+# (time shards 1e-4), the codebooks atol 1e-5, the parameters atol 5e-5 (time
+# shards 1e-5) where their gradient is above 1e-4 of its tensor's largest and
+# within 2 lr elsewhere (Adam's first step at a gradient near its rounding
+# floor). K6 / K7 must launch in every rank.
+
+DP_SMALL = dict(encode_channels=8, decode_channels=8, code_dim=16, codebook_num=2,
+                codebook_size=32, enc_ratios=(2, 4), dec_ratios=(4, 2), enc_strides=(3, 4),
+                dec_strides=(4, 3))
+DP_DISC = dict(scales=2, scale_discriminator_params={
+    "kernel_sizes": [15, 41, 5, 3], "channels": 8, "max_downsample_channels": 32,
+    "max_groups": 4, "downsample_scales": [2, 2, 1]}, periods=(2, 3), period_discriminator_params={
+    "kernel_sizes": [5, 3], "channels": 4, "downsample_scales": [3, 3, 1],
+    "max_downsample_channels": 16})
+DP_MEL = dict(fs=4800, fft_sizes=[256], hop_sizes=[60], win_lengths=[256], num_mels=20, fmin=0,
+              fmax=2400, log_base=None)
+DP_COURSE = dict(mel_loss_params=DP_MEL, lambda_mel_loss=45.0, lambda_snr_loss=1.0,
+                 lambda_vq_loss=1.0, lambda_adv=1.0, lambda_feat_match=2.0,
+                 generator_adv_loss_params={"average_by_discriminators": False},
+                 discriminator_adv_loss_params={"average_by_discriminators": False})
+ONE_CARD = ["cuda:0", "cuda:0"]
+
+
+
+def _deterministic(monkeypatch):
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+
+
+def test_course_step_over_two_ranks_on_one_card(card, tmp_path, monkeypatch):
+    from torch_port_ranks import held_by_gradient, run_here, run_ranks
+
+    _deterministic(monkeypatch)
+    rng = np.random.default_rng(0)
+    kw = {"gen_kw": DP_SMALL, "gen_params": None, "disc_kw": DP_DISC, "disc_params": None,
+          "config": DP_COURSE, "arm": "train_disc",
+          "mixed": (0.3 * rng.standard_normal((8, 240, 1))).astype(np.float32),
+          "clean": (0.3 * rng.standard_normal((8, 240, 1))).astype(np.float32)}
+    ranks = run_ranks(2, {"step": ("course_step", kw)}, tmp_path, devices=ONE_CARD)
+    one = run_here("course_step", device="cuda:0", **kw)
+    for got in (r["step"] for r in ranks):
+        assert got["launches"]["log_mel"] > 0
+        np.testing.assert_allclose(got["g"], one["g"], rtol=2e-4)
+        np.testing.assert_allclose(got["d"], one["d"], rtol=2e-4)
+        for k in one["frags"]:
+            np.testing.assert_allclose(got["frags"][k], one["frags"][k], rtol=2e-4, err_msg=k)
+        held_by_gradient(got["gen"], one["gen"], one["grads"], 5e-5)
+
+
+def test_codec_and_vocoder_steps_over_two_ranks_on_one_card(card, tmp_path, monkeypatch):
+    """The codec's stage-1 step (EMA codebooks over the ranks) and the
+    vocoder workload's generator step (spectral convergence, K7)."""
+    from torch_port_ranks import held_by_gradient, run_here, run_ranks
+
+    _deterministic(monkeypatch)
+    rng = np.random.default_rng(1)
+    codec = AudioDecGenerator(**DP_SMALL, use_pqc=True, seed=0, device="cpu")
+    t = np.arange(1200)[None, :, None] / 48.0
+    x = (0.5 * np.sin(2 * np.pi * t + rng.uniform(0, np.pi, (4, 1, 1)))
+         + 0.05 * rng.standard_normal((4, 1200, 1))).astype(np.float32)
+    with torch.no_grad():
+        scale = float(codec.projector(codec.encoder(torch.from_numpy(x))).std())
+    books = scale * rng.standard_normal((2, 16, 32)).astype(np.float32)
+    vq = (books, np.zeros((2, 32), np.float32), books.copy())
+    voc_kw = dict(in_channels=16, out_channels=1, channels=32, kernel_size=7,
+                  upsample_scales=(4, 3), upsample_kernel_sizes=(8, 6),
+                  resblock_kernel_sizes=(3,), resblock_dilations=((1, 3),))
+    voc_params = None  # seeded in the port
+    config = dict(DP_COURSE, use_mel_loss=True, use_stft_loss=True, lambda_stft_loss=45.0,
+                  stft_loss_params={"fft_sizes": [128, 256], "hop_sizes": [30, 60],
+                                    "win_lengths": [120, 240]})
+    cases = {"stage1": ("autoencoder_stage1", {
+        "gen_kw": DP_SMALL, "gen_params": None, "vq": vq, "disc_kw": DP_DISC,
+        "disc_params": None, "config": config, "x": x}),
+        "vocoder": ("vocoder_step", {
+            "an_kw": DP_SMALL, "an_params": None, "vq": vq, "voc_kw": voc_kw,
+            "voc_params": voc_params, "disc_kw": DP_DISC, "disc_params": None,
+            "config": config, "x": x})}
+    ranks = run_ranks(2, cases, tmp_path, devices=ONE_CARD)
+    for key, (name, kw) in cases.items():
+        one = run_here(name, device="cuda:0", **kw)
+        for got in (r[key] for r in ranks):
+            assert got["launches"]["log_mel"] > 0, key
+            for k in one["frags"]:
+                np.testing.assert_allclose(got["frags"][k], one["frags"][k], rtol=2e-4,
+                                           err_msg=f"{key}.{k}")
+            if key == "stage1":
+                for f in one["vq"]:
+                    np.testing.assert_allclose(got["vq"][f], one["vq"][f], atol=1e-5,
+                                               rtol=1e-6, err_msg=f)
+                np.testing.assert_allclose(got["ppl"], one["ppl"], rtol=1e-5)
+            else:
+                assert got["launches"]["stft_magnitude"] > 0
+        if key == "vocoder":
+            # the log-STFT-magnitude term's gradient (1 / |S| at bins near
+            # f32's floor) moves with the output's last bits, which cuDNN
+            # changes with the batch: gradients within 1e-2 of each tensor's
+            # largest, as chip_smoke.py holds that term across routes, and
+            # the parameters within 2 lr
+            got = ranks[0][key]
+            for k, g in one["grads"].items():
+                assert np.abs(got["grads"][k] - g).max() <= 1e-2 * np.abs(g).max(), k
+                assert np.abs(got["voc"][k] - one["voc"][k]).max() <= 2e-3 * 1.001, k
+
+
+def test_time_sharded_step_over_two_ranks_on_one_card(card, tmp_path, monkeypatch):
+    """The PQC codec on 2 time shards, both ranks on the card: the blocked
+    objective's step in this process."""
+    from dl_speech_enhancement_tpu_torch.nn.vq import VQState
+    from dl_speech_enhancement_tpu_torch.parallel.time_shard import (
+        blocked_reference_step,
+        decoder_receptive_frames,
+    )
+    from torch_port_ranks import held_by_gradient, run_ranks
+
+    _deterministic(monkeypatch)
+    rng = np.random.default_rng(2)
+    gen = AudioDecGenerator(**DP_SMALL, use_pqc=True, seed=0, device="cuda:0")
+    frames = max(-(-gen.receptive_length // gen.hop), decoder_receptive_frames(gen.decoder)) + 6
+    x = (0.3 * rng.standard_normal((2, 2 * frames * gen.hop, 1))).astype(np.float32)
+    target = x + (0.05 * rng.standard_normal(x.shape)).astype(np.float32)
+    books = rng.standard_normal((2, 16, 32)).astype(np.float32)
+    vq = (books, np.zeros((2, 32), np.float32), books.copy())
+    kw = {"gen_kw": DP_SMALL, "gen_params": None, "vq": vq, "use_pqc": True, "shape": (2,),
+          "config": DP_COURSE, "clips": [(x, target)], "opt": {"kind": "adam"}}
+    got = run_ranks(2, {"shard": ("time_train", kw)}, tmp_path, devices=ONE_CARD)[0]["shard"]
+    opt = build_optimizer(gen.parameters(), "Adam", {"lr": 1e-3, "betas": [0.5, 0.9]})
+    state = VQState(*(torch.from_numpy(a).cuda() for a in vq))
+    new, loss = blocked_reference_step(gen, DP_COURSE, opt, 2)(
+        state, torch.from_numpy(x).cuda(), torch.from_numpy(target).cuda())
+    assert got["launches"]["log_mel"] > 0
+    np.testing.assert_allclose(got["losses"][0], float(loss), rtol=1e-4)
+    ref = {k: v.detach().cpu().numpy() for k, v in gen.state_dict().items()}
+    held_by_gradient(got["params"][0], ref,
+                      {n: p.grad.cpu().numpy() for n, p in gen.named_parameters()}, 1e-5)
+    for f in ("embed", "cluster_size"):
+        np.testing.assert_allclose(got["vq"][0][f], getattr(new, f).cpu().numpy(), atol=1e-5)

@@ -39,7 +39,8 @@ def test_port_has_the_slice_modules():
                 "utils.torch_export", "cli.import_checkpoint", "cli.export_checkpoint", "eval",
                 "eval.metrics", "eval.onnx_graph", "eval.onnx_torch", "eval.dnsmos",
                 "cli.testing_denoise", "cli.test", "cli.analyze", "cli.dnsmos", "data.native",
-                "parallel.mesh", "parallel.long_audio", "cli.serve", "eval.dnsmos_web"):
+                "parallel.mesh", "parallel.long_audio", "cli.serve", "eval.dnsmos_web",
+                "parallel.time_shard", "utils.collectives"):
         assert f"dl_speech_enhancement_tpu_torch.{mod}" in names
 
 

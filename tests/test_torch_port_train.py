@@ -38,6 +38,7 @@ from dl_speech_enhancement_tpu_torch.train.denoise_course import (
     train_denoise_course,
 )
 from dl_speech_enhancement_tpu_torch.utils.jax_params import from_jax_params
+from torch_port_ranks import run_here, run_ranks
 from torch_port_threads import one_thread  # noqa: F401
 
 SMALL = dict(encode_channels=8, decode_channels=8, code_dim=16, codebook_num=2,
@@ -185,16 +186,39 @@ def test_course_loop_matches_jax(rng, tmp_path):
     assert any(r[0] == "Gradients" for r in reports)
 
 
-@pytest.mark.parametrize("change,match", [
-    ({"parallel": {"data_devices": 2}}, "'Parallel'"),
-])
-def test_course_loop_refuses_what_waits(rng, change, match):
-    _, _, tgen = _generators()
-    config = dict(COURSE_CONFIG, **change)
-    clean = [_sine_batch(rng)]
-    loaders = ((clean, clean), (clean, clean))
-    with pytest.raises(NotImplementedError, match=match):
-        train_denoise_course(config, tgen, None, *loaders, environment="LAPTOP")
+def test_course_loop_data_parallel_equals_one_process(rng, tmp_path):
+    """``parallel.data_devices: 2`` on two gloo ranks on the host: every
+    rank mixes the whole batch from the same ``mix_rng`` (noise dropout and
+    its decay included) and trains on its rows, the discriminator from
+    epoch 1, as JAX's ``test_course_loop_dp_from_config``
+    (tests/test_parallel.py:485). The history equals the one-process loop's
+    on both ranks (losses rtol 2e-4, JAX's DP tolerance), and so do the
+    generator's parameters (atol 5e-5)."""
+    from test_torch_port_discriminator import disc_params  # it imports this module
+
+    jgen, params, _ = _generators(seed=3)
+    disc = disc_params(JaxDiscriminator(**TINY_DISC), 4)
+    clean = [_sine_batch(rng, b=4) for _ in range(2)]
+    noise = [0.3 * rng.standard_normal((4, 240, 1)).astype(np.float32) for _ in range(2)]
+    config = dict(COURSE_CONFIG, epoch_to_enable_discriminator=1, batch_size=4)
+    kw = {"gen_kw": SMALL, "gen_params": params, "disc_kw": TINY_DISC, "disc_params": disc,
+          "train": (clean, noise), "val": (clean[:1], noise[:1])}
+    one = run_here("course_loop", **kw, config=config)
+    ranks = run_ranks(2, {"loop": ("course_loop", dict(
+        kw, config=dict(config, parallel={"data_devices": 2})))}, tmp_path)
+    for got in (r["loop"] for r in ranks):
+        assert got["steps"] == one["steps"] == 4
+        assert got["history"][1]["train_dis"] != 0.0
+        for g_ep, o_ep in zip(got["history"], one["history"]):
+            for key in ("train_gen", "train_dis", "val_gen", "val_dis"):
+                np.testing.assert_allclose(g_ep[key], o_ep[key], rtol=2e-4, atol=1e-12,
+                                           err_msg=key)
+            for k in o_ep["frags"]:
+                np.testing.assert_allclose(g_ep["frags"][k], o_ep["frags"][k], rtol=2e-4,
+                                           err_msg=k)
+        for k in one["gen"]:
+            np.testing.assert_allclose(got["gen"][k], one["gen"][k], atol=5e-5, rtol=0,
+                                       err_msg=k)
 
 
 def _optax_and_port(grad_norm, weight_decay, sched_type=None, sched_params=None):

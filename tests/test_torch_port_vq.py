@@ -5,7 +5,8 @@ dl_speech_enhancement_tpu/nn/vq.py and the port, in f32. Tolerances: wire
 codes exact; the codebook table and lookups atol 1e-6 (the same values summed
 over the layers); one EMA training step atol 1e-5 (statistics of a few
 hundred rows), and rtol 1e-6 on the new codebooks, whose unused codewords
-are divided by a Laplace-smoothed count near 1e-5 and reach 1e5.
+are divided by a Laplace-smoothed count near 1e-5 and reach 1e5; so is the
+EMA step with ``axis_name`` over two gloo ranks (tests/torch_port_ranks.py).
 """
 
 import numpy as np
@@ -153,10 +154,50 @@ def test_init_defaults_to_the_card():
     assert tvq.Quantizer(DIM, LAYERS, 16).init(seed=0, device="cpu").embed.device.type == "cpu"
 
 
-def test_axis_name_is_the_parallel_slice(rng):
-    state = _port_state(_jax_state())
-    x = torch.from_numpy(_x(rng, 4))
-    with pytest.raises(NotImplementedError, match="axis_name"):
-        tvq.ResidualVQ(DIM, LAYERS, BOOK)(state, x, train=True, axis_name="data")
-    with pytest.raises(NotImplementedError, match="axis_name"):
-        tvq.Quantizer(DIM, LAYERS, BOOK)(state, x, train=True, axis_name="data")
+def _jax_sharded_update(layer, state, x):
+    """JAX's EMA step with ``axis_name`` over a 2-device ``shard_map``, as
+    tests/test_parallel.py:149 runs it."""
+    from jax.sharding import Mesh, PartitionSpec as P
+
+    mesh = Mesh(np.asarray(jax.devices()[:2]), ("data",))
+
+    def local(st, xs):
+        _, new, _, ppl = layer(st, xs, train=True, axis_name="data")
+        return new, ppl
+
+    return jax.shard_map(local, mesh=mesh, in_specs=(P(), P("data")), out_specs=(P(), P()))(
+        jax.tree_util.tree_map(jnp.asarray, state), jnp.asarray(x))
+
+
+def test_axis_name_over_two_ranks_equals_the_joined_batch(rng, tmp_path):
+    """``axis_name`` the data group of two gloo ranks, each with its half of
+    the rows: the EMA step (counts and codeword sums summed over the ranks)
+    and the perplexity (histogram averaged before the entropy) equal one
+    process's on the joined batch, and JAX's ``psum`` / ``pmean`` under a
+    2-device ``shard_map``; the commitment loss is each rank's local mean."""
+    from torch_port_ranks import run_here, run_ranks
+
+    single = jax.tree_util.tree_map(
+        np.asarray, jvq.VectorQuantizeEMA(DIM, BOOK).init(jax.random.PRNGKey(5)))
+    cases = {"single": ("vq_update", {"kind": "single", "dim": DIM, "layers": 1, "book": BOOK,
+                                      "state": single, "x": _x(rng, 8, 10)}),
+             "residual": ("vq_update", {"kind": "residual", "dim": DIM, "layers": LAYERS,
+                                        "book": BOOK, "state": _jax_state(seed=6),
+                                        "x": _x(rng, 8, 10)})}
+    ranks = run_ranks(2, cases, tmp_path)
+    layers = {"single": jvq.VectorQuantizeEMA(DIM, BOOK),
+              "residual": jvq.ResidualVQ(DIM, LAYERS, BOOK)}
+    for key, (name, kw) in cases.items():
+        one = run_here(name, **kw)
+        jnew, jppl = _jax_sharded_update(layers[key], kw["state"], kw["x"])
+        for got in (r[key] for r in ranks):
+            for f in one["vq"]:
+                np.testing.assert_allclose(got["vq"][f], one["vq"][f], rtol=1e-6, atol=1e-5,
+                                           err_msg=f"{key}.{f}")
+                np.testing.assert_allclose(got["vq"][f], np.asarray(getattr(jnew, f)),
+                                           rtol=1e-6, atol=1e-5, err_msg=f"{key}.{f}")
+            np.testing.assert_allclose(got["ppl"], one["ppl"], rtol=1e-6, atol=1e-5)
+            np.testing.assert_allclose(got["ppl"], np.asarray(jppl), rtol=1e-6, atol=1e-5)
+        halves = [run_here(name, **dict(kw, x=kw["x"][h * 4:(h + 1) * 4])) for h in (0, 1)]
+        for r, half in zip(ranks, halves):
+            np.testing.assert_allclose(r[key]["loss"], half["loss"], rtol=1e-6)
