@@ -211,10 +211,13 @@ failure exits non-zero before the result line):
      step of the value (codes up to near ties); the audio within
      BOUNDARY_RTOL of the f32 run's largest sample (the codec's codes up to
      near ties of the rounded z); each dispatch's device time (CUDA events
-     around a CUDA graph) and its activations' bytes between launches. The
-     kernels line gets each arm as ``<kernel>.bf16``: launches in the
+     around a CUDA graph) and its activations' bytes between launches, and
+     one line with every path's device time a dispatch at both boundaries.
+     The kernels line gets each arm as ``<kernel>.bf16``: launches in the
      bf16-boundary runs, times summed over its calls in one dispatch of the
-     first path that runs it;
+     first path that runs it; ``causal_conv.bf16`` and
+     ``causal_conv_transpose.bf16`` also print a line a site (its plan, its
+     time, cuDNN's in bf16, its bound);
    - 9c ``cli.serve`` on seeded checkpoints (the denoiser's with
      ``--without-pqc``, and ``--model vctk_v1``) at ``--streams
      FLEET_CLI_STREAMS --devices 1``: its stats, 18 / 34 launches a block,
@@ -4045,6 +4048,21 @@ def call_work(name, args, kwargs, out) -> tuple[float, float, float]:
         TF32_FLOPS / TF32_PASSES[w1.dtype]
 
 
+def conv_call_plan(name, args, kwargs, out) -> list:
+    """The plan the planner gives a recorded causal_conv (arm, tile, steps
+    per block) or causal_conv_transpose (tile, steps per block) call."""
+    x, w = args[1], args[2]
+    wb, xb = w.dtype == torch.bfloat16, x.dtype == torch.bfloat16
+    if name == "causal_conv_transpose":
+        stride = args[4] if len(args) > 4 else kwargs["stride"]
+        return list(_upsample_plan(x.shape[0], x.shape[1], w.shape[1], w.shape[2], stride, wb,
+                                   xb))
+    taps, cin, cout = w.shape
+    stride = args[4] if len(args) > 4 else kwargs.get("stride", 1)
+    dil = args[5] if len(args) > 5 else kwargs.get("dilation", 1)
+    return list(_conv_plan(out.shape[0], out.shape[1], cin, cout, taps, stride, dil, wb, xb))
+
+
 def call_library(name, args, kwargs):
     """One PyTorch call computing a recorded conv's function in bf16
     (cuDNN), or the lookup's (``F.embedding_bag``), on its inputs; None for
@@ -4136,9 +4154,15 @@ def hold_calls(path, calls, tables, report, timed: set):
         t["bytes"] += moved
         if l_ms is not None:
             t["library_ms"] = (t["library_ms"] or 0.0) + l_ms
+        plan = None
+        if name.startswith("causal_conv"):  # the two conv arms' sites, each with its plan
+            plan = conv_call_plan(name, args, kwargs, got)
+            entry.setdefault("sites", []).append({
+                "x": list(args[1].shape), "out": list(got.shape), "plan": plan, "ms": k_ms,
+                "library_ms": l_ms, "bound_ms": b_ms, "bound_by": b_by})
         log(f"bf16 arm {name:22s} {path:10s} {tuple(got.shape)} kernel={k_ms:.4f} ms "
             f"plain={p_ms:.4f} ms library={l_ms if l_ms is None else round(l_ms, 4)} "
-            f"bound={b_ms:.4f} ms ({b_by})")
+            f"bound={b_ms:.4f} ms ({b_by})" + ("" if plan is None else f" plan={plan}"))
 
 
 def stores_bf16(calls) -> bool:
@@ -4259,6 +4283,13 @@ def boundary_phase(gen, codec, vq, tables, voc, v0):
         log(f"9b {path}: {json.dumps(entry)}")
         report[path] = entry
         del runs
+    log("9b device ms a dispatch at f32 / bf16 boundaries: " + ", ".join(
+        f"{path} x{entry['streams']} N={entry['frames']} {entry['float32']['device_ms']:.4f} / "
+        f"{entry['bfloat16']['device_ms']:.4f}" for path, entry in report.items()))
+    for name in ("causal_conv", "causal_conv_transpose"):  # their sites against cuDNN in bf16
+        for site in arms[name].get("sites", []):
+            log(f"9b {name}.bf16 site: {json.dumps(site)}")
+        report[f"{name}.bf16 sites"] = arms[name].pop("sites", [])
     entries = []
     for name in SERVING_KERNELS:
         arm = arms[name]

@@ -47,7 +47,9 @@
 //    few. Split-TF32 `mma.sync` tiles over fixed 64-term chunks of the
 //    reduction, split over a thread-block cluster at few rows and folded in
 //    chunk order through distributed shared memory, so a stream's bits
-//    depend on the layer alone: conv_gemm.cuh, which causal_conv_transpose.cu
+//    depend on the layer alone. With bf16 x the rows are staged as bf16 by
+//    cp.async and the zero low TF32 pass of widened bf16 values skipped,
+//    its lanes' columns adjacent: conv_gemm.cuh, which causal_conv_transpose.cu
 //    shares.
 #include "conv_gemm.cuh"
 
@@ -187,18 +189,27 @@ cudaError_t launch_types(int types, const ConvArgs& a, int arm, int tile, int st
 }  // namespace
 }  // namespace dse
 
-// Shared memory one block of the plan (arm, tile, steps_per_block) takes:
+// Shared memory one block of the plan (arm, tile, steps_per_block) takes for
+// `types` (bit 0 bf16 weights, bit 1 bf16 x) at T_out output rows a stream:
 // arm 0 (Cin = 1) W as f32; arm 1 (Cout = 1) the window of `tile` output rows
 // (odd row stride Cin | 1) and W; arm 2 (GEMM, `tile` an index of
-// DSE_CONV_TILES) the (A, W) ring, a stage per step up to kConvStages, and,
-// when a cluster splits the steps, `steps_per_block` BM x BN f32 slots.
+// DSE_CONV_TILES, with bf16 x and weights also of DSE_CONV_TILES_BF16X) the
+// (A, W) ring, a stage per step up to kConvStages (with
+// bf16 x an A stage is bf16 rows and the f32 side rows of conv_side_rows),
+// and, when a cluster splits the steps, `steps_per_block` BM x BN f32 slots.
 extern "C" size_t dse_causal_conv_smem(int arm, int tile, int Cin, int Cout, int taps,
-                                       int stride, int dil, int steps_per_block, int bf16) {
+                                       int stride, int dil, int steps_per_block, int types,
+                                       int T_out) {
   if (arm == 0) return sizeof(float) * (size_t)taps * Cout;
   if (arm == 1)
     return sizeof(float) * ((size_t)dse::cout1_window_rows(tile, stride, taps, dil) * (Cin | 1) +
                             (size_t)taps * Cin);
-  return dse::conv_gemm_smem(tile, Cin, Cout, taps, steps_per_block, bf16);
+  const int x_bf16 = (types >> 1) & 1;
+  int bm = 0, bn, threads;
+  dse::conv_tile_dims(tile, &bm, &bn, &threads);
+  return dse::conv_gemm_smem(
+      tile, Cin, Cout, taps, steps_per_block, types & 1, x_bf16,
+      x_bf16 ? dse::conv_side_rows(bm, T_out, dse::conv_cache_rows(taps, stride, dil)) : 0);
 }
 
 // `types`: bit 0 bf16 weights (else f32), bit 1 bf16 x, bit 2 bf16 out.
@@ -217,9 +228,10 @@ extern "C" int dse_causal_conv(const float* cache, long long cache_bs, const voi
   const int S = dse::conv_steps(taps, Cin);
   const bool ok = arm == 0 ? Cin == 1
                   : arm == 1 ? Cout == 1 && tile >= 1 && tile <= dse::kDirectThreads
-                  : arm == 2 && dse::conv_gemm_plan_ok(tile, steps_per_block, S);
+                  : arm == 2 && dse::conv_gemm_plan_ok(tile, steps_per_block, S,
+                                                       (types & 3) == 3);
   const size_t smem = dse_causal_conv_smem(arm, tile, Cin, Cout, taps, stride, dil,
-                                           steps_per_block, bf16);
+                                           steps_per_block, types & 3, T_out);
   if (!ok || smem > 232448) return cudaErrorInvalidValue;
   const dse::ConvArgs a{cache, cache_bs, x, w, bias, out, B * T_out, T_out, Cin, Cout,
                         taps, stride, dil, act, tanh_out, slope};

@@ -13,11 +13,12 @@
 //
 // B independent streams run in one launch: cache (B, 1, Cin) with stream stride
 // `cache_bs` floats, x (B, T, Cin), out (B, T*s, Cout); x and out both f32 or
-// both bf16 (the streams' boundary dtype, widened as staged and rounded as
+// both bf16 (the streams' boundary dtype; bf16 x is staged as bf16 and
+// widened as read, its low TF32 pass skipped, and the output rounded as
 // stored: conv_gemm.cuh), the cache f32. With `act` = 1 every
-// element of [cache; x] is passed through LeakyReLU(`slope`) as it is staged
-// (the vocoder's LeakyReLU(0.1) before each upsample), so a stage's cache
-// stays the tail of its raw input.
+// element of [cache; x] is passed through LeakyReLU(`slope`) (the vocoder's
+// LeakyReLU(0.1) before each upsample), so a stage's cache stays the tail of
+// its raw input.
 //
 // What bounds it: the operations (2*Cin*Cout multiply-adds per output row) at
 // many rows, latency at few (one frame: 4 input rows a stream at the first
@@ -36,11 +37,17 @@
 // never replaced.
 #include "conv_gemm.cuh"
 
-// Shared memory one block of the plan (tile, steps_per_block) takes: the
-// GEMM arm's at 2 taps of Cin channels.
+// Shared memory one block of the plan (tile, steps_per_block) takes for
+// `types` (bit 0 bf16 weights, bit 1 bf16 x and out) at T_in input rows a
+// stream: the GEMM arm's at 2 taps of Cin channels, stride 1, dilation 1.
 extern "C" size_t dse_causal_conv_transpose_smem(int tile, int Cin, int Cout,
-                                                 int steps_per_block, int bf16) {
-  return dse::conv_gemm_smem(tile, Cin, Cout, 2, steps_per_block, bf16);
+                                                 int steps_per_block, int types, int T_in) {
+  const int x_bf16 = (types >> 1) & 1;
+  int bm = 0, bn, threads;
+  dse::conv_tile_dims(tile, &bm, &bn, &threads);
+  return dse::conv_gemm_smem(
+      tile, Cin, Cout, 2, steps_per_block, types & 1, x_bf16,
+      x_bf16 ? dse::conv_side_rows(bm, T_in, dse::conv_cache_rows(2, 1, 1)) : 0);
 }
 
 // `types`: bit 0 bf16 weights (else f32), bit 1 bf16 x and out (else f32).
@@ -50,13 +57,14 @@ extern "C" int dse_causal_conv_transpose(const float* cache, long long cache_bs,
                                          int stride, int act, float slope, int types, int tile,
                                          int steps_per_block, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int bf16 = types & 1;
   if (types & ~3) return cudaErrorInvalidValue;
   if (B <= 0 || T_in <= 0 || Cin <= 0 || Cout <= 0 || stride <= 0 || stride > 65535 ||
       (long long)B * T_in * stride > 0x7fffffffLL)
     return cudaErrorInvalidValue;
-  const size_t smem = dse_causal_conv_transpose_smem(tile, Cin, Cout, steps_per_block, bf16);
-  if (!dse::conv_gemm_plan_ok(tile, steps_per_block, dse::conv_steps(2, Cin)) || smem > 232448)
+  const size_t smem = dse_causal_conv_transpose_smem(tile, Cin, Cout, steps_per_block, types,
+                                                     T_in);
+  if (!dse::conv_gemm_plan_ok(tile, steps_per_block, dse::conv_steps(2, Cin), types == 3) ||
+      smem > 232448)
     return cudaErrorInvalidValue;
   // each phase: a 2-tap conv over the one-row cache, stride 1, dilation 1
   const dse::ConvArgs a{cache, cache_bs, x, w, bias, out, B * T_in, T_in, Cin, Cout, 2, 1, 1,

@@ -58,12 +58,12 @@ _ENTRIES = {
     "causal_conv": {
         "dse_causal_conv": ([_P, _L, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I,
                              _I, _I, _I, _I, _P], _I),
-        "dse_causal_conv_smem": ([_I, _I, _I, _I, _I, _I, _I, _I, _I], _Z),
+        "dse_causal_conv_smem": ([_I, _I, _I, _I, _I, _I, _I, _I, _I, _I], _Z),
     },
     "causal_conv_transpose": {
         "dse_causal_conv_transpose": ([_P, _L, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
                                        _I, _I, _I, _P], _I),
-        "dse_causal_conv_transpose_smem": ([_I, _I, _I, _I, _I], _Z),
+        "dse_causal_conv_transpose_smem": ([_I, _I, _I, _I, _I, _I], _Z),
     },
     "rvq_assign": {
         "dse_rvq_assign": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P], _I),

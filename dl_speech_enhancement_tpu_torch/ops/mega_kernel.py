@@ -128,20 +128,26 @@ def causal_conv_plain(cache, x, w, b=None, stride: int = 1, dilation: int = 1,
 
 # csrc/causal_conv.cu, as the planner needs it
 CONV_ARMS = ("cin1", "cout1", "gemm")  # the C entry's arm codes 0, 1, 2
-# The GEMM arm's tiles by index (DSE_CONV_TILES): warps along rows and columns,
-# 16-row and 8-column mma fragments a warp.
+# The GEMM arm's tiles by index (DSE_CONV_TILES, then DSE_CONV_TILES_BF16X):
+# warps along rows and columns, 16-row and 8-column mma fragments a warp. The
+# last, of 16 x 64-output warps, is the bf16-x arm's with bf16 weights
+# alone; the others are every arm's (the first _CONV_TILES_F32X).
 _CONV_TILES = ((1, 2, 1, 1), (1, 4, 1, 1), (2, 4, 1, 2), (2, 4, 2, 2), (4, 2, 1, 2),
-               (8, 1, 1, 4))
+               (8, 1, 1, 4), (8, 1, 1, 8))
+_CONV_TILES_F32X = 6
 # The planner's model of a tile (_gemm_cost): registers a thread (-Xptxas -v;
 # 256-thread tiles are held to 128, two blocks an SM) and the time of one
 # 64-term step, in us, with the block, fold and fold-element times below,
 # fitted so that at every GEMM site of the paths the model picks a plan close
 # to the fastest of an H100 sweep of them all (tools/conv_timing.py --sweep,
-# then --fit on its report).
-_CONV_TILE_REGS = (120, 115, 128, 128, 128, 128)
+# then --fit on its report). The bf16-x arm has its own step and block times.
+_CONV_TILE_REGS = (120, 115, 128, 128, 128, 128, 128)
 _CONV_STEP_US = (0.3, 0.2, 0.216, 0.475, 0.864, 0.864)
 _CONV_BLOCK_US, _CONV_FOLD_US, _CONV_FOLD_US_PER_ELEM = 3.54, 0.444, 0.0067
-_CONV_STAGES, _CONV_KC, _CONV_LDA = 3, 64, 68  # ring depth, channels a step, A row stride
+_CONV_STEP_US_BF16X = (0.19, 0.332, 0.086, 0.397, 0.403, 0.18, 0.3)
+_CONV_BLOCK_US_BF16X = 1.01
+# ring depth, channels a step, A row stride (f32 x; bf16 x)
+_CONV_STAGES, _CONV_KC, _CONV_LDA, _CONV_LDA_H = 3, 64, 68, 72
 _CONV_MAX_CLUSTER = 8
 _CONV_MIN_BLOCKS = 32  # SMs a plan within 10 % of the cheapest should cover
 _DIRECT_ROWS = (256, 128, 64, 32, 16, 8, 4, 2, 1)  # Cout = 1 arm: output rows a block
@@ -163,33 +169,63 @@ def conv_chunks(taps: int, cin: int) -> list[tuple[int, int]]:
     return [(g0, min(terms, g0 + _CONV_KC)) for g0 in range(0, terms, _CONV_KC)]
 
 
+def conv_cache_rows(taps: int, stride: int, dilation: int) -> int:
+    """Q: a stream's first output rows that may read terms of the cache
+    ((taps - 1) * dilation rows), ceil(that / stride)."""
+    return -(-(taps - 1) * dilation // stride)
+
+
+def conv_side_rows(bm: int, t_out: int, q: int) -> int:
+    """Rows of a bf16-x GEMM tile of ``bm`` rows staged in f32 a step (the
+    side rows, csrc/conv_gemm.cuh::conv_side_rows): ``min(q, t_out)`` rows
+    of each stream the tile meets, at most ``bm``."""
+    if q <= 0:
+        return 0
+    return min(bm, (-(-bm // t_out) + 1) * min(q, t_out))
+
+
 def conv_smem_bytes(arm: str, tile: int, cin: int, cout: int, taps: int, stride: int,
-                    dilation: int, steps_per_block: int, bf16: bool) -> int:
+                    dilation: int, steps_per_block: int, bf16: bool, x_bf16: bool = False,
+                    t_out: int = 0) -> int:
     """Shared memory of one causal_conv block (csrc/causal_conv.cu::
     dse_causal_conv_smem): ``cin1`` W in f32; ``cout1`` the input window of
     ``tile`` output rows at an odd row stride and W; ``gemm`` the (A, W) ring
     of tile index ``tile``, a stage per step a block takes up to 3, and,
-    where a cluster splits the steps, one f32 BM x BN slot per step."""
+    where a cluster splits the steps, one f32 BM x BN slot per step. With
+    bf16 x (``x_bf16``, at ``t_out`` output rows a stream) an A stage is the
+    tile's rows in bf16 and its side rows (:func:`conv_side_rows`) in f32,
+    and a bf16 W row is padded to BN + 16 (48 at BN = 16; conv_gemm.cuh::
+    conv_ldw_bf16x)."""
     if arm == "cin1":
         return 4 * taps * cout
     if arm == "cout1":
         return 4 * (((tile - 1) * stride + (taps - 1) * dilation + 1) * (cin | 1) + taps * cin)
     bm, bn, _ = conv_tile_dims(tile)
-    ring = min(_CONV_STAGES, steps_per_block) * (4 * bm * _CONV_LDA
-                                                 + _CONV_KC * (bn + 8) * (2 if bf16 else 4))
+    if x_bf16:
+        if t_out < 1:
+            raise ValueError(f"conv_smem_bytes: bf16 x needs its rows a stream, got {t_out}")
+        side = conv_side_rows(bm, t_out, conv_cache_rows(taps, stride, dilation))
+        a_stage = 2 * bm * _CONV_LDA_H + 4 * side * _CONV_LDA
+        ldw = (48 if bn == 16 else bn + 16) if bf16 else bn + 8
+    else:
+        a_stage, ldw = 4 * bm * _CONV_LDA, bn + 8
+    ring = min(_CONV_STAGES, steps_per_block) * (a_stage + _CONV_KC * ldw * (2 if bf16 else 4))
     split = steps_per_block < len(conv_chunks(taps, cin))
     return ring + (4 * steps_per_block * bm * bn if split else 0)
 
 
 def _gemm_cost(rows: int, cin: int, cout: int, taps: int, tile: int, steps_per_block: int,
-               smem: int, phases: int = 1) -> tuple[float, int]:
+               smem: int, phases: int = 1, x_bf16: bool = False) -> tuple[float, int]:
     """The planner's model of one GEMM-arm launch: (us, blocks). The grid
     (``phases`` GEMMs of ``rows`` rows: a transposed conv's s phases) runs
     in waves of the blocks the SMs hold (threads, registers and shared
     memory bound it); a block takes a fixed time, then its steps, each the
     tile's step time scaled by the terms it holds (a part of a step is
     latency, whatever its terms) and by the blocks that share its SM, then
-    with a cluster the fold over distributed shared memory."""
+    with a cluster the fold over distributed shared memory. The bf16-x arm
+    (``x_bf16``) has its own block and step times."""
+    block_us, step_us = ((_CONV_BLOCK_US_BF16X, _CONV_STEP_US_BF16X) if x_bf16
+                         else (_CONV_BLOCK_US, _CONV_STEP_US))
     bm, bn, threads = conv_tile_dims(tile)
     cluster = -(-len(conv_chunks(taps, cin)) // steps_per_block)
     k8 = -(-min(taps * cin, _CONV_KC) // 8)
@@ -198,39 +234,47 @@ def _gemm_cost(rows: int, cin: int, cout: int, taps: int, tile: int, steps_per_b
     blocks = -(-rows // bm) * -(-cout // bn) * cluster * phases
     sharing = min(per_sm, -(-blocks // _N_SM))
     waves = -(-blocks // (_N_SM * per_sm))
-    step = _CONV_STEP_US[tile] * (0.25 + 0.75 * k8 / 8) * sharing
+    step = step_us[tile] * (0.25 + 0.75 * k8 / 8) * sharing
     fold = 0.0 if cluster == 1 else (_CONV_FOLD_US
                                      + _CONV_FOLD_US_PER_ELEM * bm * bn * cluster / threads)
-    return waves * (_CONV_BLOCK_US + steps_per_block * step + fold), blocks
+    return waves * (block_us + steps_per_block * step + fold), blocks
 
 
 def conv_gemm_plans(cin: int, cout: int, taps: int, stride: int, dilation: int,
-                    bf16: bool) -> list[tuple[int, int, int]]:
+                    bf16: bool, x_bf16: bool = False,
+                    t_out: int = 0) -> list[tuple[int, int, int]]:
     """Every plan the GEMM arm can take for a (taps, cin, cout) layer, as
-    ``(tile, steps per block, shared memory)``: each tile of
-    ``_CONV_TILES`` with each cluster split of the steps (1 to 8 blocks),
-    where the block's shared memory fits."""
+    ``(tile, steps per block, shared memory)``: each tile of its dtypes (all
+    of ``_CONV_TILES`` for bf16 x and weights, else the first
+    ``_CONV_TILES_F32X``) with each cluster split of the steps (1 to 8
+    blocks), where the block's shared memory (with bf16 x at ``t_out``
+    output rows a stream) fits."""
     steps = len(conv_chunks(taps, cin))
     splits = sorted({-(-steps // n) for n in range(1, _CONV_MAX_CLUSTER + 1)})
     plans = []
-    for tile in range(len(_CONV_TILES)):
+    for tile in range(len(_CONV_TILES) if x_bf16 and bf16 else _CONV_TILES_F32X):
         for q in splits:
-            smem = conv_smem_bytes("gemm", tile, cin, cout, taps, stride, dilation, q, bf16)
+            smem = conv_smem_bytes("gemm", tile, cin, cout, taps, stride, dilation, q, bf16,
+                                   x_bf16, t_out)
             if smem <= _MAX_SMEM:
                 plans.append((tile, q, smem))
     return plans
 
 
-def _gemm_plan(rows: int, cin: int, cout: int, taps: int, bf16: bool,
-               phases: int = 1) -> tuple[int, int] | None:
+def _gemm_plan(rows: int, cin: int, cout: int, taps: int, bf16: bool, phases: int = 1,
+               x_bf16: bool = False, t_out: int = 0, stride: int = 1,
+               dilation: int = 1) -> tuple[int, int] | None:
     """(tile, steps per block) of the GEMM arm for ``phases`` GEMMs of
-    ``rows`` rows over a (taps, cin, cout) layer, or None where none fits: of
-    :func:`conv_gemm_plans` on tiles no more than twice as wide as ``cout``,
-    the plans within 10 % of the cheapest by :func:`_gemm_cost`, of those
-    the ones whose grid covers 32 SMs if any, and the cheapest of them."""
+    ``rows`` rows over a (taps, cin, cout) layer (with bf16 x, ``t_out``
+    rows a stream at ``stride`` and ``dilation``), or None where none fits:
+    of :func:`conv_gemm_plans` on tiles no more than twice as wide as
+    ``cout``, the plans within 10 % of the cheapest by :func:`_gemm_cost`,
+    of those the ones whose grid covers 32 SMs if any, and the cheapest of
+    them."""
     widest = max(16, 1 << (cout - 1).bit_length())  # no tile twice as wide as Cout
-    plans = [(*_gemm_cost(rows, cin, cout, taps, tile, q, smem, phases), tile, q)
-             for tile, q, smem in conv_gemm_plans(cin, cout, taps, 1, 1, bf16)
+    plans = [(*_gemm_cost(rows, cin, cout, taps, tile, q, smem, phases, x_bf16), tile, q)
+             for tile, q, smem in conv_gemm_plans(cin, cout, taps, stride, dilation, bf16,
+                                                  x_bf16, t_out)
              if conv_tile_dims(tile)[1] <= widest]
     if not plans:
         return None
@@ -242,13 +286,13 @@ def _gemm_plan(rows: int, cin: int, cout: int, taps: int, bf16: bool,
 
 @functools.lru_cache(maxsize=1024)
 def _conv_plan(batch: int, t_out: int, cin: int, cout: int, taps: int, stride: int,
-               dilation: int, bf16: bool) -> tuple[str, int, int]:
+               dilation: int, bf16: bool, x_bf16: bool = False) -> tuple[str, int, int]:
     """(arm, tile, steps per block) for ``batch`` streams of ``t_out`` output
-    rows of a (taps, cin, cout) conv: ``cin1`` for one input channel,
-    ``cout1`` for one output channel (``tile`` its output rows a block, the
-    most whose window fits), else ``gemm`` at :func:`_gemm_plan`'s plan.
-    Raises ValueError where no plan fits. Pure Python, so the CPU tests
-    hold it."""
+    rows of a (taps, cin, cout) conv with bf16 weights (``bf16``) and x
+    (``x_bf16``) or f32: ``cin1`` for one input channel, ``cout1`` for one
+    output channel (``tile`` its output rows a block, the most whose window
+    fits), else ``gemm`` at :func:`_gemm_plan`'s plan. Raises ValueError
+    where no plan fits. Pure Python, so the CPU tests hold it."""
     if cin == 1:
         if conv_smem_bytes("cin1", 0, cin, cout, taps, stride, dilation, 1, bf16) <= _MAX_SMEM:
             return "cin1", 0, 1
@@ -258,7 +302,8 @@ def _conv_plan(batch: int, t_out: int, cin: int, cout: int, taps: int, stride: i
                     "cout1", rows, cin, cout, taps, stride, dilation, 1, bf16) <= _MAX_SMEM:
                 return "cout1", rows, 1
     else:
-        plan = _gemm_plan(batch * t_out, cin, cout, taps, bf16)
+        plan = _gemm_plan(batch * t_out, cin, cout, taps, bf16, 1, x_bf16, t_out, stride,
+                          dilation)
         if plan:
             return ("gemm", *plan)
     raise ValueError(f"causal_conv: no plan fits {cin} -> {cout} channels at kernel {taps}, "
@@ -307,8 +352,8 @@ def causal_conv(cache: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
     if B * T == 0:
         return out
     bf16 = w.dtype == torch.bfloat16
-    arm, tile, steps = _conv_plan(B, T // stride, cin, cout, k, stride, dilation, bf16)
     x_bf16, y_bf16 = x.dtype == torch.bfloat16, out_dtype == torch.bfloat16
+    arm, tile, steps = _conv_plan(B, T // stride, cin, cout, k, stride, dilation, bf16, x_bf16)
     if arm == "gemm" and x_bf16 and not y_bf16:
         raise ValueError("causal_conv: the GEMM arm does not take bf16 x into an f32 output")
     lib = _cuda.load("causal_conv")
@@ -340,16 +385,16 @@ def causal_conv_transpose_plain(cache, x, w, b=None, stride: int = 1,
 
 @functools.lru_cache(maxsize=1024)
 def _upsample_plan(batch: int, t_in: int, cin: int, cout: int, stride: int,
-                   bf16: bool) -> tuple[int, int]:
+                   bf16: bool, x_bf16: bool = False) -> tuple[int, int]:
     """(tile, steps per block) of causal_conv_transpose for ``batch`` streams
     of ``t_in`` input rows of a (2 * stride, cin, cout) layer: the GEMM
     arm's plan for ``stride`` phases of ``batch * t_in`` rows over the
     2 * cin terms of a tap pair (:func:`_gemm_plan`; a block's shared memory
     is the GEMM arm's at 2 taps, ``conv_smem_bytes("gemm", tile, cin, cout,
-    2, 1, 1, steps, bf16)``, which equals csrc/causal_conv_transpose.cu::
-    dse_causal_conv_transpose_smem). Raises ValueError where no plan fits.
-    Pure Python, so the CPU tests hold it."""
-    plan = _gemm_plan(batch * t_in, cin, cout, 2, bf16, stride)
+    2, 1, 1, steps, bf16, x_bf16, t_in)``, which equals
+    csrc/causal_conv_transpose.cu::dse_causal_conv_transpose_smem). Raises
+    ValueError where no plan fits. Pure Python, so the CPU tests hold it."""
+    plan = _gemm_plan(batch * t_in, cin, cout, 2, bf16, stride, x_bf16, t_in)
     if plan is None:
         raise ValueError(f"causal_conv_transpose: no plan fits {cin} -> {cout} channels at "
                          f"stride {stride}")
@@ -392,7 +437,7 @@ def causal_conv_transpose(cache: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
     if B * T == 0:
         return out
     bf16 = w.dtype == torch.bfloat16
-    tile, steps = _upsample_plan(B, T, cin, cout, stride, bf16)
+    tile, steps = _upsample_plan(B, T, cin, cout, stride, bf16, x.dtype == torch.bfloat16)
     lib = _cuda.load("causal_conv_transpose")
     _cuda.launch(lib, "dse_causal_conv_transpose", "causal_conv_transpose", x,
                  cache.data_ptr(), cache.stride(0) if B > 1 else 0, x.data_ptr(), w.data_ptr(),

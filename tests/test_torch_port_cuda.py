@@ -534,20 +534,26 @@ def test_causal_conv_every_plan_gives_the_same_bits(card, monkeypatch, cin, cout
 
 def test_causal_conv_smem_formula_matches_the_library(card):
     """ops/mega_kernel.py::conv_smem_bytes, which the planner asks, equals the
-    library's dse_causal_conv_smem for every arm."""
+    library's dse_causal_conv_smem for every arm, f32 and bf16 x (whose GEMM
+    stage counts the side rows of the streams' first rows at T_out)."""
     lib = _cuda.load("causal_conv")
     arms = {name: i for i, name in enumerate(mega_kernel.CONV_ARMS)}
     for cin, cout, taps, stride, dil in ((1, 32, 7, 1, 1), (32, 1, 7, 1, 1), (40, 1, 4, 3, 2),
                                          (256, 512, 10, 5, 1), (512, 64, 3, 1, 1),
                                          (20, 70, 10, 5, 1), (768, 256, 1, 1, 1)):
         for bf16 in (False, True):
-            cases = [("cin1", 0, 1)] + [("cout1", r, 1) for r in (1, 5, 256)] + [
-                ("gemm", tile, q) for tile in range(len(mega_kernel._CONV_TILES))
-                for q in (1, 3, len(mega_kernel.conv_chunks(taps, cin)))]
-            for arm, tile, q in cases:
-                assert lib.dse_causal_conv_smem(arms[arm], tile, cin, cout, taps, stride, dil,
-                                                q, int(bf16)) == mega_kernel.conv_smem_bytes(
-                    arm, tile, cin, cout, taps, stride, dil, q, bf16)
+            for x_bf16 in (False, True):
+                tiles = len(mega_kernel._CONV_TILES if x_bf16 and bf16 else
+                            mega_kernel._CONV_TILES[:mega_kernel._CONV_TILES_F32X])
+                cases = [("cin1", 0, 1)] + [("cout1", r, 1) for r in (1, 5, 256)] + [
+                    ("gemm", tile, q) for tile in range(tiles)
+                    for q in (1, 3, len(mega_kernel.conv_chunks(taps, cin)))]
+                for t_out in (1, 4, 64, 6400):
+                    for arm, tile, q in cases:
+                        assert lib.dse_causal_conv_smem(
+                            arms[arm], tile, cin, cout, taps, stride, dil, q,
+                            int(bf16) | int(x_bf16) << 1, t_out) == mega_kernel.conv_smem_bytes(
+                            arm, tile, cin, cout, taps, stride, dil, q, bf16, x_bf16, t_out)
 
 
 @pytest.mark.parametrize("batch", [1, 3, 16])
@@ -628,12 +634,16 @@ def test_causal_conv_transpose_smem_formula_matches_the_library(card):
     lib = _cuda.load("causal_conv_transpose")
     for cin, cout in ((512, 256), (256, 128), (64, 32), (100, 36), (20, 70)):
         steps = len(mega_kernel.conv_chunks(2, cin))
-        for bf16 in (False, True):
-            for tile in range(len(mega_kernel._CONV_TILES)):
+        for bf16, x_bf16, t_in in ((False, False, 4), (True, False, 4), (False, True, 1),
+                                   (True, True, 4), (True, True, 6400)):
+            tiles = len(mega_kernel._CONV_TILES if x_bf16 and bf16 else
+                        mega_kernel._CONV_TILES[:mega_kernel._CONV_TILES_F32X])
+            for tile in range(tiles):
                 for q in sorted({1, 3, steps}):
                     assert lib.dse_causal_conv_transpose_smem(
-                        tile, cin, cout, q, int(bf16)) == mega_kernel.conv_smem_bytes(
-                        "gemm", tile, cin, cout, 2, 1, 1, q, bf16)
+                        tile, cin, cout, q, int(bf16) | int(x_bf16) << 1,
+                        t_in) == mega_kernel.conv_smem_bytes(
+                        "gemm", tile, cin, cout, 2, 1, 1, q, bf16, x_bf16, t_in)
 
 
 # (Cin, Cout, taps, stride, output rows a frame, leaky, tanh): every

@@ -6,7 +6,8 @@ run on a machine with an H100:
 
     python -m pytest --noconftest tests/test_torch_port_cuda_boundary.py -q
 
-Each arm widens its bf16 input to f32 as it loads it, computes as the f32
+Each arm widens its bf16 input to f32 (the GEMM arm of causal_conv and
+causal_conv_transpose as it reads it from a bf16 stage), computes as the f32
 arm does and rounds what it stores, so:
 
 - on the same bf16-valued input, the bf16 arm's output equals the f32 arm's
@@ -130,6 +131,80 @@ def test_causal_conv_transpose_bf16_arm(card, cin, cout, stride, rows, wd):
     assert torch.equal(got, causal_conv_transpose(cache, x.float(), w, b, stride,
                                                   leaky=0.1).to(BF16))
     _held(got, causal_conv_transpose_plain(cache, x, w, b, stride, leaky=0.1), ATOL)
+
+
+# The bf16-x GEMM arm (csrc/conv_gemm.cuh) stages x's rows as bf16 and the
+# streams' first rows (which may read the f32 cache) as f32 side rows, and
+# skips the low TF32 pass where it multiplies zeros: on bf16-exact caches (the
+# path's, tails of bf16 activations) it skips it in every fragment, on random
+# f32 caches not in the side rows' fragments, nor under LeakyReLU.
+# (Cin, Cout, k, stride, output rows a stream, streams): the 64-stream,
+# 16-frame dispatch's first downsample (6400 rows a stream), e3d at one frame
+# of 64 streams, the projector at one row a stream (every row a side row) and
+# odd widths (Cin % 8 != 0: the arm's scalar loads)
+GEMM_BF16_SITES = [(32, 64, 6, 3, 6400, 64), (256, 512, 10, 5, 4, 64), (512, 64, 3, 1, 1, 64),
+                   (20, 70, 10, 5, 9, 3)]
+# (Cin, Cout, stride, input rows a stream, streams): d3u at the 64 x 16
+# dispatch (6400 input rows a stream), d0u at one frame of 64 streams, odd widths
+UPSAMPLE_BF16_SITES = [(64, 32, 3, 6400, 64), (512, 256, 5, 4, 64), (100, 36, 4, 7, 3)]
+
+
+def _cache(gen, batch, rows, channels, kind):
+    cache = _tail_view(gen, batch, rows, channels)
+    if kind == "bf16-exact":
+        cache.copy_(cache.to(BF16).float())
+    return cache
+
+
+@pytest.mark.parametrize("wd", [torch.float32, BF16])
+@pytest.mark.parametrize("leaky", [None, 0.1])
+@pytest.mark.parametrize("cache_kind", ["bf16-exact", "f32"])
+@pytest.mark.parametrize("cin,cout,k,stride,t_out,batch", GEMM_BF16_SITES)
+def test_causal_conv_bf16_gemm_arm(card, cin, cout, k, stride, t_out, batch, cache_kind,
+                                   leaky, wd):
+    cache = _cache(card, batch, k - 1, cin, cache_kind)
+    x = _randn(card, batch, t_out * stride, cin).to(BF16)
+    w = (_randn(card, k, cin, cout) / (k * cin) ** 0.5).to(wd)
+    b = _randn(card, cout)
+    got = causal_conv(cache, x, w, b, stride, leaky=leaky)
+    assert got.dtype == BF16
+    f32 = causal_conv(cache, x.float(), w, b, stride, leaky=leaky)
+    assert torch.equal(got, f32.to(BF16))
+    _held(got, causal_conv_plain(cache, x, w, b, stride, leaky=leaky), ATOL)
+
+
+@pytest.mark.parametrize("wd", [torch.float32, BF16])
+@pytest.mark.parametrize("leaky", [None, 0.1])
+@pytest.mark.parametrize("cache_kind", ["bf16-exact", "f32"])
+@pytest.mark.parametrize("cin,cout,stride,t_in,batch", UPSAMPLE_BF16_SITES)
+def test_causal_conv_transpose_bf16_arm_at_many_rows(card, cin, cout, stride, t_in, batch,
+                                                     cache_kind, leaky, wd):
+    cache = _cache(card, batch, 1, cin, cache_kind)
+    x = _randn(card, batch, t_in, cin).to(BF16)
+    w = (_randn(card, 2 * stride, cin, cout) / (2 * cin) ** 0.5).to(wd)
+    b = _randn(card, cout)
+    got = causal_conv_transpose(cache, x, w, b, stride, leaky=leaky)
+    assert got.dtype == BF16
+    f32 = causal_conv_transpose(cache, x.float(), w, b, stride, leaky=leaky)
+    assert torch.equal(got, f32.to(BF16))
+    _held(got, causal_conv_transpose_plain(cache, x, w, b, stride, leaky=leaky), ATOL)
+
+
+@pytest.mark.parametrize("kernel", ["causal_conv", "causal_conv_transpose"])
+def test_bf16_gemm_arm_on_unaligned_x(card, kernel):
+    """x at an odd bf16 offset (no 16-byte copies: the arm's scalar loads)
+    gives the bits of the same values aligned."""
+    cin, cout, stride, rows = 64, 128, 4, 100
+    flat = _randn(card, 3 * rows * stride * cin + 1).to(BF16)
+    x = flat[1:].view(3, rows * stride, cin)
+    assert x.data_ptr() % 16
+    cache = _cache(card, 3, (2 * stride - 1) if kernel == "causal_conv" else 1, cin, "f32")
+    w = (_randn(card, 2 * stride, cin, cout) / (2 * stride * cin) ** 0.5).to(BF16)
+    b = _randn(card, cout)
+    fn = causal_conv if kernel == "causal_conv" else causal_conv_transpose
+    got = fn(cache, x, w, b, stride)
+    assert torch.equal(got, fn(cache, x.clone(), w, b, stride))
+    assert torch.equal(got, fn(cache, x.float(), w, b, stride).to(BF16))
 
 
 @pytest.mark.parametrize("wd", [torch.float32, BF16])
