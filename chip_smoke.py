@@ -37,7 +37,10 @@ failure exits non-zero before the result line):
    site's (arm, tile, steps per block) plan of each path (the times of
    phase 4 log each site's plan too);
 2. hold every kernel against its plain PyTorch version at every site of the
-   three models (``residual_chain`` within CHAIN_ATOL, 2e-6), for one stream
+   three models (``residual_chain`` within CHAIN_ATOL, 2e-6; with bf16
+   weights a kernel that rounds an intermediate sum, the chain, the unit and
+   a vocoder upsample, also on exact-sum weights at that tolerance, and on
+   the models' weights by ``utils/checks.py::rounding_held``), for one stream
    at 1, 100 (the single-stream paths'
    dispatch) and 400 frames per dispatch (the receiver at 1 and 100) with f32
    and bf16 weights, and with f32 weights at every (streams, frames per
@@ -100,7 +103,8 @@ failure exits non-zero before the result line):
    PyTorch equivalent (``F.conv1d`` / ``F.conv_transpose1d`` /
    ``F.embedding_bag``, and two grouped ``F.conv1d`` calls for a HiFiGAN
    unit: yardsticks the port never calls), with CUDA events (a unit's and a
-   GEMM-arm causal_conv's bound at the split-TF32 rate it runs, the f32-core
+   GEMM-arm causal_conv's bound at the rate of its weights' products: dense
+   bf16 with bf16 weights, split TF32 with f32, the f32-core
    bound beside it), ``rvq_assign`` and ``codebook_lookup`` (and
    ``F.embedding_bag``) also as device time, CUDA events around a CUDA graph
    of the calls, since a wrapper call's host work floors their event time
@@ -399,7 +403,14 @@ from dl_speech_enhancement_tpu_torch.utils.audiodec import (
     assign_model,
     load_generator_from_checkpoint,
 )
-from dl_speech_enhancement_tpu_torch.utils.checks import moved_near_ties, rvq_near_ties
+from dl_speech_enhancement_tpu_torch.utils.checks import (
+    FLIP_RTOL,
+    ROUNDING_GAP,
+    exact_sum_weights,
+    moved_near_ties,
+    rounding_held,
+    rvq_near_ties,
+)
 from dl_speech_enhancement_tpu_torch.utils.collectives import average_gradients, pmean_values
 from dl_speech_enhancement_tpu_torch.utils.config import load_config
 from dl_speech_enhancement_tpu_torch.utils.model_factory import build_discriminator
@@ -429,28 +440,50 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 F32_FLOPS = 67e12          # H100 SXM f32 rate outside the tensor cores
 TF32_FLOPS = 495e12        # H100 SXM dense TF32 tensor-core rate
 BF16_FLOPS = 989e12        # H100 SXM dense bf16 tensor-core rate
-# hifigan_unit's products, causal_conv's on its GEMM arm and
-# causal_conv_transpose's (each phase on that arm) are split-TF32 tensor-core
-# passes: 2 with bf16 weights (exact in TF32), 3 with f32 weights. A conv
-# whose x and weights are both bf16 and that applies no activation as x loads
-# multiplies bf16 by bf16: its bound is at the dense bf16 rate (conv_rate).
-TF32_PASSES = {torch.bfloat16: 2, torch.float32: 3}
+# The tensor-core kernels' products (residual_chain, hifigan_unit, causal_conv
+# on its GEMM arm, causal_conv_transpose on each phase): with f32 weights
+# split-TF32 passes, 3 of them; with bf16 weights the reference multiplies
+# bf16 by bf16 (its operands rounded to bf16), so the least time for that
+# work is at the dense bf16 rate (gemm_rate), whatever the kernel issues.
+TF32_PASSES = {torch.float32: 3}
+
+
+def gemm_rate(wd) -> float:
+    """The peak rate of the products of a tensor-core kernel with ``wd``
+    weights: dense bf16 for bf16 weights, split TF32 for f32."""
+    return BF16_FLOPS if wd == torch.bfloat16 else TF32_FLOPS / TF32_PASSES[torch.float32]
+
+
+
 # Tolerances. Kernel vs plain: the same products summed in another order, up
 # to 2816 terms of O(1) values (a HiFiGAN unit at stage 0: 11 taps x 256
 # channels, two such sums chained, the second over rows of the first's
 # output) -> atol 1e-4 (f32 weights; measured at most 2.3e-6 on the codec's
-# 2560-term sums), and 1e-4 of the largest output (bf16 weights, widened to
-# f32 identically on both sides). hifigan_unit's split-TF32 tensor-core
-# products hold the same tolerances: emulated at a stage-0 unit they stay
-# within ~1e-6 of f64 (tests/test_torch_port_unit_plan.py).
+# 2560-term sums), and 1e-4 of the largest output (bf16 weights, the inputs
+# rounded to bf16 identically on both sides). hifigan_unit's tensor-core
+# products hold the same tolerances with f32 weights: emulated at a stage-0
+# unit they stay within ~1e-6 of f64 (tests/test_torch_port_unit_plan.py).
 # Main path in f32 vs eager (cuDNN, TF32 off) and vs the CPU: 2e-4, the JAX
 # package's flagship tolerance. bf16-weight main path vs f32 eager: weight
 # rounding (2^-9 relative) through 34 layers -> 5e-2 of the largest output.
 KERNEL_ATOL_F32 = 1e-4
 KERNEL_RTOL_BF16 = 1e-4
-# residual_chain's split-TF32 products leave ~2^-22 of each activation, so
-# the chain is held tighter, at every site and weight type: 2e-6 (emulated
-# at e3ch within 1e-6 of f64, tests/test_torch_port_chain_plan.py).
+# With bf16 weights a kernel that rounds an intermediate sum to bf16 (a
+# chain's ELU(conv1) and each later unit's ELU(x), a unit's leaky(h), a
+# vocoder upsample's product) computes a function that jumps where that sum
+# crosses a bf16 rounding midpoint, so two sum orders can round one step
+# apart and the step spreads: measured on the card (tools/flip_spread.py)
+# the plain version there and on the CPU differ by up to 1.5e-3 of the
+# largest output at the chain sites, as much as the kernel does, and as much
+# as a kernel that does not round at all. Those kernels keep the tolerances
+# above on exact-sum weights, where every sum is exact in any order, with the
+# unrounded plain version at least ROUNDING_GAP times that away; on the
+# models' weights they are held by rounding_held (utils/checks.py: within
+# FLIP_RTOL, 2^-8, of the largest output, and at most 3/4 as far from the
+# plain version as from the unrounded one in RMS).
+# residual_chain's split-TF32 products (f32 weights) leave ~2^-22 of each
+# activation, so that arm is held tighter, at every site: 2e-6 (emulated at
+# e3ch within 1e-6 of f64, tests/test_torch_port_chain_plan.py).
 CHAIN_ATOL = 2e-6
 MAIN_ATOL_F32 = 2e-4
 MAIN_RTOL_BF16 = 5e-2
@@ -753,6 +786,9 @@ class Site(NamedTuple):
     inputs: tuple | None
     rate: float = F32_FLOPS
     plan: tuple | None = None
+    step: Callable | None = None  # check_site's rounded-product step, if any
+    unrounded: Callable | None = None  # rounding_checks' plain version on f32 operands
+    exact: tuple | None = None  # rounding_checks' (run, plain, unrounded) on exact sums
 
 
 def make_rand(rng, batch):
@@ -786,9 +822,9 @@ def conv_plan(layer, batch: int, t_out: int, wd) -> tuple:
 def conv_site(name, layer, rows, stride, bias, wd, rand, batch, leaky=None, tanh=False):
     """One causal_conv launch as a Site (``leaky`` / ``tanh`` as the
     receiver's output conv fuses them; the yardstick is the bare conv). Its
-    bound counts the operations at the split-TF32 rate where the planner
-    puts it on the GEMM arm, at the f32 rate on the Cin = 1 and Cout = 1
-    arms."""
+    bound counts the operations at the rate of its weights' products where
+    the planner puts it on the GEMM arm, at the f32 rate on the Cin = 1 and
+    Cout = 1 arms."""
     cin, cout, k = layer.in_channels, layer.out_channels, layer.kernel_size
     cache, x = rand((k - 1) * layer.dilation, cin, cache=True), rand(rows, cin)
     w = conv_weight(layer, wd)
@@ -802,27 +838,32 @@ def conv_site(name, layer, rows, stride, bias, wd, rand, batch, leaky=None, tanh
                 lambda: F.conv1d(x_lib, w_lib, b, stride),
                 2.0 * batch * t_out * k * cin * cout,
                 nbytes(cache, x, w, b) + 4 * batch * t_out * cout, (cache, x),
-                TF32_FLOPS / TF32_PASSES[wd] if plan[0] == "gemm" else F32_FLOPS, plan)
+                gemm_rate(wd) if plan[0] == "gemm" else F32_FLOPS, plan)
 
 
-def upsample_site(name, layer, rows, wd, rand, batch, leaky=None):
-    """One causal_conv_transpose launch as a Site (``leaky`` as the
-    receiver's upsamples fuse it; the yardstick is the bare transposed
-    conv). Its bound counts the operations at the split-TF32 rate (each
-    phase runs on causal_conv's GEMM arm); its plan is the planner's
-    (tile, steps per block)."""
+def upsample_site(name, layer, rows, wd, rand, batch, leaky=None, rounding=None):
+    """One causal_conv_transpose launch as a Site (``leaky`` and
+    ``rounding`` as the receiver's upsamples fuse them; the yardstick is the
+    bare transposed conv). Its bound counts the operations at the rate of
+    its weights' products (each phase runs on causal_conv's GEMM arm); its
+    plan is the planner's (tile, steps per block)."""
     s, cin, cout = layer.stride, layer.in_channels, layer.out_channels
     cache, x = rand(1, cin, cache=True), rand(rows, cin)
     w, b = conv_transpose_weight(layer, wd), layer.bias.detach().float().contiguous()
     x_lib, w_lib = lib_input(cache, x), layer.weight.detach().float()
+    args = (cache, x, w, b, s, leaky, rounding)
+    checks = rounding_checks("causal_conv_transpose", causal_conv_transpose,
+                             causal_conv_transpose_plain, args) \
+        if rounding and wd == torch.bfloat16 else (None, None)
     return Site("causal_conv_transpose", name,
-                lambda: causal_conv_transpose(cache, x, w, b, s, leaky),
-                lambda: causal_conv_transpose_plain(cache, x, w, b, s, leaky),
+                lambda: causal_conv_transpose(*args),
+                lambda: causal_conv_transpose_plain(*args),
                 lambda: F.conv_transpose1d(x_lib, w_lib, b, s, s),
                 2.0 * batch * rows * s * 2 * cin * cout,
                 nbytes(cache, x, w, b) + 4 * batch * rows * s * cout, (cache, x),
-                TF32_FLOPS / TF32_PASSES[wd],
-                _upsample_plan(batch, rows, cin, cout, s, wd == torch.bfloat16))
+                gemm_rate(wd), _upsample_plan(batch, rows, cin, cout, s, wd == torch.bfloat16),
+                None if rounding != "product" else lambda ref: BF16_STEP * (ref - b).abs(),
+                *checks)
 
 
 def sites(gen, n_frames: int, wd, rng: torch.Generator, batch: int | None = None):
@@ -888,16 +929,19 @@ def conv_plans(models: dict) -> dict:
 
 def chain_site(name, blk, c, t, wd, rand, batch):
     """One residual_chain launch as a Site (no one-call yardstick exists). Its
-    bound counts the operations at the split-TF32 rate the kernel runs; its
+    bound counts the operations at the rate of its weights' products; its
     plan is the planner's (tile, cluster)."""
     cache, x = rand(chain_halo(), c, cache=True), rand(t, c)
     w1, w2 = chain_weights(blk.res_units, wd)
+    args = (cache, x, w1, w2)
+    checks = rounding_checks("residual_chain", residual_chain, residual_chain_plain, args) \
+        if wd == torch.bfloat16 else (None, None)
     return Site("residual_chain", name,
-                lambda: residual_chain(cache, x, w1, w2),
-                lambda: residual_chain_plain(cache, x, w1, w2),
+                lambda: residual_chain(*args),
+                lambda: residual_chain_plain(*args),
                 None, batch * chain_flops(c, t), nbytes(cache, x, w1, w2) + 4 * batch * t * c,
-                (cache, x), TF32_FLOPS / TF32_PASSES[wd],
-                _chain_plan(batch, t, c, DILATIONS, wd == torch.bfloat16))
+                (cache, x), gemm_rate(wd),
+                _chain_plan(batch, t, c, DILATIONS, wd == torch.bfloat16), None, *checks)
 
 
 def codec_sites(gen, tables, z_real, n_frames: int, wd, rng: torch.Generator,
@@ -933,20 +977,98 @@ def codec_sites(gen, tables, z_real, n_frames: int, wd, rng: torch.Generator,
     ]
 
 
-def check_site(kernel, site, run_kernel, run_plain, n_frames, wd) -> float:
-    """A conv or chain site's kernel against its plain version; max |err|."""
-    got, ref = run_kernel(), run_plain()
+def kernel_limit(kernel, wd, scale) -> float:
+    """A kernel's tolerance against its plain version, at weights ``wd`` and
+    the largest |output| ``scale``: with bf16 weights, for the kernels that
+    round an intermediate sum, on exact-sum weights (rounding_checks)."""
+    limit = KERNEL_ATOL_F32 if wd == torch.float32 else KERNEL_RTOL_BF16 * scale
+    return min(limit, CHAIN_ATOL) if kernel == "residual_chain" else limit
+
+
+# the argument positions of a rounding kernel's weights
+WEIGHT_ARGS = {"residual_chain": (2, 3), "hifigan_unit": (3, 5), "causal_conv_transpose": (2,)}
+
+
+def exact_weights(name, args, kwargs=None):
+    """``args`` with a rounding kernel's weights replaced by
+    utils/checks.py::exact_sum_weights of theirs (an upsample's phases each
+    reading one term of their own tap pair)."""
+    args = list(args)
+    for i in WEIGHT_ARGS[name]:
+        w = args[i]
+        if name == "residual_chain" and i == 3:  # w2 (3, C, C): one tap
+            args[i] = exact_sum_weights(w[:, None], i)[:, 0]
+        elif name == "causal_conv_transpose":
+            s = args[4] if len(args) > 4 else (kwargs or {}).get("stride", 1)
+            args[i] = exact_sum_weights(w, i, [(s - 1 - p, 2 * s - 1 - p) for p in range(s)])
+        else:
+            args[i] = exact_sum_weights(w, i)
+    return tuple(args)
+
+
+def unrounded_weights(name, args):
+    """``args`` with a rounding kernel's weights cast to f32: its plain
+    version then multiplies unrounded operands, as the port did before it
+    rounded them."""
+    return tuple(a.float() if i in WEIGHT_ARGS[name] else a for i, a in enumerate(args))
+
+
+def rounding_checks(name, fn, plain, args, kwargs=None, wrap=lambda out: out):
+    """(unrounded, exact) of a bf16-weight launch of a kernel that rounds an
+    intermediate sum: its plain version on unrounded operands, and (kernel,
+    plain, unrounded plain) on exact-sum weights, each a thunk of
+    ``wrap(output)``."""
+    kwargs = kwargs or {}
+    exact = exact_weights(name, args, kwargs)
+    loose, exact_loose = unrounded_weights(name, args), unrounded_weights(name, exact)
+    return (lambda: wrap(plain(*loose, **kwargs)),
+            (lambda: wrap(fn(*exact, **kwargs)), lambda: wrap(plain(*exact, **kwargs)),
+             lambda: wrap(plain(*exact_loose, **kwargs))))
+
+
+def check_exact(what, kernel, exact, limit_of) -> tuple[float, float]:
+    """A rounding kernel on exact-sum weights: within ``limit_of(ref)`` of
+    its plain version, with the unrounded plain version at least
+    ROUNDING_GAP times that away; returns (max |err|, that distance over
+    the tolerance)."""
+    got, ref, loose = (f().float() for f in exact)
+    torch.cuda.synchronize()
+    limit = limit_of(ref)
+    err, gap = float((got - ref).abs().max()), float((loose - ref).abs().max())
+    require(err <= limit, f"{what}: on exact-sum weights max|err| {err} > {limit}")
+    require(gap >= ROUNDING_GAP * limit, f"{what}: on exact-sum weights the unrounded "
+            f"operands are only {gap} away ({ROUNDING_GAP} x {limit} wanted)")
+    return err, gap / limit
+
+
+def check_site(st, n_frames, wd, site=None) -> float:
+    """A conv or chain Site's kernel against its plain version; max |err|.
+    A kernel that rounds an intermediate sum (``st.exact`` set, bf16
+    weights) is held by rounding_held on these weights (a rounded product's
+    one bf16 step, ``st.step(ref)``, added to its bound element by element)
+    and within its tolerance on exact-sum weights (check_exact)."""
+    kernel, site = st.kernel, site or st.site
+    got, ref = st.run(), st.plain()
     torch.cuda.synchronize()
     require(got.shape == ref.shape, f"{kernel} {site}: shape {tuple(got.shape)} "
             f"vs plain {tuple(ref.shape)}")
+    what = f"{kernel} {site} n={n_frames} {wd}"
     err = float((got - ref).abs().max())
     scale = float(ref.abs().max())
-    limit = KERNEL_ATOL_F32 if wd == torch.float32 else KERNEL_RTOL_BF16 * scale
-    if kernel == "residual_chain":
-        limit = min(limit, CHAIN_ATOL)
-    require(err <= limit, f"{kernel} {site} n={n_frames} {wd}: max|err| {err} > {limit}")
+    limit = kernel_limit(kernel, wd, scale)
+    extra = ""
+    if st.exact is not None:
+        bound = None if st.step is None else limit + st.step(ref)
+        held = rounding_held(got, ref, st.unrounded(), bound)
+        require(held["held"], f"{what}: {held}")
+        exact_err, gap = check_exact(what, kernel, st.exact,
+                                     lambda r: kernel_limit(kernel, wd, float(r.abs().max())))
+        extra = (f" rms share {held['rms_share']:.3f}; exact sums: max|err|={exact_err:.3e}, "
+                 f"unrounded {gap:.0f}x the tolerance away")
+    else:
+        require(err <= limit, f"{what}: max|err| {err} > {limit}")
     log(f"check {kernel:22s} {site:7s} frames={n_frames:<4d} {str(wd):14s} "
-        f"max|err|={err:.3e} max|ref|={scale:.3e}")
+        f"max|err|={err:.3e} max|ref|={scale:.3e}{extra}")
     return err
 
 
@@ -956,7 +1078,7 @@ def check_kernels(gen, rng):
     for n_frames in SIZES:
         for wd in (torch.float32, torch.bfloat16):
             for st in sites(gen, n_frames, wd, rng):
-                err = check_site(st.kernel, st.site, st.run, st.plain, n_frames, wd)
+                err = check_site(st, n_frames, wd)
                 worst[st.kernel] = max(worst[st.kernel], err)
     return worst
 
@@ -1014,7 +1136,7 @@ def check_codec_kernels(gen, tables, z_real, rng):
         for wd in (torch.float32, torch.bfloat16):
             for st in codec_sites(gen, tables, z_real, n_frames, wd, rng):
                 if st.kernel == "causal_conv":
-                    err = check_site(st.kernel, st.site, st.run, st.plain, n_frames, wd)
+                    err = check_site(st, n_frames, wd)
                     worst[st.kernel] = max(worst[st.kernel], err)
     return worst, ties
 
@@ -1053,8 +1175,7 @@ def check_batched_kernels(gen, codec, tables, z_real, rng):
                                                    torch.float32, rng, batch)
                           if st.inputs is not None])
         for st in layer_sites:
-            err = check_site(st.kernel, f"{st.site}x{batch}", st.run, st.plain, n_frames,
-                             torch.float32)
+            err = check_site(st, n_frames, torch.float32, f"{st.site}x{batch}")
             worst[st.kernel] = max(worst[st.kernel], err)
             check_no_leak(st)
         log(f"check batch axis streams={batch} frames={n_frames}: {len(layer_sites)} layer "
@@ -1496,7 +1617,7 @@ def unit_site(name, rb, ui, groups, rows, wd, rand, batch, slope, acc=False, sca
     ``scale`` (a MultiReceptiveField block's last unit). The yardstick is
     the unit's two dilated ``F.conv1d`` calls (grouped as the unit) on
     inputs made ready for them. Its bound counts the operations at the
-    split-TF32 rate the kernel runs (``TF32_FLOPS / TF32_PASSES``)."""
+    rate of its weights' products (``gemm_rate``)."""
     c1, c2 = rb.convs1[ui], rb.convs2[ui]
     gc, k, d = c1.out_channels, c1.kernel_size, c1.dilation
     c = gc // groups
@@ -1515,16 +1636,18 @@ def unit_site(name, rb, ui, groups, rows, wd, rand, batch, slope, acc=False, sca
     x1_lib = (a if a.dim() == 3 else a[None]).transpose(1, 2).contiguous()
     h_lib = lib_input(cache2, rand(rows, gc))
     w1_lib, w2_lib = c1.weight.detach().float(), c2.weight.detach().float()
+    args = (cache1, cache2, x, w1, b1, w2, b2, d, groups, slope, total, scale)
+    checks = rounding_checks("hifigan_unit", hifigan_unit, hifigan_unit_plain, args,
+                             wrap=both) if wd == torch.bfloat16 else (None, None)
     return Site("hifigan_unit", name,
-                lambda: both(hifigan_unit(cache1, cache2, x, w1, b1, w2, b2, d, groups, slope,
-                                          total, scale)),
-                lambda: both(hifigan_unit_plain(cache1, cache2, x, w1, b1, w2, b2, d, groups,
-                                                slope, total, scale)),
+                lambda: both(hifigan_unit(*args)),
+                lambda: both(hifigan_unit_plain(*args)),
                 lambda: (F.conv1d(x1_lib, w1_lib, b1, dilation=d, groups=groups),
                          F.conv1d(h_lib, w2_lib, b2, groups=groups)),
                 2 * 2.0 * batch * rows * k * c * gc,
                 nbytes(cache1, cache2, x, w1, b1, w2, b2, total)
-                + 4 * batch * (rows + k - 1) * gc, (cache1, x), TF32_FLOPS / TF32_PASSES[wd])
+                + 4 * batch * (rows + k - 1) * gc, (cache1, x), gemm_rate(wd), None, None,
+                *checks)
 
 
 def fusion_units(blk):
@@ -1555,7 +1678,7 @@ def vocoder_sites(voc, n_frames: int, wd, rng: torch.Generator, batch: int | Non
     slope, t = voc.negative_slope, n_frames * FRAME // voc.total_upsample
     out = [conv_site("v_in", voc.input_conv, t, 1, True, wd, rand, nb)]
     for si, (up, blk) in enumerate(zip(voc.upsamples, voc.blocks)):
-        out.append(upsample_site(f"v{si}u", up, t, wd, rand, nb, slope))
+        out.append(upsample_site(f"v{si}u", up, t, wd, rand, nb, slope, "product"))
         t *= up.stride
         for suffix, rb, ui, groups, acc, scale in fusion_units(blk):
             out.append(unit_site(f"v{si}{suffix}", rb, ui, groups, t, wd, rand, nb, slope,
@@ -1600,13 +1723,12 @@ def check_vocoder_kernels(voc, rng, batch_checks=VOCODER_BATCH_CHECKS):
     for n_frames in SIZES:
         for wd in (torch.float32, torch.bfloat16):
             for st in vocoder_sites(voc, n_frames, wd, rng):
-                err = check_site(st.kernel, st.site, st.run, st.plain, n_frames, wd)
+                err = check_site(st, n_frames, wd)
                 worst[st.kernel] = max(worst[st.kernel], err)
     for batch, n_frames in batch_checks:
         layer_sites = vocoder_sites(voc, n_frames, torch.float32, rng, batch)
         for st in layer_sites:
-            err = check_site(st.kernel, f"{st.site}x{batch}", st.run, st.plain, n_frames,
-                             torch.float32)
+            err = check_site(st, n_frames, torch.float32, f"{st.site}x{batch}")
             worst[st.kernel] = max(worst[st.kernel], err)
             check_no_leak(st)
         log(f"check receiver batch axis streams={batch} frames={n_frames}: "
@@ -3981,6 +4103,12 @@ ACT_INDEX = {"residual_chain": 1, "causal_conv": 1, "causal_conv_transpose": 1,
 def f32_arm(name, args, kwargs):
     """The call on the f32 arm: its bf16 activations (and running sum)
     widened, its output f32."""
+    a, k = widened(name, args, kwargs)
+    return KERNELS[name]["fn"](*a, **k)
+
+
+def widened(name, args, kwargs):
+    """(args, kwargs) of a call on the f32 arm (f32_arm)."""
     a, k = list(args), dict(kwargs)
     if name in ACT_INDEX:
         a[ACT_INDEX[name]] = a[ACT_INDEX[name]].float()
@@ -3990,17 +4118,14 @@ def f32_arm(name, args, kwargs):
         k["out_dtype"] = torch.float32
     if name == "codebook_lookup":
         a[3] = torch.float32
-    return KERNELS[name]["fn"](*a, **k)
+    return tuple(a), k
 
 
 def conv_rate(x, w, leaky) -> float:
     """The peak rate of a tensor-core conv's products: the dense bf16 rate
-    where x and the weights are both bf16 and no activation is applied as x
-    loads (the cache rows are widened bf16 rows then), else the split-TF32
-    passes' rate of its weights."""
-    if x.dtype == w.dtype == torch.bfloat16 and leaky is None:
-        return BF16_FLOPS
-    return TF32_FLOPS / TF32_PASSES[w.dtype]
+    with bf16 weights (its operands are rounded to bf16), else the
+    split-TF32 passes' rate."""
+    return gemm_rate(w.dtype)
 
 
 def call_work(name, args, kwargs, out) -> tuple[float, float, float]:
@@ -4015,8 +4140,7 @@ def call_work(name, args, kwargs, out) -> tuple[float, float, float]:
             moved += t.numel() * t.element_size()
     if name == "residual_chain":
         x, w = args[1], args[2]
-        return x.shape[0] * chain_flops(x.shape[2], x.shape[1]), moved, \
-            TF32_FLOPS / TF32_PASSES[w.dtype]
+        return x.shape[0] * chain_flops(x.shape[2], x.shape[1]), moved, gemm_rate(w.dtype)
     if name == "causal_conv":
         x, w = args[1], args[2]
         taps, cin, cout = w.shape
@@ -4044,8 +4168,7 @@ def call_work(name, args, kwargs, out) -> tuple[float, float, float]:
             F32_FLOPS
     w1, x = args[3], args[2]  # hifigan_unit
     taps, c, gc = w1.shape
-    return 2 * 2.0 * x.shape[0] * x.shape[1] * taps * c * gc, moved, \
-        TF32_FLOPS / TF32_PASSES[w1.dtype]
+    return 2 * 2.0 * x.shape[0] * x.shape[1] * taps * c * gc, moved, gemm_rate(w1.dtype)
 
 
 def conv_call_plan(name, args, kwargs, out) -> list:
@@ -4086,7 +4209,30 @@ def call_library(name, args, kwargs):
         codes, books_t = args[:2]
         flat, idx = books_t.reshape(-1, books_t.shape[2]), codes.long()
         return lambda: F.embedding_bag(idx, flat, mode="sum")
+    if name == "hifigan_unit":  # its two grouped dilated convs (conv2 on stand-in rows)
+        cache1, cache2, x, w1, b1, w2, b2, d, groups = args[:9]
+        slope = args[9] if len(args) > 9 else kwargs.get("slope", 0.1)
+        gc = w1.shape[2]
+        a = F.leaky_relu(torch.cat([cache1, x.float()], dim=-2), slope)
+        a = a if a.dim() == 3 else a[None]
+        a = a.repeat(1, 1, groups) if a.shape[-1] != gc else a
+        inp1 = a.transpose(1, 2).to(bf16).contiguous()
+        inp2 = lib_input(cache2, a[:, a.shape[1] - x.shape[-2]:]).to(bf16)
+        wt1, wt2 = (w.permute(2, 1, 0).to(bf16).contiguous() for w in (w1, w2))
+        b1b, b2b = (None if b is None else b.to(bf16) for b in (b1, b2))
+        return lambda: (F.conv1d(inp1, wt1, b1b, dilation=d, groups=groups),
+                        F.conv1d(inp2, wt2, b2b, groups=groups))
     return None
+
+
+def rounds_sums(name, wd, kwargs) -> bool:
+    """Whether a call rounds an intermediate sum to bf16 (see
+    rounding_checks): the chain and the unit with bf16 weights, and an
+    upsample with bf16 weights and a ``rounding``."""
+    if wd is None or wd.dtype != torch.bfloat16:
+        return False
+    return name in ("residual_chain", "hifigan_unit") or (
+        name == "causal_conv_transpose" and kwargs.get("rounding") is not None)
 
 
 def hold_calls(path, calls, tables, report, timed: set):
@@ -4125,11 +4271,29 @@ def hold_calls(path, calls, tables, report, timed: set):
             err = (got.float() - ref.float()).abs()
             scale = float(ref.float().abs().max())
             wd = None if name == "codebook_lookup" else args[3 if name == "hifigan_unit" else 2]
-            limit = (LOOKUP_ATOL if wd is None else KERNEL_ATOL_F32 if wd.dtype == torch.float32
-                     else KERNEL_RTOL_BF16 * scale)
-            if name == "residual_chain":
-                limit = min(limit, CHAIN_ATOL)
+            limit = LOOKUP_ATOL if wd is None else kernel_limit(name, wd.dtype, scale)
             bound = limit + (BF16_STEP * ref.float().abs() if got.dtype == torch.bfloat16 else 0.0)
+            rounding = kwargs.get("rounding") if wd is not None and wd.dtype == torch.bfloat16 \
+                else None  # a vocoder upsample's rounded product or output: one bf16 step
+            if name == "causal_conv_transpose" and rounding == "product":
+                bound = bound + BF16_STEP * (ref.float() - args[3]).abs()
+            elif name == "causal_conv_transpose" and rounding == "output":
+                bound = bound + BF16_STEP * ref.float().abs()
+            if rounds_sums(name, wd, kwargs):  # see rounding_checks
+                if name != "causal_conv_transpose":
+                    bound = bound - limit + FLIP_RTOL * scale
+                what = f"{path} {name} {tuple(got.shape)} {got.dtype}"
+                fn, plain = KERNELS[name]["fn"], lambda *a, **k: PLAIN_OF[name](a, k)
+                first = (lambda out: out[0]) if name == "hifigan_unit" else (lambda out: out)
+                unrounded, _ = rounding_checks(name, fn, plain, args, kwargs, first)
+                held = rounding_held(got, ref, unrounded(), bound)
+                require(held["held"], f"{what}: {held}")
+                entry["worst_rms_share"] = max(entry.get("worst_rms_share", 0.0),
+                                               held["rms_share"])
+                # on exact sums, on the f32 arm (the bf16 arm is it rounded, above)
+                _, exact = rounding_checks(name, fn, plain, *widened(name, args, kwargs), first)
+                check_exact(what, name, exact,
+                            lambda r: kernel_limit(name, wd.dtype, float(r.abs().max())))
             share = float((err / bound).max())
             require(share <= 1.0, f"{path} {name} {tuple(got.shape)} {got.dtype}: max|err| "
                     f"{float(err.max()):.3e} beyond its bound (share {share:.3f})")
@@ -4312,6 +4476,7 @@ def boundary_phase(gen, codec, vq, tables, voc, v0):
                    "boundaries, bf16 weights"
                    + (", library: cuDNN in bf16" if name.startswith("causal_conv") else ""),
             "calls_held": arm["calls"], "worst_share_of_bound": arm["worst_share"],
+            **({"worst_rms_share": arm["worst_rms_share"]} if "worst_rms_share" in arm else {}),
             "shapes": sorted(arm["shapes"]),
             **({"near_tie_rows": arm["near_tie_rows"]} if "near_tie_rows" in arm else {})})
     return by_path, report, entries

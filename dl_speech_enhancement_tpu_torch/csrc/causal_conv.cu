@@ -17,7 +17,9 @@
 //
 // With `act` = 1 every element of [cache; x] is passed through
 // LeakyReLU(`slope`) as it is read, so a layer's cache stays the tail of its
-// raw input; with `tanh_out` the epilogue writes tanh(y).
+// raw input; with `tanh_out` the epilogue writes tanh(y). With bf16 weights
+// every arm rounds each activated input element to bf16 before its product,
+// as the reference does (`v.astype(wd)`), and sums in f32.
 //
 // B independent streams run in one launch: cache (B, (k-1)*d, Cin) with stream
 // stride `cache_bs` floats (rows contiguous), x (B, T, Cin), out (B, T/s, Cout).
@@ -44,13 +46,14 @@
 //    input row feeds k output rows, and one thread reduces one output row's
 //    k*Cin products serially in (tap, channel) order.
 // 3. GEMM (every other site): operation-bound at many rows, latency-bound at
-//    few. Split-TF32 `mma.sync` tiles over fixed 64-term chunks of the
+//    few. TF32 `mma.sync` tiles (split with f32 weights, one pass on the
+//    bf16-rounded input with bf16 weights) over fixed 64-term chunks of the
 //    reduction, split over a thread-block cluster at few rows and folded in
 //    chunk order through distributed shared memory, so a stream's bits
 //    depend on the layer alone. With bf16 x the rows are staged as bf16 by
 //    cp.async and the zero low TF32 pass of widened bf16 values skipped,
-//    its lanes' columns adjacent: conv_gemm.cuh, which causal_conv_transpose.cu
-//    shares.
+//    its lanes' columns adjacent: conv_gemm.cuh, which
+//    causal_conv_transpose.cu shares.
 #include "conv_gemm.cuh"
 
 namespace dse {
@@ -58,14 +61,16 @@ namespace {
 
 constexpr int kDirectThreads = 256;
 
-template <typename XT>
+// Element c of row e of a stream's [cache; x], activated, as the product
+// takes it (rounded to bf16 with bf16 weights).
+template <typename WT, typename XT>
 __device__ __forceinline__ float conv_in(const ConvArgs& a, int b, int e, int c) {
   const int P = (a.taps - 1) * a.dil;
   const float v =
       e < P ? a.cache[(size_t)b * a.cache_bs + (size_t)e * a.Cin + c]
             : to_f(static_cast<const XT*>(a.x)[((size_t)b * a.T_out * a.stride + e - P) * a.Cin +
                                                c]);
-  return a.act ? leaky(v, a.slope) : v;
+  return mma_operand<WT>(a.act ? leaky(v, a.slope) : v);
 }
 
 // ---------------------------------------------------------------- Cin = 1
@@ -84,7 +89,7 @@ causal_conv_kernel_cin1(ConvArgs a) {
   const int b = m / a.T_out, t = m - b * a.T_out;
   float y[4] = {0.f, 0.f, 0.f, 0.f};
   for (int j = 0; j < a.taps; ++j) {
-    const float v = conv_in<XT>(a, b, t * a.stride + j * a.dil, 0);
+    const float v = conv_in<WT, XT>(a, b, t * a.stride + j * a.dil, 0);
 #pragma unroll
     for (int u = 0; u < 4; ++u)
       if (n + u < a.Cout) y[u] = fmaf(v, ws[j * a.Cout + n + u], y[u]);
@@ -121,7 +126,7 @@ causal_conv_kernel_cout1(ConvArgs a, int rows) {
   for (int i = threadIdx.x; i < a.taps * a.Cin; i += kDirectThreads) ws[i] = to_f(w[i]);
   for (int q = threadIdx.x; q < wrows * a.Cin; q += kDirectThreads) {
     const int r = q / a.Cin, c = q - r * a.Cin;
-    win[r * ld + c] = conv_in<XT>(a, b, t0 * a.stride + r, c);
+    win[r * ld + c] = conv_in<WT, XT>(a, b, t0 * a.stride + r, c);
   }
   __syncthreads();
   for (int i = threadIdx.x; i < count; i += kDirectThreads) {

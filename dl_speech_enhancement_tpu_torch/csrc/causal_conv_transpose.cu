@@ -15,7 +15,9 @@
 // `cache_bs` floats, x (B, T, Cin), out (B, T*s, Cout); x and out both f32 or
 // both bf16 (the streams' boundary dtype; bf16 x is staged as bf16 and
 // widened as read, its low TF32 pass skipped, and the output rounded as
-// stored: conv_gemm.cuh), the cache f32. With `act` = 1 every
+// stored: conv_gemm.cuh), the cache f32. With bf16 weights each input
+// element is rounded to bf16 after its activation, as the reference rounds
+// it, so every product is bf16 by bf16 in one TF32 pass. With `act` = 1 every
 // element of [cache; x] is passed through LeakyReLU(`slope`) (the vocoder's
 // LeakyReLU(0.1) before each upsample), so a stage's cache stays the tail of
 // its raw input.
@@ -25,7 +27,7 @@
 // upsample, 1,024 terms a sum). Design: phase p is exactly a causal conv of
 // 2 taps, stride 1 and dilation 1 over the one-row cache, whose rows are
 // written at stride s, offset p; so every phase runs on causal_conv's GEMM
-// arm (conv_gemm.cuh: split-TF32 `mma.sync` tiles, the 2*Cin terms cut into
+// arm (conv_gemm.cuh: TF32 `mma.sync` tiles, the 2*Cin terms cut into
 // fixed 64-term chunks, a thread-block cluster splitting the chunks at few
 // rows and folding them in chunk order through distributed shared memory)
 // with the phases on grid.y, each reading its tap pair in place from Wc and
@@ -50,27 +52,32 @@ extern "C" size_t dse_causal_conv_transpose_smem(int tile, int Cin, int Cout,
       x_bf16 ? dse::conv_side_rows(bm, T_in, dse::conv_cache_rows(2, 1, 1)) : 0);
 }
 
-// `types`: bit 0 bf16 weights (else f32), bit 1 bf16 x and out (else f32).
+// `types`: bit 0 bf16 weights (else f32), bit 1 bf16 x and out (else f32),
+// bits 2-3 the vocoder's rounding (bf16 weights only): 1 each product
+// rounded to bf16 before the bias, as JAX K4 rounds `yp.astype(wd)`
+// (ops/vocoder_kernel.py:324); 2 each output after it, as JAX K5 rounds
+// before its tiling matmul (ops/vocoder_stacked.py:253).
 extern "C" int dse_causal_conv_transpose(const float* cache, long long cache_bs,
                                          const void* x, const void* w, const float* bias,
                                          void* out, int B, int T_in, int Cin, int Cout,
                                          int stride, int act, float slope, int types, int tile,
                                          int steps_per_block, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (types & ~3) return cudaErrorInvalidValue;
+  const int round_mode = types >> 2;
+  if (types & ~15 || round_mode == 3 || (round_mode && !(types & 1))) return cudaErrorInvalidValue;
   if (B <= 0 || T_in <= 0 || Cin <= 0 || Cout <= 0 || stride <= 0 || stride > 65535 ||
       (long long)B * T_in * stride > 0x7fffffffLL)
     return cudaErrorInvalidValue;
-  const size_t smem = dse_causal_conv_transpose_smem(tile, Cin, Cout, steps_per_block, types,
+  const size_t smem = dse_causal_conv_transpose_smem(tile, Cin, Cout, steps_per_block, types & 3,
                                                      T_in);
-  if (!dse::conv_gemm_plan_ok(tile, steps_per_block, dse::conv_steps(2, Cin), types == 3) ||
+  if (!dse::conv_gemm_plan_ok(tile, steps_per_block, dse::conv_steps(2, Cin), (types & 3) == 3) ||
       smem > 232448)
     return cudaErrorInvalidValue;
   // each phase: a 2-tap conv over the one-row cache, stride 1, dilation 1
   const dse::ConvArgs a{cache, cache_bs, x, w, bias, out, B * T_in, T_in, Cin, Cout, 2, 1, 1,
-                        act, 0, slope, stride};
+                        act, 0, slope, stride, round_mode};
   using bf = __nv_bfloat16;
-  switch (types) {
+  switch (types & 3) {
     case 0: return dse::launch_conv_gemm<float, float, float, true>(a, tile, steps_per_block,
                                                                    smem, s);
     case 1: return dse::launch_conv_gemm<bf, float, float, true>(a, tile, steps_per_block, smem,

@@ -10,9 +10,13 @@
 // tap 1 lying s taps after tap 0, and writes row(m) = s*m + p, so the
 // phases are stored interleaved in place.
 //
-// Products are split-TF32 `mma.sync.m16n8k8` (tile_mma.cuh's split_tf32:
-// a_hi*w + a_lo*w with bf16 weights, which TF32 holds exactly; a_hi*w_hi +
-// a_lo*w_hi + a_hi*w_lo with f32 weights). The reduction's taps*Cin terms,
+// Products are TF32 `mma.sync.m16n8k8`. With f32 weights both operands are
+// split (tile_mma.cuh's split_tf32): a_hi*w_hi + a_lo*w_hi + a_hi*w_lo. With
+// bf16 weights the reference multiplies bf16 by bf16 (JAX rounds every
+// conv's input rows to the weight dtype, `v.astype(wd)`), so each A value is
+// rounded to bf16 as it is read, after its activation; a bf16 value times a
+// bf16 weight is exact in one TF32 pass, and the split's low pass, which
+// would add zeros, is not run. The reduction's taps*Cin terms,
 // in (tap, channel) order, are cut into fixed chunks of 64 (one step each),
 // so the cut depends on (taps, Cin) alone. The tensor core's own sum inside
 // an mma is not specified to round to nearest, so a step sums its 8-term
@@ -50,9 +54,10 @@
 // - A widened bf16 value is exact in TF32: its low split part is zero. So a
 //   16-row fragment with no side row and no activation multiplies its hi
 //   part alone (the f32 arm's a_lo*w pass would add exact zero products);
-//   elsewhere the fragment is split, and a warp vote skips the a_lo pass of
-//   an 8-term slice whose low parts are all zero (bf16-exact cache rows).
-//   LeakyReLU applies as the fragments are read.
+//   elsewhere, with f32 weights, the fragment is split, and a warp vote
+//   skips the a_lo pass of an 8-term slice whose low parts are all zero
+//   (bf16-exact cache rows); with bf16 weights it is rounded to bf16, one
+//   pass. LeakyReLU applies as the fragments are read.
 // - A step is bound by the shared-memory loads that feed the fragments, not
 //   by memory or the tensor cores (tools/conv_timing.py: a deeper ring and
 //   an L1 bypass gained nothing). So lane gid of a warp takes the FN
@@ -130,10 +135,15 @@ struct ConvArgs {
   int M, T_out, Cin, Cout, taps, stride, dil, act, tanh_out;
   float slope;
   int phases = 1;  // a transposed conv's stride: its phases, on grid.y
+  // the vocoder's upsamples round to bf16: 1 the product, before the bias
+  // (JAX K4), 2 the output, after it (JAX K5)
+  int round_mode = 0;
 };
 
 __device__ __forceinline__ float conv_out(const ConvArgs& a, int n, float v) {
-  const float y = a.bias ? v + a.bias[n] : v;
+  if (a.round_mode == 1) v = __bfloat162float(__float2bfloat16_rn(v));
+  float y = a.bias ? v + a.bias[n] : v;
+  if (a.round_mode == 2) y = __bfloat162float(__float2bfloat16_rn(y));
   return a.tanh_out ? tanhf(y) : y;
 }
 
@@ -544,6 +554,14 @@ __device__ __forceinline__ void conv_gemm_body(ConvArgs a, int steps_per_block, 
               g + 4 < r_end[mi][0] ? s0[4] : __uint_as_float((uint32_t)hp[4] << 16),
               g + 4 < r_end[mi][1] ? s1[4]
                                    : __uint_as_float((uint32_t)hp[8 * kConvLdaH + 4] << 16)};
+          if constexpr (sizeof(WT) == 2) {  // bf16 weights: the bf16 operand, one pass
+#pragma unroll
+            for (int u = 0; u < 4; ++u)
+              hi[u] = __float_as_uint(mma_operand<WT>(a.act ? leaky(v[u], a.slope) : v[u]));
+#pragma unroll
+            for (int f = 0; f < FN; ++f) mma_tf32(part[mi][f], hi, bh[f][0], bh[f][1]);
+            continue;
+          }
 #pragma unroll
           for (int u = 0; u < 4; ++u) {
             if (a.act) v[u] = leaky(v[u], a.slope);
@@ -562,6 +580,15 @@ __device__ __forceinline__ void conv_gemm_body(ConvArgs a, int steps_per_block, 
           }
         } else {
           const float* ap = at + (m_w + mi * 16 + gid) * kConvLda + kk * 8 + tig;
+          if constexpr (sizeof(WT) == 2) {  // bf16 weights: the bf16 operand, one pass
+            hi[0] = __float_as_uint(mma_operand<WT>(ap[0]));
+            hi[1] = __float_as_uint(mma_operand<WT>(ap[8 * kConvLda]));
+            hi[2] = __float_as_uint(mma_operand<WT>(ap[4]));
+            hi[3] = __float_as_uint(mma_operand<WT>(ap[8 * kConvLda + 4]));
+#pragma unroll
+            for (int f = 0; f < FN; ++f) mma_tf32(part[mi][f], hi, bh[f][0], bh[f][1]);
+            continue;
+          }
           split_tf32(ap[0], hi[0], lo[0]);
           split_tf32(ap[8 * kConvLda], hi[1], lo[1]);
           split_tf32(ap[4], hi[2], lo[2]);

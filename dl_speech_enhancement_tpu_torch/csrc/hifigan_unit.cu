@@ -30,9 +30,15 @@
 // grouped layout, so group g's columns are a column tile of the tap GEMM.
 //
 // x, acc and out are all f32 or all bf16 (AT, the streams' boundary dtype,
-// ops/mega_stacked.py): x is widened to f32 as it is staged (by the threads'
-// own loads where bf16: cp.async cannot widen), every sum is f32, and the
-// epilogue rounds what it stores. Both caches stay f32.
+// ops/mega_stacked.py): x is widened to f32 as it is staged, every sum is
+// f32, and the epilogue rounds what it stores. Both caches stay f32.
+//
+// Weights are f32 or bf16 (WT). With bf16 weights the reference multiplies
+// bf16 by bf16: it rounds leaky(x_ext1) before conv1 and leaky(h_ext),
+// cache rows too, before conv2 (JAX ops/vocoder_kernel.py:383,387), and so
+// does this kernel: its two windows hold bf16 (half the f32 arm's bytes, h
+// exchanged between blocks in bf16) and its products are bf16
+// `mma.sync.m16n8k16` (tile_mma.cuh). The next cache2 keeps the f32 h.
 //
 // Caches: cache1 (B, (k-1)*d, Cin) is the tail of the raw unit input (leaky is
 // applied on load), so the caller's next cache1 is a view of x (widened to f32
@@ -49,7 +55,10 @@
 // tile, group); a tile never spans two streams. Block r of the cluster owns
 // the group's columns [r*c/n, (r+1)*c/n):
 // - it stages the tile's leaky input window (tile + k - 1 rows of h, each
-//   reaching back (k-1)*d rows) into shared memory with cp.async;
+//   reaching back (k-1)*d rows) into shared memory: with f32 weights by
+//   cp.async (activated in place once landed), with bf16 weights by the
+//   threads' loads, activated and rounded, while the first weight tiles
+//   are in flight;
 // - GEMM 1 (tile_mma.cuh) computes its columns of h for the tile's rows and
 //   the k - 1 rows before them (recomputed by the neighbouring tile), taking
 //   rows before the stream's start from cache2, and writes its slice of the
@@ -57,7 +66,8 @@
 // - after cluster.sync() it copies the peers' h columns once through
 //   distributed shared memory, so GEMM 2 reads the whole h window locally;
 // - GEMM 2 computes its output columns with the bias, residual and
-//   accumulate epilogue.
+//   accumulate epilogue, the residual x read from its own columns of the
+//   tile, staged by cp.async where the input window was.
 // Columns are split, never the channel sum, and the sum's order is fixed by
 // (tap, channel), so every (tile, cluster) plan gives the same bits. The host
 // picks the plan (ops/vocoder_kernel.py::_unit_plan, whose shared-memory
@@ -69,13 +79,20 @@
 namespace cg = cooperative_groups;
 
 namespace dse {
+// Internal linkage: the launchers' static state (the shared memory each
+// kernel was allowed) stays this library's when another build of the file
+// is loaded in the same process (tools/unit_timing.py --parent).
+namespace {
 
 constexpr int kMaxUnitCluster = 8;
 
 __host__ __device__ inline int round16(int n) { return (n + 15) / 16 * 16; }
-// Row stride of the windows: c rounded up to 8 (zeros past c), plus 4 so
-// that the 8 rows of an A fragment start in 8 different bank quads.
-__host__ __device__ inline int unit_lda(int c) { return (c + 7) / 8 * 8 + 4; }
+// Row stride of the windows: f32, c rounded up to 8 (zeros past c), plus 4
+// so that the 8 rows of an A fragment start in 8 different bank quads; bf16,
+// c rounded up to 16, plus 8 (16-byte ldmatrix rows in 8 bank quads).
+__host__ __device__ inline int unit_lda(int c, int bf16) {
+  return bf16 ? (c + 15) / 16 * 16 + 8 : (c + 7) / 8 * 8 + 4;
+}
 // Rows of the staged input window and of the h window for a tile of `tile` rows.
 __host__ __device__ inline int unit_x_rows(int tile, int taps, int dil) {
   return round16(tile + taps - 1) + (taps - 1) * dil;
@@ -84,9 +101,22 @@ __host__ __device__ inline int unit_h_rows(int tile, int taps) {
   return round16(tile) + taps - 1;
 }
 inline int unit_nf(int nc) { return nc <= 8 ? 1 : nc <= 16 ? 2 : nc <= 32 ? 4 : 8; }
-// Row fragments per warp: 2 once GEMM 1's window outgrows one chunk of 1.
-inline int unit_wm(int tile, int taps, int nf) {
-  return round16(tile + taps - 1) > 16 * (kWarps / (nf < 4 ? nf : 4)) ? 2 : 1;
+// Row fragments per warp: 2 once GEMM 1's window outgrows one chunk of 1;
+// with bf16 weights (half the accumulating fragments) 4 once it outgrows
+// two, so that a step's barrier is paid for more rows.
+inline int unit_wm(int tile, int taps, int nf, int bf16) {
+  const int rows = round16(tile + taps - 1), chunk = 16 * (kWarps / (nf < 4 ? nf : 4));
+  return rows <= chunk ? 1 : bf16 && rows > 2 * chunk ? 4 : 2;
+}
+
+// Bytes of the input window region: the leaky input window in the weights'
+// type, or, once GEMM 1 is done, the tile's residual x (AT) of a block's nc
+// columns, whichever is larger.
+__host__ __device__ inline size_t unit_x_bytes(int tile, int c, int taps, int dil, int nc,
+                                               int bf16, int x_bf16) {
+  const size_t window = (size_t)unit_x_rows(tile, taps, dil) * unit_lda(c, bf16) * (bf16 ? 2 : 4);
+  const size_t residual = (size_t)tile * nc * (x_bf16 ? 2 : 4);
+  return ((window > residual ? window : residual) + 15) / 16 * 16;  // H starts 16-byte aligned
 }
 
 template <int NF, int WM, typename WT, typename AT>
@@ -99,16 +129,21 @@ hifigan_unit_kernel(const float* __restrict__ cache1, long long c1_bs,
                     float out_scale, AT* __restrict__ out,
                     float* __restrict__ new_cache2, int T, int c, int groups, int in_gstride,
                     int Cin, int taps, int dil, int tile, float slope) {
+  using E = WT;  // the windows' type: what the products multiply
+  constexpr int kBf16 = sizeof(E) == 2;
   extern __shared__ __align__(16) unsigned char smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int n_blocks = (int)cluster.num_blocks();
   const int rank = (int)cluster.block_rank();
   const int nc = c / n_blocks;  // columns of the group this block computes
   const int col0 = rank * nc;
-  const int lda = unit_lda(c), kp = lda - 4;
+  const int lda = unit_lda(c, kBf16), kp = lda - (kBf16 ? 8 : 4);
   WT* ring = reinterpret_cast<WT*>(smem);
-  float* X = reinterpret_cast<float*>(smem + ring_bytes<NF, WT>());  // leaky input window
-  float* H = X + (size_t)unit_x_rows(tile, taps, dil) * lda;  // h_ext rows [t0-k+1, t0+count)
+  unsigned char* x_region = smem + ring_bytes<NF, WT>();
+  E* X = reinterpret_cast<E*>(x_region);  // leaky input window
+  AT* XR = reinterpret_cast<AT*>(x_region);  // then the residual tile, count x nc
+  E* H = reinterpret_cast<E*>(  // h_ext rows [t0-k+1, t0+count)
+      x_region + unit_x_bytes(tile, c, taps, dil, nc, kBf16, sizeof(AT) == 2));
   const int n_tiles = (T + tile - 1) / tile;
   const int cl = blockIdx.x / n_blocks;
   const int g = cl % groups;
@@ -127,6 +162,7 @@ hifigan_unit_kernel(const float* __restrict__ cache1, long long c1_bs,
   x += (size_t)b * T * Cin;
   out += (size_t)b * T * gc;
   if (acc) acc += (size_t)b * T * gc;
+  float* nc2 = t0 + count == T ? new_cache2 + (size_t)b * ctx2 * gc + n0 : nullptr;
 
   // The input window: row i is x_ext1 row hs + i (zeros outside the stream
   // and in the channel padding), all c channels of the group.
@@ -134,71 +170,129 @@ hifigan_unit_kernel(const float* __restrict__ cache1, long long c1_bs,
   const bool x_vec = reinterpret_cast<uintptr_t>(cache1) % 16 == 0 &&
                      reinterpret_cast<uintptr_t>(x) % (4 * sizeof(AT)) == 0 && c1_bs % 4 == 0 &&
                      Cin % 4 == 0 && ch0 % 4 == 0;
-  for (int q = threadIdx.x * (x_vec ? 4 : 1); q < x_elems; q += kThreads * (x_vec ? 4 : 1)) {
-    const int i = q / kp, ch = q - i * kp, e = hs + i;
-    const bool ok = ch < c && e >= 0 && e < P1 + T;
-    if (sizeof(AT) == 2 && ok && e >= P1) {  // bf16 rows of x: widened by this thread
-      const AT* xs = x + (size_t)(e - P1) * Cin + ch0 + ch;
-      if (x_vec)
-        *reinterpret_cast<float4*>(X + i * lda + ch) = load4(xs);
+  const int step = x_vec ? 4 : 1;
+  // f32 weights: cp.async now (bf16 rows of x widened by this thread, as
+  // cp.async cannot widen), activated in place once landed
+  if constexpr (!kBf16) {
+    for (int q = threadIdx.x * step; q < x_elems; q += kThreads * step) {
+      const int i = q / kp, ch = q - i * kp, e = hs + i;
+      const bool ok = ch < c && e >= 0 && e < P1 + T;
+      if (sizeof(AT) == 2 && ok && e >= P1) {
+        const AT* xs = x + (size_t)(e - P1) * Cin + ch0 + ch;
+        if (x_vec)
+          *reinterpret_cast<float4*>(X + i * lda + ch) = load4(xs);
+        else
+          X[i * lda + ch] = to_f(*xs);
+        continue;
+      }
+      const float* src = !ok ? cache1
+                         : e < P1 ? cache1 + (size_t)e * Cin + ch0 + ch
+                                  : reinterpret_cast<const float*>(x) + (size_t)(e - P1) * Cin +
+                                        ch0 + ch;
+      if (x_vec)  // 4 channels at once: c is a multiple of 4
+        cp_async<16>(X + i * lda + ch, src, ok ? 16 : 0);
       else
-        X[i * lda + ch] = to_f(*xs);
-      continue;
+        cp_async<4>(X + i * lda + ch, src, ok ? 4 : 0);
     }
-    const float* src = !ok ? cache1
-                       : e < P1 ? cache1 + (size_t)e * Cin + ch0 + ch
-                                : reinterpret_cast<const float*>(x) + (size_t)(e - P1) * Cin +
-                                      ch0 + ch;
-    if (x_vec)  // 4 channels at once: c is a multiple of 4
-      cp_async<16>(X + i * lda + ch, src, ok ? 16 : 0);
-    else
-      cp_async<4>(X + i * lda + ch, src, ok ? 4 : 0);
+    cp_async_commit();
   }
-  cp_async_commit();
   if (kp != c)  // GEMM 2 reads h's channel padding: zeros
     for (int q = threadIdx.x; q < unit_h_rows(tile, taps) * (kp - c); q += kThreads)
-      H[(q / (kp - c)) * lda + c + q % (kp - c)] = 0.f;
+      H[(q / (kp - c)) * lda + c + q % (kp - c)] = E(0.f);
 
   mma_tap_gemm<NF, WM, WT>(
       M1, taps, dil, c, X, lda, w1 + n0, (long long)c * gc, gc, nc, ring,
-      [&] {  // each thread activates the window elements it copied
-        for (int q = threadIdx.x * (x_vec ? 4 : 1); q < x_elems;
-             q += kThreads * (x_vec ? 4 : 1)) {
-          float* v = X + (q / kp) * lda + q % kp;
-          for (int u = 0; u < (x_vec ? 4 : 1); ++u) v[u] = leaky(v[u], slope);
+      [&] {  // f32 weights: each thread activates the window elements it copied
+        if constexpr (!kBf16) {
+          for (int q = threadIdx.x * step; q < x_elems; q += kThreads * step) {
+            float* v = X + (q / kp) * lda + q % kp;
+            for (int u = 0; u < step; ++u) v[u] = leaky(v[u], slope);
+          }
         }
       },
       [&](int m, int n, float v) {
         const int tp = hs + m;
-        H[m * lda + col0 + n] = tp >= 0 ? leaky(b1 ? v + b1[n0 + n] : v, slope)
-                                        : cache2[(size_t)(tp + ctx2) * gc + n0 + n];
+        const float h = tp >= 0 ? leaky(b1 ? v + b1[n0 + n] : v, slope)
+                                : cache2[(size_t)(tp + ctx2) * gc + n0 + n];
+        H[m * lda + col0 + n] = from_f<E>(h);
+        if (nc2 && m >= count)  // the stream's last tile holds the next cache2, in f32
+          nc2[(size_t)(m - count) * gc + n] = h;
+      },
+      [&] {  // bf16 weights: the window by this thread's loads, activated and rounded
+        if constexpr (kBf16) {
+          if (x_vec) {  // kLoads float4 loads in flight before their stores
+            constexpr int kLoads = 4;
+            for (int q0 = threadIdx.x * 4; q0 < x_elems; q0 += kThreads * 4 * kLoads) {
+              float4 v[kLoads];
+#pragma unroll
+              for (int u = 0; u < kLoads; ++u) {
+                const int q = q0 + u * kThreads * 4, i = q / kp, ch = q - i * kp, e = hs + i;
+                v[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+                if (q < x_elems && ch < c && e >= 0 && e < P1 + T)
+                  v[u] = e < P1 ? load4(cache1 + (size_t)e * Cin + ch0 + ch)
+                                : load4(x + (size_t)(e - P1) * Cin + ch0 + ch);
+              }
+#pragma unroll
+              for (int u = 0; u < kLoads; ++u) {
+                const int q = q0 + u * kThreads * 4, i = q / kp, ch = q - i * kp;
+                if (q < x_elems)
+                  store4(X + i * lda + ch,
+                         make_float4(leaky(v[u].x, slope), leaky(v[u].y, slope),
+                                     leaky(v[u].z, slope), leaky(v[u].w, slope)));
+              }
+            }
+            return;
+          }
+          for (int q = threadIdx.x; q < x_elems; q += kThreads) {
+            const int i = q / kp, ch = q - i * kp, e = hs + i;
+            const bool ok = ch < c && e >= 0 && e < P1 + T;
+            const float v = !ok ? 0.f
+                            : e < P1 ? cache1[(size_t)e * Cin + ch0 + ch]
+                                     : to_f(x[(size_t)(e - P1) * Cin + ch0 + ch]);
+            X[i * lda + ch] = from_f<E>(leaky(v, slope));
+          }
+        }
       });
   cluster.sync();  // every block's h columns are in its shared memory
 
-  if (t0 + count == T) {  // the stream's last tile holds the next cache2
-    float* nc2 = new_cache2 + (size_t)b * ctx2 * gc + n0;
-    for (int e = threadIdx.x; e < ctx2 * nc; e += kThreads) {
-      const int r = e / nc;
-      nc2[(size_t)r * gc + e - r * nc] = H[(count + r) * lda + col0 + e - r * nc];
-    }
-  }
-  const int vecs = nc / 4;  // float4 per row of a peer's slice
+  constexpr int kQuad = 4 * sizeof(E);  // bytes of 4 h elements
+  const int vecs = nc / 4;  // 4-element pieces per row of a peer's slice
   for (int e = threadIdx.x; e < (n_blocks - 1) * M1 * vecs; e += kThreads) {
     const int p = e / (M1 * vecs), rest = e - p * M1 * vecs;
     const int peer = p < rank ? p : p + 1;
     const int m = rest / vecs, off = m * lda + peer * nc + (rest - m * vecs) * 4;
-    const float* src = cluster.map_shared_rank(H, peer);
-    *reinterpret_cast<float4*>(H + off) = *reinterpret_cast<const float4*>(src + off);
+    const E* src = cluster.map_shared_rank(H, peer);
+    if constexpr (kQuad == 16)
+      *reinterpret_cast<float4*>(H + off) = *reinterpret_cast<const float4*>(src + off);
+    else
+      *reinterpret_cast<uint2*>(H + off) = *reinterpret_cast<const uint2*>(src + off);
   }
   cluster.sync();  // the whole h window is local; no block reads a peer from here on
 
+  // the residual: this block's columns of the tile's x rows, where the input
+  // window was (GEMM 1 is done with it)
+  const bool r_vec = reinterpret_cast<uintptr_t>(x) % (4 * sizeof(AT)) == 0 && Cin % 4 == 0 &&
+                     ch0 % 4 == 0;
   mma_tap_gemm<NF, WM, WT>(
       count, taps, 1, c, H, lda, w2 + n0, (long long)c * gc, gc, nc, ring, [] {},
       [&](int m, int n, float v) {
-        const int t = t0 + m;
-        const float y = to_f(x[(size_t)t * Cin + ch0 + col0 + n]) + (b2 ? v + b2[n0 + n] : v);
-        const size_t o = (size_t)t * gc + n0 + n;
+        const float y = to_f(XR[m * nc + n]) + (b2 ? v + b2[n0 + n] : v);
+        const size_t o = (size_t)(t0 + m) * gc + n0 + n;
         out[o] = from_f<AT>((acc ? to_f(acc[o]) + y : y) * out_scale);
+      },
+      [&] {
+        for (int q = threadIdx.x * 4; q < count * nc; q += kThreads * 4) {
+          const int r = q / nc, col = q - r * nc;
+          const AT* src = x + (size_t)(t0 + r) * Cin + ch0 + col0 + col;
+          if (r_vec) {
+            cp_async<4 * (int)sizeof(AT)>(XR + q, src, 4 * (int)sizeof(AT));
+          } else {
+#pragma unroll
+            for (int u = 0; u < 4; ++u) XR[q + u] = src[u];
+          }
+        }
+        cp_async_commit();
+        cp_async_wait<0>();
       });
 }
 
@@ -246,6 +340,16 @@ cudaError_t launch_plan(int nf, int wm, const float* cache1, long long c1_bs, co
                          new_cache2, B, T, c, groups, in_gstride, Cin, taps, dil, tile, cluster,
                          slope, smem, s);
   };
+  if constexpr (sizeof(WT) == 2) {  // 4 row fragments a warp: bf16 weights alone
+    if (wm == 4) {
+      switch (nf) {
+        case 1: return go(launch<1, 4, WT, AT>);
+        case 2: return go(launch<2, 4, WT, AT>);
+        case 4: return go(launch<4, 4, WT, AT>);
+        default: return go(launch<8, 4, WT, AT>);
+      }
+    }
+  }
   switch (nf * 2 + wm - 1) {
     case 2: return go(launch<1, 1, WT, AT>);
     case 3: return go(launch<1, 2, WT, AT>);
@@ -258,17 +362,22 @@ cudaError_t launch_plan(int nf, int wm, const float* cache1, long long c1_bs, co
   }
 }
 
+}  // namespace
 }  // namespace dse
 
 // Shared memory one block needs for a tile of `tile` output rows when a
-// cluster of `cluster` blocks splits the c columns of a group: the W ring,
-// the input window and the h window.
+// cluster of `cluster` blocks splits the c columns of a group, for `types`
+// (bit 0 bf16 weights, bit 1 bf16 x): the W ring, the input window (or the
+// residual tile, whichever is larger) and the h window, the windows in the
+// weights' type.
 extern "C" size_t dse_hifigan_unit_smem(int tile, int c, int taps, int dil, int cluster,
-                                        int bf16) {
+                                        int types) {
+  const int bf16 = types & 1, x_bf16 = (types >> 1) & 1;
   const int nf = dse::unit_nf(c / cluster);
-  const size_t ring = (size_t)dse::kStages * dse::kKC * (8 * nf + 8) * (bf16 ? 2 : 4);
-  return ring + sizeof(float) * (size_t)dse::unit_lda(c) *
-                    (dse::unit_x_rows(tile, taps, dil) + dse::unit_h_rows(tile, taps));
+  const size_t e = bf16 ? 2 : 4;  // bytes of a window element
+  const size_t ring = (size_t)dse::kStages * dse::kKC * (8 * nf + 8) * e;
+  return ring + dse::unit_x_bytes(tile, c, taps, dil, c / cluster, bf16, x_bf16) +
+         e * (size_t)dse::unit_lda(c, bf16) * dse::unit_h_rows(tile, taps);
 }
 
 // `types`: bit 0 bf16 weights (else f32), bit 1 bf16 x, acc and out (else f32).
@@ -288,12 +397,12 @@ extern "C" int dse_hifigan_unit(const float* cache1, long long c1_bs, const floa
       (long long)B * ((T + tile - 1) / tile) * groups * cluster > 0x7fffffffLL ||
       (long long)B * T * groups * c > 0x7fffffffLL)
     return cudaErrorInvalidValue;
-  const size_t smem = dse_hifigan_unit_smem(tile, c, taps, dil, cluster, bf16);
+  const size_t smem = dse_hifigan_unit_smem(tile, c, taps, dil, cluster, types);
   if (smem > 232448) return cudaErrorInvalidValue;
   const int in_gstride = tiled ? 0 : c;
   const int Cin = tiled ? c : groups * c;
   const int nf = dse::unit_nf(c / cluster);
-  const int wm = dse::unit_wm(tile, taps, nf);
+  const int wm = dse::unit_wm(tile, taps, nf, bf16);
   auto go = [&](auto launch_plan) {
     return launch_plan(nf, wm, cache1, c1_bs, cache2, c2_bs, x, w1, b1, w2, b2, acc, out_scale,
                        out, new_cache2, B, T, c, groups, in_gstride, Cin, taps, dil, tile,

@@ -50,6 +50,16 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
   *reinterpret_cast<uint2*>(p) = u;
 }
 
+// A GEMM operand as the reference multiplies it with weights of type WT:
+// rounded to bf16, to nearest even, where the weights are bf16 (the JAX
+// kernels' jnp.dot(a.astype(wd), w, preferred_element_type=f32)), as it is
+// where they are f32.
+template <typename WT>
+__device__ __forceinline__ float mma_operand(float v) {
+  if constexpr (sizeof(WT) == 2) return __bfloat162float(__float2bfloat16_rn(v));
+  else return v;
+}
+
 // ELU as the reference kernels write it: exp(min(x, 0)) - 1 below zero.
 __device__ __forceinline__ float elu(float x) {
   return x > 0.f ? x : expf(fminf(x, 0.f)) - 1.f;

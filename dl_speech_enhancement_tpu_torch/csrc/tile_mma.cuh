@@ -3,25 +3,34 @@
 //
 //     out[m][n] = sum_{j < taps} sum_{ci < K} A[(m + j * a_step) * lda + ci] * W_j[ci][n]
 //
-// A is an f32 window in shared memory (a dilated conv reads it at a_step =
+// A is a window in shared memory (a dilated conv reads it at a_step =
 // dilation, conv2 at 1); W_j is tap j's (K, ldw_g) row-major weights in
-// device memory, f32 or bf16, of which the block computes `ncols` columns.
+// device memory, of which the block computes `ncols` columns. Two arms, by
+// the weights' type:
 //
-// Products: `mma.sync.aligned.m16n8k8` with TF32 operands and f32 sums. A
-// single TF32 pass rounds each operand at 2^-11, ~1e-3 over a 2,816-term
-// stage-0 sum (tests/test_torch_port_unit_plan.py emulates it), far above
-// the 1e-4 the kernel is held to, so operands are split instead: a = a_hi +
-// a_lo with a_hi = rna_tf32(a), a_lo = rna_tf32(a - a_hi), which leaves
-// ~2^-22 of a.
-// - bf16 weights are exact in TF32: a_hi*w + a_lo*w, 2 passes;
-// - f32 weights are split too: a_hi*w_hi + a_lo*w_hi + a_hi*w_lo, 3 passes.
-// The tensor core's own sum inside one mma is not specified to round to
+// f32 weights, f32 window: `mma.sync.aligned.m16n8k8` with TF32 operands
+// and f32 sums. A single TF32 pass rounds each operand at 2^-11, ~1e-3 over
+// a 2,816-term stage-0 sum (tests/test_torch_port_unit_plan.py emulates
+// it), far above the 1e-4 the kernel is held to, so both operands are split:
+// a = a_hi + a_lo with a_hi = rna_tf32(a), a_lo = rna_tf32(a - a_hi), which
+// leaves ~2^-22 of a, and a_hi*w_hi + a_lo*w_hi + a_hi*w_lo, 3 passes. The
+// tensor core's own sum inside one mma is not specified to round to
 // nearest, so each (tap, 64-channel) step sums into fresh fragments (big:
 // a_hi*w_hi, small: the rest; each split into even and odd 8-channel
 // slices), and the running f32 sum then takes acc + ((big_even + big_odd) +
 // (small_even + small_odd)) with round-to-nearest adds: the order of every
 // output element's sum is fixed by (tap, channel) alone, whatever the
 // block's rows and columns are, so two plans give the same bits.
+//
+// bf16 weights, bf16 window: the reference multiplies bf16 by bf16 (its
+// operands rounded to the weight dtype) with f32 sums, so the caller's
+// window holds the rounded operands and each product is one
+// `mma.sync.aligned.m16n8k16` with bf16 operands and an f32 accumulator,
+// at the dense bf16 rate: A fragments by `ldmatrix.x4` from the row-major
+// window (channels contiguous, the k of the product), B fragments by
+// `ldmatrix.trans` from the ring's (k, n) rows. A step's four 16-channel
+// slices go into fresh even and odd fragments, and the running f32 sum
+// takes acc + (even + odd): again an order fixed by (tap, channel) alone.
 //
 // Warps: 8, as a kWarpsM x kWarpsN grid of (16 * WM)-row x (8 * kWN)-column
 // warp tiles; a block tile is BM = 16 * WM * kWarpsM rows by BN = 8 * NF
@@ -44,9 +53,9 @@ constexpr int kKC = 64;     // input channels per ring stage: one barrier per 64
 constexpr int kStages = 4;  // W ring depth: 3 tiles in flight cover the L2 latency
 
 // NF 8-column fragments across the block (1, 2, 4 or 8), WM 16-row
-// fragments per warp (1 or 2). kRows puts the warps along the rows first
-// (one warp column, two for NF 8), so that each warp splits an A fragment
-// for all of its columns at once rather than its share of them.
+// fragments per warp (1, 2 or 4). kRows puts the warps along the rows first
+// (one warp column, two for NF 8), so that each warp loads (and splits) an A
+// fragment for all of its columns at once rather than its share of them.
 template <int NF, int WM, bool kRows = false>
 struct MmaTile {
   static constexpr int kWarpsN = kRows ? (NF < 8 ? 1 : 2) : NF < 4 ? NF : 4;
@@ -77,6 +86,38 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// d += a (16 x 16, bf16, row) * b (16 x 8, bf16, col), f32 sums.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four 8 x 8 bf16 matrices from shared memory, lanes 8i .. 8i + 7 giving
+// the 16-byte rows of matrix i; r[i] is this lane's pair of matrix i (row
+// lane / 4, columns 2 * (lane % 4) and the next). With .trans the pair is
+// of column lane / 4, rows 2 * (lane % 4) and the next.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t& r0, uint32_t& r1, const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r0), "=r"(r1)
+               : "r"(a));
+}
+
 // Copies `bytes` (4, 8 or 16) from global to shared memory without the
 // registers; with src_bytes 0 it writes zeros and reads nothing.
 template <int bytes>
@@ -100,12 +141,13 @@ __host__ __device__ constexpr int ring_bytes() {
 }
 
 // Computes out rows [0, M) and columns [0, ncols) and hands each result to
-// epi(m, n, value). A has zeros in columns [K, K rounded up to 8) and rows
-// up to M rounded up to 16 plus (taps - 1) * a_step (what they hold there
-// only reaches rows >= M). w points at tap 0, input channel 0, the block's
-// first column; tap j starts w_tap elements later, a channel ldw_g later;
-// its rows and the block's columns are 16-byte aligned (ncols a multiple of
-// 4). `ring` holds ring_bytes<NF, WT>(). Cp.async groups the caller
+// epi(m, n, value). A (AE: f32 with f32 weights, bf16 with bf16 weights) has
+// zeros in columns [K, K rounded up to 8 (f32) or 16 (bf16)) and rows up to M
+// rounded up to 16 plus (taps - 1) * a_step (what they hold there only
+// reaches rows >= M); a bf16 window's rows are 16-byte aligned. w points
+// at tap 0, input channel 0, the block's first column; tap j starts w_tap
+// elements later, a channel ldw_g later; its rows and the block's columns
+// are 16-byte aligned (ncols a multiple of 4). `ring` holds ring_bytes<NF, WT>(). Cp.async groups the caller
 // committed before the call land before the first product, after which
 // `ready()` runs in every thread (the caller's own copies are then visible
 // to it). `prologue()`, if given, runs in every thread once the first ring
@@ -116,10 +158,10 @@ struct NoPrologue {
   __device__ void operator()() const {}
 };
 
-template <int NF, int WM, typename WT, bool kRows = false, typename Ready, typename Epi,
-          typename Prologue = NoPrologue>
+template <int NF, int WM, typename WT, bool kRows = false, typename AE, typename Ready,
+          typename Epi, typename Prologue = NoPrologue>
 __device__ __forceinline__ void mma_tap_gemm(int M, int taps, int a_step, int K,
-                                             const float* A, int lda, const WT* w,
+                                             const AE* A, int lda, const WT* w,
                                              long long w_tap, int ldw_g, int ncols, WT* ring,
                                              Ready ready, Epi epi,
                                              Prologue prologue = Prologue()) {
@@ -190,7 +232,57 @@ __device__ __forceinline__ void mma_tap_gemm(int M, int taps, int a_step, int K,
       }
       __syncthreads();  // this step's tile is in; the stage loaded next is free
       load();
-      if (live[0]) {
+      if constexpr (sizeof(AE) == 2) {
+        static_assert(sizeof(WT) == 2, "a bf16 window takes bf16 weights");
+        if (live[0]) {
+          const WT* Ws = ring + stage * kKC * T::LDW;
+          // this lane's ldmatrix rows: A row lane % 16 of a fragment at
+          // channel 8 * (lane / 16); W k row lane % 16 at column 8 * (lane / 16)
+          const AE* a_row =
+              A + (size_t)(m_warp + lane % 16 + j * a_step) * lda + c0 + lane / 16 * 8;
+          const WT* w_row = Ws + (lane % 16) * T::LDW + wn * T::kWN * 8 + lane / 16 * 8;
+          float part[2][WM][T::kWN][4];  // even and odd 16-channel slices
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+#pragma unroll
+            for (int mi = 0; mi < WM; ++mi)
+#pragma unroll
+              for (int f = 0; f < T::kWN; ++f)
+#pragma unroll
+                for (int i = 0; i < 4; ++i) part[e][mi][f][i] = 0.f;
+          const int k16 = min(kKC, K - c0 + 15) / 16;  // 16-channel slices left in K
+#pragma unroll
+          for (int kk = 0; kk < kKC / 16; ++kk) {
+            if (kk >= k16) break;
+            uint32_t b[T::kWN][2];
+#pragma unroll
+            for (int f = 0; f < T::kWN; f += 2) {
+              if constexpr (T::kWN == 1) {
+                ldmatrix_x2_trans(b[0][0], b[0][1], w_row + kk * 16 * T::LDW);
+              } else {  // fragments f and f + 1 in one load
+                uint32_t r[4];
+                ldmatrix_x4_trans(r, w_row + kk * 16 * T::LDW + f * 8);
+                b[f][0] = r[0], b[f][1] = r[1], b[f + 1][0] = r[2], b[f + 1][1] = r[3];
+              }
+            }
+#pragma unroll
+            for (int mi = 0; mi < WM; ++mi) {
+              if (mi > 0 && !live[mi]) continue;
+              uint32_t a[4];
+              ldmatrix_x4(a, a_row + (size_t)mi * 16 * lda + kk * 16);
+#pragma unroll
+              for (int f = 0; f < T::kWN; ++f) mma_bf16(part[kk % 2][mi][f], a, b[f][0], b[f][1]);
+            }
+          }
+#pragma unroll
+          for (int mi = 0; mi < WM; ++mi)
+#pragma unroll
+            for (int f = 0; f < T::kWN; ++f)
+#pragma unroll
+              for (int i = 0; i < 4; ++i) acc[mi][f][i] += part[0][mi][f][i] + part[1][mi][f][i];
+        }
+      } else if (live[0]) {
+        static_assert(sizeof(WT) == 4, "an f32 window takes f32 weights");
         const WT* Ws = ring + stage * kKC * T::LDW;
         const float* a_row = A + (size_t)(m_warp + gid + j * a_step) * lda + c0 + tig;
         // two chains per product (even and odd 8-channel slices), so one
@@ -212,15 +304,8 @@ __device__ __forceinline__ void mma_tap_gemm(int M, int taps, int a_step, int K,
 #pragma unroll
           for (int f = 0; f < T::kWN; ++f) {
             const int n = (wn * T::kWN + f) * 8 + gid;
-            const float w0 = to_f(Ws[(kk * 8 + tig) * T::LDW + n]);
-            const float w1 = to_f(Ws[(kk * 8 + tig + 4) * T::LDW + n]);
-            if constexpr (sizeof(WT) == 2) {  // bf16 weights are exact in TF32
-              bh[f][0] = __float_as_uint(w0);
-              bh[f][1] = __float_as_uint(w1);
-            } else {
-              split_tf32(w0, bh[f][0], bl[f][0]);
-              split_tf32(w1, bh[f][1], bl[f][1]);
-            }
+            split_tf32(Ws[(kk * 8 + tig) * T::LDW + n], bh[f][0], bl[f][0]);
+            split_tf32(Ws[(kk * 8 + tig + 4) * T::LDW + n], bh[f][1], bl[f][1]);
           }
 #pragma unroll
           for (int mi = 0; mi < WM; ++mi) {
@@ -237,7 +322,7 @@ __device__ __forceinline__ void mma_tap_gemm(int M, int taps, int a_step, int K,
               float(&sm)[4] = small[kk % 2][mi][f];
               mma_tf32(bg, hi, bh[f][0], bh[f][1]);
               mma_tf32(sm, lo, bh[f][0], bh[f][1]);
-              if constexpr (sizeof(WT) == 4) mma_tf32(sm, hi, bl[f][0], bl[f][1]);
+              mma_tf32(sm, hi, bl[f][0], bl[f][1]);
             }
           }
         }

@@ -53,7 +53,7 @@ _ENTRIES = {
         "dse_residual_chain": ([_P, _L, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                                 _P], _I),
         "dse_residual_chain_smem": ([_I, _I, _I, _I, _I, _I, _I], _Z),
-        "dse_residual_chain_scratch": ([_I, _I, _I, _I, _I, _I], _Z),
+        "dse_residual_chain_scratch": ([_I, _I, _I, _I, _I, _I, _I], _Z),
     },
     "causal_conv": {
         "dse_causal_conv": ([_P, _L, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I,

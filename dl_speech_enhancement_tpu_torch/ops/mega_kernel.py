@@ -40,10 +40,17 @@ over. Instead:
   of host memory that the card writes (:class:`BadCodeWord`), so no
   dispatch waits for the card; the decoder half raises at its next call.
 - Weights are assembled once, at build time, into the kernels' (tap, in,
-  out) layout and ``weight_dtype`` (bf16 by default, as in the JAX package;
-  sums stay f32). Codebooks, their squared norms and the distances stay f32
-  whatever ``weight_dtype`` is. That is the counterpart of the TPU's
-  one-time VMEM load.
+  out) layout and ``weight_dtype`` (bf16 by default, as in the JAX package).
+  With bf16 weights every product is bf16 by bf16 with an f32 sum, as the
+  JAX kernels' ``jnp.dot(a.astype(wd), w, preferred_element_type=f32)``:
+  each layer rounds its activated input rows to bf16 before the product
+  (the input conv, the downsamples, whose 0/1 row selection in JAX
+  (ops/mega_kernel.py:405) picks rows it then rounds, the projector, the
+  decoder input conv, the upsamples and the output conv; the chains round
+  ELU(x) and ELU(conv1), ops/stream_kernel.py), and nothing else: biases,
+  the residual stream, caches and sums stay f32. Codebooks, their squared
+  norms and the distances stay f32 whatever ``weight_dtype`` is. That is
+  the counterpart of the TPU's one-time VMEM load.
 - ``boundary_dtype`` (f32 by default) is the dtype of every dense activation
   that leaves one launch for the next: bf16 halves that traffic. Each kernel
   loads and stores it itself (no conversion launch), and computes in f32 on
@@ -84,6 +91,7 @@ from dl_speech_enhancement_tpu_torch.ops import _cuda
 from dl_speech_enhancement_tpu_torch.ops.stream_kernel import (
     _MAX_SMEM,
     _N_SM,
+    _max_clusters as _rvq_max_clusters,
     ACT_DTYPES,
     _check_operands,
     act_types,
@@ -91,6 +99,7 @@ from dl_speech_enhancement_tpu_torch.ops.stream_kernel import (
     chain_topology_error,
     chain_weights,
     check_boundary_dtype,
+    mma_operand,
     residual_chain,
     tail,
 )
@@ -113,9 +122,11 @@ def _loaded(cache, x, leaky):
 def causal_conv_plain(cache, x, w, b=None, stride: int = 1, dilation: int = 1,
                       leaky: float | None = None, tanh: bool = False, out_dtype=None):
     """Plain PyTorch version of :func:`causal_conv`, in f32, on (time, C) or
-    (B, time, C); returns ``out_dtype`` (x's by default)."""
+    (B, time, C); returns ``out_dtype`` (x's by default). With bf16 weights
+    the input rows are rounded to bf16 after the activation, as the JAX
+    kernels round ``v.astype(wd)`` before each product."""
     out_dtype = x.dtype if out_dtype is None else out_dtype
-    h = _loaded(cache, x, leaky)
+    h = mma_operand(_loaded(cache, x, leaky), w.dtype)
     w = w.float()
     rows = x.shape[-2] // stride
     span = stride * (rows - 1) + 1
@@ -321,7 +332,8 @@ def causal_conv(cache: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
     as it is loaded, ``tanh`` tanh to the output. Returns (B, T / stride,
     Cout) in ``out_dtype`` (f32 or bf16; x's by default; 2-D for one
     stream). On the card the arm and plan come from :func:`_conv_plan`; the
-    GEMM arm's products are split-TF32 tensor-core passes summed in an order
+    GEMM arm's products are tensor-core passes (split TF32 with f32 weights;
+    one pass on the bf16-rounded input with bf16 weights) summed in an order
     fixed by the layer, so a stream's bits do not depend on B, T or the
     plan. The GEMM arm takes every pair of dtypes but bf16 x into an f32
     output (no path asks for it)."""
@@ -369,18 +381,29 @@ def causal_conv(cache: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
 causal_conv.launches = 0
 
 
+ROUNDINGS = (None, "product", "output")  # the C entry's rounding codes 0, 1, 2
+
+
 def causal_conv_transpose_plain(cache, x, w, b=None, stride: int = 1,
-                                leaky: float | None = None):
+                                leaky: float | None = None, rounding: str | None = None):
     """Plain PyTorch version of :func:`causal_conv_transpose`, in f32, on
-    (time, C) or (B, time, C); returns x's dtype."""
-    h = _loaded(cache, x, leaky)
-    w = w.float()
+    (time, C) or (B, time, C); returns x's dtype. With bf16 weights the
+    input rows are rounded to bf16 after the activation, and with
+    ``rounding`` the product before the bias (``"product"``) or the output
+    after it (``"output"``)."""
+    h = mma_operand(_loaded(cache, x, leaky), w.dtype)
+    wd, w = w.dtype, w.float()
     cpad = stride - 1
     y = h.new_empty((*x.shape[:-2], x.shape[-2] * stride, w.shape[2]))
     for p in range(stride):
         y[..., p::stride, :] = (h[..., :-1, :] @ w[cpad - p]
                                 + h[..., 1:, :] @ w[cpad + stride - p])
-    return (y if b is None else y + b).to(x.dtype)
+    if rounding == "product":
+        y = mma_operand(y, wd)
+    y = y if b is None else y + b
+    if rounding == "output":
+        y = mma_operand(y, wd)
+    return y.to(x.dtype)
 
 
 @functools.lru_cache(maxsize=1024)
@@ -403,22 +426,30 @@ def _upsample_plan(batch: int, t_in: int, cin: int, cout: int, stride: int,
 
 def causal_conv_transpose(cache: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
                           b: torch.Tensor | None = None, stride: int = 1,
-                          leaky: float | None = None) -> torch.Tensor:
+                          leaky: float | None = None,
+                          rounding: str | None = None) -> torch.Tensor:
     """Causal transposed conv (k = 2 * stride) over ``[cache; x]`` for B
     streams: cache (B, 1, Cin) f32, x (B, T, Cin) f32 or bf16 (or (1, Cin) /
-    (T, Cin) for one stream), w (2s, Cin, Cout) conv-ready tap-flipped, f32
-    or bf16, b (Cout,) f32 or None; ``leaky`` (a slope) applies LeakyReLU to
-    the input as it is loaded. Returns (B, T * stride, Cout) in x's dtype
-    (2-D for one stream). On the card the plan comes from :func:`_upsample_plan`; each
-    phase's products are split-TF32 tensor-core passes summed in an order
-    fixed by the layer, so a stream's bits do not depend on B, T or the
-    plan."""
+    (T, Cin) for one stream), w (2s, Cin, Cout) conv-ready tap-flipped, f32 or
+    bf16, b (Cout,) f32 or None; ``leaky`` (a slope) applies LeakyReLU to the
+    input as it is loaded. ``rounding`` (bf16 weights; with f32 weights it
+    changes nothing) is a vocoder upsample's extra rounding to bf16, as the JAX
+    vocoders round: ``"product"`` each phase's product before the bias (K4,
+    ops/vocoder_kernel.py:324, ``yp.astype(wd)``), ``"output"`` the output
+    after it (K5, ops/vocoder_stacked.py:253). Returns (B, T * stride, Cout) in
+    x's dtype (2-D for one stream). On the card the plan comes from
+    :func:`_upsample_plan`; each phase's products are tensor-core passes (split
+    TF32 with f32 weights, one pass on the bf16-rounded input with bf16
+    weights) summed in an order fixed by the layer, so a stream's bits do not
+    depend on B, T or the plan."""
+    if rounding not in ROUNDINGS:
+        raise ValueError(f"causal_conv_transpose: rounding must be one of {ROUNDINGS}")
     if x.device.type == "cpu":
-        return causal_conv_transpose_plain(cache, x, w, b, stride, leaky)
+        return causal_conv_transpose_plain(cache, x, w, b, stride, leaky, rounding)
     if x.device.type != "cuda":
         raise ValueError(f"causal_conv_transpose: unsupported device {x.device}")
     if x.dim() == 2 and cache.dim() == 2:
-        return causal_conv_transpose(cache[None], x[None], w, b, stride, leaky)[0]
+        return causal_conv_transpose(cache[None], x[None], w, b, stride, leaky, rounding)[0]
     if x.dim() != 3:
         raise ValueError(f"causal_conv_transpose: x must be (B, T, Cin), got "
                          f"{tuple(x.shape)}")
@@ -443,7 +474,8 @@ def causal_conv_transpose(cache: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
                  cache.data_ptr(), cache.stride(0) if B > 1 else 0, x.data_ptr(), w.data_ptr(),
                  None if b is None else b.data_ptr(), out.data_ptr(), B, T, cin, cout, stride,
                  int(leaky is not None), leaky or 0.0,
-                 act_types(bf16, x.dtype == torch.bfloat16), tile, steps)
+                 act_types(bf16, x.dtype == torch.bfloat16) | (ROUNDINGS.index(rounding) << 2
+                                                               if bf16 else 0), tile, steps)
     causal_conv_transpose.launches += 1
     return out
 
@@ -524,16 +556,8 @@ def rvq_single_pass(tile: int, dim: int, book_k: int, cluster: int) -> bool:
             and tile * max(chunks, cluster) <= rvq_block_threads(tile, book_k, cluster)[0])
 
 
-# Clusters the H100 runs at once (cudaOccupancyMaxActiveClusters, printed by
-# tools/rvq_timing.py) by (cluster, blocks an SM): the GPCs, not the SMs, cap
-# them, and one more would wait for a whole cluster to finish.
-_RVQ_CLUSTERS_AT_ONCE = {(16, 1): 7, (16, 2): 14, (8, 1): 15, (8, 2): 29}
 _RVQ_RING = 3  # book slots of the plans for many rows: two blocks fit an SM at few rows a tile
 _SM_SMEM = 233472  # bytes of shared memory an SM holds for its blocks, 1 KB each reserved
-
-
-def _rvq_max_clusters(cluster: int, per_sm: int = 1) -> int:
-    return _RVQ_CLUSTERS_AT_ONCE.get((cluster, per_sm), _N_SM * per_sm // cluster)
 
 
 @functools.lru_cache(maxsize=1024)

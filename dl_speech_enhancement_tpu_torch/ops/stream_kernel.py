@@ -10,15 +10,18 @@ streaming step from it, with the boundary convs left to the plain modules,
 as the JAX package leaves them to XLA.
 
 Each kernel wrapper takes its plain PyTorch version (tap-by-tap f32
-``matmul``s) for CPU tensors only; for a CUDA tensor it launches the kernel
-or raises. ``<wrapper>.launches`` counts kernel launches. The layer kernels
-take B independent streams in one launch, as (B, time, C) activations with
-(B, ctx, C) caches; a 2-D (time, C) call is the B = 1 case of the same
-kernel. Activations are f32 or bf16 (:data:`ACT_DTYPES`, the streams'
-boundary dtype between launches, ops/mega_stacked.py): a kernel widens bf16
-to f32 as it loads it, computes in f32 and rounds what it stores, and the
-plain version rounds at the same point with ``.to(torch.bfloat16)``.
-Caches stay f32.
+``matmul``s) for CPU tensors only; for a CUDA tensor it launches the kernel or
+raises. With bf16 weights every product multiplies bf16 by bf16, as the JAX
+kernels' ``jnp.dot(a.astype(wd), w, preferred_element_type=f32)`` does: each
+GEMM's activated operand is rounded to bf16 (:func:`mma_operand`); the sums,
+the residual stream, biases and caches stay f32.
+``<wrapper>.launches`` counts kernel launches. The layer kernels take B
+independent streams in one launch, as (B, time, C) activations with (B, ctx, C)
+caches; a 2-D (time, C) call is the B = 1 case of the same kernel. Activations
+are f32 or bf16 (:data:`ACT_DTYPES`, the streams' boundary dtype between
+launches, ops/mega_stacked.py): a kernel widens bf16 to f32 as it loads it,
+computes in f32 and rounds what it stores, and the plain version rounds at the
+same point with ``.to(torch.bfloat16)``. Caches stay f32.
 """
 
 from __future__ import annotations
@@ -33,6 +36,15 @@ KERNEL_SIZE = 7
 DILATIONS = (1, 3, 9)
 _MAX_SMEM = 232448  # bytes of shared memory one H100 block may use
 _N_SM = 132
+# Clusters the H100 runs at once (cudaOccupancyMaxActiveClusters, printed by
+# tools/rvq_timing.py) by (cluster, blocks an SM): the GPCs, not the SMs, cap
+# them, and one more would wait for a whole cluster to finish; else the SMs
+# over the cluster's blocks.
+_CLUSTERS_AT_ONCE = {(16, 1): 7, (16, 2): 14, (8, 1): 15, (8, 2): 29}
+
+
+def _max_clusters(cluster: int, per_sm: int = 1) -> int:
+    return _CLUSTERS_AT_ONCE.get((cluster, per_sm), _N_SM * per_sm // cluster)
 ACT_DTYPES = (torch.float32, torch.bfloat16)  # activations between launches
 
 
@@ -57,6 +69,14 @@ def _elu(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x > 0, x, torch.exp(torch.clamp(x, max=0.0)) - 1.0)
 
 
+def mma_operand(a: torch.Tensor, weight_dtype) -> torch.Tensor:
+    """A GEMM operand as the JAX kernels multiply it with weights of
+    ``weight_dtype``: rounded to bf16 (to nearest even, as ``astype`` and the
+    kernels round) and held in f32 where the weights are bf16; ``a`` itself
+    where they are f32."""
+    return a.to(torch.bfloat16).float() if weight_dtype == torch.bfloat16 else a
+
+
 def chain_halo(dilations=DILATIONS, kernel_size: int = KERNEL_SIZE) -> int:
     """Cache rows one residual chain needs: sum of (k - 1) * d."""
     return sum((kernel_size - 1) * d for d in dilations)
@@ -64,17 +84,19 @@ def chain_halo(dilations=DILATIONS, kernel_size: int = KERNEL_SIZE) -> int:
 
 def residual_chain_plain(cache, x, w1, w2, dilations=DILATIONS):
     """Plain PyTorch version of :func:`residual_chain`, in f32, on (time, C)
-    or (B, time, C); returns x's dtype."""
+    or (B, time, C); returns x's dtype. With bf16 weights each conv's
+    operand, ELU(x_ext) before conv1 and ELU(conv1) before conv2, is rounded
+    to bf16 (JAX ops/stream_kernel.py:78,84); the residual stream stays f32."""
     h = torch.cat([cache, x.float()], dim=-2)
-    w1, w2 = w1.float(), w2.float()
+    wd, w1, w2 = w1.dtype, w1.float(), w2.float()
     for u, d in enumerate(dilations):
         pad = (KERNEL_SIZE - 1) * d
         rows = h.shape[-2] - pad
-        a = _elu(h)
+        a = mma_operand(_elu(h), wd)
         acc = a[..., 0:rows, :] @ w1[u, 0]
         for j in range(1, KERNEL_SIZE):
             acc = acc + a[..., j * d: j * d + rows, :] @ w1[u, j]
-        h = h[..., pad:, :] + _elu(acc) @ w2[u]
+        h = h[..., pad:, :] + mma_operand(_elu(acc), wd) @ w2[u]
     return h.to(x.dtype)
 
 
@@ -121,6 +143,11 @@ _CHAIN_STAGES, _CHAIN_KC, _CHAIN_WARPS = 4, 64, 8
 _CHAIN_BLOCK_US, _CHAIN_SYNC_US = 1.4, 1.0
 _CHAIN_STEP_US, _CHAIN_INSTR_US = 0.05, 0.001
 _CHAIN_COPY_US = 0.056
+# the same for the bf16-weight arm (bf16 mma, bf16 windows, the clusters the
+# card holds at once), fitted to its own sweep
+_CHAIN_BLOCK_US_BF16, _CHAIN_SYNC_US_BF16 = 0.358, 0.0856
+_CHAIN_STEP_US_BF16, _CHAIN_INSTR_US_BF16 = 0.00914, 0.00322
+_CHAIN_COPY_US_BF16 = 0.0603
 _CHAIN_BLOCKS_PER_SM = 1
 
 
@@ -133,9 +160,10 @@ def _chain_nf(nc: int) -> int:
     return 1 if nc <= 8 else 2 if nc <= 16 else 4 if nc <= 32 else 8
 
 
-def chain_lda(channels: int) -> int:
-    """Row stride of the kernel's A window: C rounded up to 8, plus 4."""
-    return -(-channels // 8) * 8 + 4
+def chain_lda(channels: int, bf16: bool = False) -> int:
+    """Row stride of the kernel's A window: f32 (f32 weights), C rounded up
+    to 8, plus 4; bf16 (bf16 weights), C rounded up to 16, plus 8."""
+    return -(-channels // 16) * 16 + 8 if bf16 else -(-channels // 8) * 8 + 4
 
 
 def chain_window_rows(tile: int, dilations=DILATIONS) -> int:
@@ -154,22 +182,28 @@ def chain_smem_bytes(tile: int, channels: int, cluster: int, dilations=DILATIONS
     """Shared memory of one residual_chain block (csrc/residual_chain.cu::
     dse_residual_chain_smem): the W ring (4 stages of 64 weight rows by the
     block's columns rounded up to 8 fragments' width, plus 8), the block's
-    slices of X (tile + halo rows) and H (the first unit's conv1 rows), and
-    the full-width f32 A window."""
+    f32 slice of X (tile + halo rows), the full-width A window and the
+    block's slice of H (the first unit's conv1 rows), the last two in the
+    weights' dtype (bf16 halves them)."""
     nc = channels // cluster
     halo = chain_halo(dilations)
-    ring = _CHAIN_STAGES * _CHAIN_KC * (8 * _chain_nf(nc) + 8) * (2 if bf16 else 4)
-    slices = (2 * (tile + halo) - (KERNEL_SIZE - 1) * dilations[0]) * nc
-    return ring + 4 * (slices + chain_window_rows(tile, dilations) * chain_lda(channels))
+    e = 2 if bf16 else 4  # bytes of a window element
+    ring = _CHAIN_STAGES * _CHAIN_KC * (8 * _chain_nf(nc) + 8) * e
+    h = (tile + halo - (KERNEL_SIZE - 1) * dilations[0]) * nc
+    window = chain_window_rows(tile, dilations) * chain_lda(channels, bf16)
+    return ring + 4 * (tile + halo) * nc + e * (h + window)
 
 
-def chain_scratch_floats(tile: int, channels: int, dilations=DILATIONS) -> int:
+def chain_scratch_floats(tile: int, channels: int, dilations=DILATIONS,
+                         bf16: bool = False) -> int:
     """Floats of device scratch one cluster of more than one block takes
     (csrc/residual_chain.cu::dse_residual_chain_scratch): the E rows of a
     tile (tile + halo) and its H rows (the first unit's conv1 rows), C
-    floats each, through which the blocks exchange their slices."""
+    elements each in the weights' dtype (a bf16 pair a float), through which
+    the blocks exchange their slices."""
     halo = chain_halo(dilations)
-    return (2 * (tile + halo) - (KERNEL_SIZE - 1) * dilations[0]) * channels
+    elems = (2 * (tile + halo) - (KERNEL_SIZE - 1) * dilations[0]) * channels
+    return elems // 2 if bf16 else elems
 
 
 def _chain_clusters(channels: int) -> list[int]:
@@ -201,55 +235,69 @@ def _chain_warps(nf: int) -> tuple[int, int]:
     return warps_n, nf // warps_n
 
 
-def _chain_warp_rows(m: int, nf: int) -> int:
+def _chain_warp_rows(m: int, nf: int, bf16: bool = False) -> int:
     """16-row fragments a warp takes in one GEMM of ``m`` rows (csrc/
     residual_chain.cu::chain_gemm): as many as cover ``m`` in one pass, of
-    1, 2 or 4, at most 4 fragments a warp in all."""
+    1, 2 or 4, at most 4 fragments a warp in all with f32 weights, 8 with
+    bf16."""
     warps_n, wn = _chain_warps(nf)
+    most = 8 if bf16 else 4
     per_warp = -(-(-(-m // 16)) // (_CHAIN_WARPS // warps_n))
-    return 1 if per_warp <= 1 or wn >= 4 else 2 if per_warp <= 2 or wn == 2 else 4
+    return 1 if per_warp <= 1 or 2 * wn > most else 2 if per_warp <= 2 or 4 * wn > most else 4
 
 
-def _chain_block_us(tile: int, channels: int, cluster: int, dilations=DILATIONS) -> float:
+def _chain_block_us(tile: int, channels: int, cluster: int, dilations=DILATIONS,
+                    bf16: bool = True) -> float:
     """The planner's model of one block's time: per unit, two GEMMs, each
-    behind a cluster barrier and a window fill (the rows times C floats, a
-    float4 a thread at a time), each walking its (tap, 64-channel) steps over
-    its row passes. A step issues, per 8-channel slice and warp, 24
-    instructions per 16-row fragment (its A operand's loads and split), 4
-    per 8-column fragment (the weights') and 2 mma per pair; the busiest
-    scheduler issues for the live warps it holds."""
+    behind a cluster barrier and a window fill (the rows times C elements,
+    16 bytes a thread at a time), each walking its (tap, 64-channel) steps
+    over its row passes. With f32 weights a step issues, per 8-channel slice
+    and warp, 24 instructions per 16-row fragment (its A operand's loads and
+    split), 4 per 8-column fragment (the weights') and 2 mma per pair; with
+    bf16 weights, per 16-channel slice, 2 per 16-row fragment (an ldmatrix
+    and its address), 1 per 8-column fragment (half an ldmatrix and its
+    address) and 1 mma per pair. The busiest scheduler issues for the live
+    warps it holds."""
     nc = channels // cluster
     nf = _chain_nf(nc)
     warps_n, wn = _chain_warps(nf)
     warps_m = _CHAIN_WARPS // warps_n
     slices = -(-channels // _CHAIN_KC)
     k8 = min(8, -(-channels // 8))
+    k16 = min(4, -(-channels // 16))
     remaining = tile + chain_halo(dilations)
-    total = _CHAIN_BLOCK_US
+    block_us, sync_us, step_us, instr_us, copy_us = (
+        (_CHAIN_BLOCK_US_BF16, _CHAIN_SYNC_US_BF16, _CHAIN_STEP_US_BF16, _CHAIN_INSTR_US_BF16,
+         _CHAIN_COPY_US_BF16) if bf16 else
+        (_CHAIN_BLOCK_US, _CHAIN_SYNC_US, _CHAIN_STEP_US, _CHAIN_INSTR_US, _CHAIN_COPY_US))
+    total = block_us
     for d in dilations:
         m = remaining - (KERNEL_SIZE - 1) * d
-        wm = _chain_warp_rows(m, nf)
+        wm = _chain_warp_rows(m, nf, bf16)
         passes = -(-m // (16 * wm * warps_m))
         live = min(warps_m, -(-min(-(-m // 16), wm * warps_m) // wm)) * warps_n
-        instr = (24 * wm + 4 * wn + 2 * wm * wn) * k8
-        step = _CHAIN_STEP_US + _CHAIN_INSTR_US * instr * -(-live // 4)
-        fills = (remaining + m) * channels / 4 / 256
-        total += (2 * _CHAIN_SYNC_US + _CHAIN_COPY_US * fills
-                  + passes * (KERNEL_SIZE + 1) * slices * step)
+        instr = ((2 * wm + wn + wm * wn) * k16 if bf16
+                 else (24 * wm + 4 * wn + 2 * wm * wn) * k8)
+        step = step_us + instr_us * instr * -(-live // 4)
+        fills = (remaining + m) * channels * (2 if bf16 else 4) / 16 / 256
+        total += (2 * sync_us + copy_us * fills + passes * (KERNEL_SIZE + 1) * slices * step)
         remaining = m
     return total
 
 
 def _chain_cost(batch: int, rows: int, tile: int, channels: int, cluster: int, smem: int,
-                dilations=DILATIONS) -> tuple[float, int]:
+                dilations=DILATIONS, bf16: bool = True) -> tuple[float, int]:
     """(us, blocks) of one launch at the plan (tile, cluster): the grid of
     ``batch * ceil(rows / tile) * cluster`` blocks in waves of the blocks the
-    SMs hold, blocks sharing an SM each as slow as their count."""
+    SMs hold (for the bf16-weight arm, whose constants were fitted with it,
+    the clusters the card holds at once), blocks sharing an SM each as slow
+    as their count."""
     blocks = batch * -(-rows // tile) * cluster
     per_sm = max(1, min(_CHAIN_BLOCKS_PER_SM, (_MAX_SMEM + 1024) // (smem + 1024)))
-    waves = -(-blocks // (_N_SM * per_sm))
+    at_once = _max_clusters(cluster, per_sm) * cluster if bf16 else _N_SM * per_sm
+    waves = -(-blocks // at_once)
     sharing = min(per_sm, -(-blocks // _N_SM))
-    return waves * sharing * _chain_block_us(tile, channels, cluster, dilations), blocks
+    return waves * sharing * _chain_block_us(tile, channels, cluster, dilations, bf16), blocks
 
 
 def chain_plans(rows: int, channels: int, dilations=DILATIONS,
@@ -282,7 +330,7 @@ def _chain_plan(batch: int, rows: int, channels: int, dilations: tuple = DILATIO
     with the fewest blocks within 5 % of the cheapest. Pure Python, so the
     CPU tests hold it; no plan changes a stream's bits."""
     dilations = tuple(dilations)
-    plans = [(*_chain_cost(batch, rows, tile, channels, cluster, smem, dilations),
+    plans = [(*_chain_cost(batch, rows, tile, channels, cluster, smem, dilations, bf16),
               (tile, cluster)) for tile, cluster, smem in chain_plans(rows, channels,
                                                                       dilations, bf16)]
     if not plans:
@@ -330,8 +378,8 @@ def residual_chain(cache: torch.Tensor, x: torch.Tensor, w1: torch.Tensor,
     tile, cluster = _chain_plan(B, T, C, dilations, bf16)
     scratch = None
     if cluster > 1:
-        scratch = torch.empty(B * -(-T // tile) * chain_scratch_floats(tile, C, dilations),
-                              device=x.device)
+        scratch = torch.empty(B * -(-T // tile) * chain_scratch_floats(tile, C, dilations,
+                                                                       bf16), device=x.device)
     lib = _cuda.load("residual_chain")
     _cuda.launch(lib, "dse_residual_chain", "residual_chain", x, cache.data_ptr(),
                  cache.stride(0), x.data_ptr(), w1.data_ptr(), w2.data_ptr(), out.data_ptr(),
@@ -381,18 +429,21 @@ def _check_fold(x: torch.Tensor, fold: int, dilations, kernel_size: int) -> None
 
 def fused_residual_chain_folded_plain(units, x: torch.Tensor, fold: int, *,
                                       dilations=DILATIONS,
-                                      kernel_size: int = KERNEL_SIZE) -> torch.Tensor:
+                                      kernel_size: int = KERNEL_SIZE,
+                                      weight_dtype=torch.float32) -> torch.Tensor:
     """Plain PyTorch version of :func:`fused_residual_chain_folded`, in the
     JAX kernel's folded form: ``fold`` consecutive rows side by side, each
     dilated conv a sum over row offsets ``o`` of (fold*C, fold*C) block
     matrices ``M_o[b-block, p-block] = W_j`` where ``(o, b) = divmod(p + j*d,
-    fold)``, the 1x1 conv block-diagonal. x (T_in, C) -> (T_in - halo, C)."""
+    fold)``, the 1x1 conv block-diagonal. x (T_in, C) -> (T_in - halo, C).
+    ``weight_dtype`` bf16 rounds the weights and each conv's operand as
+    :func:`residual_chain_plain` does (folding moves rows, not values)."""
     _check_fold(x, fold, dilations, kernel_size)
     k, (t_in, c) = kernel_size, x.shape
     h = x.float().reshape(t_in // fold, fold * c)
     for u, d in zip(units, dilations):
-        w1 = u.conv1.weight.detach().permute(2, 1, 0).float()  # (k, in, out)
-        w2 = u.conv2.weight.detach()[:, :, 0].t().float()
+        w1 = u.conv1.weight.detach().permute(2, 1, 0).to(weight_dtype).float()  # (k, in, out)
+        w2 = u.conv2.weight.detach()[:, :, 0].t().to(weight_dtype).float()
         offsets = (k - 1) * d // fold
         m1 = w1.new_zeros((offsets + 1, fold * c, fold * c))
         for j in range(k):
@@ -401,11 +452,11 @@ def fused_residual_chain_folded_plain(units, x: torch.Tensor, fold: int, *,
                 m1[o, b * c:(b + 1) * c, p * c:(p + 1) * c] = w1[j]
         m2 = torch.block_diag(*[w2] * fold)
         rows = h.shape[0] - offsets
-        a = _elu(h)
+        a = mma_operand(_elu(h), weight_dtype)
         acc = a[0:rows] @ m1[0]
         for o in range(1, offsets + 1):
             acc = acc + a[o:o + rows] @ m1[o]
-        h = h[offsets:] + _elu(acc) @ m2
+        h = h[offsets:] + mma_operand(_elu(acc), weight_dtype) @ m2
     return h.reshape(-1, c)
 
 

@@ -30,13 +30,19 @@ whatever B is:
 :func:`vocoder_half` is that sequence as a
 :class:`~dl_speech_enhancement_tpu_torch.ops.mega_kernel.StreamHalf`, so
 ``join_halves(mega_encoder(codec, ...), vocoder_half(voc, ...), ...)`` is the
-tx -> wire codes -> rx stream of a vocoder-paired preset. Weights are
-copied once, at build time, in ``weight_dtype`` (bf16 by default; sums,
-biases and books stay f32); the activations between launches (the units'
-running sum too) in ``boundary_dtype``, f32 by default or bf16, which the
-kernels load and store themselves (ops/mega_kernel.py). The JAX K5 refuses a
-MultiReceptiveField receiver; the port's batch axis serves it, as the JAX
-``VocoderReceiver`` does through XLA.
+tx -> wire codes -> rx stream of a vocoder-paired preset. Weights are copied
+once, at build time, in ``weight_dtype`` (bf16 by default; sums, biases and
+books stay f32). With bf16 weights every product is bf16 by bf16, as in the JAX
+kernels: each layer rounds its activated input rows to bf16, and each upsample
+rounds once more where the JAX kernel it stands for does
+(``upsample_rounding``): K4 its phase product before the bias
+(ops/vocoder_kernel.py:324, ``yp.astype(wd)``), K5 its output after it
+(ops/vocoder_stacked.py:253, before a 0/1 tiling matmul in bf16); the
+activations between launches (the units' running sum too) in
+``boundary_dtype``, f32 by default or bf16, which the kernels load and store
+themselves (ops/mega_kernel.py). The JAX K5 refuses a MultiReceptiveField
+receiver; the port's batch axis serves it, as the JAX ``VocoderReceiver`` does
+through XLA.
 """
 
 from __future__ import annotations
@@ -71,6 +77,7 @@ from dl_speech_enhancement_tpu_torch.ops.stream_kernel import (
     _check_operands,
     act_types,
     check_boundary_dtype,
+    mma_operand,
     tail,
 )
 
@@ -80,13 +87,16 @@ from dl_speech_enhancement_tpu_torch.ops.stream_kernel import (
 def hifigan_unit_plain(cache1, cache2, x, w1, b1, w2, b2, dilation: int, groups: int,
                        slope: float = 0.1, acc=None, out_scale: float = 1.0):
     """Plain PyTorch version of :func:`hifigan_unit`, in f32, on (time, C)
-    or (B, time, C). Returns (out in x's dtype, new cache2 f32)."""
+    or (B, time, C). Returns (out in x's dtype, new cache2 f32). With bf16
+    weights each conv's operand, leaky(x_ext1) and leaky(h_ext) with the
+    cache rows, is rounded to bf16 (JAX ops/vocoder_kernel.py:383,387); the
+    new cache2, the biases, the residual and the sums stay f32."""
     taps, c, gc = w1.shape
     s = 0 if x.shape[-1] != gc else c  # tiled first unit: every group reads x
-    w1, w2 = w1.float(), w2.float()
+    wd, w1, w2 = w1.dtype, w1.float(), w2.float()
     dtype, x = x.dtype, x.float()
     T = x.shape[-2]
-    a = _leaky(torch.cat([cache1, x], dim=-2), slope)
+    a = mma_operand(_leaky(torch.cat([cache1, x], dim=-2), slope), wd)
     hs = []
     for g in range(groups):
         a_g, cols = a[..., g * s: g * s + c], slice(g * c, (g + 1) * c)
@@ -96,7 +106,7 @@ def hifigan_unit_plain(cache1, cache2, x, w1, b1, w2, b2, dilation: int, groups:
         hs.append(part)
     h = torch.cat(hs, dim=-1)
     h = _leaky(h if b1 is None else h + b1, slope)
-    h_ext = torch.cat([cache2, h], dim=-2)
+    h_ext = mma_operand(torch.cat([cache2, h], dim=-2), wd)
     ys = []
     for g in range(groups):
         cols = slice(g * c, (g + 1) * c)
@@ -149,43 +159,52 @@ def _unit_fit_error(c: int, taps: int, dilation: int) -> str | None:
 
 
 def unit_smem_bytes(tile: int, c: int, taps: int, dilation: int, cluster: int,
-                    bf16: bool) -> int:
+                    bf16: bool, x_bf16: bool = False) -> int:
     """Shared memory of one hifigan_unit block (csrc/hifigan_unit.cu::
-    dse_hifigan_unit_smem): the W ring, the input window of ``tile + taps -
-    1`` h rows (rounded up to 16) reaching back ``(taps - 1) * dilation``
-    rows, and the h window of ``tile`` rows (rounded up to 16) plus ``taps -
-    1``, each row ``c`` floats rounded up to 8 plus 4 of padding."""
+    dse_hifigan_unit_smem, whose ``types`` are ``bf16 | x_bf16 << 1``): the
+    W ring; the input window of ``tile + taps - 1`` h rows (rounded up to
+    16) reaching back ``(taps - 1) * dilation`` rows, or, if larger, the
+    residual tile (``tile`` rows of the block's ``c / cluster`` columns of x,
+    f32 or bf16), rounded up to 16 bytes; and the h window of ``tile`` rows
+    (rounded up to 16) plus ``taps - 1``. Window rows are ``c`` elements in
+    the weights' dtype, rounded up to 8 plus 4 (f32) or to 16 plus 8
+    (bf16)."""
     nf = _unit_fragments(c // cluster)
-    ring = _UNIT_STAGES * _UNIT_KC * (8 * nf + 8) * (2 if bf16 else 4)
-    lda = -(-c // 8) * 8 + 4
-    rows = (_round16(tile + taps - 1) + (taps - 1) * dilation) + (_round16(tile) + taps - 1)
-    return ring + 4 * lda * rows
+    e = 2 if bf16 else 4  # bytes of a window element
+    ring = _UNIT_STAGES * _UNIT_KC * (8 * nf + 8) * e
+    lda = -(-c // 16) * 16 + 8 if bf16 else -(-c // 8) * 8 + 4
+    window = (_round16(tile + taps - 1) + (taps - 1) * dilation) * lda * e
+    residual = tile * (c // cluster) * (2 if x_bf16 else 4)
+    return ring + -(-max(window, residual) // 16) * 16 + (_round16(tile) + taps - 1) * lda * e
 
 
-def _unit_warp_rows(tile: int, taps: int, nf: int) -> int:
+def _unit_warp_rows(tile: int, taps: int, nf: int, bf16: bool = False) -> int:
     """16-row fragments per warp (csrc/hifigan_unit.cu::unit_wm): 2 once GEMM
-    1's window outgrows one block chunk of 1."""
-    return 2 if _round16(tile + taps - 1) > 16 * (8 // min(nf, 4)) else 1
+    1's window outgrows one block chunk of 1; with bf16 weights 4 once it
+    outgrows two."""
+    rows, chunk = _round16(tile + taps - 1), 16 * (8 // min(nf, 4))
+    return 1 if rows <= chunk else 4 if bf16 and rows > 2 * chunk else 2
 
 
 @functools.lru_cache(maxsize=512)
 def _unit_plan(batch: int, rows: int, c: int, groups: int, taps: int, dilation: int,
-               bf16: bool) -> tuple[int, int]:
+               bf16: bool, x_bf16: bool = False) -> tuple[int, int]:
     """(tile, cluster) for the unit kernel: output rows per block, and blocks
     per cluster splitting a group's ``c`` columns, for ``batch`` streams of
     ``rows`` rows. Each cluster recomputes the ``taps - 1`` h rows before its
     tile, so long tiles waste less, but fewer tiles fill fewer SMs; a wider
     cluster spreads a tile over more SMs, each with fewer columns. As
-    ops/stream_kernel.py::_chain_plan does, the model counts the serial work
-    of one block times the blocks an SM runs in turn or side by side, over
-    the grid of ``batch * ceil(rows / tile) * groups * cluster`` blocks. A
-    block's work is a barrier per (tap, 64-channel) step and, per 8-channel
-    slice, 3 + the mma fragments a warp holds in eighths (a step is mostly
-    latency: a warp with twice the fragments takes ~1.2x as long), and its
-    staging and gather copies. Among the plans whose shared memory fits it
-    takes the one with the fewest blocks within 5 % of the cheapest (the
-    model is no finer than that, and every extra block reads its weights
-    again). Pure Python, so the CPU tests hold it."""
+    ops/stream_kernel.py::_chain_plan does, the model counts the serial work of
+    one block times the blocks an SM runs in turn or side by side, over the
+    grid of ``batch * ceil(rows / tile) * groups * cluster`` blocks. A block's
+    work is a barrier per (tap, 64-channel) step and, per 8-channel slice, 3 +
+    the mma fragments a warp holds in eighths (a step is mostly latency: a warp
+    with twice the fragments takes ~1.2x as long; half that with bf16 weights,
+    whose bf16 ``mma`` takes 16 channels at once), and its staging and gather
+    copies (half the bytes with bf16 weights). Among the plans whose shared
+    memory fits it takes the one with the fewest blocks within 5 % of the
+    cheapest (the model is no finer than that, and every extra block reads its
+    weights again). Pure Python, so the CPU tests hold it."""
     plans = []
     slices, k8 = -(-c // _UNIT_KC), -(-c // 8)
     kp = 8 * k8
@@ -195,18 +214,18 @@ def _unit_plan(batch: int, rows: int, c: int, groups: int, taps: int, dilation: 
         warps_n = min(nf, 4)
         wn = nf // warps_n
         candidates = {1, 4, 8, 16, 32, 64, 128, 256, rows}
-        for wm in (1, 2):
+        for wm in (1, 2, 4) if bf16 else (1, 2):
             candidates |= {m * 16 * wm * (8 // warps_n) - (taps - 1) for m in range(1, 9)}
         for tile in sorted(t for t in candidates if 0 < t <= rows):
-            smem = unit_smem_bytes(tile, c, taps, dilation, cluster, bf16)
+            smem = unit_smem_bytes(tile, c, taps, dilation, cluster, bf16, x_bf16)
             if smem > _MAX_SMEM:
                 continue
-            wm = _unit_warp_rows(tile, taps, nf)
+            wm = _unit_warp_rows(tile, taps, nf, bf16)
             bm = 16 * wm * (8 // warps_n)
             chunks = -(-(tile + taps - 1) // bm) + -(-tile // bm)
             copies = ((_round16(tile + taps - 1) + (taps - 1) * dilation) * kp
-                      + (tile + taps - 1) * (c - nc)) / 256
-            work = chunks * taps * (2 * slices + k8 * (3 + wm * wn) / 8) + copies
+                      + (tile + taps - 1) * (c - nc)) / 256 / (2 if bf16 else 1)
+            work = chunks * taps * (2 * slices + k8 * (3 + wm * wn) / (16 if bf16 else 8)) + copies
             blocks = batch * -(-rows // tile) * groups * cluster
             per_sm = max(1, min(_UNIT_BLOCKS_PER_SM, (_MAX_SMEM + 1024) // (smem + 1024)))
             waves = -(-blocks // (_N_SM * per_sm))
@@ -236,8 +255,10 @@ def hifigan_unit(cache1: torch.Tensor, cache2: torch.Tensor, x: torch.Tensor,
     (k, c, groups * c) f32 or bf16, 16-byte aligned, c a multiple of 4; b1,
     b2 (groups * c,) f32 or None; acc None or x's batch and time by groups *
     c, in x's dtype. 2-D tensors are one stream. Returns (out (B, T, groups *
-    c) in x's dtype, new cache2 (B, k-1, groups * c) f32). On the card the products are split-TF32 tensor-core passes in a
-    fixed order, so a stream's bits do not depend on B or the plan."""
+    c) in x's dtype, new cache2 (B, k-1, groups * c) f32). On the card the
+    products are tensor-core passes in a fixed order (split TF32 with f32
+    weights; bf16 ``mma`` on the bf16-rounded operands with bf16 weights),
+    so a stream's bits do not depend on B or the plan."""
     if x.device.type == "cpu":
         return hifigan_unit_plain(cache1, cache2, x, w1, b1, w2, b2, dilation, groups, slope,
                                   acc, out_scale)
@@ -279,7 +300,7 @@ def hifigan_unit(cache1: torch.Tensor, cache2: torch.Tensor, x: torch.Tensor,
         raise ValueError(f"hifigan_unit: {c} columns a group must be a multiple of 4, and "
                          "the weights 16-byte aligned")
     bf16 = w1.dtype == torch.bfloat16
-    tile, cluster = _unit_plan(B, T, c, groups, taps, dilation, bf16)
+    tile, cluster = _unit_plan(B, T, c, groups, taps, dilation, bf16, x.dtype == torch.bfloat16)
     lib = _cuda.load("hifigan_unit")
     _cuda.launch(lib, "dse_hifigan_unit", "hifigan_unit", x, cache1.data_ptr(),
                  cache1.stride(0), cache2.data_ptr(), cache2.stride(0), x.data_ptr(),
@@ -369,7 +390,7 @@ def _stage_blocks(si, blk, c, wd):
 
 
 def vocoder_half(voc, weight_dtype=torch.bfloat16, vq_state=None,
-                 boundary_dtype=torch.float32) -> StreamHalf:
+                 boundary_dtype=torch.float32, upsample_rounding="product") -> StreamHalf:
     """The HiFiGAN receiver as a stream half: with PQC (``vq_state``, the
     transmitter's ``VQState``) codebook_lookup first, then the input conv,
     per stage the upsample and the fusion block, and the output conv.
@@ -388,7 +409,9 @@ def vocoder_half(voc, weight_dtype=torch.bfloat16, vq_state=None,
     dispatch has finished: the half owns a ``BadCodeWord``), or features (B,
     rows, in_channels) without PQC, f32 or ``boundary_dtype``. Activations
     cross launches in ``boundary_dtype`` (float32 or bfloat16).
-    Cache names start with ``v``, apart from the codec halves' names."""
+    Cache names start with ``v``, apart from the codec halves' names.
+    ``upsample_rounding`` (bf16 weights) is ``"product"`` as in JAX K4 (the
+    streaming entry points' receiver) or ``"output"`` as in JAX K5."""
     reason = vocoder_topology_error(voc, voc.total_upsample)
     if reason:
         raise ValueError(reason)
@@ -427,7 +450,8 @@ def vocoder_half(voc, weight_dtype=torch.bfloat16, vq_state=None,
         h = causal_conv(cache["v_in"], h, w_in, b_in, out_dtype=boundary_dtype)
         for si, (w_up, b_up, s, blocks, w_f, groups) in enumerate(stages):
             new[f"v{si}u"] = tail(cache[f"v{si}u"], h, 1)
-            h = causal_conv_transpose(cache[f"v{si}u"], h, w_up, b_up, s, leaky=slope)
+            h = causal_conv_transpose(cache[f"v{si}u"], h, w_up, b_up, s, leaky=slope,
+                                      rounding=upsample_rounding)
             total = None  # the running sum of the blocks (MultiReceptiveField)
             for bi, units in enumerate(blocks):
                 y = h
@@ -475,7 +499,8 @@ def conv_sites(model, frame: int) -> list:
 
 
 def make_stacked_vocoder(voc, chunk: int, batch: int, weight_dtype=torch.bfloat16,
-                         vq_state=None, boundary_dtype=torch.float32):
+                         vq_state=None, boundary_dtype=torch.float32,
+                         upsample_rounding="output"):
     """The receiver alone for ``batch`` streams, the counterpart of JAX
     ops/vocoder_stacked.py::make_stacked_vocoder (K5; re-exported from
     ops/vocoder_stacked.py): ``init_cache() -> {name: (B, ctx, C)}`` and
@@ -483,13 +508,14 @@ def make_stacked_vocoder(voc, chunk: int, batch: int, weight_dtype=torch.bfloat1
     (audio (N, B, chunk) f32, new_cache)``; per stream and frame it matches
     ``voc.step`` (after the codebook lookup with PQC) from zero caches.
     ``boundary_dtype`` (float32 or bfloat16) is the activations' dtype
-    between launches (JAX's, :120)."""
+    between launches (JAX's, :120); at bf16 weights each upsample rounds its
+    output as K5 does (``upsample_rounding``, :func:`vocoder_half`)."""
     reason = vocoder_topology_error(voc, chunk)
     if reason:
         raise ValueError(reason)
     if batch < 1:
         raise ValueError(f"batch must be at least 1, got {batch}")
-    half = vocoder_half(voc, weight_dtype, vq_state, boundary_dtype)
+    half = vocoder_half(voc, weight_dtype, vq_state, boundary_dtype, upsample_rounding)
     rows = chunk // voc.total_upsample
 
     def init_cache():
@@ -510,7 +536,8 @@ def make_mega_vocoder(voc, chunk: int, weight_dtype=torch.bfloat16, vq_state=Non
     single-stream layout: ``init_cache() -> {name: (ctx, C)}``, ``run(cache,
     zq (n, chunk / total_upsample, in_channels) f32, or int32 codes (n,
     rows, L) with ``vq_state``) -> (audio (n, chunk), new_cache)``."""
-    init_b, run_b = make_stacked_vocoder(voc, chunk, 1, weight_dtype, vq_state)
+    init_b, run_b = make_stacked_vocoder(voc, chunk, 1, weight_dtype, vq_state,
+                                         upsample_rounding="product")
 
     def init_cache():
         return {name: t[0] for name, t in init_b().items()}

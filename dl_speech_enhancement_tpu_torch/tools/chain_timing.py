@@ -12,30 +12,33 @@ Sites: the eight residual chains of a denoiser or codec dispatch (``e0ch`` -
 same eight), from configs/denoise/symAD_vctk_48000_hop300.yaml, at one
 stream of 1, 100 and 400 frames, 16 streams of 1 and 16 frames and 64
 streams of 1 frame, with bf16 weights and each cache a strided view. For
-each it holds the kernel against its plain version (1e-4 of the largest
-output) and prints the device time per call (``torch.profiler``, 50 calls
+each it holds the kernel against its plain version
+(``utils/checks.py::rounding_held``: the bf16 operands' rounding points
+allow no tighter bound on dense weights) and prints the device time per call (``torch.profiler``, 50 calls
 after 5 warm-up calls) of this tree's kernel at its planner's plan, of the
 eager chain (six ``F.conv1d`` with the ELUs and residual adds, f32 weights,
 TF32 off: no one PyTorch call computes a chain, so it is an informative
 column, not a yardstick) and, with ``--parent``, of the kernel built from
 ``DIR``'s ``dl_speech_enhancement_tpu_torch/csrc/residual_chain.cu`` at
 ``DIR``'s own planner's plan (its ``ops/stream_kernel.py::_chain_plan``,
-asking that build's library where it does), held to the plain version
-too. The bound is the chain's operations (``chip_smoke.py::chain_flops``)
-at the split-TF32 rate, 495 TFLOP/s over 2 passes, or its bytes at 3.35
-TB/s, whichever is longer; the f32-core bound (67 TFLOP/s) beside it.
+asking that build's library where it does), held to the function it
+computes (the plain version on f32 operands, 1e-4 of the largest output),
+and with f32 weights this tree's kernel must equal ``DIR``'s bit for bit.
+The bound is the chain's operations (``chip_smoke.py::chain_flops``) at
+the dense bf16 rate, 989 TFLOP/s, or its bytes at 3.35 TB/s, whichever is
+longer; the f32-core bound (67 TFLOP/s) beside it.
 
 ``--sweep`` also times every plan the kernel could take at the four
 distinct site shapes (``ops/stream_kernel.py::chain_plans``, but for grids
 above 64 blocks an SM; CUDA events
 around a CUDA graph of 20 launches) and requires each to equal the
 planner's plan bit for bit. ``--fit FILE`` (no card) reads such a report
-and fits the planner's cost constants (``_CHAIN_BLOCK_US``,
-``_CHAIN_SYNC_US``, ``_CHAIN_STEP_US``, ``_CHAIN_INSTR_US``,
-``_CHAIN_COPY_US``) by coordinate descent, so that the planner's pick is as
-close to each case's fastest plan as it can be (the sum of the ratios, then
-the worst); it prints the constants and each case's picked and fastest
-times.
+and fits the planner's cost constants of the bf16-weight arm
+(``_CHAIN_BLOCK_US_BF16``, ``_CHAIN_SYNC_US_BF16``, ``_CHAIN_STEP_US_BF16``,
+``_CHAIN_INSTR_US_BF16``, ``_CHAIN_COPY_US_BF16``) by coordinate descent, so
+that the planner's pick is as close to each case's fastest plan as it can
+be (the sum of the ratios, then the worst); it prints the constants and
+each case's picked and fastest times.
 
 The card first runs matmuls for 3 s so that its clocks leave idle; the
 card's name, power limit and SM clock are printed before and after.
@@ -57,10 +60,11 @@ import types
 SHAPES = ((1, 1), (1, 100), (1, 400), (16, 1), (16, 16), (64, 1))  # (streams, frames)
 FRAME = 1200
 RTOL = 1e-4
-TF32_FLOPS, TF32_PASSES, F32_FLOPS, HBM_BYTES_PER_S = 495e12, 2, 67e12, 3.35e12
+BF16_FLOPS, F32_FLOPS, HBM_BYTES_PER_S = 989e12, 67e12, 3.35e12
 MAX_SWEPT_BLOCKS = 64 * 132  # --sweep skips plans of larger grids (tiles of a few rows)
-FIT_NAMES = ("_CHAIN_BLOCK_US", "_CHAIN_SYNC_US", "_CHAIN_STEP_US", "_CHAIN_INSTR_US",
-             "_CHAIN_COPY_US")
+# the bf16-weight arm's constants (the sweeps run at bf16 weights)
+FIT_NAMES = ("_CHAIN_BLOCK_US_BF16", "_CHAIN_SYNC_US_BF16", "_CHAIN_STEP_US_BF16",
+             "_CHAIN_INSTR_US_BF16", "_CHAIN_COPY_US_BF16")
 
 
 def _sites(root: str) -> list[tuple[str, int, int]]:
@@ -105,7 +109,9 @@ def _parent_chain(root: str, build_dir: str):
         raise RuntimeError(f"nvcc {src} failed:\n{proc.stdout}{proc.stderr}")
     lib = ctypes.CDLL(path)
     p, i, ll, z = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_size_t
-    lib.dse_residual_chain.argtypes = [p, ll, p, p, p, p] + [i] * 9 + [p]
+    lib.takes_scratch = hasattr(lib, "dse_residual_chain_scratch")
+    lib.dse_residual_chain.argtypes = ([p, ll, p, p, p, p] + [p] * lib.takes_scratch + [i] * 9
+                                       + [p])
     lib.dse_residual_chain.restype = i
     for fn, n_args, restype in (("dse_residual_chain_smem", None, z),
                                 ("dse_residual_chain_block_rows", 2, i)):
@@ -195,6 +201,7 @@ def main() -> int:
     from dl_speech_enhancement_tpu_torch.ops import _cuda
     from dl_speech_enhancement_tpu_torch.ops import stream_kernel as sk
     from dl_speech_enhancement_tpu_torch.tools.conv_timing import _card
+    from dl_speech_enhancement_tpu_torch.utils.checks import rounding_held
 
     if not torch.cuda.is_available():
         print("chain_timing: no CUDA device", file=sys.stderr)
@@ -271,33 +278,38 @@ def main() -> int:
             swept_plans = [(tile, cluster) for tile, cluster, _ in sk.chain_plans(t, c, dil, True)
                            if batch * -(-t // tile) * cluster <= MAX_SWEPT_BLOCKS
                            or (tile, cluster) == plan] if args.sweep else [plan]
+            # every plan this site runs, sized by the f32 formula (f32 weights', and
+            # any parent's)
+            tiles = {p[0] for p in swept_plans} | {sk._chain_plan(batch, t, c, dil, False)[0]}
+            if parent:
+                tiles |= {parent[1](batch, t, c, dil, bf)[0] for bf in (False, True)}
             scratch = torch.empty(max(batch * -(-t // tile) * sk.chain_scratch_floats(
-                tile, c, dil) for tile, _ in swept_plans), device="cuda")
+                tile, c, dil) for tile in tiles), device="cuda")
 
             def run(tile, cluster, lib=lib, cache=cache, x=x, w1=w1b, w2=w2b, out=out,
                     batch=batch, t=t, c=c, what=name, scratch=scratch):
-                # the parent's entry point takes no scratch
-                extra = (scratch.data_ptr(),) if lib is not (parent or (None,))[0] else ()
+                # an older parent's entry point takes no scratch
+                extra = (scratch.data_ptr(),) if getattr(lib, "takes_scratch", True) else ()
                 _cuda.check(lib, lib.dse_residual_chain(
                     cache.data_ptr(), cache.stride(0), x.data_ptr(), w1.data_ptr(),
-                    w2.data_ptr(), out.data_ptr(), *extra, batch, t, c, *dil, tile, cluster, 1,
-                    torch.cuda.current_stream().cuda_stream), f"residual_chain {what}")
+                    w2.data_ptr(), out.data_ptr(), *extra, batch, t, c, *dil, tile, cluster,
+                    int(w1.dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream),
+                    f"residual_chain {what}")
 
             got = sk.residual_chain(cache, x, w1b, w2b)
             ref = sk.residual_chain_plain(cache, x, w1b, w2b)
-            torch.cuda.synchronize()
-            err, limit = float((got - ref).abs().max()), RTOL * float(ref.abs().max())
-            if not err <= limit:
-                print(f"FAIL {name} B={batch} N={n_frames} plan {plan}: max|err| {err} > "
-                      f"{limit}", flush=True)
+            held = rounding_held(got, ref,
+                                 sk.residual_chain_plain(cache, x, w1b.float(), w2b.float()))
+            err = held["max_err"]
+            if not held["held"]:
+                print(f"FAIL {name} B={batch} N={n_frames} plan {plan}: {held}", flush=True)
                 return 1
             flops, nbytes = batch * chain_flops(c, t), 4 * batch * (halo + 2 * t) * c + 2 * (
                 w1b.numel() + w2b.numel())
             row = {"site": name, "streams": batch, "frames": n_frames, "channels": c,
                    "rows_per_stream": t, "plan": list(plan), "max_abs_err": err,
                    "kernel_us": device_us(lambda: run(*plan)),
-                   "bound_us": max(flops / (TF32_FLOPS / TF32_PASSES),
-                                   nbytes / HBM_BYTES_PER_S) * 1e6,
+                   "bound_us": max(flops / BF16_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e6,
                    "bound_us_f32_cores": max(flops / F32_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e6}
             # the eager chain: (B, C, time), f32 weights, TF32 off
             h_lib = torch.cat([cache, x], dim=1).transpose(1, 2).contiguous()
@@ -323,10 +335,21 @@ def main() -> int:
                 pp = p_plan(batch, t, c, dil)
                 run(*pp, lib=p_lib)
                 torch.cuda.synchronize()
-                p_err = float((out - ref).abs().max())
-                if not p_err <= limit:
+                # the parent multiplied f32 operands by the bf16 weights
+                p_ref = sk.residual_chain_plain(cache, x, w1b.float(), w2b.float())
+                p_err = float((out - p_ref).abs().max())
+                if not p_err <= RTOL * float(p_ref.abs().max()):
                     print(f"FAIL parent {name} B={batch} N={n_frames}: max|err| {p_err}",
                           flush=True)
+                    return 1
+                # f32 weights: this tree's arm is the parent's, bit for bit
+                run(*sk._chain_plan(batch, t, c, dil, False), w1=w1, w2=w2)
+                mine = out.clone()
+                run(*p_plan(batch, t, c, dil, False), lib=p_lib, w1=w1, w2=w2)
+                torch.cuda.synchronize()
+                if not torch.equal(out, mine):
+                    print(f"FAIL {name} B={batch} N={n_frames}: f32 weights differ from the "
+                          f"parent's by {float((out - mine).abs().max())}", flush=True)
                     return 1
                 row.update(parent_plan=list(pp),
                            parent_us=device_us(lambda: run(*pp, lib=p_lib)))

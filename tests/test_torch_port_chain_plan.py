@@ -7,15 +7,21 @@ dse_residual_chain_smem; tests/test_torch_port_cuda.py holds the two equal
 on the card) are plain Python and load no library, so they are held here at
 every chain site of the denoiser, the codec (whose encoder is the v0, v1 and
 v2 receivers' transmitter) and the universal codec, for 1, 16 and 64 streams
-of 1, 16, 100 and 400 frames a dispatch. The kernel's products are
-split-TF32 tensor-core passes; an emulation of its arithmetic in numpy (TF32
-rounding by bit masking, as cvt.rna rounds; each mma an exact 8-product sum
-rounded to f32 into its chain; a (tap, 64-channel) chunk's even and odd
-chains folded into the f32 running sum in chunk order) runs a whole chain
-tile by tile with its halo recomputed and its columns split as a plan splits
-them. It shows two plans give the same bits, and the error of the one-frame
-C = 256 chain (e3ch) against f64 and against the plain version far under
-2e-6, where a single TF32 pass would not be.
+of 1, 16, 100 and 400 frames a dispatch. With f32 weights the kernel's
+products are split-TF32 tensor-core passes; an emulation of its arithmetic
+in numpy (TF32 rounding by bit masking, as cvt.rna rounds; each mma an exact
+8-product sum rounded to f32 into its chain; a (tap, 64-channel) chunk's
+even and odd chains folded into the f32 running sum in chunk order) runs a
+whole chain tile by tile with its halo recomputed and its columns split as a
+plan splits them. It shows two plans give the same bits, and the error of
+the one-frame C = 256 chain (e3ch) against f64 and against the plain version
+far under 2e-6, where a single TF32 pass would not be. With bf16 weights the
+operands are rounded to bf16 (ELU(x) and ELU(conv1), as the JAX kernel
+rounds them) and each product is a bf16 ``mma.m16n8k16``; its emulation
+(each mma an exact 16-product sum added to its fragment and rounded to f32,
+a chunk's four 16-channel slices in even and odd fragments, folded in chunk
+order) shows every plan gives the same bits and each GEMM within 1e-6 of
+the largest |output| of its exact sum on the same operands.
 """
 
 import os
@@ -33,13 +39,17 @@ from dl_speech_enhancement_tpu_torch.ops.stream_kernel import (
     chain_halo,
     chain_lda,
     chain_plans,
+    chain_scratch_floats,
     chain_smem_bytes,
     chain_topology_error,
     chain_window_rows,
     residual_chain,
     residual_chain_plain,
 )
+from dl_speech_enhancement_tpu_torch.utils.checks import exact_sum_weights, rounding_held
 from dl_speech_enhancement_tpu_torch.utils.config import load_config
+
+CHAIN_ATOL = 2e-6  # chip_smoke.py's tolerance of the chain kernel against its plain version
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FRAME = 1200
@@ -94,20 +104,26 @@ def test_every_chain_plan_fits(sites, path, batch):
 
 def test_chain_shared_memory_formula():
     """The formula is the kernel's layout: at e3ch's one-frame tile (20 rows,
-    C = 256, 16 blocks of 16 channels, bf16 weights) a 4 x 64 x 24 bf16 W
-    ring, X and H slices of 98 and 92 rows by 16 floats, and a window of
-    102 rows (unit 0's 92 conv1 rows rounded up to 96, plus its reach 6) by
-    260 floats."""
+    C = 256, 16 blocks of 16 channels) a 4 x 64 x 24 W ring, an f32 X slice
+    of 98 rows by 16, an H slice of 92 rows by 16 and a window of 102 rows
+    (unit 0's 92 conv1 rows rounded up to 96, plus its reach 6) by 260
+    floats with f32 weights; with bf16 weights the ring, the H slice and the
+    window hold bf16, the window's rows 264 wide (C rounded up to 16, plus
+    8)."""
     assert chain_halo(DILATIONS) == 78 and chain_lda(256) == 260 and chain_lda(20) == 28
+    assert chain_lda(256, True) == 264 and chain_lda(20, True) == 40
     assert chain_window_rows(20, DILATIONS) == 102
     assert chain_window_rows(1, DILATIONS) == max(80 + 6, 64 + 18, 16 + 54)
     assert chain_smem_bytes(20, 256, 16, DILATIONS, True) == (
-        4 * 64 * 24 * 2 + 4 * ((98 + 92) * 16 + 102 * 260))
+        4 * 64 * 24 * 2 + 4 * 98 * 16 + 2 * (92 * 16 + 102 * 264))
     assert chain_smem_bytes(20, 256, 16, DILATIONS, False) == (
         4 * 64 * 24 * 4 + 4 * ((98 + 92) * 16 + 102 * 260))
     # 64 channels a block: the ring holds 8 fragments' width plus 8
     assert chain_smem_bytes(1, 64, 1, DILATIONS, True) == (
-        4 * 64 * 72 * 2 + 4 * ((79 + 73) * 64 + 86 * 68))
+        4 * 64 * 72 * 2 + 4 * 79 * 64 + 2 * (73 * 64 + 86 * 72))
+    # the scratch holds the E and H rows in the weights' dtype
+    assert chain_scratch_floats(20, 256, DILATIONS) == (2 * 98 - 6) * 256
+    assert chain_scratch_floats(20, 256, DILATIONS, True) == (2 * 98 - 6) * 256 // 2
 
 
 def test_fit_check_and_planner_agree_on_what_fits():
@@ -294,3 +310,135 @@ def test_split_tf32_e3_chain_error_is_far_under_2e6(weight_bf16, passes):
     assert float(np.abs(got - plain).max()) < 2e-6
     single = float(np.abs(_emulated_chain(x_ext, w1, w2, 1, 20, 16) - exact).max())
     assert single > 2e-6 * 10, single
+
+
+# ---------------------------------------------------------------- bf16 mma
+
+
+def _emulated_conv_bf16(a, w, d):
+    """The bf16 arm of mma_tap_gemm (csrc/tile_mma.cuh) on bf16 operands
+    ``a`` and ``w`` (held in f32): the (tap, 64-channel) chunks in order,
+    each chunk's four 16-channel slices into fresh even (0, 2) and odd (1, 3)
+    fragments, each mma an exact 16-product sum added to its fragment and
+    rounded to f32, and the chunk's (even + odd) added to the f32 running
+    sum."""
+    taps, k, n = w.shape
+    m = a.shape[0] - (taps - 1) * d
+    kp = -(-k // 64) * 64  # zero slices add exact zeros to a fragment
+    windows = np.zeros((m, taps, kp), np.float64)
+    for j in range(taps):
+        windows[:, j, :k] = a[j * d: j * d + m]
+    wp = np.zeros((taps, kp, n), np.float64)
+    wp[:, :k] = w
+    steps = kp // 64
+    sums = np.einsum("mtskc,tskcn->mtskn", windows.reshape(m, taps, steps, 4, 16),
+                     wp.reshape(taps, steps, 4, 16, n))  # one mma's 16 exact products
+    frag = []
+    for parity in (0, 1):
+        f = np.zeros((m, taps, steps, n), np.float32)
+        for kk in (parity, parity + 2):
+            f = (f.astype(np.float64) + sums[:, :, :, kk]).astype(np.float32)
+        frag.append(f)
+    step = frag[0] + frag[1]
+    out = np.zeros((m, n), np.float32)
+    for j in range(taps):
+        for s in range(steps):
+            out = out + step[:, j, s]
+    return out
+
+
+def _bf16_rne(a):
+    """f32 -> bf16, to nearest even (as torch's .to(torch.bfloat16), JAX's
+    astype and the kernels' __float2bfloat16_rn round), in f32."""
+    bits = np.ascontiguousarray(a, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x7FFF) + ((bits >> 16) & np.uint32(1)))
+            & np.uint32(0xFFFF0000)).view(np.float32)
+
+
+def _emulated_chain_bf16(x_ext, w1, w2, tile, cluster, gemm_errors=None):
+    """The bf16-weight chain at the plan (tile, cluster): E = bf16(ELU(X))
+    and H = bf16(ELU(conv1)) the windows, each block's columns from the
+    full-width window, X f32. ``gemm_errors`` collects each GEMM's largest
+    distance from its exact sum on the same operands, over its largest
+    |output|."""
+    c = x_ext.shape[1]
+    halo = chain_halo(DILATIONS)
+    nc = c // cluster
+    t_out = x_ext.shape[0] - halo
+    out = np.zeros((t_out, c), np.float32)
+
+    def gemm(a, w, d):
+        y = np.concatenate([_emulated_conv_bf16(a, w[:, :, r * nc:(r + 1) * nc], d)
+                            for r in range(cluster)], axis=1)
+        if gemm_errors is not None:
+            m = a.shape[0] - (w.shape[0] - 1) * d
+            exact = sum(a[j * d: j * d + m].astype(np.float64) @ w[j].astype(np.float64)
+                        for j in range(w.shape[0]))
+            gemm_errors.append(float(np.abs(y - exact).max() / np.abs(exact).max()))
+        return y
+
+    for t0 in range(0, t_out, tile):
+        h = x_ext[t0: t0 + min(tile, t_out - t0) + halo].copy()
+        for u, d in enumerate(DILATIONS):
+            hh = _bf16_rne(_elu(gemm(_bf16_rne(_elu(h)), w1[u], d)))
+            h = h[6 * d:] + gemm(hh, w2[u][None], 0)
+        out[t0: t0 + h.shape[0]] = h
+    return out
+
+
+@pytest.mark.parametrize("c,rows,plans", [
+    (32, 40, [(40, 1), (7, 4), (16, 8)]),   # one tap's 32 channels a chunk
+    (64, 30, [(30, 1), (4, 16), (13, 2)]),
+])
+def test_the_bf16_chain_gives_the_same_bits_for_every_plan(c, rows, plans):
+    """The bf16 arm's fold order depends on (tap, channel) alone, so tiles
+    that recompute their halo and clusters that split the columns give the
+    same bits."""
+    rng = np.random.default_rng(5)
+    x_ext, w1, w2 = _chain_operands(rng, c, rows, True)
+    outs = [_emulated_chain_bf16(x_ext, w1, w2, tile, cluster) for tile, cluster in plans]
+    for other in outs[1:]:
+        assert np.array_equal(outs[0], other)
+
+
+def test_bf16_e3_chain_gemms_are_within_1e6_of_their_exact_sums():
+    """e3ch at one frame (C = 256, 20 rows, 1,792-term conv1 sums, 16
+    blocks): each of the six GEMMs within 1e-6 of its largest |output| of
+    the exact sum of the same bf16 operands. The chain against the plain
+    version, which rounds at the same points but sums in another order, is
+    further apart: where the two sums of an operand straddle a bf16
+    rounding midpoint it rounds one bf16 step apart, and the step reaches
+    the later units, whose operands then straddle other midpoints (1.6e-3
+    of the largest |output| here, beyond CHAIN_ATOL). So on these dense
+    weights chip_smoke.py holds the bf16-weight chain to its plain version
+    by utils/checks.py::rounding_held, which this emulation meets, and at
+    CHAIN_ATOL on exact-sum weights (the next test)."""
+    rng = np.random.default_rng(7)
+    x_ext, w1, w2 = _chain_operands(rng, 256, 20, True)
+    errors = []
+    got = _emulated_chain_bf16(x_ext, w1, w2, 20, 16, errors)
+    assert len(errors) == 6 and max(errors) < 1e-6, errors
+    ops = (torch.from_numpy(x_ext[:78]), torch.from_numpy(x_ext[78:]),
+           torch.from_numpy(w1).to(torch.bfloat16), torch.from_numpy(w2).to(torch.bfloat16))
+    plain = residual_chain_plain(*ops)
+    held = rounding_held(torch.from_numpy(got), plain,
+                         residual_chain_plain(*ops[:2], ops[2].float(), ops[3].float()))
+    assert held["held"] and held["max_err"] > 2e-6, held
+
+
+@pytest.mark.parametrize("c,rows,tile,cluster", [(256, 20, 20, 16), (64, 30, 13, 2)])
+def test_bf16_chain_on_exact_sums_equals_the_plain_version(c, rows, tile, cluster):
+    """On utils/checks.py::exact_sum_weights every sum is exact in any
+    order, so the emulated bf16 arm rounds every operand to the same bits as
+    the plain version: the two agree within CHAIN_ATOL (measured 0), where
+    the plain version on unrounded operands lies far beyond it."""
+    rng = np.random.default_rng(7)
+    x_ext = (rng.standard_normal((chain_halo(DILATIONS) + rows, c)) * 0.3).astype(np.float32)
+    w1 = exact_sum_weights(torch.empty(3, 7, c, c, dtype=torch.bfloat16), 1)
+    w2 = exact_sum_weights(torch.empty(3, 1, c, c, dtype=torch.bfloat16), 2)[:, 0]
+    got = _emulated_chain_bf16(x_ext, w1.float().numpy(), w2.float().numpy(), tile, cluster)
+    xt = torch.from_numpy(x_ext)
+    plain = residual_chain_plain(xt[:78], xt[78:], w1, w2).numpy()
+    loose = residual_chain_plain(xt[:78], xt[78:], w1.float(), w2.float()).numpy()
+    assert float(np.abs(got - plain).max()) <= CHAIN_ATOL
+    assert float(np.abs(loose - plain).max()) >= 10 * CHAIN_ATOL

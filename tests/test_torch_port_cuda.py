@@ -43,9 +43,14 @@ direct call at ``check_codes`` or the next call after a synchronisation, an
 endpoint at once for codes from the host and at its next ``decode`` for
 codes on the card. The residual chain kernel is held at every chain site
 of the paths within CHAIN_ATOL (2e-6: its split-TF32 products, emulated in
-tests/test_torch_port_chain_plan.py), every plan of a site equal bit for
-bit, its shared-memory and scratch formulas against the library's, and its
-SASS for TF32 tensor-core products. The course's and the symADuniv config's
+tests/test_torch_port_chain_plan.py); with bf16 weights, where the chain
+and the unit round intermediate sums to bf16 as the reference does and two
+sum orders may round one step apart, also on exact-sum weights at the same
+tolerance, and on dense weights by utils/checks.py::rounding_held
+(_bf16_held); every plan of a site equal bit for bit, its
+shared-memory and scratch formulas against the library's, and its SASS for
+tensor-core products (bf16 HMMA with bf16 weights, TF32 with f32; the
+unit's too). The course's and the symADuniv config's
 discriminators at their widths equal their CPU twins (every map within 1e-4
 of its largest), and one adversarial course step on the kernel route (K6)
 equals its plain route (fragments rtol 1e-5, every gradient of both
@@ -55,6 +60,7 @@ the flagship's shapes.
 
 import hashlib
 import os
+import re
 import subprocess
 import time
 
@@ -108,12 +114,59 @@ from dl_speech_enhancement_tpu_torch.stream.runtime import (
 from dl_speech_enhancement_tpu_torch.tools import reshape_probe
 from dl_speech_enhancement_tpu_torch.train.denoise_course import make_course_steps
 from dl_speech_enhancement_tpu_torch.train.optim import build_optimizer
-from dl_speech_enhancement_tpu_torch.utils.checks import rvq_near_ties
+from dl_speech_enhancement_tpu_torch.utils.checks import (
+    ROUNDING_GAP,
+    exact_sum_weights,
+    rounding_held,
+    rvq_near_ties,
+)
 from dl_speech_enhancement_tpu_torch.utils.config import load_config
 from dl_speech_enhancement_tpu_torch.utils.model_factory import build_discriminator
 
 pytestmark = pytest.mark.cuda
 ATOL = 1e-4
+
+
+def _held(fn, plain, args, weights, limit_of, got, ref, pick=lambda out: out, no_taps=()):
+    """A chain or unit output ``got`` against its plain version ``ref`` on
+    ``args``, whose weights lie at the positions ``weights`` (those in
+    ``no_taps`` without a tap axis): within ``limit_of(ref)`` with f32
+    weights. With bf16 weights, where the kernel rounds intermediate sums
+    (utils/checks.py), ``got`` holds ``ref`` by rounding_held, and the
+    kernel on exact-sum weights holds its plain version within
+    ``limit_of``, with the plain version on unrounded operands at least
+    ROUNDING_GAP times that away."""
+    if args[weights[0]].dtype == torch.float32:
+        assert float((got - ref).abs().max()) <= limit_of(ref)
+        return
+
+    def swap(a, make):
+        return tuple(make(i, t) if i in weights else t for i, t in enumerate(a))
+
+    held = rounding_held(got, ref, pick(plain(*swap(args, lambda i, w: w.float()))))
+    assert held["held"], held
+    exact = swap(args, lambda i, w: exact_sum_weights(w[:, None], i)[:, 0] if i in no_taps
+                 else exact_sum_weights(w, i))
+    got, ref = pick(fn(*exact)), pick(plain(*exact))
+    loose = pick(plain(*swap(exact, lambda i, w: w.float())))
+    torch.cuda.synchronize()
+    limit = limit_of(ref)
+    assert float((got - ref).abs().max()) <= limit
+    assert float((loose - ref).abs().max()) >= ROUNDING_GAP * limit
+
+
+def _chain_held(args, limit, got, ref):
+    """_held for residual_chain(cache, x, w1, w2) within ``limit``."""
+    _held(residual_chain, residual_chain_plain, args, (2, 3), lambda r: limit, got, ref,
+          no_taps=(3,))
+
+
+def _unit_held(args, got, ref):
+    """_held for hifigan_unit's output within ATOL (f32 weights) or 1e-4 of
+    the largest (bf16)."""
+    _held(hifigan_unit, hifigan_unit_plain, args, (3, 5),
+          lambda r: ATOL if args[3].dtype == torch.float32 else 1e-4 * float(r.abs().max()),
+          got, ref, lambda out: out[0])
 
 
 @pytest.fixture
@@ -140,7 +193,7 @@ def test_residual_chain_kernel(card, channels, rows, wd):
     assert residual_chain.launches == before + 1
     ref = residual_chain_plain(cache, x, w1, w2)
     torch.cuda.synchronize()
-    assert float((got - ref).abs().max()) <= ATOL
+    _chain_held((cache, x, w1, w2), ATOL, got, ref)
 
 
 # (C, rows a frame) of the eight chains of a denoiser / codec dispatch
@@ -155,7 +208,7 @@ CHAIN_ATOL = 2e-6  # split-TF32 products at O(1) activations (test_torch_port_ch
 def test_residual_chain_kernel_at_every_chain_site(card, channels, rows, batch, frames, wd):
     """Every chain site of the paths at one stream of 1 and 16 frames and 16
     streams of one, each cache a strided view: within CHAIN_ATOL of the
-    plain version with f32 and bf16 weights."""
+    plain version (with bf16 weights, _held's two checks)."""
     cache = _tail_view(card, batch, 78, channels)
     x = _randn(card, batch, rows * frames, channels)
     w1 = (_randn(card, 3, 7, channels, channels) / (7 * channels) ** 0.5).to(wd)
@@ -163,7 +216,7 @@ def test_residual_chain_kernel_at_every_chain_site(card, channels, rows, batch, 
     got = residual_chain(cache, x, w1, w2)
     ref = residual_chain_plain(cache, x, w1, w2)
     torch.cuda.synchronize()
-    assert float((got - ref).abs().max()) <= CHAIN_ATOL
+    _chain_held((cache, x, w1, w2), CHAIN_ATOL, got, ref)
 
 
 @pytest.mark.parametrize("wd", [torch.float32, torch.bfloat16])
@@ -183,7 +236,7 @@ def test_residual_chain_every_plan_gives_the_same_bits(card, monkeypatch, channe
         monkeypatch.setattr(stream_kernel, "_chain_plan", lambda *a, p=(tile, cluster): p)
         got = residual_chain(cache, x, w1, w2)
         torch.cuda.synchronize()
-        assert float((got - ref).abs().max()) <= CHAIN_ATOL, (tile, cluster)
+        _chain_held((cache, x, w1, w2), CHAIN_ATOL, got, ref)
         assert torch.equal(got, planned), (tile, cluster)
 
 
@@ -200,24 +253,60 @@ def test_residual_chain_smem_formula_matches_the_library(card):
                     assert lib.dse_residual_chain_smem(tile, c, cluster, *dilations,
                                                        int(bf16)) == stream_kernel.\
                         chain_smem_bytes(tile, c, cluster, dilations, bf16)
-                assert lib.dse_residual_chain_scratch(tile, c, cluster, *dilations) == (
-                    stream_kernel.chain_scratch_floats(tile, c, dilations) if cluster > 1
-                    else 0)
+                    assert lib.dse_residual_chain_scratch(tile, c, cluster, *dilations,
+                                                          int(bf16)) == (
+                        stream_kernel.chain_scratch_floats(tile, c, dilations, bf16)
+                        if cluster > 1 else 0)
+
+
+def _kernel_sass(name: str, kernel: str) -> dict:
+    """``{mangled name: SASS}`` of every instantiation of ``kernel`` in the
+    library of ``csrc/<name>.cu``."""
+    lib_path = _cuda._lib_path(name)
+    _cuda.load(name)
+    cuobjdump = os.path.join(os.path.dirname(_cuda._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(lib_path)], capture_output=True, text=True,
+                          check=True).stdout
+    return {f.splitlines()[0].strip(): f for f in sass.split("Function : ")[1:]
+            if kernel in f.splitlines()[0]}
+
+
+def _weights_bf16(mangled: str, kernel: str) -> bool:
+    """Whether an instantiation's weight type (its first type argument,
+    after the int ones) is bf16."""
+    return re.search(kernel + r"I(?:Li\d+E)+(13__nv_bfloat16|f)", mangled).group(1) != "f"
 
 
 def test_residual_chain_runs_on_the_tensor_cores(card):
     """The library's SASS: every residual_chain_kernel instantiation issues
-    TF32 tensor-core products (HMMA.1688.F32.TF32)."""
-    lib_path = _cuda._lib_path("residual_chain")
-    _cuda.load("residual_chain")
-    cuobjdump = os.path.join(os.path.dirname(_cuda._nvcc()), "cuobjdump")
-    sass = subprocess.run([cuobjdump, "-sass", str(lib_path)], capture_output=True, text=True,
-                          check=True).stdout
-    functions = [f for f in sass.split("Function : ")[1:]
-                 if "residual_chain_kernel" in f.splitlines()[0]]
+    tensor-core products, bf16 ones with bf16 weights (HMMA.16816.F32.BF16,
+    no TF32) and split-TF32 ones with f32 weights (HMMA.1688.F32.TF32)."""
+    functions = _kernel_sass("residual_chain", "residual_chain_kernel")
     # 1, 2, 4 and 8 fragments a block, f32 and bf16 weights, f32 and bf16 activations
     assert len(functions) == 16
-    assert all("HMMA.1688.F32.TF32" in f for f in functions)
+    bf16 = [f for name, f in functions.items()
+            if _weights_bf16(name, "residual_chain_kernel")]
+    assert len(bf16) == 8
+    for name, f in functions.items():
+        if f in bf16:
+            assert "HMMA.16816.F32.BF16" in f and "TF32" not in f, name
+        else:
+            assert "HMMA.1688.F32.TF32" in f, name
+
+
+def test_hifigan_unit_runs_on_the_tensor_cores(card):
+    """As test_residual_chain_runs_on_the_tensor_cores, for every
+    hifigan_unit_kernel instantiation (8 tiles, 12 with bf16 weights, whose
+    warps may take 4 row fragments; two activation dtypes)."""
+    functions = _kernel_sass("hifigan_unit", "hifigan_unit_kernel")
+    assert len(functions) == 40
+    bf16 = [f for name, f in functions.items() if _weights_bf16(name, "hifigan_unit_kernel")]
+    assert len(bf16) == 24
+    for name, f in functions.items():
+        if f in bf16:
+            assert "HMMA.16816.F32.BF16" in f and "TF32" not in f, name
+        else:
+            assert "HMMA.1688.F32.TF32" in f, name
 
 
 @pytest.mark.parametrize("wd", [torch.float32, torch.bfloat16])
@@ -655,15 +744,18 @@ DIGEST_CONV_SITES = [(1, 32, 7, 1, 1200, None, False), (32, 64, 6, 3, 400, None,
                      (64, 512, 7, 1, 4, None, False), (768, 256, 1, 1, 20, None, False),
                      (384, 128, 1, 1, 100, None, False), (192, 64, 1, 1, 400, None, False),
                      (96, 32, 1, 1, 1200, None, False), (32, 1, 7, 1, 1200, 0.01, True)]
-# SHA-256 of causal_conv's outputs at DIGEST_CONV_SITES (_conv_digest) from
-# the kernel whose GEMM arm was still inside csrc/causal_conv.cu, on an H100
-CONV_DIGEST = "9efd8c7a3d69061095e142f0c6a71c321c9d55964f660a982ee91b36040b1b63"
+# SHA-256 of causal_conv's outputs at DIGEST_CONV_SITES (_conv_digest), on
+# an H100: with f32 weights from the kernel whose GEMM arm was still inside
+# csrc/causal_conv.cu (its f32 arm's bits have not changed since); with bf16
+# weights from the kernel that rounds its input to bf16 as the reference does
+CONV_DIGEST = {torch.float32: "0caae3c9099cbaf6acf70ad88653f1cd7206d4a29f6575af04d410191b3f7df1",
+               torch.bfloat16: "1f86b9a555b600a7975e2aff4396f3fd15599be9039eb9ff219c821ae68d6ecd"}
 
 
-def _conv_digest() -> str:
-    """SHA-256 of causal_conv's outputs at every DIGEST_CONV_SITES site, for
-    one stream of 1 and 100 frames and 16 streams of 1, f32 and bf16
-    weights, on inputs drawn with numpy (seed 8)."""
+def _conv_digest(wd) -> str:
+    """SHA-256 of causal_conv's outputs at every DIGEST_CONV_SITES site with
+    ``wd`` weights, for one stream of 1 and 100 frames and 16 streams of 1,
+    on inputs drawn with numpy (seed 8)."""
     rng = np.random.default_rng(8)
     digest = hashlib.sha256()
 
@@ -675,14 +767,14 @@ def _conv_digest() -> str:
             x = draw(batch, stride * rows * frames, cin)
             cache = draw(batch, taps - 1, cin) if taps > 1 else x[:, :0]  # as a 1x1 fuse's
             w, b = draw(taps, cin, cout) / (taps * cin) ** 0.5, draw(cout)
-            for wd in (torch.float32, torch.bfloat16):
-                y = causal_conv(cache, x, w.to(wd), b, stride, 1, leaky, tanh)
-                digest.update(y.cpu().numpy().tobytes())
+            y = causal_conv(cache, x, w.to(wd), b, stride, 1, leaky, tanh)
+            digest.update(y.cpu().numpy().tobytes())
     return digest.hexdigest()
 
 
-def test_causal_conv_bits_equal_the_kernel_before_the_shared_gemm_arm(card):
-    assert _conv_digest() == CONV_DIGEST
+@pytest.mark.parametrize("wd", [torch.float32, torch.bfloat16])
+def test_causal_conv_bits_equal_the_kernel_before_the_shared_gemm_arm(card, wd):
+    assert _conv_digest(wd) == CONV_DIGEST[wd]
 
 
 @pytest.mark.parametrize("batch", [4, 16, 64])
@@ -732,8 +824,9 @@ def test_chain_plan_sees_the_whole_grid(card):
     """On the real-time path's deepest chain (20 rows at C = 256) one stream
     spreads over at least 16 SMs in clusters of more than one block; 16
     streams take at least 64 SMs; at B = 64 the plan stops spreading each
-    tile over as many blocks as at B = 1. Each holds CHAIN_ATOL. (The planner
-    is pure Python; the kernel takes every plan it gives.)"""
+    tile over as many blocks as at B = 1. Each holds its plain version
+    (bf16 weights: _held's two checks at CHAIN_ATOL). (The planner is pure
+    Python; the kernel takes every plan it gives.)"""
     plans = {b: _chain_plan(b, 20, 256, (1, 3, 9)) for b in (1, 16, 64)}
     tile, cluster = plans[1]
     assert cluster > 1 and -(-20 // tile) * cluster >= 16
@@ -744,9 +837,9 @@ def test_chain_plan_sees_the_whole_grid(card):
     w2 = (_randn(card, 3, 256, 256) / 256 ** 0.5).bfloat16()
     for b in (1, 16, 64):
         got = residual_chain(cache[:b], x[:b], w1, w2)
+        ref = residual_chain_plain(cache[:b], x[:b], w1, w2)
         torch.cuda.synchronize()
-        assert float((got - residual_chain_plain(cache[:b], x[:b], w1, w2)).abs().max()) \
-            <= CHAIN_ATOL
+        _chain_held((cache[:b], x[:b], w1, w2), CHAIN_ATOL, got, ref)
 
 
 # ---------------------------------------------------------------- vocoder
@@ -802,7 +895,7 @@ def test_hifigan_unit_kernel(card, batch, rows, c, groups, k, dilation, tiled, w
     torch.cuda.synchronize()
     assert got.shape == ref.shape == (batch, rows, groups * c)
     limit = ATOL if wd == torch.float32 else 1e-4 * float(ref.abs().max())
-    assert float((got - ref).abs().max()) <= limit
+    _unit_held((cache1, cache2, x, w1, b1, w2, b2, dilation, groups), got, ref)
     assert float((got2 - ref2).abs().max()) <= limit
     c1, c2, x2 = cache1.clone(), cache2.clone(), x.clone()
     c1[0] += 1.0
@@ -838,23 +931,25 @@ def test_hifigan_unit_kernel_every_cluster(card, monkeypatch, cluster, wd):
         monkeypatch.setattr(vocoder_kernel, "_unit_plan", lambda *a: (tile, cluster))
         got, got2 = hifigan_unit(*args, 3, 2, 0.1)
         torch.cuda.synchronize()
-        assert float((got - ref).abs().max()) <= limit
+        _unit_held((*args, 3, 2, 0.1), got, ref)
         assert float((got2 - ref2).abs().max()) <= limit
         assert torch.equal(got, planned) and torch.equal(got2, planned2)
 
 
 def test_hifigan_unit_smem_formula_matches_the_library(card):
     """ops/vocoder_kernel.py::unit_smem_bytes, which the planner and
-    vocoder_topology_error ask, equals the library's dse_hifigan_unit_smem."""
+    vocoder_topology_error ask, equals the library's dse_hifigan_unit_smem,
+    for each weight and activation dtype."""
     lib = _cuda.load("hifigan_unit")
     for tile in (1, 4, 20, 54, 118, 510):
         for c, cluster in ((4, 1), (8, 2), (16, 1), (32, 4), (48, 1), (64, 2), (128, 2),
                            (256, 4), (256, 8)):
             for taps, dilation in ((3, 1), (7, 3), (11, 5)):
                 for bf16 in (False, True):
-                    assert lib.dse_hifigan_unit_smem(tile, c, taps, dilation, cluster,
-                                                     int(bf16)) == unit_smem_bytes(
-                        tile, c, taps, dilation, cluster, bf16)
+                    for x_bf16 in (False, True):
+                        assert lib.dse_hifigan_unit_smem(
+                            tile, c, taps, dilation, cluster, int(bf16) | int(x_bf16) << 1
+                        ) == unit_smem_bytes(tile, c, taps, dilation, cluster, bf16, x_bf16)
 
 
 @pytest.mark.parametrize("wd", [torch.float32, torch.bfloat16])

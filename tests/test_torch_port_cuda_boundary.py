@@ -15,7 +15,9 @@ arm does and rounds what it stores, so:
 - against its plain version (the same rounding with ``.to(torch.bfloat16)``)
   it is within the f32 arm's tolerance plus one bf16 step of the value
   (2^-7 of its magnitude: where the f32 sums differ by their last bits, a
-  value at a rounding boundary may round either way);
+  value at a rounding boundary may round either way); with bf16 weights the
+  chain and the unit, which round intermediate sums, hold this through
+  their f32 arm by tests/test_torch_port_cuda.py's checks for them;
 - the wire codes of the residual-VQ search on bf16 z are the plain search's
   on the same z, up to near ties (``utils/checks.py::rvq_near_ties``);
 - the whole-model streams at bf16 boundaries launch the same kernels as at
@@ -46,6 +48,7 @@ from dl_speech_enhancement_tpu_torch.ops.vocoder_kernel import (
     hifigan_unit_plain,
 )
 from dl_speech_enhancement_tpu_torch.utils.checks import rvq_near_ties
+from test_torch_port_cuda import _chain_held, _unit_held
 
 pytestmark = pytest.mark.cuda
 ATOL = 1e-4
@@ -88,8 +91,13 @@ def test_residual_chain_bf16_arm(card, batch, channels, rows, wd):
     w2 = (_randn(card, 3, channels, channels) / channels ** 0.5).to(wd)
     got = residual_chain(cache, x, w1, w2)
     assert got.dtype == BF16
-    assert torch.equal(got, residual_chain(cache, x.float(), w1, w2).to(BF16))
-    _held(got, residual_chain_plain(cache, x, w1, w2), CHAIN_ATOL)
+    f32 = residual_chain(cache, x.float(), w1, w2)
+    assert torch.equal(got, f32.to(BF16))
+    if wd == torch.float32:
+        _held(got, residual_chain_plain(cache, x, w1, w2), CHAIN_ATOL)
+    else:  # rounded sums: the f32 arm, which this arm rounds, by the card tests' two checks
+        _chain_held((cache, x.float(), w1, w2), CHAIN_ATOL, f32,
+                    residual_chain_plain(cache, x.float(), w1, w2))
 
 
 # (Cin, Cout, k, stride, rows): the input conv (cin1), a downsample and the
@@ -230,7 +238,12 @@ def test_hifigan_unit_bf16_arm(card, rows, c, groups, tiled, acc, wd):
     assert torch.equal(got, f32.to(BF16)) and torch.equal(new2, f32_2)
     ref, ref2 = hifigan_unit_plain(cache1, cache2, x, w1, b1, w2, b2, dilation, groups, 0.1,
                                    total, scale)
-    _held(got, ref, ATOL)
+    if wd == torch.float32:
+        _held(got, ref, ATOL)
+    else:  # rounded sums: the f32 arm, which this arm rounds, by the card tests' two checks
+        wide = (cache1, cache2, x.float(), w1, b1, w2, b2, dilation, groups, 0.1,
+                None if total is None else total.float(), scale)
+        _unit_held(wide, f32, hifigan_unit_plain(*wide)[0])
     assert float((new2 - ref2).abs().max()) <= ATOL
 
 

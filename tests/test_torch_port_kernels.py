@@ -100,15 +100,26 @@ def test_residual_chain_matches_the_modules_step(rng):
 
 
 def test_bf16_weights_round_once(rng):
-    """bf16 weights are widened to f32; activations and sums stay f32."""
+    """bf16 weights are widened to f32, and each conv's activated operand is
+    rounded once to bf16, as the JAX kernels round it before the product;
+    the residual stream and the sums stay f32. With the same values as f32
+    weights nothing is rounded."""
     _, tunits = _chain_pair(8)
     cache = torch.from_numpy(rng.standard_normal((78, 8)).astype(np.float32))
     x = torch.from_numpy(rng.standard_normal((30, 8)).astype(np.float32))
     w1, w2 = chain_weights(tunits, torch.bfloat16)
     got = residual_chain(cache, x, w1, w2)
-    want = residual_chain(cache, x, w1.float(), w2.float())
+    h = torch.cat([cache, x])
+    for u, d in enumerate((1, 3, 9)):
+        rows = h.shape[0] - 6 * d
+        a = _elu(h).to(torch.bfloat16).float()
+        acc = a[0:rows] @ w1[u, 0].float()
+        for j in range(1, 7):
+            acc = acc + a[j * d: j * d + rows] @ w1[u, j].float()
+        h = h[6 * d:] + _elu(acc).to(torch.bfloat16).float() @ w2[u].float()
     assert got.dtype == torch.float32
-    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    np.testing.assert_array_equal(got.numpy(), h.numpy())
+    assert not torch.equal(got, residual_chain(cache, x, w1.float(), w2.float()))
 
 
 @pytest.mark.parametrize("k,stride,dilation", [(7, 1, 1), (6, 3, 1), (10, 5, 1), (7, 1, 3)])

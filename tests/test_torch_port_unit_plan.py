@@ -13,7 +13,13 @@ chain; the chains folded into the f32 running sum per (tap, 64-channel)
 step in the kernel's order) shows the error of a stage-0 unit's 2,816-term
 sums against f64 well under chip_smoke.py's KERNEL_ATOL_F32 (1e-4), which
 is why that tolerance did not move, while a single TF32 pass would not meet
-it.
+it. With bf16 weights the kernel multiplies the bf16-rounded operands (the
+leaky input window and the leaky h window, as JAX rounds them) on bf16
+``mma.m16n8k16``; its emulation (each mma an exact 16-product sum added to
+its fragment and rounded to f32, a (tap, 64-channel) chunk's four slices
+in even and odd fragments folded in chunk order) gives the same bits for
+every (tile, cluster) split and stays within 1e-6 of the largest |output| of
+the exact sums of the same operands.
 """
 
 import os
@@ -211,3 +217,78 @@ def test_split_tf32_stage0_unit_error_is_far_under_the_kernel_tolerance(weight_b
     # a single TF32 pass would not hold the tolerance
     single = float(np.abs(_emulated_tap_gemm(windows1, w1, 1) - exact1).max())
     assert single > KERNEL_ATOL_F32, single
+
+
+# ---------------------------------------------------------------- bf16 mma
+
+
+def _bf16(a):
+    bits = np.ascontiguousarray(a, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x7FFF) + ((bits >> 16) & np.uint32(1)))
+            & np.uint32(0xFFFF0000)).view(np.float32)
+
+
+def _emulated_tap_gemm_bf16(windows, w):
+    """The bf16 arm of mma_tap_gemm on bf16 operands: per (tap, 64-channel)
+    chunk, 16-channel slices 0 and 2 into one fresh fragment and 1 and 3
+    into another (each mma an exact 16-product sum added and rounded to f32),
+    the chunk's (even + odd) added to the f32 running sum in chunk order."""
+    m, taps, k = windows.shape
+    n = w.shape[2]
+    kp = -(-k // 64) * 64
+    a = np.zeros((m, taps, kp), np.float64)
+    a[:, :, :k] = windows
+    wp = np.zeros((taps, kp, n), np.float64)
+    wp[:, :k] = w
+    steps = kp // 64
+    sums = np.einsum("mtskc,tskcn->mtskn", a.reshape(m, taps, steps, 4, 16),
+                     wp.reshape(taps, steps, 4, 16, n))
+    frag = []
+    for parity in (0, 1):
+        f = np.zeros((m, taps, steps, n), np.float32)
+        for kk in (parity, parity + 2):
+            f = (f.astype(np.float64) + sums[:, :, :, kk]).astype(np.float32)
+        frag.append(f)
+    step = frag[0] + frag[1]
+    acc = np.zeros((m, n), np.float32)
+    for j in range(taps):
+        for s in range(steps):
+            acc = acc + step[:, j, s]
+    return acc
+
+
+def test_bf16_stage0_unit_gemms_are_within_1e6_of_their_exact_sums():
+    """A v0 stage-0 unit on bf16 operands: both GEMMs (2,816-term sums)
+    within 1e-6 of their largest |output| of the exact sums of the same
+    operands."""
+    rng = np.random.default_rng(7)
+    windows1, w1, b1, w2, cache2, k, rows = _stage0_unit(rng, True)
+    windows1 = _bf16(windows1)
+    got1 = _emulated_tap_gemm_bf16(windows1, w1)
+    exact1 = np.einsum("mjc,jcn->mn", windows1.astype(np.float64), w1.astype(np.float64))
+    assert float(np.abs(got1 - exact1).max()) < 1e-6 * float(np.abs(exact1).max())
+    h = (got1 + b1).astype(np.float32)
+    h = np.where(h >= 0, h, np.float32(0.1) * h)[k - 1:]
+    h_ext = _bf16(np.concatenate([cache2, h]))
+    windows2 = np.stack([h_ext[j: j + rows] for j in range(k)], axis=1)
+    got2 = _emulated_tap_gemm_bf16(windows2, w2)
+    exact2 = np.einsum("mjc,jcn->mn", windows2.astype(np.float64), w2.astype(np.float64))
+    assert float(np.abs(got2 - exact2).max()) < 1e-6 * float(np.abs(exact2).max())
+
+
+@pytest.mark.parametrize("tile,cluster", [(20, 1), (8, 2), (3, 8), (16, 4)])
+def test_the_bf16_unit_gives_the_same_bits_for_every_plan(tile, cluster):
+    """Tiles split the rows and clusters the columns; neither touches a sum's
+    order, so every plan gives the planned (one tile, one block) bits."""
+    rng = np.random.default_rng(9)
+    windows1, w1, _, _, _, _, _ = _stage0_unit(rng, True)
+    windows1 = _bf16(windows1)
+    whole = _emulated_tap_gemm_bf16(windows1, w1)
+    c, m = w1.shape[2], windows1.shape[0]
+    nc = c // cluster
+    split = np.concatenate([
+        np.concatenate([_emulated_tap_gemm_bf16(windows1[t0:t0 + tile],
+                                                w1[:, :, r * nc:(r + 1) * nc])
+                        for r in range(cluster)], axis=1)
+        for t0 in range(0, m, tile)])
+    assert np.array_equal(split, whole)
