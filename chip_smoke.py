@@ -414,6 +414,7 @@ from dl_speech_enhancement_tpu_torch.utils.checks import (
 from dl_speech_enhancement_tpu_torch.utils.collectives import average_gradients, pmean_values
 from dl_speech_enhancement_tpu_torch.utils.config import load_config
 from dl_speech_enhancement_tpu_torch.utils.model_factory import build_discriminator
+from dl_speech_enhancement_tpu_torch.utils.trace import is_device_op
 
 DEVICE = "cuda"  # the card; the port's entry points run there by default
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -2437,7 +2438,7 @@ def course_training(cfg, clips):
     with torch.profiler.profile(activities=acts) as prof:
         step(x, t)
         torch.cuda.synchronize()
-    device = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    device = [e for e in prof.key_averages() if is_device_op(e)]
     device_ms = sum(e.self_device_time_total for e in device) / 1e3
     k6_ms = sum(e.self_device_time_total for e in device if "log_mel_kernel" in e.key) / 1e3
     report = {
@@ -2866,9 +2867,8 @@ def device_breakdown(prof, n_top: int = 8):
     where kernels of several streams overlap) and the ``n_top`` kernels by
     summed time, their names cut to 80 characters (kernels whose names
     agree that far summed together)."""
-    cuda = torch.autograd.DeviceType.CUDA
     spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == cuda)
+                   if is_device_op(e))
     busy, end = 0.0, -math.inf
     for a, b in spans:
         if b > end:
@@ -2876,7 +2876,7 @@ def device_breakdown(prof, n_top: int = 8):
             end = b
     by_name = {}
     for e in prof.key_averages():
-        if e.device_type == cuda:
+        if is_device_op(e):
             name = e.key[:80]
             by_name[name] = by_name.get(name, 0.0) + e.self_device_time_total / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:n_top]
@@ -4710,8 +4710,7 @@ def device_profile(run, frames, wall_ms: float, n_reps: int = 50):
         for _ in range(n_reps):
             _, cache = run(cache, frames)
         torch.cuda.synchronize()
-    device = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
+    device = [e for e in prof.key_averages() if is_device_op(e)]
     device_ms = sum(e.self_device_time_total for e in device) / 1e3 / n_reps
     if device_ms <= 0:
         return None

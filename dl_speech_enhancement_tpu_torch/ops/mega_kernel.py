@@ -103,6 +103,7 @@ from dl_speech_enhancement_tpu_torch.ops.stream_kernel import (
     residual_chain,
     tail,
 )
+from dl_speech_enhancement_tpu_torch.utils.trace import span, spanned
 
 # ---------------------------------------------------------------- kernels
 
@@ -321,6 +322,7 @@ def _conv_plan(batch: int, t_out: int, cin: int, cout: int, taps: int, stride: i
                      f"stride {stride}, dilation {dilation}")
 
 
+@spanned("launch.causal_conv")
 def causal_conv(cache: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
                 b: torch.Tensor | None = None, stride: int = 1, dilation: int = 1,
                 leaky: float | None = None, tanh: bool = False,
@@ -424,6 +426,7 @@ def _upsample_plan(batch: int, t_in: int, cin: int, cout: int, stride: int,
     return plan
 
 
+@spanned("launch.causal_conv_transpose")
 def causal_conv_transpose(cache: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
                           b: torch.Tensor | None = None, stride: int = 1,
                           leaky: float | None = None,
@@ -635,6 +638,7 @@ def rvq_assign_plain(z, books, sqnorm):
     return torch.stack(codes, 1).to(torch.int32)
 
 
+@spanned("launch.rvq_assign")
 def rvq_assign(z: torch.Tensor, books: torch.Tensor, sqnorm: torch.Tensor,
                books_t: torch.Tensor) -> torch.Tensor:
     """Residual-VQ nearest-codeword search: z (R, D) f32 or bf16 (widened to
@@ -759,6 +763,7 @@ def check_codes(device="cuda") -> None:
     _device_word(device).check()
 
 
+@spanned("launch.codebook_lookup")
 def codebook_lookup(codes: torch.Tensor, books_t: torch.Tensor,
                     word: BadCodeWord | None = None, out_dtype=torch.float32) -> torch.Tensor:
     """Codebook lookup of flattened wire codes: codes (R, L) int32, books_t
@@ -870,6 +875,7 @@ class StreamHalf(NamedTuple):
     codes: bool  # the wire is int32 codes (PQC), not encoder features
     fills: dict | None = None  # cache name -> (channels,) row a fresh cache holds; else zeros
     boundary: torch.dtype = torch.float32  # activations between its launches
+    name: str = "half"  # its span in a profiler trace: dse.half.<name>
 
 
 def init_half_cache(halves, batch: int, device) -> dict:
@@ -940,7 +946,8 @@ def mega_encoder(gen, weight_dtype=torch.bfloat16, vq_state=None,
         codes = rvq_assign(z.reshape(b * rows, dim), books, sqnorm, books_t)
         return codes.reshape(b, rows, -1), new
 
-    return StreamHalf(shapes, run, gen.hop, gen.use_pqc, boundary=boundary_dtype)
+    return StreamHalf(shapes, run, gen.hop, gen.use_pqc, boundary=boundary_dtype,
+                      name="encoder")
 
 
 def mega_decoder(gen, weight_dtype=torch.bfloat16, vq_state=None,
@@ -991,7 +998,8 @@ def mega_decoder(gen, weight_dtype=torch.bfloat16, vq_state=None,
         new["dec_out"] = tail(cache["dec_out"], h, shapes["dec_out"][0])
         return causal_conv(cache["dec_out"], h, w_out, out_dtype=torch.float32), new
 
-    return StreamHalf(shapes, run, gen.hop, gen.use_pqc, boundary=boundary_dtype)
+    return StreamHalf(shapes, run, gen.hop, gen.use_pqc, boundary=boundary_dtype,
+                      name="decoder")
 
 
 def join_halves(encoder: StreamHalf, decoder: StreamHalf, batch: int, device,
@@ -1006,7 +1014,9 @@ def join_halves(encoder: StreamHalf, decoder: StreamHalf, batch: int, device,
     and with PQC also ``codes (N, batch, F / hop, L)`` int32. ``F`` must be
     ``chunk``, or any positive multiple of the hop when ``chunk`` is None.
     The halves must share their boundary dtype (the activations between
-    launches, the features on the wire without PQC)."""
+    launches, the features on the wire without PQC). In a profiler trace a
+    ``run`` is the span ``dse.dispatch``, each half's call inside it
+    ``dse.half.<name>`` (utils/trace.py)."""
     if encoder.codes != decoder.codes:
         raise ValueError("one half sends int32 wire codes (PQC) and the other takes "
                          "encoder features")
@@ -1019,9 +1029,12 @@ def join_halves(encoder: StreamHalf, decoder: StreamHalf, batch: int, device,
         raise ValueError(f"the halves' cache names collide: "
                          f"{sorted(set(encoder.shapes) & set(decoder.shapes))}")
 
+    enc_span, dec_span = f"half.{encoder.name}", f"half.{decoder.name}"
+
     def init_cache():
         return init_half_cache((encoder, decoder), batch, device)
 
+    @spanned("dispatch")
     def run(cache, frames):
         if frames.dim() != 3 or frames.shape[1] != batch:
             raise ValueError(f"frames must be (N, {batch}, F), got {tuple(frames.shape)}")
@@ -1032,8 +1045,10 @@ def join_halves(encoder: StreamHalf, decoder: StreamHalf, batch: int, device,
             raise ValueError(f"frames of {t} samples: not a positive multiple of the hop "
                              f"{encoder.hop}")
         x = frames.transpose(0, 1).reshape(b, n * t, 1).contiguous()
-        wire, new = encoder.run(cache, x)
-        y, dec_new = decoder.run(cache, wire)
+        with span(enc_span):
+            wire, new = encoder.run(cache, x)
+        with span(dec_span):
+            y, dec_new = decoder.run(cache, wire)
         new.update(dec_new)
         out = y.reshape(b, n, -1).transpose(0, 1).contiguous()
         if not encoder.codes:

@@ -19,7 +19,8 @@ for any other n_fft. :func:`log_mel` and :func:`stft_magnitude` are the
 kernel wrappers: a CPU tensor takes the plain PyTorch version beside each
 (:func:`log_mel_plain`, :func:`stft_magnitude_plain`, the same two matmuls),
 a CUDA tensor launches the kernel or raises; ``<wrapper>.launches`` counts
-kernel launches and ``<wrapper>.arm_launches`` splits them by arm. Each
+kernel launches and ``<wrapper>.arm_launches`` splits them by arm (a call is
+the span ``dse.launch.<wrapper>`` in a profiler trace). Each
 kernel is wrapped in a ``torch.autograd.Function`` whose backward is the
 JAX package's analytic VJP (``core_bwd``) in torch ops, as the JAX package
 leaves it to XLA.
@@ -41,6 +42,7 @@ from dl_speech_enhancement_tpu_torch.dsp.mel import apply_log, mel_filterbank
 from dl_speech_enhancement_tpu_torch.dsp.stft import frame_signal, hann_window, reflect_pad
 from dl_speech_enhancement_tpu_torch.ops import _cuda
 from dl_speech_enhancement_tpu_torch.utils.device import resolve_device
+from dl_speech_enhancement_tpu_torch.utils.trace import spanned
 
 FREQ_TILE = 64  # frequencies per tile of csrc/dft_spectrum.cu's GEMM arm (kBN)
 MAX_MELS = 128  # mel columns the log-mel kernel's accumulators hold
@@ -233,6 +235,7 @@ def log_mel_plain(frames, cos_b, sin_b, mel_m, eps: float, log_base) -> torch.Te
     return apply_log(torch.clamp(amp @ mel_m, min=eps), log_base)
 
 
+@spanned("launch.log_mel")
 def log_mel(frames, cos_b, sin_b, mel_m, eps: float, log_base,
             fft: FftTables | None = None) -> torch.Tensor:
     """K6: log-mel ``(rows, n_mels)`` f32 of the ``(signals, n_frames, n_fft)``
@@ -272,6 +275,7 @@ def stft_magnitude_plain(frames, cos_b, sin_b, n_freq: int, eps: float) -> torch
     return torch.sqrt(torch.clamp(re * re + im * im, min=eps))
 
 
+@spanned("launch.stft_magnitude")
 def stft_magnitude(frames, cos_b, sin_b, n_freq: int, eps: float,
                    fft: FftTables | None = None) -> torch.Tensor:
     """K7: ``sqrt(max(|DFT|^2, eps))`` ``(rows, n_freq)`` f32 of the frames

@@ -15,13 +15,14 @@ raises. With bf16 weights every product multiplies bf16 by bf16, as the JAX
 kernels' ``jnp.dot(a.astype(wd), w, preferred_element_type=f32)`` does: each
 GEMM's activated operand is rounded to bf16 (:func:`mma_operand`); the sums,
 the residual stream, biases and caches stay f32.
-``<wrapper>.launches`` counts kernel launches. The layer kernels take B
-independent streams in one launch, as (B, time, C) activations with (B, ctx, C)
-caches; a 2-D (time, C) call is the B = 1 case of the same kernel. Activations
-are f32 or bf16 (:data:`ACT_DTYPES`, the streams' boundary dtype between
-launches, ops/mega_stacked.py): a kernel widens bf16 to f32 as it loads it,
-computes in f32 and rounds what it stores, and the plain version rounds at the
-same point with ``.to(torch.bfloat16)``. Caches stay f32.
+``<wrapper>.launches`` counts kernel launches; in a profiler trace each
+wrapper's call is the span ``dse.launch.<wrapper>`` (utils/trace.py). The layer
+kernels take B independent streams in one launch, as (B, time, C) activations
+with (B, ctx, C) caches; a 2-D (time, C) call is the B = 1 case of the same
+kernel. Activations are f32 or bf16 (:data:`ACT_DTYPES`, the streams' boundary
+dtype between launches, ops/mega_stacked.py): a kernel widens bf16 to f32 as it
+loads it, computes in f32 and rounds what it stores, and the plain version
+rounds at the same point with ``.to(torch.bfloat16)``. Caches stay f32.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ import functools
 import torch
 
 from dl_speech_enhancement_tpu_torch.ops import _cuda
+from dl_speech_enhancement_tpu_torch.utils.trace import spanned
 
 KERNEL_SIZE = 7
 DILATIONS = (1, 3, 9)
@@ -340,6 +342,7 @@ def _chain_plan(batch: int, rows: int, channels: int, dilations: tuple = DILATIO
                if cost <= 1.05 * cheapest)[2]
 
 
+@spanned("launch.residual_chain")
 def residual_chain(cache: torch.Tensor, x: torch.Tensor, w1: torch.Tensor,
                    w2: torch.Tensor, dilations=DILATIONS) -> torch.Tensor:
     """Three fused causal residual units over ``[cache; x]``, for B streams.

@@ -80,6 +80,7 @@ from dl_speech_enhancement_tpu_torch.ops.stream_kernel import (
     mma_operand,
     tail,
 )
+from dl_speech_enhancement_tpu_torch.utils.trace import spanned
 
 # ---------------------------------------------------------------- kernel
 
@@ -239,6 +240,7 @@ def _unit_plan(batch: int, rows: int, c: int, groups: int, taps: int, dilation: 
                if cost <= 1.05 * cheapest)[2]
 
 
+@spanned("launch.hifigan_unit")
 def hifigan_unit(cache1: torch.Tensor, cache2: torch.Tensor, x: torch.Tensor,
                  w1: torch.Tensor, b1: torch.Tensor | None, w2: torch.Tensor,
                  b2: torch.Tensor | None, dilation: int, groups: int, slope: float = 0.1,
@@ -472,7 +474,7 @@ def vocoder_half(voc, weight_dtype=torch.bfloat16, vq_state=None,
                            out_dtype=torch.float32), new
 
     return StreamHalf(shapes, run, voc.total_upsample, vq_state is not None, fills,
-                      boundary_dtype)
+                      boundary_dtype, "receiver")
 
 
 def conv_sites(model, frame: int) -> list:

@@ -110,6 +110,7 @@ def main() -> int:
     from dl_speech_enhancement_tpu_torch.ops import _cuda
     from dl_speech_enhancement_tpu_torch.ops import stream_kernel as sk
     from dl_speech_enhancement_tpu_torch.tools.conv_timing import _card
+    from dl_speech_enhancement_tpu_torch.utils.trace import is_device_op
 
     if not torch.cuda.is_available():
         print("chain_ablation: no CUDA device", file=sys.stderr)
@@ -136,7 +137,7 @@ def main() -> int:
                 fn()
             torch.cuda.synchronize()
         return sum(e.device_time_total for e in prof.key_averages()
-                   if e.device_time_total > 0) / reps
+                   if is_device_op(e)) / reps
 
     report = {"card": card, "cases": []}
     for c, rows, batch, tile, cluster in CASES:

@@ -202,6 +202,7 @@ def main() -> int:
     from dl_speech_enhancement_tpu_torch.ops import stream_kernel as sk
     from dl_speech_enhancement_tpu_torch.tools.conv_timing import _card
     from dl_speech_enhancement_tpu_torch.utils.checks import rounding_held
+    from dl_speech_enhancement_tpu_torch.utils.trace import is_device_op
 
     if not torch.cuda.is_available():
         print("chain_timing: no CUDA device", file=sys.stderr)
@@ -238,7 +239,7 @@ def main() -> int:
                 fn()
             torch.cuda.synchronize()
         return sum(e.device_time_total for e in prof.key_averages()
-                   if e.device_time_total > 0 and "Memcpy" not in e.key) / reps
+                   if is_device_op(e) and "Memcpy" not in e.key) / reps
 
     def graph_us(fn, out, expect, reps=20):
         fn()

@@ -298,6 +298,7 @@ def main() -> int:
 
     from dl_speech_enhancement_tpu_torch.ops import _cuda
     from dl_speech_enhancement_tpu_torch.ops import mega_kernel as mk
+    from dl_speech_enhancement_tpu_torch.utils.trace import is_device_op
 
     if not torch.cuda.is_available():
         print("conv_timing: no CUDA device", file=sys.stderr)
@@ -358,7 +359,7 @@ def main() -> int:
                 fn()
             torch.cuda.synchronize()
         return sum(e.device_time_total for e in prof.key_averages()
-                   if e.device_time_total > 0 and "Memcpy" not in e.key) / reps
+                   if is_device_op(e) and "Memcpy" not in e.key) / reps
 
     def graph_us(fn, out, expect, reps=20):
         fn()

@@ -84,6 +84,7 @@ def main() -> int:
 
     from dl_speech_enhancement_tpu_torch.ops import _cuda, vocoder_kernel
     from dl_speech_enhancement_tpu_torch.utils.checks import rounding_held
+    from dl_speech_enhancement_tpu_torch.utils.trace import is_device_op
 
     if not torch.cuda.is_available():
         print("unit_timing: no CUDA device", file=sys.stderr)
@@ -114,7 +115,7 @@ def main() -> int:
                 fn()
             torch.cuda.synchronize()
         return sum(e.device_time_total for e in prof.key_averages()
-                   if e.device_time_total > 0 and "Memcpy" not in e.key) / reps
+                   if is_device_op(e) and "Memcpy" not in e.key) / reps
 
     stream = torch.cuda.current_stream().cuda_stream
     rows_out = []

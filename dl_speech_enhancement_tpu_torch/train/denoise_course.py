@@ -25,6 +25,10 @@ same ``mix_rng`` and keeps its rows, the SNR gate reduces its energy sums over
 the ranks, one gradient reduction a step averages the gradients, and rank 0
 alone reports and writes checkpoints. The losses, the gradient statistics and
 the history are the one-process values on every rank.
+
+The loop sums the seconds it waits for the next batch from ``train_loaders``
+(the span ``dse.course.loader_wait`` in a profiler trace) and logs their
+share of the run time with each step's log line.
 """
 
 from __future__ import annotations
@@ -55,6 +59,7 @@ from dl_speech_enhancement_tpu_torch.parallel.mesh import (
 from dl_speech_enhancement_tpu_torch.train.checkpoint import is_rank0, save_checkpoint
 from dl_speech_enhancement_tpu_torch.train.optim import build_optimizer, frozen
 from dl_speech_enhancement_tpu_torch.utils.collectives import average_gradients, pmean_values
+from dl_speech_enhancement_tpu_torch.utils.trace import span, spanned
 
 logger = logging.getLogger(__name__)
 
@@ -109,7 +114,14 @@ def make_course_steps(gen, disc, config, opt_g, opt_d, group=None):
     ``group`` (a process group) spreads the batch over its ranks, each
     holding its rows of every microbatch: the SNR gate sums over all of them,
     the gradients are averaged over them once a step before the clip and the
-    statistics, and the returned losses are the one-process values."""
+    statistics, and the returned losses are the one-process values.
+
+    In a profiler trace (utils/trace.py) the generator's step is the span
+    ``dse.course.gen`` and the discriminator's ``dse.course.disc``, each
+    with the children ``.forward`` (the microbatches' losses; the
+    discriminator's re-forward of the generator included), ``.backward`` and
+    ``.update`` (the gradient reduction, the generator's statistics and the
+    optimizer step)."""
     mel_loss = MultiMelSpectrogramLoss(**config["mel_loss_params"], device=gen.device)
     gen_adv = GeneratorAdversarialLoss(**config.get("generator_adv_loss_params", {}))
     dis_adv = DiscriminatorAdversarialLoss(**config.get("discriminator_adv_loss_params", {}))
@@ -200,6 +212,7 @@ def make_course_steps(gen, disc, config, opt_g, opt_d, group=None):
                 "grad_min": torch.min(torch.stack([g.min() for g in grads])),
                 "grad_avg": sum(g.abs().sum() for g in grads) / sum(g.numel() for g in grads)}
 
+    @spanned("course.gen")
     def generator_step(x, target, use_disc):
         gen.train()
         opt_g.zero_grad()
@@ -207,28 +220,35 @@ def make_course_steps(gen, disc, config, opt_g, opt_d, group=None):
         # the generator's gradient only: D's weights are constants here
         with frozen(disc.parameters() if use_disc else ()):
             for xm, tm in microbatches(x, target):
-                loss, fr = gen_loss(xm, tm, use_disc)
-                (loss / grad_accum).backward()
+                with span("course.gen.forward"):
+                    loss, fr = gen_loss(xm, tm, use_disc)
+                with span("course.gen.backward"):
+                    (loss / grad_accum).backward()
                 g_loss = g_loss + loss.detach() / grad_accum
                 for k, v in fr.items():
                     frags[k] = frags.get(k, 0.0) + v.detach() / grad_accum
-        average_gradients(opt_g.params, group)
-        stats = grad_stats()
-        opt_g.step()
+        with span("course.gen.update"):
+            average_gradients(opt_g.params, group)
+            stats = grad_stats()
+            opt_g.step()
         frags = pmean_values(dict(frags, _total=g_loss), group)
         return frags.pop("_total"), frags, stats
 
+    @spanned("course.disc")
     def discriminator_step(x, target):
         opt_d.zero_grad()
         d_loss = 0.0
         for xm, tm in microbatches(x, target):
-            with torch.no_grad():
-                y = gen(xm, None, train=False)[0]
-            loss = dis_loss(y, tm)
-            (loss / grad_accum).backward()
+            with span("course.disc.forward"):
+                with torch.no_grad():
+                    y = gen(xm, None, train=False)[0]
+                loss = dis_loss(y, tm)
+            with span("course.disc.backward"):
+                (loss / grad_accum).backward()
             d_loss = d_loss + loss.detach() / grad_accum
-        average_gradients(opt_d.params, group)
-        opt_d.step()
+        with span("course.disc.update"):
+            average_gradients(opt_d.params, group)
+            opt_d.step()
         return pmean_values({"d": d_loss}, group)["d"]
 
     def train(x, target):
@@ -263,6 +283,25 @@ def make_course_steps(gen, disc, config, opt_g, opt_d, group=None):
 
     return {"train": train, "eval": evaluate, "train_disc": train_disc,
             "eval_disc": evaluate_disc}
+
+
+class _LoaderWait:
+    """The seconds a loop waited for its batches: ``wrap(batches)`` yields
+    their items, each fetch timed and inside the span ``course.loader_wait``."""
+
+    def __init__(self):
+        self.seconds = 0.0
+
+    def wrap(self, batches):
+        batches = iter(batches)
+        while True:
+            t0 = time.perf_counter()
+            with span("course.loader_wait"):
+                item = next(batches, None)
+            self.seconds += time.perf_counter() - t0
+            if item is None:
+                return
+            yield item
 
 
 def train_denoise_course(config: dict, gen, disc, train_loaders, val_loaders, *,
@@ -320,6 +359,7 @@ def train_denoise_course(config: dict, gen, disc, train_loaders, val_loaders, *,
     discriminator_enabled = False
     steps = config.get("step", 0)
     start_time = time.perf_counter()
+    loader_wait = _LoaderWait()
 
     def _report(category, series, value, iteration):
         if report is not None and rank0:
@@ -334,7 +374,8 @@ def train_denoise_course(config: dict, gen, disc, train_loaders, val_loaders, *,
 
         logger.info("Epoch %d", epoch)
         train_gen, train_dis, last_frags = [], [], {}
-        for i_batch, (clean_batch, noise_batch) in enumerate(zip(*train_loaders)):
+        for i_batch, (clean_batch, noise_batch) in enumerate(
+                loader_wait.wrap(zip(*train_loaders))):
             if laptop and i_batch == 3:
                 break
             if noise_dropout_rate > 0.0:
@@ -350,8 +391,9 @@ def train_denoise_course(config: dict, gen, disc, train_loaders, val_loaders, *,
             train_dis.append(d_loss)
             if steps % 100 == 0 or laptop:
                 dt = time.perf_counter() - start_time
-                logger.info("Training: Step %d \t Time: %d:%02d:%02d", steps, int(dt // 3600),
-                            int(dt // 60) % 60, int(dt) % 60)
+                logger.info("Training: Step %d \t Time: %d:%02d:%02d \t Loader wait: %.1f%%",
+                            steps, int(dt // 3600), int(dt // 60) % 60, int(dt) % 60,
+                            100.0 * loader_wait.seconds / dt)
                 _report("Gradients", "Maximum", gstats["grad_max"], steps)
                 _report("Gradients", "Minimum", gstats["grad_min"], steps)
                 _report("Gradients", "Average (Abs)", gstats["grad_avg"], steps)
